@@ -1,0 +1,354 @@
+"""Append-only JSONL training-event log.
+
+Copy of ``dlrover_tpu/telemetry/events.py`` (the port imports nothing of the JAX
+package).
+
+Role of the reference's training-event exporter
+(``dlrover/python/training_event``: an async JSONL exporter the
+master/agent/trainer all write through).  Here a single schema-
+versioned line format shared by every process of a job:
+
+    {"schema": 1, "ts": <epoch s>, "pid": <pid>, "source": "master",
+     "type": "rendezvous_complete", ...event fields...}
+
+The destination is ``DLROVER_EVENT_LOG`` (inherited by the master
+subprocess and the spawned trainers, so one file collects the whole
+job) or an explicitly configured path.  Emission is a no-op when no
+path is configured — telemetry must never be a hard dependency of
+training.  Writes are single ``write()`` calls of one line in append
+mode, so concurrent processes interleave whole lines; rotation renames
+the file to ``<path>.1`` when it exceeds ``max_bytes``.
+"""
+
+import glob as _glob
+import heapq
+import itertools
+import json
+import os
+import threading
+import time
+from typing import Dict, Iterable, Iterator, List, Optional
+
+try:
+    import fcntl
+except ImportError:  # pragma: no cover - non-POSIX
+    fcntl = None
+
+EVENT_SCHEMA_VERSION = 1
+EVENT_LOG_ENV = "DLROVER_EVENT_LOG"
+EVENT_LOG_MAX_BYTES_ENV = "DLROVER_EVENT_LOG_MAX_BYTES"
+EVENT_SOURCE_ENV = "DLROVER_EVENT_SOURCE"
+# agents ship their event logs the same way textfile metric dumps ride
+# DLROVER_METRICS_AGGREGATE_GLOB: each agent writes its own JSONL
+# (DLROVER_EVENT_LOG pointing at a per-node file on shared storage)
+# and the master's /timeline endpoint + the timeline CLI fold every
+# file matching this glob into one causally-ordered job view
+EVENTS_AGGREGATE_ENV = "DLROVER_EVENTS_AGGREGATE_GLOB"
+DEFAULT_MAX_BYTES = 64 * 1024 * 1024
+
+
+class TrainingEventExporter:
+    def __init__(
+        self,
+        path: Optional[str] = None,
+        max_bytes: Optional[int] = None,
+        backups: int = 1,
+        source: str = "",
+    ):
+        self._explicit_path = path
+        self._max_bytes = max_bytes
+        self._backups = max(1, backups)
+        self._source = source
+        self._lock = threading.Lock()
+        # deferred witness of a contended (unserialized) rotation;
+        # emitted outside the lock — see emit()/_maybe_rotate()
+        self._contended_rotate: Optional[str] = None
+        self._in_contended_emit = False
+
+    # -- configuration -----------------------------------------------------
+
+    def set_source(self, source: str):
+        self._source = source
+
+    @property
+    def path(self) -> Optional[str]:
+        """Resolved at call time so a process that configures the env
+        var after import (tests, spawned workers) still exports."""
+        return self._explicit_path or os.environ.get(EVENT_LOG_ENV)
+
+    def _resolved_max_bytes(self) -> int:
+        if self._max_bytes is not None:
+            return self._max_bytes
+        try:
+            return int(
+                os.environ.get(
+                    EVENT_LOG_MAX_BYTES_ENV, DEFAULT_MAX_BYTES
+                )
+            )
+        except ValueError:
+            return DEFAULT_MAX_BYTES
+
+    # -- emit --------------------------------------------------------------
+
+    def emit(self, event_type: str, **fields) -> bool:
+        """Append one event; returns False when unconfigured or the
+        write failed (never raises into the training path)."""
+        path = self.path
+        if not path:
+            return False
+        record = {
+            "schema": EVENT_SCHEMA_VERSION,
+            "ts": time.time(),
+            "pid": os.getpid(),
+            # explicit set_source wins; the env fallback lets the
+            # agent tag arbitrary user entrypoints it spawns without
+            # those scripts calling into telemetry themselves
+            "source": (
+                self._source
+                or os.environ.get(EVENT_SOURCE_ENV, "")
+                or "unknown"
+            ),
+            "type": event_type,
+        }
+        record.update(fields)
+        try:
+            line = json.dumps(record, default=str)
+        except (TypeError, ValueError):
+            return False
+        with self._lock:
+            try:
+                self._maybe_rotate(path, len(line) + 1)
+                with open(path, "a") as f:
+                    f.write(line + "\n")
+                ok = True
+            except OSError:
+                ok = False
+        # a contended rotation was noted under the lock; the witness
+        # event must be emitted AFTER release (emit would deadlock on
+        # the non-reentrant lock) and must not recurse through
+        # another contended rotation
+        contended = self._contended_rotate
+        if contended and not self._in_contended_emit:
+            self._contended_rotate = None
+            self._in_contended_emit = True
+            try:
+                self.emit(
+                    "telemetry_rotate_contended", path=contended
+                )
+            finally:
+                self._in_contended_emit = False
+        return ok
+
+    def _maybe_rotate(self, path: str, incoming: int):
+        limit = self._resolved_max_bytes()
+        if limit <= 0:
+            return
+        try:
+            size = os.path.getsize(path)
+        except OSError:
+            return
+        if size + incoming <= limit:
+            return
+        # inter-process guard: master/agent/trainer all append to one
+        # log, and two processes crossing the size boundary together
+        # would both rotate — the second os.replace renaming a
+        # near-empty fresh file over the just-created backup, deleting
+        # up to max_bytes of history.  flock serializes the rotation;
+        # the loser re-checks the size and sees the already-fresh file.
+        if fcntl is None:
+            self._rotate(path)
+            return
+        try:
+            with open(f"{path}.lock", "a") as lockf:
+                fcntl.flock(lockf, fcntl.LOCK_EX)
+                try:
+                    size = os.path.getsize(path)
+                except OSError:
+                    return
+                if size + incoming <= limit:
+                    return  # another process already rotated
+                self._rotate(path)
+        except OSError:
+            # lock unavailable: rotate best-effort, but WITNESS the
+            # race (two unserialized rotators can delete up to
+            # max_bytes of history) instead of staying silent.  The
+            # event itself is deferred to after the exporter lock is
+            # released — see emit().
+            self._rotate(path)
+            self._contended_rotate = path
+
+    def _rotate(self, path: str):
+        for i in range(self._backups, 0, -1):
+            src = path if i == 1 else f"{path}.{i - 1}"
+            try:
+                os.replace(src, f"{path}.{i}")
+            except OSError:
+                pass
+        # os.replace only orders the rename against the directory in
+        # memory: a crash right after rotation may persist the new
+        # backup entries but not the removal/creation of the active
+        # name, orphaning the live segment.  fsync the directory fd
+        # so the whole rename chain is durable before new appends.
+        try:
+            dfd = os.open(
+                os.path.dirname(os.path.abspath(path)), os.O_RDONLY
+            )
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        except OSError:  # pragma: no cover - fs without dir fsync
+            pass
+
+
+def read_events(path: str) -> Iterator[Dict]:
+    """Parse a JSONL event log, skipping torn/partial lines instead of
+    raising — mirroring the master journal's prefix-consistent replay.
+
+    A process killed mid-write (every chaos kill scenario) can leave a
+    truncated trailing line, possibly cut inside a multi-byte UTF-8
+    sequence or containing garbage bytes; a concurrent writer may be
+    mid-line at read time.  The file is therefore streamed as BYTES
+    and each line decoded independently: a line that fails to decode
+    or to parse (the torn tail is just the final partial line) is
+    dropped, never an exception into the consumer (timeline assembly,
+    chaos invariants, the /timeline endpoint)."""
+    with open(path, "rb") as f:
+        for raw in f:
+            raw = raw.strip()
+            if not raw:
+                continue
+            try:
+                record = json.loads(raw.decode("utf-8"))
+            except (UnicodeDecodeError, json.JSONDecodeError):
+                continue
+            if isinstance(record, dict):
+                yield record
+
+
+def _with_backups(path: str) -> List[str]:
+    """One event log plus its rotated history (``<path>.N`` …
+    ``<path>.1``), oldest first: rotation renames the live file away,
+    so assembly that reads only ``path`` silently loses a long job's
+    early hours."""
+    backups: List[str] = []
+    i = 1
+    while i <= 64 and os.path.exists(f"{path}.{i}"):
+        backups.append(f"{path}.{i}")
+        i += 1
+    return backups[::-1] + [path]
+
+
+def _resolve_sources(sources: Iterable[str]) -> List[List[str]]:
+    """Expand globs + rotated backups into per-base path chains
+    (oldest backup first), deduplicating overlapping paths."""
+    chains: List[List[str]] = []
+    seen: set = set()
+    for src in sources:
+        if not src:
+            continue
+        paths = (
+            sorted(_glob.glob(src)) if _glob.has_magic(src) else [src]
+        )
+        for base in paths:
+            chain = []
+            for path in _with_backups(base):
+                real = os.path.realpath(path)
+                if real in seen:  # a glob overlapping an explicit path
+                    continue
+                seen.add(real)
+                chain.append(path)
+            if chain:
+                chains.append(chain)
+    return chains
+
+
+def _event_ts(e: Dict) -> float:
+    ts = e.get("ts")
+    return ts if isinstance(ts, (int, float)) else 0.0
+
+
+def collect_events(sources: Iterable[str]) -> List[Dict]:
+    """Merge event logs from ``sources`` (file paths and/or glob
+    patterns, each folded with its rotated backups) into one stream
+    ordered by emission timestamp — the ingestion step of timeline
+    assembly.  Missing files are skipped; records without a numeric
+    ``ts`` sort first (schema guards upstream make them rare)."""
+    merged: List[Dict] = []
+    for chain in _resolve_sources(sources):
+        for path in chain:
+            try:
+                merged.extend(read_events(path))
+            except OSError:
+                continue
+    merged.sort(key=_event_ts)
+    return merged
+
+
+def _chain_events(paths: List[str]) -> Iterator[Dict]:
+    for path in paths:
+        try:
+            yield from read_events(path)
+        except OSError:
+            continue
+
+
+def _locally_sorted(
+    it: Iterator[Dict], window: int
+) -> Iterator[Dict]:
+    """Sort a nearly-ordered stream with a bounded min-heap: one
+    process appends its events chronologically, but concurrent
+    writers to a shared log interleave whole lines slightly out of
+    order — a ``window``-record buffer absorbs that without loading
+    the file."""
+    heap: list = []
+    counter = itertools.count()  # tie-break: dicts don't compare
+    for rec in it:
+        heapq.heappush(heap, (_event_ts(rec), next(counter), rec))
+        if len(heap) > window:
+            yield heapq.heappop(heap)[2]
+    while heap:
+        yield heapq.heappop(heap)[2]
+
+
+def iter_collect_events(
+    sources: Iterable[str], reorder_window: int = 1024
+) -> Iterator[Dict]:
+    """Streaming counterpart of :func:`collect_events`: a k-way heap
+    merge over the per-log streams, each read lazily and locally
+    reordered within ``reorder_window`` records.  Peak memory is
+    ``O(reorder_window x logs)`` regardless of log size — the
+    ingestion mode for multi-day jobs whose event history does not
+    fit in memory (the windowed timeline assembly builds on it).
+    Ordering matches ``collect_events`` as long as any out-of-order
+    distance within one log stays under the window (writers append
+    within milliseconds of ``time.time()``, so in practice a handful
+    of records)."""
+    streams = [
+        _locally_sorted(_chain_events(chain), reorder_window)
+        for chain in _resolve_sources(sources)
+    ]
+    return heapq.merge(*streams, key=_event_ts)
+
+
+_default_exporter: Optional[TrainingEventExporter] = None
+_default_lock = threading.Lock()
+
+
+def get_exporter() -> TrainingEventExporter:
+    global _default_exporter
+    with _default_lock:
+        if _default_exporter is None:
+            _default_exporter = TrainingEventExporter()
+        return _default_exporter
+
+
+def emit_event(event_type: str, **fields) -> bool:
+    """Process-global convenience used by instrumented subsystems."""
+    return get_exporter().emit(event_type, **fields)
+
+
+def set_event_source(source: str):
+    """Tag this process's events (``master`` / ``agent`` /
+    ``trainer``) — set once at process entry."""
+    get_exporter().set_source(source)
