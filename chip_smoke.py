@@ -13,11 +13,28 @@ Phases, each fatal on failure:
    GQA, head_dim-128 and fp32 cases; time each beside its bound, its
    plain version and scaled_dot_product_attention (a yardstick that
    the port never calls);
-3. check a small GPT on the card: the flash model against the plain
+3. hold each quantization kernel (quantize, dequantize, the fused
+   q-AdamW step) against its plain version on the card at GPT-2 XL's
+   leaves (``wte`` as [39300, 2048], an ``fc_in`` weight as
+   [5000, 2048]; bf16 and fp32), a ragged leaf, blocks 64 and 128,
+   qmax 7, an all-zero row and a row of exact .5 ties; time each at
+   ``wte`` beside its bound, its plain version and, for dequantize,
+   ``torch.mul(q, scales)`` (a yardstick the port never calls);
+4. check a small GPT on the card: the flash model against the plain
    attention model, logits and gradients;
-4. train GPT-2 small (seq 1024, global batch 32, micro-batch 8) through
-   ``Trainer.train()`` and check that the loss is finite and falls and
-   that every kernel launched as often as the model needs.
+5. train through ``Trainer.train()``, each run with every launch count
+   set to 0 just before it and read just after, and check that the
+   loss is finite and falls and that every kernel launched exactly as
+   often as the run needs:
+   a. GPT-2 small (seq 1024, global batch 32, micro-batch 8), AdamW;
+   b. GPT-2 XL at full width and depth (48 layers, d 1600, seq 1024,
+      bf16 params, flash attention, remat, batch 4) with int8 q-AdamW
+      moments, the twin of ``examples/train_xl_lowmem.py``; report
+      peak memory and the moments' share of it, the optimizer's time
+      per step beside the fused step's summed bound, and a profiled
+      step by kernel family;
+   c. GPT-2 small with 4-bit q-AdamW moments, the path that runs the
+      dequantize kernel.
 
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Exits non-zero with no result
@@ -38,14 +55,23 @@ OUT_DIR = os.path.join(ROOT, "chip_smoke_out")
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
+SOURCES = ("flash_attention", "quantization")
+_FLASH = "dlrover_tpu_torch/csrc/flash_attention.cu"
+_QUANT = "dlrover_tpu_torch/csrc/quantization.cu"
 # kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
-    "fwd": ("dlrover_tpu_torch/csrc/flash_attention.cu",
-            "dlrover_tpu/ops/flash_attention.py:70 (_fwd_kernel, via _fwd :137)"),
-    "bwd_dq": ("dlrover_tpu_torch/csrc/flash_attention.cu",
-               "dlrover_tpu/ops/flash_attention.py:195 (_bwd_dq_kernel, via _bwd :318)"),
-    "bwd_dkv": ("dlrover_tpu_torch/csrc/flash_attention.cu",
-                "dlrover_tpu/ops/flash_attention.py:252 (_bwd_dkv_kernel, via _bwd :318)"),
+    "flash_attention.fwd": (
+        _FLASH, "dlrover_tpu/ops/flash_attention.py:70 (_fwd_kernel, via _fwd :137)"),
+    "flash_attention.bwd_dq": (
+        _FLASH, "dlrover_tpu/ops/flash_attention.py:195 (_bwd_dq_kernel, via _bwd :318)"),
+    "flash_attention.bwd_dkv": (
+        _FLASH, "dlrover_tpu/ops/flash_attention.py:252 (_bwd_dkv_kernel, via _bwd :318)"),
+    "quantization.quantize": (
+        _QUANT, "dlrover_tpu/ops/quantization.py:39 (_quant_kernel, via _quantize_tiles :61)"),
+    "quantization.dequantize": (
+        _QUANT, "dlrover_tpu/ops/quantization.py:48 (_dequant_kernel, via _dequantize_tiles :166)"),
+    "quantization.qadam": (
+        _QUANT, "dlrover_tpu/ops/quantization.py:195 (_qadam_kernel, via fused_qadam_step :245)"),
 }
 
 # (b, s, h, kv_heads, d, dtype, causal): the training shape first
@@ -65,7 +91,28 @@ CASES = [
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2, lse=1e-3, delta=1e-3),
        "float32": dict(atol=1e-4, rtol=0.0, lse=1e-4, delta=1e-4)}
 
-TRAIN_GLOBAL, TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS = 32, 8, 1024, 6
+# (leaf, numel, block, dtype, qmax): GPT-2 XL's wte first, the timed case
+QUANT_CASES = [
+    ("wte", 50304 * 1600, 2048, "bfloat16", 127.0),
+    ("fc_in", 1600 * 6400, 2048, "bfloat16", 127.0),
+    ("wte", 50304 * 1600, 2048, "float32", 127.0),
+    ("fc_in", 1600 * 6400, 2048, "float32", 127.0),
+    ("qkv bias, ragged", 3 * 1600, 2048, "bfloat16", 127.0),
+    ("ragged, block 64", 37 * 64 + 5, 64, "float32", 127.0),
+    ("ragged, block 128", 333 * 128 + 5, 128, "bfloat16", 127.0),
+    ("4-bit", 1000 * 2048 + 77, 2048, "float32", 7.0),
+    ("4-bit, block 64", 999 * 64 + 3, 64, "bfloat16", 7.0),
+]
+# The quantization kernels and their plain versions do the same IEEE
+# operations in the same order, one rounding each (no FMA contraction,
+# IEEE division and square root, rint), so codes, scales and the new
+# parameter must be identical: the tolerance is 0 mismatches.
+QUANT_TOL = 0
+QADAM_HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, lr=3e-4, wd=0.1)
+TIE_SCALE = 2.0 ** -10
+
+SMALL_SEQ = 1024
+XL_BATCH, XL_STEPS = 4, 6
 
 
 def log(msg):
@@ -99,21 +146,45 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def reset_launch_counts():
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    fa.reset_launch_counts()
+    qz.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    return {**{f"flash_attention.{k}": v for k, v in fa.LAUNCHES.items()},
+            **{f"quantization.{k}": v for k, v in qz.LAUNCHES.items()}}
+
+
 def phase_build():
     from dlrover_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    seconds = cuda_build.build(["flash_attention"])
+    seconds = cuda_build.build(SOURCES)
     log(f"build: {json.dumps(seconds)} (wall {time.perf_counter() - t0:.1f} s)")
-    ptxas = cuda_build.library_path("flash_attention").with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+    for name in SOURCES:
+        ptxas = cuda_build.library_path(name).with_suffix(".log")
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas {name}: {line.strip()}")
 
 
 def _pairs(s: int, causal: bool) -> int:
     return s * (s + 1) // 2 if causal else s * s
+
+
+def _bound(nbytes, flops, dtype):
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def bounds_ms(b, s, h, kvh, d, dtype, causal):
@@ -127,19 +198,42 @@ def bounds_ms(b, s, h, kvh, d, dtype, causal):
     pairs = b * h * _pairs(s, causal)
     work = {
         # bytes moved, FLOPs (2 d per pair per product)
-        "fwd": (qo + 2 * kv + qo + rows, 2 * 2 * d * pairs),
-        "bwd_dq": (qo + 2 * kv + 2 * qo + rows + qo + rows,
-                   3 * 2 * d * pairs),
-        "bwd_dkv": (qo + 2 * kv + qo + 2 * rows + 2 * kv,
-                    4 * 2 * d * pairs),
+        "flash_attention.fwd": (qo + 2 * kv + qo + rows, 2 * 2 * d * pairs),
+        "flash_attention.bwd_dq": (qo + 2 * kv + 2 * qo + rows + qo + rows,
+                                   3 * 2 * d * pairs),
+        "flash_attention.bwd_dkv": (qo + 2 * kv + qo + 2 * rows + 2 * kv,
+                                    4 * 2 * d * pairs),
     }
-    out = {}
-    for name, (nbytes, flops) in work.items():
-        t_bytes = nbytes / PEAK_BYTES_S
-        t_ops = flops / PEAK_FLOPS[dtype]
-        out[name] = (max(t_bytes, t_ops) * 1e3,
-                     "bytes" if t_bytes >= t_ops else "operations")
-    return out
+    return {name: _bound(nbytes, flops, dtype)
+            for name, (nbytes, flops) in work.items()}
+
+
+# fp32 operations per element, counted from each kernel's arithmetic
+QUANT_OPS = {"quantization.quantize": 6, "quantization.dequantize": 1,
+             "quantization.qadam": 31}
+
+
+def qadam_bytes(numel, block, esz):
+    """Bytes the fused q-AdamW step must move for one parameter: g and
+    p read, p written; both code arrays and both scale columns read
+    and written."""
+    rows = -(-numel // block)
+    return 3 * numel * esz + 4 * rows * block + 4 * rows * 4
+
+
+def quant_bounds_ms(numel, rows, block, dtype):
+    """Least time per quantization kernel on ``numel`` elements in
+    ``rows`` rows of ``block``: every input read once, every output
+    written once (int8 codes, fp32 scales, g/p in ``dtype``)."""
+    esz = 2 if dtype == "bfloat16" else 4
+    codes, scales, tiles = rows * block, rows * 4, rows * block
+    work = {
+        "quantization.quantize": numel * esz + codes + scales,
+        "quantization.dequantize": codes + scales + numel * 4,
+        "quantization.qadam": qadam_bytes(numel, block, esz),
+    }
+    return {name: _bound(nbytes, QUANT_OPS[name] * tiles, "float32")
+            for name, nbytes in work.items()}
 
 
 def _check(name, got, want, atol, rtol, failures, case):
@@ -188,14 +282,16 @@ def phase_kernels(card: str):
         torch.cuda.synchronize()
         at, rt = tol["atol"], tol["rtol"]
         errs = {
-            "fwd": max(_check("out", out_c, out_p, at, rt, failures, case),
-                       _check("lse", lse_c, lse_p, tol["lse"], 0.0,
-                              failures, case)),
-            "bwd_dq": max(_check("dq", dq_c, dq_p, at, rt, failures, case),
-                          _check("delta", delta_c, delta_p, tol["delta"],
-                                 0.0, failures, case)),
-            "bwd_dkv": max(_check("dk", dk_c, dk_p, at, rt, failures, case),
-                           _check("dv", dv_c, dv_p, at, rt, failures, case)),
+            "flash_attention.fwd": max(
+                _check("out", out_c, out_p, at, rt, failures, case),
+                _check("lse", lse_c, lse_p, tol["lse"], 0.0, failures, case)),
+            "flash_attention.bwd_dq": max(
+                _check("dq", dq_c, dq_p, at, rt, failures, case),
+                _check("delta", delta_c, delta_p, tol["delta"], 0.0,
+                       failures, case)),
+            "flash_attention.bwd_dkv": max(
+                _check("dk", dk_c, dk_p, at, rt, failures, case),
+                _check("dv", dv_c, dv_p, at, rt, failures, case)),
         }
         log(f"kernel check {case}: " + ", ".join(
             f"{n} max_abs_err {e:.3e}" for n, e in errs.items())
@@ -218,18 +314,19 @@ def _time_main_case(case, q, k, v, dout, out, lse, delta, blocks, errs,
     b, s, h, kvh, d, dtype_name, causal = case
     scale = d ** -0.5
     kernel_fns = {
-        "fwd": lambda: fa.fwd_cuda(q, k, v, scale, causal),
-        "bwd_dq": lambda: fa.bwd_dq_cuda(q, k, v, out, dout, lse, scale,
-                                         causal),
-        "bwd_dkv": lambda: fa.bwd_dkv_cuda(q, k, v, dout, lse, delta, scale,
-                                           causal),
+        "flash_attention.fwd": lambda: fa.fwd_cuda(q, k, v, scale, causal),
+        "flash_attention.bwd_dq": lambda: fa.bwd_dq_cuda(
+            q, k, v, out, dout, lse, scale, causal),
+        "flash_attention.bwd_dkv": lambda: fa.bwd_dkv_cuda(
+            q, k, v, dout, lse, delta, scale, causal),
     }
     plain_fns = {
-        "fwd": lambda: fa.fwd_plain(q, k, v, scale, causal, *blocks),
-        "bwd_dq": lambda: fa.bwd_dq_plain(q, k, v, dout, lse, delta, scale,
-                                          causal, *blocks),
-        "bwd_dkv": lambda: fa.bwd_dkv_plain(q, k, v, dout, lse, delta,
-                                            scale, causal, *blocks),
+        "flash_attention.fwd": lambda: fa.fwd_plain(q, k, v, scale, causal,
+                                                    *blocks),
+        "flash_attention.bwd_dq": lambda: fa.bwd_dq_plain(
+            q, k, v, dout, lse, delta, scale, causal, *blocks),
+        "flash_attention.bwd_dkv": lambda: fa.bwd_dkv_plain(
+            q, k, v, dout, lse, delta, scale, causal, *blocks),
     }
     # the yardstick: one library call on the same inputs, [b, h, s, d]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in
@@ -248,17 +345,167 @@ def _time_main_case(case, q, k, v, dout, out, lse, delta, blocks, errs,
         f"{sdpa_both:.4f} ms, bwd {sdpa_both - sdpa_fwd:.4f} ms [{card}]")
     bounds = bounds_ms(*case)
     results = {}
-    for name in KERNELS:
+    for name in kernel_fns:
         ms = median_ms(kernel_fns[name], 20)
         plain = median_ms(plain_fns[name], 3, warmup=1)
         bound, bound_by = bounds[name]
         results[name] = dict(
             max_abs_err=errs[name], ms=ms, plain_ms=plain, bound_ms=bound,
             bound_by=bound_by,
-            library_ms=sdpa_fwd if name == "fwd" else None,
+            library_ms=sdpa_fwd if name == "flash_attention.fwd" else None,
         )
         log(f"kernel {name} {case}: {ms:.4f} ms, bound {bound:.4f} ms "
             f"({bound_by}), plain {plain:.4f} ms [{card}]")
+    return results
+
+
+def _quant_inputs(gen, numel, block, dtype, qmax):
+    """A leaf of ``numel`` elements in ``dtype`` with row 1 all zero and
+    row 2 of exact .5 ties (absmax qmax * 2^-10 gives the scale 2^-10;
+    the other elements are odd multiples of half of it)."""
+    import torch
+
+    x = torch.randn(numel, generator=gen, device="cuda") * 0.01
+    if numel >= 3 * block:
+        x[block:2 * block] = 0.0
+        k = torch.arange(block, device="cuda") % int(qmax)
+        sign = torch.where(torch.arange(block, device="cuda") % 3 == 0,
+                           -1.0, 1.0)
+        x[2 * block:3 * block] = sign * (k + 0.5) * TIE_SCALE
+        x[2 * block] = qmax * TIE_SCALE
+    return x.to(dtype)
+
+
+def _mismatch(name, got, want, failures, case):
+    """Count of differing elements and their largest difference; the
+    tolerance is QUANT_TOL mismatches."""
+    diff = got.float() != want.float()
+    n = int(diff.sum())
+    err = (got.float() - want.float()).abs().max().item() if n else 0.0
+    if n > QUANT_TOL:
+        failures.append(f"{case} {name}: {n} of {got.numel()} differ, "
+                        f"largest by {err:.3e}")
+    return n, err
+
+
+def phase_quant_kernels(card: str):
+    import torch
+
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    failures = []
+    results = {}
+    bc1, bc2 = qz.bias_corrections(QADAM_HYPER["b1"], QADAM_HYPER["b2"], 3)
+    for case in QUANT_CASES:
+        leaf, numel, block, dtype_name, qmax = case
+        dtype = getattr(torch, dtype_name)
+        x = _quant_inputs(gen, numel, block, dtype, qmax)
+        errs = {}
+        codes, scales = qz.quantize_cuda(x, block, qmax)
+        want = qz.quantize_plain(qz.to_block_tiles(x, block), qmax)
+        n1, e1 = _mismatch("codes", codes, want[0], failures, case)
+        n2, e2 = _mismatch("scales", scales, want[1], failures, case)
+        if numel >= 3 * block and scales[2, 0].item() != TIE_SCALE:
+            failures.append(f"{case}: the tie row's scale is "
+                            f"{scales[2, 0].item()}, not 2^-10")
+        errs["quantization.quantize"] = (n1 + n2, max(e1, e2))
+        deq = qz.dequantize_cuda(codes, scales, (numel,))
+        errs["quantization.dequantize"] = _mismatch(
+            "dequantized", deq,
+            qz.dequantize_plain(codes, scales).reshape(-1)[:numel],
+            failures, case)
+        rows = codes.shape[0]
+        if qmax == 127.0:
+            g = (torch.randn(numel, generator=gen, device="cuda")
+                 * 1e-3).to(dtype)
+            p = (torch.randn(numel, generator=gen, device="cuda")
+                 * 0.02).to(dtype)
+            if numel >= 2 * block:
+                g[block:2 * block] = 0.0
+                p[block:2 * block] = 0.0
+            qm, ms = qz.quantize_plain(torch.randn(
+                rows, block, generator=gen, device="cuda") * 1e-4)
+            qn, ns = qz.quantize_plain(torch.randn(
+                rows, block, generator=gen, device="cuda").abs() * 1e-3)
+            qm[1:2], qn[1:2] = 0, 0
+            upd, *new = qz.fused_qadam_step_plain(
+                qz.to_block_tiles(g, block), qz.to_block_tiles(p, block), qm,
+                ms, qn, ns, bc1, bc2, out_dtype=dtype, **QADAM_HYPER)
+            want_p = p + upd.reshape(-1)[:numel]
+            state = [t.clone() for t in (qm, ms, qn, ns)]
+            got_p = p.clone()
+            qz.qadam_step_cuda(got_p, g, *state, bc1=bc1, bc2=bc2,
+                               **QADAM_HYPER)
+            outs = [_mismatch("p", got_p, want_p, failures, case)]
+            outs += [_mismatch(n, s, w, failures, case) for n, s, w in zip(
+                ("mu codes", "mu scales", "nu codes", "nu scales"), state,
+                new)]
+            errs["quantization.qadam"] = (sum(o[0] for o in outs),
+                                          max(o[1] for o in outs))
+        torch.cuda.synchronize()
+        log(f"quant kernel check {case}: " + ", ".join(
+            f"{n} {m} mismatches (largest {e:.3e})"
+            for n, (m, e) in errs.items())
+            + f" (tolerance {QUANT_TOL} mismatches)")
+        if case is QUANT_CASES[0]:
+            results = _time_quant_case(case, x, codes, scales, g, p, qm, ms,
+                                       qn, ns, bc1, bc2, errs, card)
+    if failures:
+        raise AssertionError("quantization kernel check failed:\n"
+                             + "\n".join(failures))
+    return results
+
+
+def _time_quant_case(case, x, codes, scales, g, p, qm, ms, qn, ns, bc1, bc2,
+                     errs, card):
+    import torch
+
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    leaf, numel, block, dtype_name, qmax = case
+    rows = codes.shape[0]
+    state = [t.clone() for t in (qm, ms, qn, ns)]
+    pc = p.clone()
+    kernel_fns = {
+        "quantization.quantize": lambda: qz.quantize_cuda(x, block, qmax),
+        "quantization.dequantize": lambda: qz.dequantize_cuda(
+            codes, scales, (numel,)),
+        "quantization.qadam": lambda: qz.qadam_step_cuda(
+            pc, g, *state, bc1=bc1, bc2=bc2, **QADAM_HYPER),
+    }
+
+    def plain_qadam():
+        upd, *_ = qz.fused_qadam_step_plain(
+            qz.to_block_tiles(g, block), qz.to_block_tiles(p, block), qm, ms,
+            qn, ns, bc1, bc2, out_dtype=p.dtype, **QADAM_HYPER)
+        return p + upd.reshape(-1)[:numel]
+
+    plain_fns = {
+        "quantization.quantize": lambda: qz.quantize_plain(
+            qz.to_block_tiles(x, block), qmax),
+        "quantization.dequantize": lambda: qz.dequantize_plain(
+            codes, scales).reshape(-1)[:numel],
+        "quantization.qadam": plain_qadam,
+    }
+    # the yardstick for dequantize: int8 x fp32 promotes in one kernel
+    library = median_ms(lambda: torch.mul(codes, scales), 20)
+    bounds = quant_bounds_ms(numel, rows, block, dtype_name)
+    results = {}
+    for name in kernel_fns:
+        ms_k = median_ms(kernel_fns[name], 20)
+        plain = median_ms(plain_fns[name], 5, warmup=1)
+        bound, bound_by = bounds[name]
+        results[name] = dict(
+            max_abs_err=errs[name][1], ms=ms_k, plain_ms=plain,
+            bound_ms=bound, bound_by=bound_by,
+            library_ms=library if name == "quantization.dequantize" else None,
+        )
+        log(f"kernel {name} {leaf} [{rows}, {block}] {dtype_name}: "
+            f"{ms_k:.4f} ms, bound {bound:.4f} ms ({bound_by}), plain "
+            f"{plain:.4f} ms"
+            + (f", torch.mul {library:.4f} ms"
+               if name == "quantization.dequantize" else "") + f" [{card}]")
     return results
 
 
@@ -299,83 +546,210 @@ def phase_model_check():
                                  f"in {dtype}: {err:.3e} / {gerr:.3e}")
 
 
-def phase_train(steps: int, card: str):
+def _loss_fn(module, batch):
+    from dlrover_tpu_torch.models.gpt import cross_entropy_loss
+
+    return cross_entropy_loss(module(batch["x"]), batch["y"])
+
+
+def run_training(label, cfg, global_batch, micro, steps, expected, card,
+                 optim_factory=None):
+    """Train ``cfg`` from seed 0 on one fixed batch of random tokens
+    through ``Trainer.train()``, with every launch count set to 0 just
+    before and read just after; check the losses, the exact launch
+    counts (``expected``), the train_step events and the metrics file.
+    Returns ``(trainer, result, counts, step seconds, tokens per step)``."""
     import numpy as np
     import torch
 
-    from dlrover_tpu_torch.models.gpt import (
-        GPT,
-        GPTConfig,
-        count_params,
-        cross_entropy_loss,
-    )
-    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.models.gpt import GPT, count_params
     from dlrover_tpu_torch.telemetry.events import read_events
     from dlrover_tpu_torch.trainer.trainer import Trainer, TrainingArguments
 
-    cfg = GPTConfig.gpt2_small(max_seq_len=TRAIN_SEQ, attention_impl="flash")
+    t0 = time.perf_counter()
     model = GPT(cfg, seed=0)
-    log(f"train: GPT-2 small, {count_params(model)} params, "
-        f"{cfg.num_layers} layers, dtype {cfg.dtype}, remat {cfg.remat}")
+    torch.cuda.synchronize()
+    log(f"{label}: {count_params(model)} params, {cfg.num_layers} layers, "
+        f"d {cfg.hidden_dim}, dtype {cfg.dtype}, params {cfg.param_dtype}, "
+        f"remat {cfg.remat}, built on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    seq = cfg.max_seq_len
     # one global batch of random tokens from a seed, cycled: the loss
     # falls as the model fits it
-    rng = np.random.default_rng(0)
-    data = rng.integers(0, cfg.vocab_size, (TRAIN_GLOBAL, TRAIN_SEQ + 1),
-                        dtype=np.int32)
+    data = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (global_batch, seq + 1), dtype=np.int32)
     train_data = [{"x": data[:, :-1], "y": data[:, 1:]}]
-
-    def loss_fn(module, batch):
-        return cross_entropy_loss(module(batch["x"]), batch["y"])
-
-    args = TrainingArguments(
-        max_steps=steps, global_batch_size=TRAIN_GLOBAL,
-        micro_batch_size=TRAIN_MICRO, logging_steps=1,
-    )
-    trainer = Trainer(model, args, train_data, loss_fn)
+    args = TrainingArguments(max_steps=steps, global_batch_size=global_batch,
+                             micro_batch_size=micro, logging_steps=1)
+    trainer = Trainer(model, args, train_data, _loss_fn,
+                      optim_factory=optim_factory)
+    if os.path.exists(os.environ["DLROVER_EVENT_LOG"]):
+        os.unlink(os.environ["DLROVER_EVENT_LOG"])
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     result = trainer.train()
-    counts = dict(fa.LAUNCHES)
+    counts = launch_counts()
 
     losses = result["losses"]
-    grad_accum = TRAIN_GLOBAL // TRAIN_MICRO
-    per_step = cfg.num_layers * grad_accum
-    expected = {"fwd": per_step * steps * (2 if cfg.remat else 1),
-                "bwd_dq": per_step * steps, "bwd_dkv": per_step * steps}
-    log(f"train: losses {losses}")
-    log(f"train: launches {counts}, expected {expected}")
+    log(f"{label}: losses {losses}")
+    log(f"{label}: launches {counts}, expected {expected}")
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
     if counts != expected:
-        raise AssertionError(f"launch counts {counts} != {expected}")
+        raise AssertionError(f"{label}: launch counts {counts} != {expected}")
     events = [e for e in read_events(os.environ["DLROVER_EVENT_LOG"])
               if e.get("type") == "train_step"]
-    if len(events) != steps:
-        raise AssertionError(f"{len(events)} train_step events, not {steps}")
+    if len(events) != steps or events[-1].get("step") != steps:
+        raise AssertionError(f"{label}: {len(events)} train_step events, "
+                             f"not {steps}")
     with open(os.environ["DLROVER_METRICS_FILE"]) as f:
         if json.load(f)["global_step"] != steps:
-            raise AssertionError("metrics file does not hold the last step")
-    steady = result["step_seconds"][2:]
-    step_s = statistics.median(steady)
-    tokens = TRAIN_GLOBAL * TRAIN_SEQ
+            raise AssertionError(f"{label}: the metrics file does not hold "
+                                 "the last step")
+    step_s = statistics.median(result["step_seconds"][2:])
+    tokens = global_batch * seq
     # model FLOPs: 6 per weight per token (the tied head included, the
-    # position table not) plus causal attention, 6 L s d per token
+    # position table not) plus causal attention, 6 L s d per token; the
+    # remat recompute is not counted
     weights = count_params(model) - model.wpe.weight.numel()
-    flops = 6 * tokens * (weights + cfg.num_layers * TRAIN_SEQ
-                          * cfg.hidden_dim)
-    log(f"train: median step {step_s * 1e3:.3f} ms over steps 3..{steps}, "
+    flops = 6 * tokens * (weights + cfg.num_layers * seq * cfg.hidden_dim)
+    log(f"{label}: median step {step_s * 1e3:.3f} ms over steps 3..{steps}, "
         f"{tokens / step_s:.1f} tokens/s, model FLOPs utilisation "
         f"{flops / step_s / PEAK_FLOPS['bfloat16']:.4f} of 989 TFLOP/s, "
         f"step times {[round(t * 1e3, 3) for t in result['step_seconds']]} "
         f"ms, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB [{card}]")
-    profile_step(trainer, train_data[0], card)
-    return {name: n // steps for name, n in counts.items()}, counts
+    return trainer, result, counts
 
 
-def profile_step(trainer, batch, card):
+def _zero_counts(**nonzero):
+    counts = {name: 0 for name in KERNELS}
+    counts.update(nonzero)
+    return counts
+
+
+def phase_train_small_adamw(card):
+    from dlrover_tpu_torch.models.gpt import GPTConfig
+
+    steps, global_batch, micro = 6, 32, 8
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash")
+    per_step = cfg.num_layers * (global_batch // micro)
+    expected = _zero_counts(**{
+        "flash_attention.fwd": per_step * steps,
+        "flash_attention.bwd_dq": per_step * steps,
+        "flash_attention.bwd_dkv": per_step * steps,
+    })
+    trainer, _, counts = run_training(
+        "train GPT-2 small AdamW", cfg, global_batch, micro, steps, expected,
+        card)
+    profile_step(trainer, trainer.train_data[0], card, "GPT-2 small AdamW")
+    return counts
+
+
+def phase_train_xl(card):
+    """GPT-2 XL with int8 q-AdamW moments: the twin of
+    ``examples/train_xl_lowmem.py`` through the port's Trainer."""
+    import torch
+
+    from dlrover_tpu_torch.models.gpt import GPTConfig
+    from dlrover_tpu_torch.optim import q_adamw
+
+    cfg = GPTConfig.gpt2_xl(attention_impl="flash", remat=True,
+                            param_dtype=torch.bfloat16)
+    n_params = 12 * cfg.num_layers + 4  # per block 12; wte, wpe, ln_f
+    steps = XL_STEPS
+    expected = _zero_counts(**{
+        # remat runs every block's forward twice
+        "flash_attention.fwd": 2 * cfg.num_layers * steps,
+        "flash_attention.bwd_dq": cfg.num_layers * steps,
+        "flash_attention.bwd_dkv": cfg.num_layers * steps,
+        # mu and nu codes of every parameter at init
+        "quantization.quantize": 2 * n_params,
+        "quantization.qadam": n_params * steps,
+    })
+    trainer, result, counts = run_training(
+        "train GPT-2 XL int8 q-AdamW", cfg, XL_BATCH, XL_BATCH, steps,
+        expected, card,
+        optim_factory=lambda ps: q_adamw(ps, lr=3e-4, weight_decay=0.1))
+    opt = trainer.state.optimizer
+    params = [p for g in opt.param_groups for p in g["params"]]
+    if len(params) != n_params:
+        raise AssertionError(f"{len(params)} parameters, not {n_params}")
+    peak = torch.cuda.max_memory_allocated()
+    moment_bytes = sum(t.numel() * t.element_size()
+                       for st in opt.state.values() for t in st.values()
+                       if torch.is_tensor(t))
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    log(f"train GPT-2 XL int8 q-AdamW: peak memory {peak / 2**30:.2f} GiB, "
+        f"moment state (int8 codes + fp32 scales) {moment_bytes / 2**30:.3f} "
+        f"GiB = {moment_bytes / peak:.4f} of the peak, params "
+        f"{param_bytes / 2**30:.3f} GiB [{card}]")
+    # the optimizer alone, on the gradients of the last step: host wall
+    # (synchronised) and the device span between events around it
+    bound = sum(qadam_bytes(p.numel(), opt.block_size, p.element_size())
+                for p in params)
+    walls, spans = [], []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        opt.step()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        spans.append(start.elapsed_time(end))
+    log(f"train GPT-2 XL int8 q-AdamW: optimizer step wall "
+        f"{statistics.median(walls):.3f} ms, device span "
+        f"{statistics.median(spans):.3f} ms ({n_params} fused launches), "
+        f"summed bound of the fused step {bound / 1e9:.3f} GB / 3.35 TB/s = "
+        f"{bound / PEAK_BYTES_S * 1e3:.3f} ms [{card}]")
+    profile_step(trainer, trainer.train_data[0], card, "GPT-2 XL int8 q-AdamW")
+    return counts
+
+
+def phase_train_small_4bit(card):
+    """GPT-2 small with 4-bit q-AdamW: the path that launches the
+    dequantize kernel, and quantize at qmax 7, once per parameter per
+    step (the 4-bit nu codec is plain tensor ops)."""
+    from dlrover_tpu_torch.models.gpt import GPTConfig
+    from dlrover_tpu_torch.optim import q_adamw
+
+    steps, batch = 6, 8
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash")
+    n_params = 12 * cfg.num_layers + 4
+    expected = _zero_counts(**{
+        "flash_attention.fwd": cfg.num_layers * steps,
+        "flash_attention.bwd_dq": cfg.num_layers * steps,
+        "flash_attention.bwd_dkv": cfg.num_layers * steps,
+        "quantization.quantize": n_params * (steps + 1),
+        "quantization.dequantize": n_params * steps,
+    })
+    _, _, counts = run_training(
+        "train GPT-2 small 4-bit q-AdamW", cfg, batch, batch, steps, expected,
+        card, optim_factory=lambda ps: q_adamw(ps, lr=1e-3, bits=4))
+    return counts
+
+
+FAMILIES = ("flash attention (this port)", "quantization (this port)",
+            "matmul", "other")
+
+
+def _family(key: str) -> str:
+    if "FlashParams" in key:
+        return FAMILIES[0]
+    if any(k in key for k in ("qadam_kernel", "quantize_kernel")):
+        return FAMILIES[1]  # quantize_kernel also matches dequantize
+    if any(k in key.lower() for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return FAMILIES[2]
+    return FAMILIES[3]
+
+
+def profile_step(trainer, batch, card, label):
     """One more training step under torch.profiler: device time by
     kernel family and the device's busy share of the step."""
     import torch
@@ -390,10 +764,13 @@ def profile_step(trainer, batch, card):
         trainer.state, _ = trainer.train_step(trainer.state, placed)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device kernels only: the CPU ops' rows repeat their kernels' time
+    # device kernels only: the CPU ops' rows repeat their kernels' time,
+    # and a user annotation's device range (Optimizer.step#...) spans
+    # kernels that have rows of their own
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -401,31 +778,34 @@ def profile_step(trainer, batch, card):
         if us > 0:
             rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
-        f.write(f"{card}\n")
+    name = label.replace(" ", "_").replace("-", "_").lower()
+    with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
+        f.write(f"{label} [{card}]\n")
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=40))
     busy = sum(r[0] for r in rows)
     if not busy:
-        log("profile: the profiler recorded no device time")
+        log(f"profile {label}: the profiler recorded no device time")
         return
-    families = {"flash attention (this port)": 0.0, "matmul": 0.0,
-                "other": 0.0}
+    families = {f: 0.0 for f in FAMILIES}
     for us, _, key in rows:
-        if "FlashParams" in key:
-            families["flash attention (this port)"] += us
-        elif any(k in key.lower() for k in ("gemm", "nvjet", "xmma",
-                                             "cutlass")):
-            families["matmul"] += us
-        else:
-            families["other"] += us
-    log(f"profile: step wall {wall_us / 1e3:.3f} ms, device busy "
+        families[_family(key)] += us
+    log(f"profile {label}: step wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({busy / wall_us:.4f} of the step, "
         f"profiler on); " + ", ".join(
             f"{k} {v / 1e3:.3f} ms ({v / busy:.4f})"
             for k, v in families.items()) + f" [{card}]")
     for us, count, key in rows[:8]:
-        log(f"profile:   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+        log(f"profile {label}:   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def _free_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -444,30 +824,40 @@ def main() -> int:
                                                    "chip_smoke_events.jsonl")
     os.environ["DLROVER_METRICS_FILE"] = os.path.join(
         OUT_DIR, "chip_smoke_metrics.json")
-    if os.path.exists(os.environ["DLROVER_EVENT_LOG"]):
-        os.unlink(os.environ["DLROVER_EVENT_LOG"])
     # the plain versions' fp32 products must be full fp32 for the 1e-4
     # comparison (these are PyTorch's defaults, stated here)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     phase_build()
     timings = phase_kernels(card)
+    _free_cuda()
+    timings.update(phase_quant_kernels(card))
+    _free_cuda()
     phase_model_check()
-    per_step, counts = phase_train(TRAIN_STEPS, card)
+    by_path = {}
+    for path, phase in (("gpt2_small_adamw", phase_train_small_adamw),
+                        ("gpt2_xl_int8_qadamw", phase_train_xl),
+                        ("gpt2_small_4bit_qadamw", phase_train_small_4bit)):
+        by_path[path] = phase(card)
+        _free_cuda()
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = timings[name]
+        launches = {path: counts[name] for path, counts in by_path.items()}
         kernels.append({
-            "name": f"flash_attention.{name}", "route": "cuda",
-            "source": source, "replaces": replaces,
-            "launches": counts[name], "launches_per_step": per_step[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

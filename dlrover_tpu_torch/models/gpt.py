@@ -3,8 +3,14 @@
 Reference: ``dlrover_tpu/models/gpt.py`` (flax).  The same model with
 the same numerics policy:
 
-- compute in ``config.dtype`` (bf16 by default) over fp32 master
-  params, with fp32 layernorms on the residual stream;
+- compute in ``config.dtype`` (bf16 by default) over
+  ``config.param_dtype`` params (fp32 master params by default; Dense
+  and Embed weights take ``param_dtype``), with fp32 layernorms on the
+  residual stream whose params stay fp32 whatever ``param_dtype`` is,
+  as flax's ``nn.LayerNorm`` takes none;
+- Dense weights in flax's layout, ``[in, out]`` (:class:`Dense`), so a
+  weight flattens as the reference's kernel does and blockwise
+  optimizer state over it is the reference's, code for code;
 - one fused qkv projection, split q|k|v;
 - tied ``wte`` head (``wte.attend``: logits = x @ wte^T in the
   compute dtype, returned as fp32);
@@ -88,6 +94,13 @@ class GPTConfig:
     def gpt2_small(cls, **kw) -> "GPTConfig":
         return cls(num_layers=12, num_heads=12, hidden_dim=768, **kw)
 
+    @classmethod
+    def gpt2_xl(cls, **kw) -> "GPTConfig":
+        return cls(
+            num_layers=48, num_heads=25, hidden_dim=1600,
+            max_seq_len=1024, **kw,
+        )
+
 
 def _check_supported(cfg: GPTConfig):
     """Options of the reference that later slices of the port bring."""
@@ -135,20 +148,37 @@ def get_attention_fn(impl: str):
     return xla_causal_attention
 
 
-def _linear(x, layer: nn.Linear, dtype):
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``weight`` is flax's kernel, ``[in, out]``
+    (``nn.Linear`` keeps ``[out, in]``)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype=torch.float32, device=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.weight = nn.Parameter(torch.empty(
+            in_features, out_features, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.empty(
+            out_features, dtype=dtype, device=device)) if bias else None
+
+
+def _linear(x, layer: Dense, dtype):
     """flax ``Dense(dtype=...)``: input, kernel and bias cast to the
     compute dtype."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    x, w = x.to(dtype), layer.weight.to(dtype)
+    if layer.bias is None:
+        return x @ w
+    out = torch.addmm(layer.bias.to(dtype), x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 class Attention(nn.Module):
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         self.config = config
-        d = config.hidden_dim
-        self.qkv = nn.Linear(d, 3 * d, dtype=config.param_dtype)
-        self.o_proj = nn.Linear(d, d, dtype=config.param_dtype)
+        d, pd = config.hidden_dim, config.param_dtype
+        self.qkv = Dense(d, 3 * d, dtype=pd, device=device)
+        self.o_proj = Dense(d, d, dtype=pd, device=device)
         self._attn = get_attention_fn(config.attention_impl)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -164,12 +194,12 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         self.config = config
-        d = config.hidden_dim
-        self.fc_in = nn.Linear(d, config.mlp_ratio * d, dtype=config.param_dtype)
-        self.fc_out = nn.Linear(config.mlp_ratio * d, d, dtype=config.param_dtype)
+        d, pd = config.hidden_dim, config.param_dtype
+        self.fc_in = Dense(d, config.mlp_ratio * d, dtype=pd, device=device)
+        self.fc_out = Dense(config.mlp_ratio * d, d, dtype=pd, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.config.dtype
@@ -178,16 +208,21 @@ class MLP(nn.Module):
         return _linear(h, self.fc_out, dtype)
 
 
+def _layer_norm(config: GPTConfig, device) -> nn.LayerNorm:
+    # fp32 layernorms on the residual stream for stability; their
+    # params stay fp32 (flax's nn.LayerNorm takes no param_dtype)
+    return nn.LayerNorm(config.hidden_dim, eps=config.ln_eps,
+                        dtype=torch.float32, device=device)
+
+
 class Block(nn.Module):
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         self.config = config
-        d = config.hidden_dim
-        # fp32 layernorms on the residual stream for stability
-        self.ln_attn = nn.LayerNorm(d, eps=config.ln_eps, dtype=torch.float32)
-        self.attn = Attention(config)
-        self.ln_mlp = nn.LayerNorm(d, eps=config.ln_eps, dtype=torch.float32)
-        self.mlp = MLP(config)
+        self.ln_attn = _layer_norm(config, device)
+        self.attn = Attention(config, device)
+        self.ln_mlp = _layer_norm(config, device)
+        self.mlp = MLP(config, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.config.dtype
@@ -201,7 +236,10 @@ class GPT(nn.Module):
     Built on ``device`` (the GPU unless ``"cpu"`` is passed), with
     weights drawn from ``seed`` as the reference's initializers draw
     them: lecun-normal Dense kernels, zero biases, fan-in-normal
-    embeddings, unit layernorm scales.
+    embeddings, unit layernorm scales.  The weights are drawn on
+    ``device`` by a generator there, so a GPT-2 XL needs no host pass
+    over its 1.56B params; one seed therefore gives other weights on
+    the card than on the CPU (nothing compares the two).
     """
 
     def __init__(
@@ -214,33 +252,33 @@ class GPT(nn.Module):
         _check_supported(config)
         self.config = config
         device = resolve_device(device)
-        pd = config.param_dtype
-        self.wte = nn.Embedding(config.vocab_size, config.hidden_dim, dtype=pd)
-        self.wpe = nn.Embedding(config.max_seq_len, config.hidden_dim, dtype=pd)
+        pd, d = config.param_dtype, config.hidden_dim
+        self.wte = nn.Embedding(config.vocab_size, d, dtype=pd, device=device)
+        self.wpe = nn.Embedding(config.max_seq_len, d, dtype=pd,
+                                device=device)
         self.blocks = nn.ModuleList(
-            Block(config) for _ in range(config.num_layers)
+            Block(config, device) for _ in range(config.num_layers)
         )
-        self.ln_f = nn.LayerNorm(
-            config.hidden_dim, eps=config.ln_eps, dtype=torch.float32
-        )
+        self.ln_f = _layer_norm(config, device)
         if not config.tie_embeddings:
-            self.lm_head = nn.Linear(
-                config.hidden_dim, config.vocab_size, bias=False, dtype=pd
-            )
-        self._init_weights(torch.Generator().manual_seed(seed))
-        self.to(device)
+            self.lm_head = Dense(d, config.vocab_size, bias=False, dtype=pd,
+                                 device=device)
+        self._init_weights(torch.Generator(device=device).manual_seed(seed))
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator):
         # flax truncates its normals at two standard deviations and
-        # widens them so the truncated std is the nominal one
+        # widens them so the truncated std is the nominal one; drawn in
+        # fp32 and rounded once to the param dtype
         def trunc_normal(w, fan_in):
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+            draw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+            nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std,
                                   generator=gen)
+            w.copy_(draw)
 
         for module in self.modules():
-            if isinstance(module, nn.Linear):
+            if isinstance(module, Dense):
                 trunc_normal(module.weight, module.in_features)
                 if module.bias is not None:
                     module.bias.zero_()

@@ -1,0 +1,455 @@
+"""Blockwise int8 quantization of optimizer state for the H100.
+
+Reference: ``dlrover_tpu/ops/quantization.py`` (Pallas TPU kernels
+``_quant_kernel``, ``_dequant_kernel``, ``_qadam_kernel``).  Here the
+three kernels are hand-written CUDA C++ for ``sm_90a`` in
+``csrc/quantization.cu``, built at first use by
+:mod:`dlrover_tpu_torch.ops.cuda_build` and called through ctypes; the
+source's header says what bounds them on the card and how they round.
+
+Layout: a tensor is flattened in its own (row-major) order and cut
+into rows of ``block_size`` elements, the last row zero-padded
+(:func:`to_block_tiles`); each row carries one fp32 scale.  The CUDA
+kernels read that layout straight from the tensor's flat storage and
+treat positions past ``numel`` as the zeros the padding would hold, so
+no padded fp32 copy is made on the card.
+
+Dispatch is by device: a CPU tensor takes the plain PyTorch version
+below (the same arithmetic, one rounding per operation, in the
+reference's order); a CUDA tensor launches the kernel or raises.
+``LAUNCHES`` counts kernel launches only.  The 4-bit nibble packing
+and the sqrt-domain 4-bit codec are plain tensor ops, as in the
+reference.
+"""
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+DEFAULT_BLOCK = 2048  # elements per scale block
+# the kernels hold a row in registers: 256 threads x 32 elements
+MAX_BLOCK = 8192
+SCALE_FLOOR = 1e-12
+
+# kernel launches, one count per kernel, bumped where it launches
+LAUNCHES = {"quantize": 0, "dequantize": 0, "qadam": 0}
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def num_rows(numel: int, block_size: int) -> int:
+    return -(-numel // block_size)
+
+
+def to_block_tiles(x: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Flatten + zero-pad ``x`` to the fp32 ``[rows, block_size]``
+    layout every kernel here works on."""
+    flat = x.reshape(-1).float()
+    rows = num_rows(flat.numel(), block_size)
+    pad = rows * block_size - flat.numel()
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(rows, block_size)
+
+
+def _numel(shape) -> int:
+    return math.prod(shape)
+
+
+def reciprocal(qmax: float) -> float:
+    """``fp32(1 / qmax)``.  The reference's XLA rewrites the division
+    of a row's absmax by the constant ``qmax`` into a product with
+    this reciprocal; the kernels and plain versions here do the same,
+    so the scales agree bit for bit."""
+    return float(np.float32(1.0) / np.float32(qmax))
+
+
+def device_scalar(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d fp32 tensor on ``like``'s device.  Dividing by it is an
+    IEEE division on every device (PyTorch's CUDA division by a Python
+    number multiplies by its reciprocal instead); ``torch.full``
+    fills it on the device, with no host-device copy."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+
+def quantize_plain(
+    tiles: torch.Tensor, qmax: float = 127.0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the quantize kernel: per row
+    ``scale = max(absmax * fp32(1/qmax), 1e-12)`` and
+    ``q = clip(round_half_even(x / scale), -qmax, qmax)`` as int8."""
+    x = tiles.float()
+    absmax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(absmax * reciprocal(qmax), SCALE_FLOOR)
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
+    return q, scale
+
+
+def dequantize_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Plain version of the dequantize kernel: ``q * scale`` in fp32."""
+    return q.float() * scales
+
+
+def fused_qadam_step_plain(
+    g_tiles, p_tiles, q_mu, mu_scales, q_nu, nu_scales,
+    bc1: float, bc2: float, *, b1: float, b2: float, eps: float,
+    lr: float, wd: float, out_dtype: Optional[torch.dtype] = None,
+):
+    """Plain version of the fused quantized-Adam kernel over tiles, in
+    the reference's order of operations: ``(upd_tiles, q_mu',
+    mu_scales', q_nu', nu_scales')``.  ``mu`` is stored linear,
+    ``nu`` in the sqrt domain (``nu = (q * scale)^2``); ``bc1``/``bc2``
+    are the fp32 bias corrections; ``upd`` comes out in ``out_dtype``
+    (default: the gradient's dtype)."""
+    g = g_tiles.float()
+    p = p_tiles.float()
+    bc1, bc2 = device_scalar(bc1, g), device_scalar(bc2, g)
+    mu = q_mu.float() * mu_scales
+    nu_sqrt_prev = q_nu.float() * nu_scales
+    nu = b2 * nu_sqrt_prev * nu_sqrt_prev + (1.0 - b2) * g * g
+    mu = b1 * mu + (1.0 - b1) * g
+    m_hat = mu / bc1
+    v_hat = nu / bc2
+    upd = (-lr * (m_hat / (torch.sqrt(v_hat) + eps) + wd * p)).to(
+        out_dtype or g_tiles.dtype
+    )
+    inv = reciprocal(127.0)
+    mu_scale = torch.clamp_min(
+        mu.abs().amax(dim=-1, keepdim=True) * inv, SCALE_FLOOR
+    )
+    qmu = torch.clamp(torch.round(mu / mu_scale), -127, 127).to(torch.int8)
+    nu_sqrt = torch.sqrt(nu)
+    nu_scale = torch.clamp_min(
+        nu_sqrt.amax(dim=-1, keepdim=True) * inv, SCALE_FLOOR
+    )
+    qnu = torch.clamp(torch.round(nu_sqrt / nu_scale), 0, 127).to(torch.int8)
+    return upd, qmu, mu_scale, qnu, nu_scale
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/quantization.cu)
+# ---------------------------------------------------------------------------
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class _QAdamParams(ctypes.Structure):
+    """Field for field the ``QAdamParams`` struct of the CUDA source."""
+
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "p", "g", "q_mu", "mu_scales", "q_nu", "nu_scales",
+        )]
+        + [("numel", ctypes.c_longlong), ("rows", ctypes.c_longlong)]
+        + [("block", ctypes.c_int), ("dtype", ctypes.c_int)]
+        + [(n, ctypes.c_float) for n in (
+            "b1", "b2", "one_minus_b1", "one_minus_b2", "bc1", "bc2",
+            "neg_lr", "eps", "wd",
+        )]
+    )
+
+
+_lib_handle = None
+
+
+def _lib():
+    global _lib_handle
+    if _lib_handle is None:
+        from dlrover_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load("quantization")
+        lib.dlr_quantize.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+        lib.dlr_dequantize.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+        lib.dlr_qadam_step.argtypes = [
+            ctypes.POINTER(_QAdamParams), ctypes.c_void_p,
+        ]
+        for fn in (lib.dlr_quantize, lib.dlr_dequantize, lib.dlr_qadam_step):
+            fn.restype = ctypes.c_int
+        lib.dlr_quant_error_string.argtypes = [ctypes.c_int]
+        lib.dlr_quant_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _check(name: str, err: int):
+    if err != 0:
+        msg = _lib().dlr_quant_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_block(block_size: int):
+    if not 0 < block_size <= MAX_BLOCK:
+        raise ValueError(
+            f"the CUDA quantization kernels take block_size in "
+            f"[1, {MAX_BLOCK}], not {block_size}"
+        )
+
+
+def _flat_input(x: torch.Tensor, what: str) -> torch.Tensor:
+    if x.dtype not in _DTYPES:
+        raise ValueError(
+            f"CUDA {what} takes bfloat16 or float32, not {x.dtype}"
+        )
+    if not x.is_contiguous():
+        raise ValueError(f"CUDA {what} needs a contiguous tensor")
+    return x
+
+
+def _check_state(q: torch.Tensor, scales: torch.Tensor, rows: int,
+                 block_size: int, device: torch.device):
+    if q.dtype != torch.int8 or q.shape != (rows, block_size):
+        raise ValueError(
+            f"codes must be int8 [{rows}, {block_size}], got {q.dtype} "
+            f"{tuple(q.shape)}"
+        )
+    if scales.dtype != torch.float32 or scales.shape != (rows, 1):
+        raise ValueError(
+            f"scales must be float32 [{rows}, 1], got {scales.dtype} "
+            f"{tuple(scales.shape)}"
+        )
+    for t in (q, scales):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError("codes and scales must be contiguous on "
+                             f"{device}")
+
+
+def quantize_cuda(
+    x: torch.Tensor, block_size: int, qmax: float = 127.0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the quantize kernel on ``x`` read as ``[rows, block]``
+    tiles of its flat storage: ``(q int8 [rows, block], scales fp32
+    [rows, 1])``."""
+    _check_block(block_size)
+    x = _flat_input(x, "quantize")
+    rows = num_rows(x.numel(), block_size)
+    q = torch.empty((rows, block_size), dtype=torch.int8, device=x.device)
+    scales = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    if rows:
+        with torch.cuda.device(x.device):
+            _check("dlr_quantize", _lib().dlr_quantize(
+                x.data_ptr(), _DTYPES[x.dtype], x.numel(), rows, block_size,
+                qmax, reciprocal(qmax), q.data_ptr(), scales.data_ptr(),
+                _stream(x.device),
+            ))
+        LAUNCHES["quantize"] += 1
+    return q, scales
+
+
+def dequantize_cuda(
+    q: torch.Tensor, scales: torch.Tensor, shape=None
+) -> torch.Tensor:
+    """Launch the dequantize kernel: fp32 ``shape`` (default: the
+    tiles' own ``[rows, block]``), written straight from the tiles'
+    first ``numel`` elements."""
+    rows, block_size = q.shape
+    _check_block(block_size)
+    _check_state(q, scales, rows, block_size, q.device)
+    shape = tuple(shape) if shape is not None else (rows, block_size)
+    numel = _numel(shape)
+    if numel > rows * block_size:
+        raise ValueError(f"{rows}x{block_size} tiles hold no {shape}")
+    out = torch.empty(shape, dtype=torch.float32, device=q.device)
+    if rows:
+        with torch.cuda.device(q.device):
+            _check("dlr_dequantize", _lib().dlr_dequantize(
+                q.data_ptr(), scales.data_ptr(), numel, rows, block_size,
+                out.data_ptr(), _stream(q.device),
+            ))
+        LAUNCHES["dequantize"] += 1
+    return out
+
+
+def _hyper(b1, b2, eps, lr, wd, bc1, bc2, **fields) -> _QAdamParams:
+    """fp32 constants as the reference bakes them: each Python double
+    (``1 - b1`` too) rounded once to fp32."""
+    p = _QAdamParams(**fields)
+    p.b1, p.b2 = b1, b2
+    p.one_minus_b1, p.one_minus_b2 = 1.0 - b1, 1.0 - b2
+    p.bc1, p.bc2 = bc1, bc2
+    p.neg_lr, p.eps, p.wd = -lr, eps, wd
+    return p
+
+
+def qadam_step_cuda(
+    p, g, q_mu, mu_scales, q_nu, nu_scales, *, bc1, bc2, b1, b2, eps, lr,
+    wd,
+):
+    """Launch the fused quantized-Adam kernel: updates ``p`` in place
+    (``p + round_p(upd)``, rounded to p's dtype, as ``apply_updates``)
+    and the four state tensors in place."""
+    rows, block_size = q_mu.shape
+    _check_block(block_size)
+    p = _flat_input(p, "qadam")
+    if g.dtype != p.dtype or g.shape != p.shape or not g.is_contiguous():
+        raise ValueError(
+            f"qadam needs a contiguous gradient shaped and typed as the "
+            f"parameter ({p.dtype} {tuple(p.shape)}), got {g.dtype} "
+            f"{tuple(g.shape)}"
+        )
+    if g.device != p.device:
+        raise ValueError(f"gradient on {g.device}, parameter on {p.device}")
+    if rows != num_rows(p.numel(), block_size):
+        raise ValueError(f"{rows} state rows for {p.numel()} elements")
+    _check_state(q_mu, mu_scales, rows, block_size, p.device)
+    _check_state(q_nu, nu_scales, rows, block_size, p.device)
+    params = _hyper(
+        b1, b2, eps, lr, wd, bc1, bc2,
+        p=p.data_ptr(), g=g.data_ptr(), q_mu=q_mu.data_ptr(),
+        mu_scales=mu_scales.data_ptr(), q_nu=q_nu.data_ptr(),
+        nu_scales=nu_scales.data_ptr(), numel=p.numel(), rows=rows,
+        block=block_size, dtype=_DTYPES[p.dtype],
+    )
+    if rows:
+        with torch.cuda.device(p.device):
+            _check("dlr_qadam_step", _lib().dlr_qadam_step(
+                ctypes.byref(params), _stream(p.device)
+            ))
+        LAUNCHES["qadam"] += 1
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"quantization runs on cpu or cuda, not {x.device}")
+
+
+def quantize_blockwise(
+    x: torch.Tensor, block_size: int = DEFAULT_BLOCK, qmax: float = 127.0,
+) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, ...]]:
+    """Flatten + pad to ``[rows, block_size]``; returns ``(int8
+    values, fp32 scales [rows, 1], original shape)``.  On the card the
+    kernel reads ``x`` in place (bf16 or fp32, upcast in registers)."""
+    shape = tuple(x.shape)
+    if _on_cpu(x):
+        q, scales = quantize_plain(to_block_tiles(x, block_size), qmax)
+    else:
+        q, scales = quantize_cuda(x.contiguous(), block_size, qmax)
+    return q, scales, shape
+
+
+def dequantize_blockwise(
+    q: torch.Tensor, scales: torch.Tensor, shape: Tuple[int, ...]
+) -> torch.Tensor:
+    if _on_cpu(q):
+        out = dequantize_plain(q, scales)
+        return out.reshape(-1)[:_numel(shape)].reshape(shape)
+    return dequantize_cuda(q, scales, shape)
+
+
+def fused_qadam_update_(
+    p: torch.Tensor, g: torch.Tensor, q_mu, mu_scales, q_nu, nu_scales, *,
+    bc1: float, bc2: float, b1: float, b2: float, eps: float, lr: float,
+    wd: float,
+):
+    """One quantized-AdamW step of one parameter, in place: the
+    moments' codes and scales are replaced by the new ones and ``p``
+    by ``p + upd`` in p's dtype (what ``optax.apply_updates`` gives for
+    the reference's update).  On the card: one kernel launch."""
+    if not _on_cpu(p):
+        return qadam_step_cuda(
+            p, g, q_mu, mu_scales, q_nu, nu_scales, bc1=bc1, bc2=bc2, b1=b1,
+            b2=b2, eps=eps, lr=lr, wd=wd,
+        )
+    block_size = q_mu.shape[1]
+    upd, qm, ms, qn, ns = fused_qadam_step_plain(
+        to_block_tiles(g, block_size), to_block_tiles(p, block_size),
+        q_mu, mu_scales, q_nu, nu_scales, bc1, bc2, b1=b1, b2=b2, eps=eps,
+        lr=lr, wd=wd, out_dtype=p.dtype,
+    )
+    p.add_(upd.reshape(-1)[:p.numel()].reshape(p.shape))
+    for state, new in ((q_mu, qm), (mu_scales, ms), (q_nu, qn),
+                       (nu_scales, ns)):
+        state.copy_(new)
+
+
+# -- 4-bit (packed nibbles), plain tensor ops around the kernels ------------
+
+
+def quantize_blockwise_4bit(
+    x: torch.Tensor, block_size: int = DEFAULT_BLOCK
+) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, ...]]:
+    """int4 blockwise: symmetric absmax over +-7 (the quantize kernel
+    at qmax 7), two values packed per byte.  Returns ``(packed uint8
+    [rows, block/2], scales [rows, 1], shape)``."""
+    q, scales, shape = quantize_blockwise(x, block_size, qmax=7.0)
+    biased = (q + 7).to(torch.uint8)  # nibbles in [0, 14]
+    packed = biased[:, 0::2] | (biased[:, 1::2] << 4)
+    return packed, scales, shape
+
+
+def _unpack(packed: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    lo = (packed & 0xF).to(dtype)
+    hi = ((packed >> 4) & 0xF).to(dtype)
+    rows, half = packed.shape
+    return torch.stack([lo, hi], dim=-1).reshape(rows, half * 2)
+
+
+def dequantize_blockwise_4bit(
+    packed: torch.Tensor, scales: torch.Tensor, shape: Tuple[int, ...],
+) -> torch.Tensor:
+    q = _unpack(packed, torch.int32) - 7
+    return dequantize_blockwise(q.to(torch.int8), scales, shape)
+
+
+def quantize_blockwise_4bit_sqrt(
+    x: torch.Tensor, block_size: int = DEFAULT_BLOCK
+) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, ...]]:
+    """Unsigned 4-bit in the sqrt domain, for Adam's second moment:
+    15 levels over ``[0, sqrt(absmax)]``."""
+    shape = tuple(x.shape)
+    y = torch.sqrt(torch.clamp_min(to_block_tiles(x, block_size), 0.0))
+    scales = torch.clamp_min(
+        y.amax(dim=-1, keepdim=True) * reciprocal(15.0), SCALE_FLOOR
+    )
+    q = torch.clamp(torch.round(y / scales), 0, 15).to(torch.uint8)
+    packed = q[:, 0::2] | (q[:, 1::2] << 4)
+    return packed, scales, shape
+
+
+def dequantize_blockwise_4bit_sqrt(
+    packed: torch.Tensor, scales: torch.Tensor, shape: Tuple[int, ...],
+) -> torch.Tensor:
+    y = _unpack(packed, torch.float32) * scales
+    return (y * y).reshape(-1)[:_numel(shape)].reshape(shape)
+
+
+def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
+    """``(1 - b1**count, 1 - b2**count)`` in fp32, as the reference
+    computes them on the device, here on the host from the host count
+    (no device sync).  Returned as Python floats holding the fp32
+    values exactly."""
+    c = np.float32(count)
+    one = np.float32(1.0)
+    return (float(one - np.power(np.float32(b1), c)),
+            float(one - np.power(np.float32(b2), c)))

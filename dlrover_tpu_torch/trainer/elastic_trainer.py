@@ -13,7 +13,7 @@ and then one ``optimizer.step()``, with loss and gradients averaged
 over the micro-batches exactly as the reference averages them.
 
 The ``trainer.step`` chaos hook, the AOT step resolution and
-multi-process initialisation come with the launcher in slice 2 of the
+multi-process initialisation come with the launcher in slice 3 of the
 port.
 """
 

@@ -8,8 +8,8 @@ loss-spike detection are the reference's; the step is
 one GPU.  Two options of the reference belong to later slices of the
 port and raise ``NotImplementedError`` until then: ``strategy``
 (``auto_accelerate``, slice 4) and the flash checkpoint
-(``save_steps``/``resume_from_checkpoint``, slice 2).  This slice
-saves no checkpoint.
+(``save_steps``/``resume_from_checkpoint``, slice 3).  The port
+saves no checkpoint yet.
 """
 
 import time
@@ -48,7 +48,7 @@ class TrainingArguments:
     """Reference: ``AtorchArguments`` (atorch/trainer/atorch_args.py).
 
     ``save_steps`` defaults to 0 here and ``resume_from_checkpoint``
-    to False: the flash checkpoint comes with slice 2 of the port,
+    to False: the flash checkpoint comes with slice 3 of the port,
     and with it the reference's ``output_dir`` and
     ``save_storage_steps``; ``dry_run_candidates`` comes with
     ``strategy`` in slice 4.
@@ -71,8 +71,11 @@ class TrainingArguments:
 class Trainer:
     """``loss_fn(model, batch) -> scalar``; ``optim_factory(params)
     -> torch.optim.Optimizer`` (default: AdamW with optax's ``adamw``
-    defaults, weight decay 1e-4 on every parameter).  Runs on
-    ``device``, the GPU unless ``"cpu"`` is passed."""
+    defaults, weight decay 1e-4 on every parameter; the low-bit family
+    of :mod:`dlrover_tpu_torch.optim` plugs in the same way, e.g.
+    ``lambda ps: q_adamw(ps, lr=3e-4, weight_decay=0.1)`` for int8
+    AdamW moments).  Runs on ``device``, the GPU unless ``"cpu"`` is
+    passed."""
 
     def __init__(
         self,
@@ -92,7 +95,7 @@ class Trainer:
         if args.save_steps or args.resume_from_checkpoint:
             raise NotImplementedError(
                 "save_steps/resume_from_checkpoint need the flash "
-                "checkpoint, which comes with slice 2 of the port"
+                "checkpoint, which comes with slice 3 of the port"
             )
         self.device = resolve_device(device)
         self.model = model.to(self.device)

@@ -162,12 +162,15 @@ def test_params_round_trip_is_bit_exact(tie, flax_init):
 
 
 def test_converter_transposes_dense_kernels(flax_init):
+    """Dense weights keep flax's ``[in, out]`` kernel layout in the
+    port, so the converter carries them over untransposed (and
+    blockwise optimizer state over them code for code)."""
     params = flax_init[True]
     sd = params_from_jax(params)
     kernel = params["block_0"]["attn"]["qkv"]["kernel"]
     assert kernel.shape == (64, 192)
     np.testing.assert_array_equal(
-        sd["blocks.0.attn.qkv.weight"].numpy(), kernel.T
+        sd["blocks.0.attn.qkv.weight"].numpy(), kernel
     )
     np.testing.assert_array_equal(
         sd["blocks.0.ln_attn.weight"].numpy(),
@@ -176,6 +179,48 @@ def test_converter_transposes_dense_kernels(flax_init):
     np.testing.assert_array_equal(
         sd["wte.weight"].numpy(), params["wte"]["embedding"]
     )
+
+
+def test_bf16_param_dtype_keeps_layernorms_fp32():
+    """The reference's rule: Dense and Embed weights take
+    ``param_dtype``; flax's ``nn.LayerNorm`` takes none, so layernorm
+    params stay fp32 — and the flax init carries over bit for bit."""
+    jcfg = jax_gpt.GPTConfig.tiny(param_dtype=jnp.bfloat16)
+    params = _np_tree(jax.jit(lambda key: jax_gpt.GPT(jcfg).init(
+        key, jnp.zeros((2, SEQ), jnp.int32))["params"])(jax.random.PRNGKey(0)))
+    model = port_gpt.GPT(port_gpt.GPTConfig.tiny(param_dtype=torch.bfloat16),
+                         device="cpu")
+    dtypes = {n: p.dtype for n, p in model.named_parameters()}
+    assert {n for n, d in dtypes.items() if d == torch.float32} == {
+        n for n in dtypes if ".ln_" in n or n.startswith("ln_f")}
+    for name, value in _flat(params):
+        want = torch.float32 if value.dtype == np.float32 else torch.bfloat16
+        assert value.dtype in (np.float32, jnp.bfloat16), name
+        assert dtypes[_port_name(name)] == want, name
+    model.load_state_dict(params_from_jax(params))
+    back = dict(_flat(params_to_jax(model.state_dict())))
+    for name, value in _flat(params):
+        assert back[name].dtype == value.dtype, name
+        assert np.array_equal(back[name].view(np.uint8),
+                              value.view(np.uint8)), name
+
+
+def _port_name(flax_name: str) -> str:
+    parts = flax_name.split("/")
+    leaf = "bias" if parts[-1] == "bias" else "weight"
+    mod = []
+    for p in parts[:-1]:
+        mod += ["blocks", p[6:]] if p.startswith("block_") else [p]
+    return ".".join(mod + [leaf])
+
+
+def test_gpt2_xl_config_matches_reference():
+    cfg = port_gpt.GPTConfig.gpt2_xl(param_dtype=torch.bfloat16)
+    ref = jax_gpt.GPTConfig.gpt2_xl()
+    assert (cfg.num_layers, cfg.num_heads, cfg.hidden_dim, cfg.head_dim,
+            cfg.max_seq_len, cfg.vocab_size) == (
+        ref.num_layers, ref.num_heads, ref.hidden_dim, ref.head_dim,
+        ref.max_seq_len, ref.vocab_size) == (48, 25, 1600, 64, 1024, 50304)
 
 
 def test_count_params_matches_jax(flax_init):

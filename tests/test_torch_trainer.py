@@ -200,8 +200,8 @@ def test_trainer_runs_on_the_gpu_unless_told_otherwise(tmp_path,
 
 @pytest.mark.parametrize("kw,match", [
     (dict(strategy=object()), "slice 4"),
-    (dict(save_steps=5), "slice 2"),
-    (dict(resume_from_checkpoint=True), "slice 2"),
+    (dict(save_steps=5), "slice 3"),
+    (dict(resume_from_checkpoint=True), "slice 3"),
 ])
 def test_trainer_options_of_later_slices_raise(tmp_path, kw, match):
     with pytest.raises(NotImplementedError, match=match):
