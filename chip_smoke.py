@@ -6,13 +6,19 @@
 Phases, each fatal on failure:
 
 1. build the CUDA kernels of ``dlrover_tpu_torch/csrc`` with nvcc
-   (one process per source, all started together);
+   (one process per source, all started together); print each
+   kernel's registers and spills, and the wgmma (HGMMA) and TMA
+   (UTMALDG, UBLKCP) instructions in the SASS of the wgmma kernels;
 2. hold each flash-attention kernel (fwd, bwd_dq, bwd_dkv) against its
-   plain PyTorch version on the card, at the training shapes
-   (b=8, s=1024, h=12, d=64, bf16, causal) and at small non-causal,
-   GQA, head_dim-128 and fp32 cases; time each beside its bound, its
-   plain version and scaled_dot_product_attention (a yardstick that
-   the port never calls);
+   plain PyTorch version on the card, at the training shapes of GPT-2
+   small (b=8, s=1024, h=12, d=64, bf16, causal) and GPT-2 XL (b=4,
+   h=25) and at small non-causal, GQA, ragged, head_dim-128 and fp32
+   cases, and hold the bf16 dK/dV kernel to fp32 p and dS (closer to
+   that plain version than to one that rounds them to bf16); time
+   each at both training shapes, on the device alone and per call
+   with the host's launch path inside, beside its bound, its plain
+   version and scaled_dot_product_attention (a yardstick that the
+   port never calls), and the backward pair beside SDPA's backward;
 3. hold each quantization kernel (quantize, dequantize, the fused
    q-AdamW step) against its plain version on the card at GPT-2 XL's
    leaves (``wte`` as [39300, 2048], an ``fc_in`` weight as
@@ -74,9 +80,11 @@ KERNELS = {
         _QUANT, "dlrover_tpu/ops/quantization.py:195 (_qadam_kernel, via fused_qadam_step :245)"),
 }
 
-# (b, s, h, kv_heads, d, dtype, causal): the training shape first
+# (b, s, h, kv_heads, d, dtype, causal): the training shapes first, GPT-2
+# small's (the one in the kernels line) and GPT-2 XL's
 CASES = [
     (8, 1024, 12, 12, 64, "bfloat16", True),
+    (4, 1024, 25, 25, 64, "bfloat16", True),
     (2, 200, 4, 4, 64, "bfloat16", False),    # ragged last tile
     (2, 328, 8, 4, 64, "bfloat16", True),     # GQA group 2, ragged
     (2, 384, 4, 4, 128, "bfloat16", True),
@@ -85,11 +93,15 @@ CASES = [
     (2, 320, 8, 2, 128, "float32", False),
     (1, 100, 2, 2, 64, "float32", True),
 ]
+TIMED_CASES = 2
 # dtype -> tolerance on (out, dq, dk, dv), lse, delta: bf16 outputs are
 # rounded once more than the fp32 math inside; fp32 differs only by
 # the order of the sums
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2, lse=1e-3, delta=1e-3),
        "float32": dict(atol=1e-4, rtol=0.0, lse=1e-4, delta=1e-4)}
+# bf16 dK/dV: the largest ratio of mean errors to the fp32-p/dS and the
+# bf16-p/dS plain versions (_check_dkv_rounding)
+ROUNDING_RATIO = 0.8
 
 # (leaf, numel, block, dtype, qmax): GPT-2 XL's wte first, the timed case
 QUANT_CASES = [
@@ -111,6 +123,9 @@ QUANT_TOL = 0
 QADAM_HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, lr=3e-4, wd=0.1)
 TIE_SCALE = 2.0 ** -10
 
+# ~1 ms of the card's clock: longer than any launch path on the host
+SLEEP_CYCLES = 2_000_000
+
 SMALL_SEQ = 1024
 XL_BATCH, XL_STEPS = 4, 6
 
@@ -128,7 +143,14 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def median_ms(fn, reps: int, warmup: int = 2) -> float:
+def median_ms(fn, reps: int, warmup: int = 2, device_only=True) -> float:
+    """Median time of one call of ``fn``, between CUDA events.  With
+    ``device_only``, a sleep kernel queued before each start event holds
+    the card while the host enqueues the call, so a kernel shorter than
+    its own launch path on the host is timed on the device alone;
+    without it, the time is the longer of the device's and the host's
+    path from one event to the other: what one call costs a caller that
+    issues calls back to back."""
     import torch
 
     for _ in range(warmup):
@@ -138,6 +160,8 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -162,7 +186,51 @@ def launch_counts() -> dict:
             **{f"quantization.{k}": v for k, v in qz.LAUNCHES.items()}}
 
 
+# the kernels that must issue wgmma and TMA copies
+WGMMA_KERNELS = ("fwd_tma_kernel", "dkv_tma_kernel")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``fwd_tma_kernel<64>`` from an Itanium-mangled template name."""
+    import re
+
+    m = re.search(r"\d+([a-z_]+kernel)I(?:Li(\d+)E)?", mangled)
+    if not m:
+        return mangled[:60]
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def sass_counts(lib_path) -> dict:
+    """``{kernel: {"HGMMA": n, "UTMALDG": n, "UBLKCP": n}}`` from
+    ``cuobjdump -sass``, or ``None`` when the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    from dlrover_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if not tool:
+        return None
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            counts[name] = {"HGMMA": 0, "UTMALDG": 0, "UBLKCP": 0}
+        elif name:
+            for op in counts[name]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    return counts
+
+
 def phase_build():
+    import re
+
     from dlrover_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
@@ -170,10 +238,26 @@ def phase_build():
     log(f"build: {json.dumps(seconds)} (wall {time.perf_counter() - t0:.1f} s)")
     for name in SOURCES:
         ptxas = cuda_build.library_path(name).with_suffix(".log")
-        if ptxas.exists():
-            for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+        if not ptxas.exists():
+            continue
+        kernel = "?"
+        for line in ptxas.read_text().splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel = _kernel_name(m.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {kernel}: {line.strip()[:240]}")
+    counts = sass_counts(cuda_build.library_path("flash_attention"))
+    if counts is None:
+        log("sass: no cuobjdump in the CUDA toolkit, instruction counts "
+            "not taken")
+        return
+    for kernel, c in counts.items():
+        if kernel.split("<")[0] in WGMMA_KERNELS:
+            log(f"sass flash_attention {kernel}: {json.dumps(c)}")
+            if not c["HGMMA"] or not (c["UTMALDG"] or c["UBLKCP"]):
+                raise AssertionError(f"{kernel} issues no wgmma or no TMA "
+                                     f"copy: {c}")
 
 
 def _pairs(s: int, causal: bool) -> int:
@@ -248,6 +332,34 @@ def _check(name, got, want, atol, rtol, failures, case):
     return err.max().item()
 
 
+def _check_dkv_rounding(q, k, v, dout, lse, delta, scale, causal, blocks,
+                        dk, dv, failures, case):
+    """The bf16 dK/dV kernel keeps p and dS at fp32 precision (the TPU
+    kernel's rounding point, by a bf16 hi+lo split), which TOL cannot
+    tell from rounding them to bf16.  The mean error to the plain
+    version with fp32 p and dS must be well under the mean error to one
+    that rounds them to bf16: ~0.63 of it for a kernel that keeps fp32,
+    ~1.6 for one that rounds (both outputs rounded to bf16 once).
+    Returns the two ratios (dk, dv)."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    f32 = [x.float() for x in (q, k, v, dout)]
+    fine = fa.bwd_dkv_plain(*f32, lse, delta, scale, causal, *blocks)
+    coarse = fa.bwd_dkv_plain(*f32, lse, delta, scale, causal, *blocks,
+                              operand_dtype=torch.bfloat16)
+    ratios = []
+    for name, got, a, b in zip(("dk", "dv"), (dk, dv), fine, coarse):
+        got = got.float()
+        ratio = ((got - a).abs().mean() / (got - b).abs().mean()).item()
+        ratios.append(ratio)
+        if not ratio <= ROUNDING_RATIO:
+            failures.append(f"{case} {name}: closer to bf16 p and dS than "
+                            f"to fp32 (error ratio {ratio:.4f})")
+    return ratios
+
+
 def phase_kernels(card: str):
     import torch
 
@@ -296,9 +408,18 @@ def phase_kernels(card: str):
         log(f"kernel check {case}: " + ", ".join(
             f"{n} max_abs_err {e:.3e}" for n, e in errs.items())
             + f" (tolerance {tol})")
-        if case is CASES[0]:
-            results = _time_main_case(case, q, k, v, dout, out_p, lse_p,
-                                      delta_p, blocks, errs, card)
+        if dtype is torch.bfloat16:
+            ratios = _check_dkv_rounding(q, k, v, dout, lse_p, delta_p, scale,
+                                         causal, blocks, dk_c, dv_c,
+                                         failures, case)
+            log(f"dkv rounding point {case}: mean error to the fp32-p/dS "
+                f"version over that to the bf16-p/dS one, dk "
+                f"{ratios[0]:.4f}, dv {ratios[1]:.4f} (must be <= "
+                f"{ROUNDING_RATIO})")
+        if CASES.index(case) < TIMED_CASES:
+            timed = _time_main_case(case, q, k, v, dout, out_p, lse_p,
+                                    delta_p, blocks, errs, card)
+            results = results or timed
     if failures:
         raise AssertionError("kernel check failed:\n" + "\n".join(failures))
     return results
@@ -339,23 +460,48 @@ def _time_main_case(case, q, k, v, dout, out, lse, delta, blocks, errs,
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(), (qt, kt, vt), dt)
 
+    # each time twice: on the device alone, and per call with the
+    # host's launch path inside (median_ms's two readings)
     sdpa_fwd = median_ms(sdpa, 20)
     sdpa_both = median_ms(sdpa_fwd_bwd, 20)
+    sdpa_bwd = sdpa_both - sdpa_fwd
+    sdpa_fwd_call = median_ms(sdpa, 20, device_only=False)
+    sdpa_bwd_call = median_ms(sdpa_fwd_bwd, 20,
+                              device_only=False) - sdpa_fwd_call
     log(f"sdpa yardstick {case}: fwd {sdpa_fwd:.4f} ms, fwd+bwd "
-        f"{sdpa_both:.4f} ms, bwd {sdpa_both - sdpa_fwd:.4f} ms [{card}]")
+        f"{sdpa_both:.4f} ms, bwd {sdpa_bwd:.4f} ms on the device; per "
+        f"call fwd {sdpa_fwd_call:.4f} ms, bwd {sdpa_bwd_call:.4f} ms "
+        f"[{card}]")
     bounds = bounds_ms(*case)
     results = {}
     for name in kernel_fns:
         ms = median_ms(kernel_fns[name], 20)
+        call = median_ms(kernel_fns[name], 20, device_only=False)
         plain = median_ms(plain_fns[name], 3, warmup=1)
         bound, bound_by = bounds[name]
+        fwd = name == "flash_attention.fwd"
         results[name] = dict(
-            max_abs_err=errs[name], ms=ms, plain_ms=plain, bound_ms=bound,
-            bound_by=bound_by,
-            library_ms=sdpa_fwd if name == "flash_attention.fwd" else None,
+            max_abs_err=errs[name], ms=ms, call_ms=call, plain_ms=plain,
+            bound_ms=bound, bound_by=bound_by,
+            library_ms=sdpa_fwd if fwd else None,
+            library_call_ms=sdpa_fwd_call if fwd else None,
         )
-        log(f"kernel {name} {case}: {ms:.4f} ms, bound {bound:.4f} ms "
-            f"({bound_by}), plain {plain:.4f} ms [{card}]")
+        log(f"kernel {name} {case}: {ms:.4f} ms on the device, {call:.4f} "
+            f"ms per call, bound {bound:.4f} ms ({bound_by}), plain "
+            f"{plain:.4f} ms"
+            + (f", sdpa fwd {sdpa_fwd:.4f} ms on the device, "
+               f"{sdpa_fwd_call:.4f} ms per call" if fwd else "")
+            + f" [{card}]")
+    pair = (results["flash_attention.bwd_dq"]["ms"]
+            + results["flash_attention.bwd_dkv"]["ms"])
+    pair_bound = (bounds["flash_attention.bwd_dq"][0]
+                  + bounds["flash_attention.bwd_dkv"][0])
+    pair_call = (results["flash_attention.bwd_dq"]["call_ms"]
+                 + results["flash_attention.bwd_dkv"]["call_ms"])
+    log(f"backward pair {case}: dQ + dK/dV {pair:.4f} ms on the device, "
+        f"{pair_call:.4f} ms per call, bound {pair_bound:.4f} ms, sdpa bwd "
+        f"(fwd+bwd - fwd) {sdpa_bwd:.4f} ms on the device, "
+        f"{sdpa_bwd_call:.4f} ms per call [{card}]")
     return results
 
 
@@ -490,22 +636,28 @@ def _time_quant_case(case, x, codes, scales, g, p, qm, ms, qn, ns, bc1, bc2,
     }
     # the yardstick for dequantize: int8 x fp32 promotes in one kernel
     library = median_ms(lambda: torch.mul(codes, scales), 20)
+    library_call = median_ms(lambda: torch.mul(codes, scales), 20,
+                             device_only=False)
     bounds = quant_bounds_ms(numel, rows, block, dtype_name)
     results = {}
     for name in kernel_fns:
         ms_k = median_ms(kernel_fns[name], 20)
+        call = median_ms(kernel_fns[name], 20, device_only=False)
         plain = median_ms(plain_fns[name], 5, warmup=1)
         bound, bound_by = bounds[name]
+        deq = name == "quantization.dequantize"
         results[name] = dict(
-            max_abs_err=errs[name][1], ms=ms_k, plain_ms=plain,
+            max_abs_err=errs[name][1], ms=ms_k, call_ms=call, plain_ms=plain,
             bound_ms=bound, bound_by=bound_by,
-            library_ms=library if name == "quantization.dequantize" else None,
+            library_ms=library if deq else None,
+            library_call_ms=library_call if deq else None,
         )
         log(f"kernel {name} {leaf} [{rows}, {block}] {dtype_name}: "
-            f"{ms_k:.4f} ms, bound {bound:.4f} ms ({bound_by}), plain "
-            f"{plain:.4f} ms"
-            + (f", torch.mul {library:.4f} ms"
-               if name == "quantization.dequantize" else "") + f" [{card}]")
+            f"{ms_k:.4f} ms on the device, {call:.4f} ms per call, bound "
+            f"{bound:.4f} ms ({bound_by}), plain {plain:.4f} ms"
+            + (f", torch.mul {library:.4f} ms on the device, "
+               f"{library_call:.4f} ms per call" if deq else "")
+            + f" [{card}]")
     return results
 
 
@@ -853,8 +1005,10 @@ def main() -> int:
             "replaces": replaces, "launches": sum(launches.values()),
             "launches_by_path": launches,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_call_ms": t["library_call_ms"],
         })
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -17,7 +17,8 @@ and the backward's row term ``Delta = rowsum(O * dO)`` are fp32
 Dispatch is by device: a CPU tensor takes the plain PyTorch version
 below (the same tiled online-softmax algorithm with the same casts,
 tiled by the public ``block_q``/``block_k``); a CUDA tensor launches
-the kernel or raises.  The kernels tile by 64 rows of their own.
+the kernel or raises.  The kernels tile by rows of their own: the bf16
+forward and dK/dV (wgmma, fed by TMA) by 128, the others by 64.
 ``LAUNCHES`` counts kernel launches only.
 """
 
@@ -28,7 +29,7 @@ import torch
 
 NEG_INF = -1e30
 # tile of the plain version when the caller names none; the CUDA
-# kernels use their own 64-row tiles whatever is asked here
+# kernels use their own tiles whatever is asked here
 DEFAULT_BLOCK = 128
 
 # kernel launches, one count per kernel, bumped where it launches
@@ -148,11 +149,14 @@ def bwd_dq_plain(
 
 def bwd_dkv_plain(
     q, k, v, dout, lse, delta, scale: float, causal: bool,
-    block_q: int, block_k: int,
+    block_q: int, block_k: int, operand_dtype=torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the dK/dV kernel: p, dS, dO and q stay fp32,
     as in ``_bwd_dkv_kernel``; the group's q heads are summed in fp32
-    before the one cast, as the CUDA kernel does."""
+    before the one cast, as the CUDA kernel does.  ``operand_dtype``
+    rounds p and dS before their products: bf16 gives the coarser
+    rounding point that the kernel checks hold the bf16 kernel away
+    from."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     group = h // kvh
@@ -171,10 +175,12 @@ def bwd_dkv_plain(
                 _masked_logits(qb, kb, scale, causal, q0, k0)
                 - lse[:, q0:q0 + block_q, None]
             )
-            dv[:, k0:k0 + block_k] += torch.bmm(p.transpose(1, 2), dob)
+            dv[:, k0:k0 + block_k] += torch.bmm(
+                p.to(operand_dtype).float().transpose(1, 2), dob)
             dp = torch.bmm(dob, vb.float().transpose(1, 2))
             ds = p * (dp - delta[:, q0:q0 + block_q, None]) * scale
-            dk[:, k0:k0 + block_k] += torch.bmm(ds.transpose(1, 2), qb)
+            dk[:, k0:k0 + block_k] += torch.bmm(
+                ds.to(operand_dtype).float().transpose(1, 2), qb)
     dk = dk.reshape(b * kvh, group, s, d).sum(dim=1)
     dv = dv.reshape(b * kvh, group, s, d).sum(dim=1)
     return _unfold(dk.to(k.dtype), b), _unfold(dv.to(v.dtype), b)
@@ -226,8 +232,10 @@ def _lib():
 
 def _cuda_inputs(*xs: torch.Tensor):
     """Check what the kernels take and return the inputs ready for
-    them.  The bf16 kernels copy rows 16 bytes at a time, so a bf16
-    view whose rows do not start on 16 bytes is copied first."""
+    them.  The bf16 kernels read rows through TMA tensor maps (and
+    16-byte copies), which need a 16-byte-aligned base and 16-byte
+    strides, so a bf16 view that breaks either is copied first; the
+    fused-qkv views of the model pass as they are."""
     q = xs[0]
     for x in xs:
         if x.device != q.device:

@@ -212,20 +212,72 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(dtype, d, match):
         fa.fwd_cuda(q, q, q, 0.125, True)
 
 
-def test_bf16_rows_reach_the_kernels_16_byte_aligned():
-    """The bf16 kernels copy rows 16 bytes at a time: views whose rows
-    start elsewhere are copied, aligned ones (the fused-qkv views of
-    the model) pass through untouched."""
-    qkv = torch.zeros((2, 64, 3 * 128), dtype=torch.bfloat16)
-    q, k, v = (t.reshape(2, 64, 2, 64) for t in qkv.split(128, dim=-1))
-    assert all(a is b for a, b in zip(fa._cuda_inputs(q, k, v), (q, k, v)))
-    odd = torch.zeros((2 * 64 * 2 * 64 + 1,), dtype=torch.bfloat16)[1:]
-    odd = odd.view(2, 64, 2, 64)
+@pytest.mark.parametrize("d_model,head_dim", [
+    (768, 64),    # GPT-2 small
+    (1600, 64),   # GPT-2 XL
+    (2048, 128),  # a head_dim-128 width
+])
+def test_bf16_rows_reach_the_kernels_16_byte_aligned(d_model, head_dim):
+    """The bf16 kernels read rows through TMA tensor maps (and 16-byte
+    copies), which need a 16-byte-aligned base and 16-byte strides.
+    The model's q/k/v, views of one fused projection (seq stride
+    3 d_model), meet that and pass through untouched; views whose rows
+    start elsewhere are copied."""
+    b, s = 2, 16
+    qkv = torch.zeros((b, s, 3 * d_model), dtype=torch.bfloat16)
+    views = [t.reshape(b, s, d_model // head_dim, head_dim)
+             for t in qkv.split(d_model, dim=-1)]
+    assert all(a is v for a, v in zip(fa._cuda_inputs(*views), views))
+    for v in views:
+        assert v.data_ptr() % 16 == 0 and v.stride(-1) == 1
+        assert all(st * v.element_size() % 16 == 0
+                   for st in v.stride()[:-1])
+    assert views[0].stride(1) == 3 * d_model
+    q, k, v = views
+    odd = torch.zeros((q.numel() + 1,), dtype=torch.bfloat16)[1:]
+    odd = odd.view(q.shape)
     q2, k2, v2 = fa._cuda_inputs(odd, k, v)
     assert q2.data_ptr() % 16 == 0 and q2.is_contiguous()
     assert torch.equal(q2, odd) and k2 is k and v2 is v
-    f32 = torch.zeros((2, 64, 2, 64))[:, 1:]
+    f32 = torch.zeros((b, s, 2, head_dim))[:, 1:]
     assert fa._cuda_inputs(f32, f32, f32)[0] is f32
+
+
+def _rounding_ratios(dk, dv, fine, coarse):
+    """Mean error of (dk, dv) to the plain version with fp32 p and dS
+    (``fine``) over the mean error to one that rounds them to bf16
+    (``coarse``): ~0.63 for a kernel that keeps fp32 p and dS, ~1.6
+    for one that rounds them, its outputs rounded to bf16 either way."""
+    return [((g.float() - a).abs().mean()
+             / (g.float() - c).abs().mean()).item()
+            for g, a, c in zip((dk, dv), fine, coarse)]
+
+
+def _dkv_references(q, k, v, dout, lse, delta, scale, causal, blk):
+    f32 = [x.float() for x in (q, k, v, dout)]
+    return [fa.bwd_dkv_plain(*f32, lse, delta, scale, causal, blk, blk,
+                             operand_dtype=dt)
+            for dt in (torch.float32, torch.bfloat16)]
+
+
+def test_dkv_rounding_check_tells_fp32_p_from_bf16_p():
+    """The check that holds the bf16 dK/dV kernel to fp32 p and dS
+    (also in ``chip_smoke.py``): a stand-in for each design, the
+    matching plain version rounded to bf16 once, lands on its side of
+    0.8."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, dout = (torch.randn(1, 200, 4, 64, generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    scale, blk = 64 ** -0.5, fa._fit_block(200, 128)
+    out, lse = fa.fwd_plain(q, k, v, scale, True, blk, blk)
+    delta = fa.delta_plain(out, dout)
+    fine, coarse = _dkv_references(q, k, v, dout, lse, delta, scale, True,
+                                   blk)
+    keeps = _rounding_ratios(*(t.to(torch.bfloat16) for t in fine), fine,
+                             coarse)
+    rounds = _rounding_ratios(*(t.to(torch.bfloat16) for t in coarse), fine,
+                              coarse)
+    assert max(keeps) < 0.8 < 1 / 0.8 < min(rounds), (keeps, rounds)
 
 
 def test_params_struct_covers_the_cuda_struct():
@@ -259,8 +311,12 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_cuda_kernels_match_plain(cuda, dtype, tol, causal):
-    b, s, h, kvh, d = 2, 200, 4, 2, 64
+@pytest.mark.parametrize("b,s,h,kvh,d", [
+    (2, 200, 4, 2, 64),   # ragged last tile, GQA group 2
+    (1, 136, 4, 2, 128),  # head_dim 128, a seq that no 128 divides
+    (2, 320, 8, 2, 128),  # head_dim 128, GQA group 4
+])
+def test_cuda_kernels_match_plain(cuda, dtype, tol, causal, b, s, h, kvh, d):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v, dout = (
         torch.randn(b, s, n, d, generator=gen, device=cuda).to(dtype)
@@ -280,6 +336,29 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol, causal):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kvh,d", [
+    (2, 1024, 4, 4, 64),  # the training seq
+    (2, 328, 8, 4, 64),   # GQA group 2, ragged
+    (1, 136, 4, 2, 128),  # head_dim 128, ragged
+])
+def test_cuda_dkv_keeps_fp32_p_and_ds(cuda, b, s, h, kvh, d):
+    """TOL cannot tell fp32 p and dS from bf16 ones in dK/dV: the
+    error ratio can."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, dout = (
+        torch.randn(b, s, n, d, generator=gen, device=cuda)
+        .to(torch.bfloat16) for n in (h, kvh, kvh, h)
+    )
+    scale, blk = d ** -0.5, fa._fit_block(s, 128)
+    out, lse = fa.fwd_plain(q, k, v, scale, True, blk, blk)
+    delta = fa.delta_plain(out, dout)
+    dk, dv = fa.bwd_dkv_cuda(q, k, v, dout, lse, delta, scale, True)
+    ratios = _rounding_ratios(dk, dv, *_dkv_references(
+        q, k, v, dout, lse, delta, scale, True, blk))
+    assert max(ratios) < 0.8, ratios
 
 
 def parity_report():
