@@ -13,8 +13,9 @@ Phases, each fatal on failure:
    plain PyTorch version on the card, at the training shapes of GPT-2
    small (b=8, s=1024, h=12, d=64, bf16, causal) and GPT-2 XL (b=4,
    h=25) and at small non-causal, GQA, ragged, head_dim-128 and fp32
-   cases, and hold the bf16 dK/dV kernel to fp32 p and dS (closer to
-   that plain version than to one that rounds them to bf16); time
+   cases, and hold the bf16 dK/dV kernel to fp32 p and dS and the bf16
+   dQ kernel to dS rounded to bf16 (each closer to the plain version
+   at the TPU kernel's rounding point than to one at the other); time
    each at both training shapes, on the device alone and per call
    with the host's launch path inside, beside its bound, its plain
    version and scaled_dot_product_attention (a yardstick that the
@@ -35,10 +36,12 @@ Phases, each fatal on failure:
    a. GPT-2 small (seq 1024, global batch 32, micro-batch 8), AdamW;
    b. GPT-2 XL at full width and depth (48 layers, d 1600, seq 1024,
       bf16 params, flash attention, remat, batch 4) with int8 q-AdamW
-      moments, the twin of ``examples/train_xl_lowmem.py``; report
-      peak memory and the moments' share of it, the optimizer's time
-      per step beside the fused step's summed bound, and a profiled
-      step by kernel family;
+      moments, the twin of ``examples/train_xl_lowmem.py``; hold the
+      optimizer's one q-AdamW launch over all 580 leaves against the
+      plain step of each leaf and against 580 per-leaf launches;
+      report peak memory and the moments' share of it, the
+      optimizer's host, wall and device time per step beside the fused
+      step's summed bound, and a profiled step by kernel family;
    c. GPT-2 small with 4-bit q-AdamW moments, the path that runs the
       dequantize kernel.
 
@@ -99,8 +102,9 @@ TIMED_CASES = 2
 # the order of the sums
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2, lse=1e-3, delta=1e-3),
        "float32": dict(atol=1e-4, rtol=0.0, lse=1e-4, delta=1e-4)}
-# bf16 dK/dV: the largest ratio of mean errors to the fp32-p/dS and the
-# bf16-p/dS plain versions (_check_dkv_rounding)
+# bf16 dK/dV and dQ: the largest ratio of mean errors to the plain
+# version at the TPU kernel's rounding point and to the one at the other
+# point (_check_dkv_rounding, _check_dq_rounding)
 ROUNDING_RATIO = 0.8
 
 # (leaf, numel, block, dtype, qmax): GPT-2 XL's wte first, the timed case
@@ -125,6 +129,8 @@ TIE_SCALE = 2.0 ** -10
 
 # ~1 ms of the card's clock: longer than any launch path on the host
 SLEEP_CYCLES = 2_000_000
+# ~20 ms: longer than the q-AdamW step's host path over GPT-2 XL's leaves
+OPT_SLEEP_CYCLES = 40_000_000
 
 SMALL_SEQ = 1024
 XL_BATCH, XL_STEPS = 4, 6
@@ -143,7 +149,8 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def median_ms(fn, reps: int, warmup: int = 2, device_only=True) -> float:
+def median_ms(fn, reps: int, warmup: int = 2, device_only=True,
+              sleep_cycles=SLEEP_CYCLES) -> float:
     """Median time of one call of ``fn``, between CUDA events.  With
     ``device_only``, a sleep kernel queued before each start event holds
     the card while the host enqueues the call, so a kernel shorter than
@@ -161,7 +168,7 @@ def median_ms(fn, reps: int, warmup: int = 2, device_only=True) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if device_only:
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(sleep_cycles)
         start.record()
         fn()
         end.record()
@@ -187,7 +194,7 @@ def launch_counts() -> dict:
 
 
 # the kernels that must issue wgmma and TMA copies
-WGMMA_KERNELS = ("fwd_tma_kernel", "dkv_tma_kernel")
+WGMMA_KERNELS = ("fwd_tma_kernel", "dkv_tma_kernel", "dq_tma_kernel")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -360,6 +367,31 @@ def _check_dkv_rounding(q, k, v, dout, lse, delta, scale, causal, blocks,
     return ratios
 
 
+def _check_dq_rounding(q, k, v, dout, lse, delta, scale, causal, blocks, dq,
+                       failures, case):
+    """The bf16 dQ kernel rounds dS to bf16 before dS K, as the TPU
+    kernel does (``ds.astype(k.dtype)``), which TOL cannot tell from
+    keeping it fp32.  The mean error to the plain version with bf16 dS
+    (fp32 out) must be well under the mean error to one that keeps dS
+    fp32: ~0.63 of it for a kernel that rounds, ~1.6 for one that does
+    not (the output rounded to bf16 once either way).  Returns the
+    ratio."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
+    fine = fa.bwd_dq_plain(qf, kf, vf, dof, lse, delta, scale, causal,
+                           *blocks)
+    # k in bf16 rounds dS to bf16 (ds.to(k.dtype)); q in fp32 keeps dq fp32
+    coarse = fa.bwd_dq_plain(qf, k, vf, dof, lse, delta, scale, causal,
+                             *blocks)
+    got = dq.float()
+    ratio = ((got - coarse).abs().mean() / (got - fine).abs().mean()).item()
+    if not ratio <= ROUNDING_RATIO:
+        failures.append(f"{case} dq: closer to fp32 dS than to bf16 dS "
+                        f"(error ratio {ratio:.4f})")
+    return ratio
+
+
 def phase_kernels(card: str):
     import torch
 
@@ -416,6 +448,12 @@ def phase_kernels(card: str):
                 f"version over that to the bf16-p/dS one, dk "
                 f"{ratios[0]:.4f}, dv {ratios[1]:.4f} (must be <= "
                 f"{ROUNDING_RATIO})")
+            dq_ratio = _check_dq_rounding(q, k, v, dout, lse_p, delta_p, scale,
+                                          causal, blocks, dq_c, failures,
+                                          case)
+            log(f"dq rounding point {case}: mean error to the bf16-dS "
+                f"version over that to the fp32-dS one {dq_ratio:.4f} (must "
+                f"be <= {ROUNDING_RATIO})")
         if CASES.index(case) < TIMED_CASES:
             timed = _time_main_case(case, q, k, v, dout, out_p, lse_p,
                                     delta_p, blocks, errs, card)
@@ -501,7 +539,9 @@ def _time_main_case(case, q, k, v, dout, out, lse, delta, blocks, errs,
     log(f"backward pair {case}: dQ + dK/dV {pair:.4f} ms on the device, "
         f"{pair_call:.4f} ms per call, bound {pair_bound:.4f} ms, sdpa bwd "
         f"(fwd+bwd - fwd) {sdpa_bwd:.4f} ms on the device, "
-        f"{sdpa_bwd_call:.4f} ms per call [{card}]")
+        f"{sdpa_bwd_call:.4f} ms per call; (dQ + dK/dV) / sdpa bwd "
+        f"{pair / sdpa_bwd:.4f} on the device, {pair_call / sdpa_bwd_call:.4f} "
+        f"per call [{card}]")
     return results
 
 
@@ -597,6 +637,18 @@ def phase_quant_kernels(card: str):
         if case is QUANT_CASES[0]:
             results = _time_quant_case(case, x, codes, scales, g, p, qm, ms,
                                        qn, ns, bc1, bc2, errs, card)
+        elif leaf == QUANT_CASES[0][0]:
+            # the same leaf in fp32: 1.6x the bytes of the bf16 step, and
+            # the same arithmetic; the two times say which one binds
+            state = [t.clone() for t in (qm, ms, qn, ns)]
+            pc = p.clone()
+            ms_k = median_ms(lambda: qz.qadam_step_cuda(
+                pc, g, *state, bc1=bc1, bc2=bc2, **QADAM_HYPER), 20)
+            bound, _ = quant_bounds_ms(numel, rows, block,
+                                       dtype_name)["quantization.qadam"]
+            log(f"kernel quantization.qadam {leaf} [{rows}, {block}] "
+                f"{dtype_name}: {ms_k:.4f} ms on the device, bound "
+                f"{bound:.4f} ms (bytes) [{card}]")
     if failures:
         raise AssertionError("quantization kernel check failed:\n"
                              + "\n".join(failures))
@@ -820,7 +872,9 @@ def phase_train_xl(card):
         "flash_attention.bwd_dkv": cfg.num_layers * steps,
         # mu and nu codes of every parameter at init
         "quantization.quantize": 2 * n_params,
-        "quantization.qadam": n_params * steps,
+        # one launch a step for the one parameter group, bf16 weights
+        # and fp32 layernorms alike
+        "quantization.qadam": steps,
     })
     trainer, result, counts = run_training(
         "train GPT-2 XL int8 q-AdamW", cfg, XL_BATCH, XL_BATCH, steps,
@@ -839,29 +893,86 @@ def phase_train_xl(card):
         f"moment state (int8 codes + fp32 scales) {moment_bytes / 2**30:.3f} "
         f"GiB = {moment_bytes / peak:.4f} of the peak, params "
         f"{param_bytes / 2**30:.3f} GiB [{card}]")
-    # the optimizer alone, on the gradients of the last step: host wall
-    # (synchronised) and the device span between events around it
     bound = sum(qadam_bytes(p.numel(), opt.block_size, p.element_size())
                 for p in params)
-    walls, spans = [], []
+    _check_multi_against_per_leaf(opt, card)
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    # the optimizer alone, on the gradients of the last step: the host's
+    # time to queue it, the wall to its end (synchronised), and its time
+    # on the device with the card held until the host has queued it
+    hosts, walls = [], []
+    launches = qz.LAUNCHES["qadam"]
     for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        start.record()
         opt.step()
-        end.record()
+        hosts.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        spans.append(start.elapsed_time(end))
-    log(f"train GPT-2 XL int8 q-AdamW: optimizer step wall "
-        f"{statistics.median(walls):.3f} ms, device span "
-        f"{statistics.median(spans):.3f} ms ({n_params} fused launches), "
-        f"summed bound of the fused step {bound / 1e9:.3f} GB / 3.35 TB/s = "
+    launches = (qz.LAUNCHES["qadam"] - launches) // len(walls)
+    device = median_ms(opt.step, 3, warmup=0, sleep_cycles=OPT_SLEEP_CYCLES)
+    log(f"train GPT-2 XL int8 q-AdamW: optimizer step host "
+        f"{statistics.median(hosts):.3f} ms to queue, wall "
+        f"{statistics.median(walls):.3f} ms to its end, device "
+        f"{device:.3f} ms ({launches} fused launch(es) a step over "
+        f"{n_params} parameters), summed bound of the fused step "
+        f"{bound / 1e9:.3f} GB / 3.35 TB/s = "
         f"{bound / PEAK_BYTES_S * 1e3:.3f} ms [{card}]")
     profile_step(trainer, trainer.train_data[0], card, "GPT-2 XL int8 q-AdamW")
     return counts
+
+
+def _check_multi_against_per_leaf(opt, card):
+    """The optimizer's one launch over all its leaves against the plain
+    step of each leaf and against one launch per leaf, from the same
+    parameters, gradients and state: zero mismatches in p, codes and
+    scales."""
+    import torch
+
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    keys = ("mu_values", "mu_scales", "nu_values", "nu_scales")
+    group, = opt.param_groups
+    params = [p for p in group["params"] if p.grad is not None]
+    before = [(p.detach().clone(), [opt.state[p][k].clone() for k in keys])
+              for p in params]
+    launches = qz.LAUNCHES["qadam"]
+    opt.step()
+    multi = qz.LAUNCHES["qadam"] - launches
+    hyper = dict(b1=group["b1"], b2=group["b2"], eps=group["eps"],
+                 lr=group["lr"], wd=group["weight_decay"])
+    failures, n_plain, n_leaf, elements = [], 0, 0, 0
+    for p, (pc, state) in zip(params, before):
+        bc1, bc2 = qz.bias_corrections(hyper["b1"], hyper["b2"],
+                                       opt.state[p]["step"])
+        block = state[0].shape[1]
+        upd, *plain = qz.fused_qadam_step_plain(
+            qz.to_block_tiles(p.grad, block), qz.to_block_tiles(pc, block),
+            *state, bc1, bc2, out_dtype=p.dtype, **hyper)
+        want_p = pc + upd.reshape(-1)[:p.numel()].reshape(p.shape)
+        case = ("plain", tuple(p.shape))
+        outs = [_mismatch("p", p, want_p, failures, case)]
+        outs += [_mismatch(k, opt.state[p][k], want, failures, case)
+                 for k, want in zip(keys, plain)]
+        n_plain += sum(o[0] for o in outs)
+        del upd, plain, want_p
+        qz.qadam_step_cuda(pc, p.grad, *state, bc1=bc1, bc2=bc2, **hyper)
+        case = ("per-leaf launch", tuple(p.shape))
+        outs = [_mismatch("p", pc, p, failures, case)]
+        outs += [_mismatch(k, got, opt.state[p][k], failures, case)
+                 for k, got in zip(keys, state)]
+        n_leaf += sum(o[0] for o in outs)
+        elements += p.numel()
+    torch.cuda.synchronize()
+    log(f"train GPT-2 XL int8 q-AdamW: {multi} multi-tensor launch(es) over "
+        f"{len(params)} leaves ({elements} elements): {n_plain} mismatches "
+        f"in p, codes and scales against the plain step of each leaf, "
+        f"{n_leaf} against {len(params)} per-leaf launches (tolerance "
+        f"{QUANT_TOL}) [{card}]")
+    if multi != 1 or failures:
+        raise AssertionError(f"multi-tensor q-AdamW: {multi} launches, "
+                             + "; ".join(failures[:10]))
 
 
 def phase_train_small_4bit(card):

@@ -50,9 +50,21 @@
 //    remainder (16 significant bits) issued into the same fp32
 //    accumulator: six products per tile pair where the bound counts
 //    four, all at the wgmma rate.
-//  * bf16 dQ (dq_mma_kernel): the first design, one 64-row q tile per
-//    CTA of four warps on mma.sync, tiles loaded synchronously; kept
-//    until its own redesign.
+//  * bf16 dQ (dq_tma_kernel): the forward's shape with one more
+//    product.  Persistent, q tiles of 128 rows heaviest first, two
+//    consumer warpgroups of 64 rows and a producer warpgroup; Q and dO
+//    come by TMA once per q tile, K and V tiles of 64 rows (32 at
+//    head_dim 128, for registers) through a four-stage ring.  S = Q K^T
+//    and dP = dO V^T are wgmmas from shared memory, committed apart so
+//    that p = exp2(...) is formed while dP runs; dS = p (dP - Delta)
+//    scale is rounded to bf16 (the TPU's ds.astype(k.dtype)) straight
+//    into register A fragments, and dQ += dS K reads K MN-major with
+//    the transpose flag, as the forward reads V.  dQ_{j-1} is issued
+//    with S_j and dP_j, so the exp2 and dS work of tile j runs beside
+//    it.  Delta = rowsum(O dO) is taken per q tile in fp32 with 16-byte
+//    loads before the tile's first wait, written for dK/dV, and kept in
+//    registers beside -lse log2(e).  Six FLOPs per score where the
+//    forward does four, at the same exp2 count.
 //  * TMA reads q, k, v and dO through 4-D tensor maps over
 //    [b, s, h, d] with the caller's strides (the fused-qkv views are
 //    read as they are): a box that runs past seq is zero-filled inside
@@ -536,29 +548,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ on the tensor cores: mma.sync m16n8k16, fp32 accumulate.
-//
-// Four warps per CTA, each owning 16 rows of the 64-row tile.  Tiles
-// stay bf16 in shared memory (rows padded by 16 bytes: the fragment
-// loads below are bank-conflict free); an operand that the product
-// needs transposed is read with ldmatrix.trans.  S and dP take bf16
-// inputs exactly; dS is rounded to bf16 where the TPU rounds it.  The
-// register helpers (packing, the bf16 split, C-to-A fragments, quad
-// reductions) serve the wgmma kernels below too: a wgmma accumulator
-// and register A operand have the mma.sync fragment layouts per warp.
+// bf16 register helpers of the wgmma kernels below.  A wgmma accumulator
+// and a register A operand have the mma.sync m16n8k16 fragment layouts
+// per warp, so packing, the bf16 split, C-to-A fragments and the quad
+// reductions (the four threads that share a row) work on them directly.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int kMmaThreads = 128;
-
-template <int D>
-constexpr size_t mma_smem(int tiles, int rows) {
-  return sizeof(bf16) * tiles * kTile * (D + 8) + sizeof(float) * rows;
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -574,68 +570,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
   hi = *reinterpret_cast<uint32_t*>(&h);
   lo = *reinterpret_cast<uint32_t*>(&l);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// [64][D] bf16 tile into shared memory, 16 bytes a copy, zero past seq
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* base,
-                                               long long row_stride,
-                                               int row0, int S) {
-  constexpr int LD = D + 8, CH = D / 8;
-  for (int idx = threadIdx.x; idx < kTile * CH; idx += kMmaThreads) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    const int row = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S)
-      v = *reinterpret_cast<const uint4*>(base + (long long)row * row_stride +
-                                          c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-  }
-}
-
-// A fragment: rows row0..+15, columns col0..+15 of a row-major tile
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* s, int row0,
-                                       int col0, int g, int t) {
-  const bf16* p = s + (row0 + g) * LD + col0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// B fragment (k = k0..+15, n = n0..+7) of a tile stored as B^T, [n][k]
-template <int LD>
-__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* s, int n0, int k0, int g,
-                                       int t) {
-  const bf16* p = s + (n0 + g) * LD + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B fragments of two n tiles (n0 and n0 + 8; k = k0..+15) of a tile
-// stored as B, [k][n]: b[0], b[1] for n0 and b[2], b[3] for n0 + 8
-template <int LD>
-__device__ __forceinline__ void frag_b_trans(uint32_t b[4], const bf16* s,
-                                             int k0, int n0, int lane) {
-  const int row = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int col = n0 + (lane >> 4) * 8;
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(s + row * LD + col));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
 }
 
 // the C fragments of n tiles 2j and 2j + 1 (cols 2t, 2t + 1 of rows g
@@ -655,129 +589,8 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    dq_mma_kernel(const FlashParams p) {
-  constexpr int LD = D + 8, ND = D / 8;
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dOs = Qs + kTile * LD;
-  bf16* Ks = dOs + kTile * LD;
-  bf16* Vs = Ks + kTile * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + kTile * LD);
-  float* dl_s = lse_s + kTile;
-
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H, hk = h / p.group;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const bf16* obase = static_cast<const bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const bf16* dob = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  load_tile_bf16<D>(Qs, qb, p.q_ss, q0, p.S);
-  load_tile_bf16<D>(dOs, dob, p.do_ss, q0, p.S);
-  load_tile_bf16<D>(Ks, obase, p.o_ss, q0, p.S);  // O, for Delta only
-  __syncthreads();
-
-  // Delta = rowsum(O * dO) in fp32; two threads per row
-  {
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    float d = 0.f;
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c)
-      d += __bfloat162float(Ks[r * LD + c]) * __bfloat162float(dOs[r * LD + c]);
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if (half == 0) {
-      const int qpos = q0 + r;
-      const bool ok = qpos < p.S;
-      dl_s[r] = d;
-      lse_s[r] =
-          ok ? static_cast<const float*>(p.lse)[(long long)bh * p.S + qpos]
-             : 0.f;
-      if (ok) static_cast<float*>(p.delta)[(long long)bh * p.S + qpos] = d;
-    }
-  }
-
-  float dq[ND][4];
-#pragma unroll
-  for (int dn = 0; dn < ND; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
-
-  int n_kt = (p.S + kTile - 1) / kTile;
-  if (p.causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile_bf16<D>(Ks, kb, p.k_ss, k0, p.S);
-    load_tile_bf16<D>(Vs, vb, p.v_ss, k0, p.S);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4], ad[4];
-      frag_a<LD>(a, Qs, r0, kk, g, t);
-      frag_a<LD>(ad, dOs, r0, kk, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t b0, b1;
-        frag_b<LD>(b0, b1, Ks, nt * 8, kk, g, t);
-        mma_bf16(s[nt], a, b0, b1);
-        frag_b<LD>(b0, b1, Vs, nt * 8, kk, g, t);
-        mma_bf16(dp[nt], ad, b0, b1);
-      }
-    }
-    const float lse_r[2] = {lse_s[r0 + g], lse_s[r0 + g + 8]};
-    const float dl_r[2] = {dl_s[r0 + g], dl_s[r0 + g + 8]};
-    uint32_t da[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int qpos = q0 + r0 + g + 8 * i;
-        const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool ok =
-            qpos < p.S && kpos < p.S && !(p.causal && kpos > qpos);
-        const float pr = ok ? expf(s[nt][e] * p.scale - lse_r[i]) : 0.f;
-        ds[e] = pr * (dp[nt][e] - dl_r[i]) * p.scale;
-      }
-      c_to_a(da[nt >> 1], nt & 1, ds[0], ds[1], ds[2], ds[3]);  // dS to bf16
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int dn = 0; dn < ND; dn += 2) {
-        uint32_t bk[4];
-        frag_b_trans<LD>(bk, Ks, j * 16, dn * 8, lane);
-        mma_bf16(dq[dn], da[j], bk[0], bk[1]);
-        mma_bf16(dq[dn + 1], da[j], bk[2], bk[3]);
-      }
-  }
-
-  bf16* dqb = static_cast<bf16*>(p.dq);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qpos = q0 + r0 + g + 8 * i;
-    if (qpos >= p.S) continue;
-    const long long row = ((long long)b * p.S + qpos) * p.H + h;
-#pragma unroll
-    for (int dn = 0; dn < ND; ++dn)
-      *reinterpret_cast<uint32_t*>(dqb + row * D + dn * 8 + 2 * t) =
-          pack_bf16(dq[dn][2 * i], dq[dn][2 * i + 1]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16 forward and dK/dV on wgmma, fed by TMA.
+// bf16 forward, dK/dV and dQ on wgmma, fed by TMA.
 //
 // A CTA is three warpgroups: two consumers (warps 0-7), each owning 64
 // rows of the CTA's 128-row tile, and a producer (warps 8-11) whose
@@ -1335,22 +1148,301 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   }
 }
 
+// The dQ kernel is the forward's shape with one more product: a CTA
+// walks 128-row q tiles (Q and dO loaded once per tile) over the k tiles
+// of its causal range, K and V streaming through the ring.  k tiles are
+// 64 rows at head_dim 64 and 32 at head_dim 128, so that dQ (D / 2 fp32
+// a thread), S and dP (BN / 2 each) and the dS fragments of the tile in
+// flight fit the 168 registers a thread of a 384-thread CTA gets.
+template <int D>
+struct DqCfg {
+  static constexpr int kBM = 128;                  // q rows per CTA
+  static constexpr int kBN = D == 64 ? 64 : 32;    // k rows per k tile
+  static constexpr int kStages = 4;
+  static constexpr int kQBytes = kBM * D * 2;      // Q or dO
+  static constexpr int kKVBytes = kBN * D * 2;     // K or V of a k tile
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kBarOff = 2 * kQBytes + kStages * kStageBytes;
+  static constexpr int kSmem = 1024 + kBarOff + 8 * (2 + 2 * kStages);
+};
+
+struct DqMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// Delta = rowsum(O dO) in fp32 for this thread's rows row0 and row0 + 8
+// (the four threads of a quad read a quarter of each row, 16 bytes a
+// load), and -lse log2(e) for the same rows; writes Delta for dK/dV
+template <int D>
+__device__ __forceinline__ void row_terms(const FlashParams& p, int b, int h,
+                                          int row0, int t, float (&delta)[2],
+                                          float (&nlse)[2]) {
+  const bf16* ob = static_cast<const bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const bf16* db =
+      static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const long long bh = (long long)b * p.H + h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row0 + 8 * r;
+    float d = 0.f;
+    if (qpos < p.S) {
+#pragma unroll
+      for (int x = 0; x < D / 32; ++x) {
+        const int c = t * (D / 4) + 8 * x;
+        const uint4 ov =
+            *reinterpret_cast<const uint4*>(ob + qpos * p.o_ss + c);
+        const uint4 dv =
+            *reinterpret_cast<const uint4*>(db + qpos * p.do_ss + c);
+        const __nv_bfloat162* o2 =
+            reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 =
+            reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = __bfloat1622float2(d2[e]);
+          d += of.x * df.x + of.y * df.y;
+        }
+      }
+    }
+    d = quad_sum(d);
+    delta[r] = d;
+    const float lse =
+        qpos < p.S ? static_cast<const float*>(p.lse)[bh * p.S + qpos] : 0.f;
+    nlse[r] = -lse * kLog2e;
+    if (t == 0 && qpos < p.S)
+      static_cast<float*>(p.delta)[bh * p.S + qpos] = d;
+  }
+}
+
+// p = exp(s scale - lse) as one FMA and one exp2, zero where the tile is
+// masked (past seq, or above the diagonal under causal); in place
+template <int BN>
+__device__ __forceinline__ void probs_tile(float (&s)[BN / 2],
+                                           const float (&nlse)[2], float sl2,
+                                           bool mask, bool causal, int S,
+                                           int k0, int row0, int t) {
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = ex2(fmaf(s[4 * i + e], sl2, nlse[e >> 1]));
+      if (mask) {
+        const int kpos = k0 + 8 * i + 2 * t + (e & 1);
+        const int qpos = row0 + 8 * (e >> 1);
+        if (kpos >= S || (causal && kpos > qpos)) x = 0.f;
+      }
+      s[4 * i + e] = x;
+    }
+}
+
+// dS = p (dP - Delta) scale in fp32, in p's registers
+template <int BN>
+__device__ __forceinline__ void dscore_tile(float (&s)[BN / 2],
+                                            const float (&dp)[BN / 2],
+                                            const float (&delta)[2],
+                                            float scale) {
+#pragma unroll
+  for (int x = 0; x < BN / 2; ++x)
+    s[x] = s[x] * (dp[x] - delta[(x >> 1) & 1]) * scale;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    dq_tma_kernel(const FlashParams p, const __grid_constant__ DqMaps maps) {
+  using C = DqCfg<D>;
+  constexpr int BM = C::kBM, BN = C::kBN, NS = C::kStages, CB = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* q_s = smem;
+  uint8_t* do_s = smem + C::kQBytes;
+  uint8_t* ring = smem + 2 * C::kQBytes;  // stage i: K, then V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_empty + 1;
+  uint64_t* empty = full + NS;
+
+  const int bhs = p.B * p.H;
+  const int n_qt = (p.S + BM - 1) / BM;
+  const int n_tiles = bhs * n_qt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumerWarps);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {  // the producer warpgroup
+    reg_dealloc<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      tma_prefetch(&maps.q);
+      tma_prefetch(&maps.dout);
+      tma_prefetch(&maps.k);
+      tma_prefetch(&maps.v);
+      int it = 0;  // k tiles issued so far, over all q tiles
+      for (int r = 0, n = 0;; ++r, ++n) {
+        const int i = snake_index(r, blockIdx.x, gridDim.x);
+        if (i >= n_tiles) break;
+        const int bh = i % bhs, q0 = (n_qt - 1 - i / bhs) * BM;
+        const int b = bh / p.H, h = bh % p.H, hk = h / p.group;
+        int n_kt = (p.S + BN - 1) / BN;
+        if (p.causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);
+        if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
+        mbar_expect_tx(q_full, 2 * C::kQBytes);
+#pragma unroll
+        for (int cb = 0; cb < CB; ++cb) {
+          tma_load_4d(q_s + cb * BM * kSwRow, &maps.q, q_full, cb * 64, h, q0,
+                      b);
+          tma_load_4d(do_s + cb * BM * kSwRow, &maps.dout, q_full, cb * 64, h,
+                      q0, b);
+        }
+        for (int j = 0; j < n_kt; ++j, ++it) {
+          const int st = it % NS;
+          if (it >= NS) mbar_wait(&empty[st], (it / NS - 1) & 1);
+          uint8_t* k_s = ring + st * C::kStageBytes;
+          uint8_t* v_s = k_s + C::kKVBytes;
+          mbar_expect_tx(&full[st], C::kStageBytes);
+#pragma unroll
+          for (int cb = 0; cb < CB; ++cb) {
+            tma_load_4d(k_s + cb * BN * kSwRow, &maps.k, &full[st], cb * 64,
+                        hk, j * BN, b);
+            tma_load_4d(v_s + cb * BN * kSwRow, &maps.v, &full[st], cb * 64,
+                        hk, j * BN, b);
+          }
+        }
+      }
+    }
+  } else {  // the consumers
+    reg_alloc<kConsumerRegs>();
+    // warpgroup wg owns rows 64 wg .. + 63 of each q tile; this thread
+    // rows row0 and row0 + 8, columns 8 i + 2 t (+ 1) of each score tile.
+    // The warpgroup index comes from lane 0, uniform for the compiler;
+    // the two warpgroups take turns to issue (named barriers 1 and 2).
+    const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0), t = lane & 3;
+    const int wrow = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+    const float sl2 = p.scale * kLog2e;
+    const uint32_t q_addr = smem_u32(q_s) + wg * 64 * kSwRow;
+    const uint32_t do_addr = smem_u32(do_s) + wg * 64 * kSwRow;
+    const uint32_t ring_addr = smem_u32(ring);
+    bf16* dqb = static_cast<bf16*>(p.dq);
+    if (wg == 1) named_arrive(1, 256);  // warpgroup 0 issues first
+    int it = 0;
+    for (int r = 0, n = 0;; ++r, ++n) {
+      const int i = snake_index(r, blockIdx.x, gridDim.x);
+      if (i >= n_tiles) break;
+      const int bh = i % bhs, q0 = (n_qt - 1 - i / bhs) * BM;
+      const int b = bh / p.H, h = bh % p.H;
+      int n_kt = (p.S + BN - 1) / BN;
+      if (p.causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);
+      const int row0 = q0 + wrow, row_min = q0 + wg * 64;
+
+      // Delta and lse of this thread's rows, while the copies land
+      float delta[2], nlse[2];
+      row_terms<D>(p, b, h, row0, t, delta, nlse);
+      float dq[D / 2];
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+      uint32_t da[BN / 16][4];  // dS of the tile whose dS K comes next
+
+      // k tile 0: S and dP, then p and dS
+      mbar_wait(q_full, n & 1);
+      mbar_wait(&full[it % NS], (it / NS) & 1);
+      {
+        const uint32_t k_addr = ring_addr + (it % NS) * C::kStageBytes;
+        float s[BN / 2], dp[BN / 2];
+        named_sync(1 + wg, 256);
+        wgmma_fence();
+        issue_qk<D, BN>(s, q_addr, k_addr, BM);
+        wgmma_commit();
+        issue_qk<D, BN>(dp, do_addr, k_addr + C::kKVBytes, BM);
+        wgmma_commit();
+        named_arrive(2 - wg, 256);
+        wgmma_wait<1>();
+        reg_fence(s);
+        probs_tile<BN>(s, nlse, sl2,
+                       BN > p.S || (p.causal && BN - 1 > row_min), p.causal,
+                       p.S, 0, row0, t);
+        wgmma_wait<0>();
+        reg_fence(dp);
+        if (n_kt == 1 && lane == 0) mbar_arrive(q_empty);
+        dscore_tile<BN>(s, dp, delta, p.scale);
+        p_to_a<BN>(s, da);  // dS rounded to bf16, as the TPU rounds it
+      }
+      // k tile j: S_j and dP_j run beside dQ += dS_{j-1} K_{j-1}; p_j is
+      // formed while dP_j runs and dS_j while the dQ product runs; dS_j
+      // becomes A fragments once that product has retired
+      for (int j = 1; j < n_kt; ++j) {
+        const int st = (it + j) % NS, prev = (it + j - 1) % NS, k0 = j * BN;
+        const uint32_t k_addr = ring_addr + st * C::kStageBytes;
+        mbar_wait(&full[st], ((it + j) / NS) & 1);
+        float s[BN / 2], dp[BN / 2];
+        named_sync(1 + wg, 256);
+        wgmma_fence();
+        issue_qk<D, BN>(s, q_addr, k_addr, BM);
+        wgmma_commit();
+        issue_qk<D, BN>(dp, do_addr, k_addr + C::kKVBytes, BM);
+        wgmma_commit();
+        wgmma_fence();
+        issue_pv<D, BN>(dq, da, ring_addr + prev * C::kStageBytes);
+        wgmma_commit();
+        named_arrive(2 - wg, 256);
+        wgmma_wait<2>();
+        reg_fence(s);
+        probs_tile<BN>(s, nlse, sl2,
+                       k0 + BN > p.S || (p.causal && k0 + BN - 1 > row_min),
+                       p.causal, p.S, k0, row0, t);
+        wgmma_wait<1>();
+        reg_fence(dp);
+        if (j == n_kt - 1 && lane == 0) mbar_arrive(q_empty);
+        dscore_tile<BN>(s, dp, delta, p.scale);
+        wgmma_wait<0>();
+        reg_fence(dq);
+        if (lane == 0) mbar_arrive(&empty[prev]);
+        p_to_a<BN>(s, da);
+      }
+      {
+        const int last = (it + n_kt - 1) % NS;
+        wgmma_fence();
+        issue_pv<D, BN>(dq, da, ring_addr + last * C::kStageBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(dq);
+        if (lane == 0) mbar_arrive(&empty[last]);
+      }
+      it += n_kt;
+
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int qpos = row0 + 8 * rr;
+        if (qpos >= p.S) continue;
+        const long long row = ((long long)b * p.S + qpos) * p.H + h;
+#pragma unroll
+        for (int x = 0; x < D / 8; ++x)
+          *reinterpret_cast<uint32_t*>(dqb + row * D + 8 * x + 2 * t) =
+              pack_bf16(dq[4 * x + 2 * rr], dq[4 * x + 2 * rr + 1]);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// fp32: the FMA kernels; bf16: the dQ kernel on mma.sync
-template <bool kMma, int D>
-cudaError_t launch(Which which, const FlashParams& p, cudaStream_t st) {
+// fp32: the FMA kernels
+template <int D>
+cudaError_t launch_fp32(Which which, const FlashParams& p, cudaStream_t st) {
   void (*kernel)(const FlashParams);
   size_t smem;
   dim3 grid((p.S + kTile - 1) / kTile, p.B * p.H);
-  if (kMma) {
-    kernel = dq_mma_kernel<D>;
-    smem = mma_smem<D>(4, 2 * kTile);
-  } else if (which == kFwd) {
+  if (which == kFwd) {
     kernel = fwd_kernel<D>;
     smem = fwd_smem<D>();
   } else if (which == kDq) {
@@ -1365,7 +1457,7 @@ cudaError_t launch(Which which, const FlashParams& p, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kMma ? kMmaThreads : kThreads, smem, st>>>(p);
+  kernel<<<grid, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -1505,10 +1597,32 @@ cudaError_t launch_dkv_tma(const FlashParams& p, cudaStream_t st) {
 }
 
 template <int D>
+cudaError_t launch_dq_tma(const FlashParams& p, cudaStream_t st) {
+  using C = DqCfg<D>;
+  DqMaps maps;
+  cudaError_t err;
+  if ((err = map_bshd(&maps.q, p.q, p, p.H, p.q_sb, p.q_ss, p.q_sh,
+                      C::kBM)) != cudaSuccess ||
+      (err = map_bshd(&maps.dout, p.dout, p, p.H, p.do_sb, p.do_ss, p.do_sh,
+                      C::kBM)) != cudaSuccess ||
+      (err = map_bshd(&maps.k, p.k, p, p.KVH, p.k_sb, p.k_ss, p.k_sh,
+                      C::kBN)) != cudaSuccess ||
+      (err = map_bshd(&maps.v, p.v, p, p.KVH, p.v_sb, p.v_ss, p.v_sh,
+                      C::kBN)) != cudaSuccess)
+    return err;
+  // persistent, as the forward
+  int sms = 0;
+  if ((err = prepare<C>(dq_tma_kernel<D>, &sms)) != cudaSuccess) return err;
+  const int tiles = p.B * p.H * ((p.S + C::kBM - 1) / C::kBM);
+  dq_tma_kernel<D><<<min(sms, tiles), kTmaThreads, C::kSmem, st>>>(p, maps);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_bf16(Which which, const FlashParams& p, cudaStream_t st) {
   if (which == kFwd) return launch_fwd_tma<D>(p, st);
-  if (which == kDkv) return launch_dkv_tma<D>(p, st);
-  return launch<true, D>(which, p, st);
+  if (which == kDq) return launch_dq_tma<D>(p, st);
+  return launch_dkv_tma<D>(p, st);
 }
 
 int dispatch(Which which, const FlashParams* p, void* stream) {
@@ -1517,9 +1631,9 @@ int dispatch(Which which, const FlashParams* p, void* stream) {
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p->dtype == 0 && p->head_dim == 64)
-    return (int)launch<false, 64>(which, *p, st);
+    return (int)launch_fp32<64>(which, *p, st);
   if (p->dtype == 0 && p->head_dim == 128)
-    return (int)launch<false, 128>(which, *p, st);
+    return (int)launch_fp32<128>(which, *p, st);
   if (p->dtype == 1 && p->head_dim == 64)
     return (int)launch_bf16<64>(which, *p, st);
   if (p->dtype == 1 && p->head_dim == 128)

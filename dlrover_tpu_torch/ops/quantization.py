@@ -24,7 +24,7 @@ reference.
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -148,16 +148,73 @@ class _QAdamParams(ctypes.Structure):
     """Field for field the ``QAdamParams`` struct of the CUDA source."""
 
     _fields_ = (
-        [(n, ctypes.c_void_p) for n in (
-            "p", "g", "q_mu", "mu_scales", "q_nu", "nu_scales",
-        )]
-        + [("numel", ctypes.c_longlong), ("rows", ctypes.c_longlong)]
-        + [("block", ctypes.c_int), ("dtype", ctypes.c_int)]
+        [("leaves", ctypes.c_void_p), ("n_leaves", ctypes.c_longlong),
+         ("rows", ctypes.c_longlong), ("block", ctypes.c_int),
+         ("pad", ctypes.c_int)]
         + [(n, ctypes.c_float) for n in (
-            "b1", "b2", "one_minus_b1", "one_minus_b2", "bc1", "bc2",
-            "neg_lr", "eps", "wd",
+            "b1", "b2", "one_minus_b1", "one_minus_b2", "neg_lr", "eps",
+            "wd",
         )]
     )
+
+
+# field for field the ``QAdamLeaf`` struct of the CUDA source: one row of
+# the leaf table of a multi-tensor q-AdamW launch
+LEAF_DTYPE = np.dtype([
+    *[(n, np.uint64) for n in ("p", "g", "q_mu", "mu_scales", "q_nu",
+                               "nu_scales")],
+    ("numel", np.int64), ("row0", np.int64),
+    ("bc1", np.float32), ("bc2", np.float32),
+    ("dtype", np.int32), ("pad", np.int32),
+])
+
+
+class QAdamLeaf(NamedTuple):
+    """One parameter of a multi-tensor q-AdamW step: the parameter, its
+    gradient, both moments' codes and scales (updated in place), and
+    its fp32 bias corrections."""
+
+    p: torch.Tensor
+    g: torch.Tensor
+    q_mu: torch.Tensor
+    mu_scales: torch.Tensor
+    q_nu: torch.Tensor
+    nu_scales: torch.Tensor
+    bc1: float
+    bc2: float
+
+
+def leaf_rows(numels: Sequence[int], block_size: int) -> np.ndarray:
+    """Each leaf's first row among the rows of all leaves, and the total
+    after them: ``[n + 1]`` int64 prefix sums of the leaves' rows (a
+    leaf of no elements has no row)."""
+    rows = -(-np.asarray(numels, dtype=np.int64) // block_size)
+    return np.concatenate([np.zeros(1, np.int64), np.cumsum(rows)])
+
+
+def leaf_table(leaves: Sequence[QAdamLeaf], block_size: int
+               ) -> Tuple[np.ndarray, int]:
+    """The kernel's leaf table (``LEAF_DTYPE``) over the leaves that
+    have elements, in order, and the rows of all of them."""
+    numels = [leaf.p.numel() for leaf in leaves]
+    if not all(numels):
+        leaves = [leaf for leaf, n in zip(leaves, numels) if n]
+        numels = [n for n in numels if n]
+    starts = leaf_rows(numels, block_size)
+    # column by column from flat lists: the host builds this table every
+    # step, and numpy fills a column from a list faster than a record
+    # from a tuple
+    table = np.zeros(len(leaves), LEAF_DTYPE)
+    ptrs = np.array([t.data_ptr() for leaf in leaves for t in leaf[:6]],
+                    dtype=np.uint64).reshape(len(leaves), 6)
+    for i, name in enumerate(LEAF_DTYPE.names[:6]):
+        table[name] = ptrs[:, i]
+    table["numel"] = numels
+    table["row0"] = starts[:-1]
+    table["bc1"] = [leaf.bc1 for leaf in leaves]
+    table["bc2"] = [leaf.bc2 for leaf in leaves]
+    table["dtype"] = [_DTYPES.get(leaf.p.dtype, -1) for leaf in leaves]
+    return table, int(starts[-1])
 
 
 _lib_handle = None
@@ -283,52 +340,104 @@ def dequantize_cuda(
     return out
 
 
-def _hyper(b1, b2, eps, lr, wd, bc1, bc2, **fields) -> _QAdamParams:
+def _hyper(b1, b2, eps, lr, wd, **fields) -> _QAdamParams:
     """fp32 constants as the reference bakes them: each Python double
     (``1 - b1`` too) rounded once to fp32."""
     p = _QAdamParams(**fields)
     p.b1, p.b2 = b1, b2
     p.one_minus_b1, p.one_minus_b2 = 1.0 - b1, 1.0 - b2
-    p.bc1, p.bc2 = bc1, bc2
     p.neg_lr, p.eps, p.wd = -lr, eps, wd
     return p
+
+
+def _check_qadam_state(p: torch.Tensor, q_mu, mu_scales, q_nu,
+                       nu_scales, block_size: int):
+    """The parameter and its state as the q-AdamW kernel reads and
+    writes them: ``p`` contiguous bf16 or fp32, codes int8 ``[rows,
+    block_size]`` and scales fp32 ``[rows, 1]`` for its elements, all
+    contiguous on p's device.  Raises ``ValueError`` otherwise."""
+    _check_block(block_size)
+    p = _flat_input(p, "qadam")
+    rows = q_mu.shape[0]
+    if rows != num_rows(p.numel(), block_size):
+        raise ValueError(f"{rows} state rows for {p.numel()} elements")
+    _check_state(q_mu, mu_scales, rows, block_size, p.device)
+    _check_state(q_nu, nu_scales, rows, block_size, p.device)
+
+
+def _check_step(leaves: Sequence[QAdamLeaf], device: torch.device):
+    """Each parameter contiguous in a kernel dtype, and each gradient
+    contiguous, on ``device``, shaped and typed as its parameter: one
+    pass, no call a leaf (the host runs it every step)."""
+    bad = next((leaf for leaf in leaves if leaf.p.dtype not in _DTYPES
+                or not leaf.p.is_contiguous()
+                or leaf.g.dtype is not leaf.p.dtype
+                or leaf.g.shape != leaf.p.shape
+                or not leaf.g.is_contiguous() or leaf.g.device != device),
+               None)
+    if bad is None:
+        return
+    p, g = _flat_input(bad.p, "qadam"), bad.g
+    if g.device != device:
+        raise ValueError(f"gradient on {g.device}, launch on {device}")
+    raise ValueError(
+        f"qadam needs a contiguous gradient shaped and typed as the "
+        f"parameter ({p.dtype} {tuple(p.shape)}), got {g.dtype} "
+        f"{tuple(g.shape)}"
+    )
+
+
+def qadam_multi_cuda(leaves: Sequence[QAdamLeaf], *, b1, b2, eps, lr, wd,
+                     state_checked: bool = False):
+    """Launch the fused quantized-Adam kernel once over ``leaves`` (bf16
+    and fp32 parameters alike, one block size, one device): updates each
+    ``p`` in place (``p + round_p(upd)``, rounded to p's dtype, as
+    ``apply_updates``) and its four state tensors in place.
+
+    The parameters and gradients are checked at every call; each leaf's
+    state (:func:`_check_qadam_state`) too, unless ``state_checked``
+    says that its owner built or loaded it so: codes and scales of the
+    parameter's rows, contiguous on its device."""
+    if not leaves:
+        return
+    block_size = leaves[0].q_mu.shape[1]
+    _check_block(block_size)
+    device = leaves[0].p.device
+    table, rows = leaf_table(leaves, block_size)
+    if not rows:
+        return
+    if not state_checked:
+        for leaf in leaves:
+            if leaf.p.device != device:
+                raise ValueError(f"parameter on {leaf.p.device}, launch on "
+                                 f"{device}")
+            _check_qadam_state(leaf.p, *leaf[2:6], block_size)
+    _check_step(leaves, device)
+    with torch.cuda.device(device):
+        # one non-blocking copy from pinned memory on the current stream,
+        # where the kernel reads it; the caching host allocator holds the
+        # pinned block until the copy is done
+        dev = torch.from_numpy(table.view(np.uint8)).pin_memory().to(
+            device, non_blocking=True)
+        params = _hyper(
+            b1, b2, eps, lr, wd, leaves=dev.data_ptr(), n_leaves=len(table),
+            rows=rows, block=block_size,
+        )
+        _check("dlr_qadam_step", _lib().dlr_qadam_step(
+            ctypes.byref(params), _stream(device)
+        ))
+    LAUNCHES["qadam"] += 1
 
 
 def qadam_step_cuda(
     p, g, q_mu, mu_scales, q_nu, nu_scales, *, bc1, bc2, b1, b2, eps, lr,
     wd,
 ):
-    """Launch the fused quantized-Adam kernel: updates ``p`` in place
-    (``p + round_p(upd)``, rounded to p's dtype, as ``apply_updates``)
-    and the four state tensors in place."""
-    rows, block_size = q_mu.shape
-    _check_block(block_size)
-    p = _flat_input(p, "qadam")
-    if g.dtype != p.dtype or g.shape != p.shape or not g.is_contiguous():
-        raise ValueError(
-            f"qadam needs a contiguous gradient shaped and typed as the "
-            f"parameter ({p.dtype} {tuple(p.shape)}), got {g.dtype} "
-            f"{tuple(g.shape)}"
-        )
-    if g.device != p.device:
-        raise ValueError(f"gradient on {g.device}, parameter on {p.device}")
-    if rows != num_rows(p.numel(), block_size):
-        raise ValueError(f"{rows} state rows for {p.numel()} elements")
-    _check_state(q_mu, mu_scales, rows, block_size, p.device)
-    _check_state(q_nu, nu_scales, rows, block_size, p.device)
-    params = _hyper(
-        b1, b2, eps, lr, wd, bc1, bc2,
-        p=p.data_ptr(), g=g.data_ptr(), q_mu=q_mu.data_ptr(),
-        mu_scales=mu_scales.data_ptr(), q_nu=q_nu.data_ptr(),
-        nu_scales=nu_scales.data_ptr(), numel=p.numel(), rows=rows,
-        block=block_size, dtype=_DTYPES[p.dtype],
+    """The one-leaf case of :func:`qadam_multi_cuda`."""
+    qadam_multi_cuda(
+        [QAdamLeaf(p, g, q_mu, mu_scales, q_nu, nu_scales, bc1, bc2)],
+        b1=b1, b2=b2, eps=eps, lr=lr, wd=wd,
     )
-    if rows:
-        with torch.cuda.device(p.device):
-            _check("dlr_qadam_step", _lib().dlr_qadam_step(
-                ctypes.byref(params), _stream(p.device)
-            ))
-        LAUNCHES["qadam"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +500,28 @@ def fused_qadam_update_(
     for state, new in ((q_mu, qm), (mu_scales, ms), (q_nu, qn),
                        (nu_scales, ns)):
         state.copy_(new)
+
+
+def fused_qadam_update_multi_(
+    leaves: Sequence[QAdamLeaf], *, b1: float, b2: float, eps: float,
+    lr: float, wd: float, state_checked: bool = False,
+):
+    """One quantized-AdamW step of every leaf, in place, with shared
+    hyperparameters and each leaf's own bias corrections.  On the card:
+    one kernel launch for all of them (``state_checked`` as in
+    :func:`qadam_multi_cuda`); on the CPU: the plain step of
+    :func:`fused_qadam_update_`, leaf by leaf."""
+    if not leaves:
+        return
+    if not _on_cpu(leaves[0].p):
+        return qadam_multi_cuda(leaves, b1=b1, b2=b2, eps=eps, lr=lr, wd=wd,
+                                state_checked=state_checked)
+    for leaf in leaves:
+        if not _on_cpu(leaf.p):
+            raise ValueError("q-AdamW leaves on the CPU and on "
+                             f"{leaf.p.device} in one step")
+        fused_qadam_update_(*leaf[:6], bc1=leaf.bc1, bc2=leaf.bc2, b1=b1,
+                            b2=b2, eps=eps, lr=lr, wd=wd)
 
 
 # -- 4-bit (packed nibbles), plain tensor ops around the kernels ------------

@@ -21,12 +21,15 @@ its order of operations and its state layout:
   schedule agrees with the reference's, which scales a unit-lr update
   afterwards, to an ulp rather than bit for bit.
 
-The 8-bit q-AdamW step is one fused kernel launch per parameter; it
-writes the new parameter in place (``p + round_p(upd)``, what
-``optax.apply_updates`` gives).  The 4-bit step and q-AGD are
-elementwise torch ops around the quantize and dequantize kernels, as
-the reference leaves those chains to XLA.  State is built at
-construction (the reference's ``init``), through the quantize kernel.
+The 8-bit q-AdamW step is one fused kernel launch per parameter group
+over all its parameters, bf16 and fp32 alike; it writes each new
+parameter in place (``p + round_p(upd)``, what
+``optax.apply_updates`` gives).  The state is checked where it is
+built or loaded, so a step checks only the parameters and gradients.
+The 4-bit step and q-AGD are elementwise torch ops around the quantize
+and dequantize kernels, as the reference leaves those chains to XLA.
+State is built at construction (the reference's ``init``), through
+the quantize kernel.
 """
 
 from collections import defaultdict
@@ -43,7 +46,8 @@ from dlrover_tpu_torch.ops.quantization import (
     dequantize_blockwise_4bit,
     dequantize_blockwise_4bit_sqrt,
     device_scalar,
-    fused_qadam_update_,
+    QAdamLeaf,
+    fused_qadam_update_multi_,
     quantize_blockwise,
     quantize_blockwise_4bit,
     quantize_blockwise_4bit_sqrt,
@@ -162,7 +166,8 @@ class _LowBitOptimizer(torch.optim.Optimizer):
         for key, st in state_dict["state"].items():
             p = id_map[key]
             state[p] = {
-                k: (v.to(p.device, copy=True) if torch.is_tensor(v) else v)
+                k: (v.to(p.device, memory_format=torch.contiguous_format,
+                         copy=True) if torch.is_tensor(v) else v)
                 for k, v in st.items()
             }
             state[p]["step"] = int(state[p]["step"])
@@ -230,22 +235,27 @@ class QAdamW(_LowBitOptimizer):
         for group in self.param_groups:
             hyper = dict(b1=group["b1"], b2=group["b2"], eps=group["eps"],
                          lr=group["lr"], wd=group["weight_decay"])
+            corrections = {}  # step count -> (bc1, bc2)
+            leaves = []
             for p in group["params"]:
                 if p.grad is None:
                     continue
                 st = self._param_state(p)
                 st["step"] += 1
-                bc1, bc2 = bias_corrections(hyper["b1"], hyper["b2"],
-                                            st["step"])
+                if st["step"] not in corrections:
+                    corrections[st["step"]] = bias_corrections(
+                        hyper["b1"], hyper["b2"], st["step"])
+                bc1, bc2 = corrections[st["step"]]
                 g = self._grad(p)
                 if self.bits == 8:
-                    fused_qadam_update_(
+                    leaves.append(QAdamLeaf(
                         p, g, st["mu_values"], st["mu_scales"],
-                        st["nu_values"], st["nu_scales"], bc1=bc1, bc2=bc2,
-                        **hyper,
-                    )
+                        st["nu_values"], st["nu_scales"], bc1, bc2))
                 else:
                     self._step_4bit(p, g, st, bc1, bc2, **hyper)
+            # the state was built on each parameter's device at init, or
+            # loaded there contiguous and checked (load_state_dict)
+            fused_qadam_update_multi_(leaves, state_checked=True, **hyper)
         return loss
 
     def _step_4bit(self, p, g, st, bc1, bc2, *, b1, b2, eps, lr, wd):

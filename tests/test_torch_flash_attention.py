@@ -280,6 +280,32 @@ def test_dkv_rounding_check_tells_fp32_p_from_bf16_p():
     assert max(keeps) < 0.8 < 1 / 0.8 < min(rounds), (keeps, rounds)
 
 
+def test_dq_rounding_check_tells_bf16_ds_from_fp32_ds():
+    """The check that holds the bf16 dQ kernel to dS rounded to bf16
+    before dS K, the TPU kernel's rounding point (``chip_smoke.py``
+    ``_check_dq_rounding``): a stand-in for each design, the matching
+    plain version rounded to bf16 once, lands on its side of 0.8."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, dout = (torch.randn(1, 200, 4, 64, generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    scale, blk = 64 ** -0.5, fa._fit_block(200, 128)
+    out, lse = fa.fwd_plain(q, k, v, scale, True, blk, blk)
+    delta = fa.delta_plain(out, dout)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
+    fine = fa.bwd_dq_plain(qf, kf, vf, dof, lse, delta, scale, True, blk,
+                           blk)
+    # k in bf16 rounds dS to bf16; q in fp32 keeps dq in fp32
+    coarse = fa.bwd_dq_plain(qf, k, vf, dof, lse, delta, scale, True, blk,
+                             blk)
+
+    def ratio(dq):
+        dq = dq.to(torch.bfloat16).float()
+        return ((dq - coarse).abs().mean() / (dq - fine).abs().mean()).item()
+
+    assert ratio(coarse) < 0.8 < 1 / 0.8 < ratio(fine), (ratio(coarse),
+                                                         ratio(fine))
+
+
 def test_params_struct_covers_the_cuda_struct():
     """The ctypes mirror of ``FlashParams`` names every field of the C
     struct, in order."""

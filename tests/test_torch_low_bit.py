@@ -296,6 +296,82 @@ def test_state_dict_round_trip(bits):
             assert torch.equal(a[k], b[k]), k
 
 
+def test_loaded_state_is_contiguous_on_the_parameters_device():
+    """``load_state_dict`` lays strided state out contiguous on each
+    parameter's device, as the step's launch takes it unchecked: the
+    next step equals that of the same state loaded as it was saved."""
+    runs = []
+    for _ in range(3):
+        _, model = _tiny_gpt()
+        runs.append((model, plb.q_adamw(model.parameters(), lr=1e-2,
+                                        block_size=BLOCK)))
+    params = jax.tree.map(jnp.asarray, _tiny_gpt()[0])
+    m0, o0 = runs[0]
+    _set_grads(m0, _random_grads(params, 6))
+    o0.step()
+    sd = o0.state_dict()
+    strided = {**sd, "state": {k: {n: (v.t().contiguous().t()
+                                       if torch.is_tensor(v) else v)
+                                   for n, v in st.items()}
+                               for k, st in sd["state"].items()}}
+    assert not strided["state"][0]["mu_values"].is_contiguous()
+    for (model, opt), state in zip(runs[1:], (sd, strided)):
+        model.load_state_dict(m0.state_dict())
+        opt.load_state_dict(state)
+        for st in opt.state.values():
+            for k in ("mu_values", "mu_scales", "nu_values", "nu_scales"):
+                assert st[k].is_contiguous(), k
+        _set_grads(model, _random_grads(params, 7))
+        opt.step()
+    (m1, o1), (m2, o2) = runs[1:]
+    for (n, a), b in zip(m1.named_parameters(), m2.parameters()):
+        assert torch.equal(a, b), n
+        for k in ("mu_values", "mu_scales", "nu_values", "nu_scales"):
+            assert torch.equal(o1.state[a][k], o2.state[b][k]), (n, k)
+
+
+def test_qadamw_step_is_the_per_leaf_step():
+    """``QAdamW.step`` hands all its 8-bit leaves to one multi-tensor
+    update; on a tiny GPT that gives, bit for bit, the parameters and
+    state of the fused step taken leaf by leaf, each with its own step
+    count (one parameter skips the first step)."""
+    runs = [_tiny_gpt()[1] for _ in range(2)]
+    opts = [plb.q_adamw(m.parameters(), lr=1e-2, weight_decay=0.1,
+                        block_size=BLOCK) for m in runs]
+    skipped = "blocks.0.attn.qkv.weight"
+    params = jax.tree.map(jnp.asarray, _tiny_gpt()[0])
+    for seed in (11, 12):
+        for model in runs:
+            _set_grads(model, _random_grads(params, seed))
+            if seed == 11:
+                dict(model.named_parameters())[skipped].grad = None
+        opts[0].step()
+        group = opts[1].param_groups[0]
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            st = opts[1].state[p]
+            st["step"] += 1
+            bc1, bc2 = pq.bias_corrections(group["b1"], group["b2"],
+                                           st["step"])
+            with torch.no_grad():
+                pq.fused_qadam_update_(
+                    p, p.grad, st["mu_values"], st["mu_scales"],
+                    st["nu_values"], st["nu_scales"], bc1=bc1, bc2=bc2,
+                    b1=group["b1"], b2=group["b2"], eps=group["eps"],
+                    lr=group["lr"], wd=group["weight_decay"])
+    (m1, m2), (o1, o2) = runs, opts
+    steps = set()
+    for (n, a), b in zip(m1.named_parameters(), m2.parameters()):
+        assert torch.equal(a, b), n
+        s1, s2 = o1.state[a], o2.state[b]
+        assert s1["step"] == s2["step"], n
+        steps.add(s1["step"])
+        for k in ("mu_values", "mu_scales", "nu_values", "nu_scales"):
+            assert torch.equal(s1[k], s2[k]), (n, k)
+    assert steps == {1, 2}
+
+
 def test_cpu_steps_launch_no_kernel():
     pq.reset_launch_counts()
     run_pair("q_adamw8")

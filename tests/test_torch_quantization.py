@@ -278,9 +278,56 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(call, match):
 def test_params_struct_covers_the_cuda_struct():
     """The ctypes mirror of ``QAdamParams`` names every field of the C
     struct, in order."""
+    assert _c_struct_fields("QAdamParams") == [
+        f[0] for f in pq._QAdamParams._fields_]
+
+
+# -- the multi-tensor q-AdamW step: one launch over many leaves -------------
+
+# element counts of a parameter group's leaves: empty, ragged, whole rows
+MULTI_NUMELS = [0, 5, 64, 65, 0, 1, 200, 2048 * 3 + 7]
+# block -> each leaf's first row, then the total
+MULTI_STARTS = {64: [0, 0, 1, 2, 4, 4, 5, 9, 106],
+                2048: [0, 0, 1, 2, 3, 3, 4, 5, 9]}
+
+
+@pytest.mark.parametrize("block", sorted(MULTI_STARTS))
+def test_leaf_rows_and_the_leaf_of_every_row(block):
+    """Prefix sums of the leaves' rows, and the kernel's search (the
+    last leaf whose first row is at or before the row) finds every
+    row's leaf among the leaves that have rows (the table leaves out
+    the empty ones)."""
+    starts = pq.leaf_rows(MULTI_NUMELS, block)
+    assert starts.dtype == np.int64 and starts.tolist() == MULTI_STARTS[block]
+    kept = [i for i, n in enumerate(MULTI_NUMELS) if n]
+    row0 = starts[kept]
+    want = [i for i in kept for _ in range(pq.num_rows(MULTI_NUMELS[i],
+                                                        block))]
+    got = [kept[np.searchsorted(row0, r, side="right") - 1]
+           for r in range(int(starts[-1]))]
+    assert got == want
+
+
+def _leaf(numel, dtype, block, count, rng):
+    """A parameter of ``numel`` elements with its gradient and moments
+    (random codes and scales, as after some steps), at step ``count``."""
+    p = torch.from_numpy(rng.standard_normal(numel).astype(np.float32))
+    g = torch.from_numpy((rng.standard_normal(numel) * 1e-2).astype(
+        np.float32))
+    rows = pq.num_rows(numel, block)
+    qm, ms = pq.quantize_plain(torch.from_numpy(
+        (rng.standard_normal((rows, block)) * 1e-3).astype(np.float32)))
+    qn, ns = pq.quantize_plain(torch.from_numpy(
+        (np.abs(rng.standard_normal((rows, block))) * 3e-3).astype(
+            np.float32)))
+    bc1, bc2 = pq.bias_corrections(HYPER["b1"], HYPER["b2"], count)
+    return pq.QAdamLeaf(p.to(dtype), g.to(dtype), qm, ms, qn, ns, bc1, bc2)
+
+
+def _c_struct_fields(name):
     src = (Path(pq.__file__).parent.parent / "csrc"
            / "quantization.cu").read_text()
-    body = re.search(r"struct QAdamParams \{(.*?)\};", src, re.S).group(1)
+    body = re.search(rf"struct {name} \{{(.*?)\}};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     names = []
     for decl in body.split(";"):
@@ -290,7 +337,132 @@ def test_params_struct_covers_the_cuda_struct():
                 r"^(?:const\s+)?(?:long long|void\s*\*|int|float)\s*", "",
                 decl,
             ).split(",")]
-    assert names == [f[0] for f in pq._QAdamParams._fields_]
+    return names
+
+
+def test_leaf_table_layout_and_contents():
+    """``LEAF_DTYPE`` is the C ``QAdamLeaf`` field for field (80 bytes);
+    the table lists the leaves that have elements, in order, with their
+    tensors' addresses, first rows, bias corrections and dtypes."""
+    assert list(pq.LEAF_DTYPE.names) == _c_struct_fields("QAdamLeaf")
+    assert pq.LEAF_DTYPE.itemsize == 80
+    rng = np.random.default_rng(8)
+    dtypes = [torch.float32, torch.bfloat16]
+    leaves = [_leaf(n, dtypes[i % 2], 64, i + 1, rng)
+              for i, n in enumerate(MULTI_NUMELS)]
+    table, rows = pq.leaf_table(leaves, 64)
+    kept = [leaf for leaf in leaves if leaf.p.numel()]
+    assert rows == MULTI_STARTS[64][-1] and len(table) == len(kept)
+    assert table["row0"].tolist() == [
+        r for r, n in zip(MULTI_STARTS[64], MULTI_NUMELS) if n]
+    for entry, leaf in zip(table, kept):
+        for name in ("p", "g", "q_mu", "mu_scales", "q_nu", "nu_scales"):
+            assert entry[name] == getattr(leaf, name).data_ptr(), name
+        assert entry["numel"] == leaf.p.numel()
+        assert (entry["bc1"], entry["bc2"]) == (np.float32(leaf.bc1),
+                                                np.float32(leaf.bc2))
+        assert entry["dtype"] == (1 if leaf.p.dtype == torch.bfloat16 else 0)
+
+
+# (numel, dtype, step count) of one parameter group's leaves, in units of
+# the block where they scale with it
+MULTI_LEAVES = [(lambda b: 3 * b + 5, "float32", 1),
+                (lambda b: 7, "bfloat16", 3),
+                (lambda b: b, "bfloat16", 2),
+                (lambda b: 0, "float32", 1),
+                (lambda b: 2 * b + 33, "float32", 5),
+                (lambda b: 5 * b, "bfloat16", 1)]
+
+
+def _noncontiguous(t):
+    """``t``'s values in a transposed layout."""
+    return t.t().contiguous().t() if t.dim() == 2 else t[::1]
+
+
+# a leaf's fault -> the check that refuses it: the state's on the launch
+# when no owner checked it, the parameter's and gradient's on every launch
+LEAF_FAULTS = {
+    "state rows": (lambda l: l._replace(q_mu=l.q_mu[:-1]), "state"),
+    "code dtype": (lambda l: l._replace(q_nu=l.q_nu.to(torch.uint8)),
+                   "state"),
+    "scale shape": (lambda l: l._replace(mu_scales=l.mu_scales.reshape(-1)),
+                    "state"),
+    "strided codes": (lambda l: l._replace(q_mu=_noncontiguous(l.q_mu)),
+                      "state"),
+    "fp16 parameter": (lambda l: l._replace(p=l.p.half(), g=l.g.half()),
+                       "step"),
+    "gradient dtype": (lambda l: l._replace(g=l.g.to(torch.bfloat16)),
+                       "step"),
+    "gradient shape": (lambda l: l._replace(g=l.g[:-1]), "step"),
+    "strided gradient": (lambda l: l._replace(
+        p=l.p.reshape(10, 20), g=_noncontiguous(l.g.reshape(10, 20))),
+        "step"),
+}
+
+
+@pytest.mark.parametrize("fault", list(LEAF_FAULTS))
+def test_qadam_checks_refuse_a_bad_leaf(fault):
+    """The launch's checks pass a well-formed leaf and refuse each
+    fault, in the check that owns it."""
+    rng = np.random.default_rng(12)
+    leaf = _leaf(200, torch.float32, 64, 1, rng)
+    pq._check_qadam_state(leaf.p, *leaf[2:6], 64)
+    pq._check_step([leaf], leaf.p.device)
+    make, check = LEAF_FAULTS[fault]
+    bad = make(leaf)
+    with pytest.raises(ValueError):
+        if check == "state":
+            pq._check_qadam_state(bad.p, *bad[2:6], 64)
+        else:
+            pq._check_step([leaf, bad], leaf.p.device)
+
+
+def _clone_leaf(leaf):
+    return pq.QAdamLeaf(*(t.clone() for t in leaf[:6]), *leaf[6:])
+
+
+@pytest.mark.parametrize("block", [64, 2048])
+def test_multi_update_matches_per_leaf_and_jax(block):
+    """One multi-tensor step over leaves of mixed sizes, dtypes and step
+    counts equals the per-leaf step bit for bit on the CPU, and each
+    leaf equals the JAX package's ``fused_qadam_step`` within the
+    tolerances above (XLA's FMA contraction moves a moment by an ulp)."""
+    rng = np.random.default_rng(9)
+    leaves = [_leaf(n(block), getattr(torch, dt), block, count, rng)
+              for n, dt, count in MULTI_LEAVES]
+    before = [_clone_leaf(leaf) for leaf in leaves]
+    per_leaf = [_clone_leaf(leaf) for leaf in leaves]
+    pq.reset_launch_counts()
+    pq.fused_qadam_update_multi_(leaves, **HYPER)
+    for leaf in per_leaf:
+        pq.fused_qadam_update_(*leaf[:6], bc1=leaf.bc1, bc2=leaf.bc2,
+                               **HYPER)
+    assert pq.LAUNCHES["qadam"] == 0
+    for got, want in zip(leaves, per_leaf):
+        for a, b in zip(got[:6], want[:6]):
+            assert torch.equal(a, b)
+    for got, old, (_, dt, _) in zip(leaves, before, MULTI_LEAVES):
+        if not old.p.numel():
+            continue
+        jdt = jnp.bfloat16 if dt == "bfloat16" else jnp.float32
+        g_t, p_t = (jnp.asarray(pq.to_block_tiles(t, block).numpy(), jdt)
+                    for t in (old.g, old.p))
+        jupd, jqm, jms, jqn, jns = jq.fused_qadam_step(
+            g_t, p_t, *(jnp.asarray(t.numpy()) for t in old[2:6]),
+            jnp.asarray([[old.bc1, old.bc2]], jnp.float32), **HYPER)
+        for a, b in ((got.mu_scales, jms), (got.nu_scales, jns)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+        code_mismatches(got.q_mu.numpy(), jqm)
+        code_mismatches(got.q_nu.numpy(), jqn)
+        upd = torch.from_numpy(np.array(jnp.asarray(jupd, jnp.float32)))
+        want = (old.p + upd.reshape(-1)[:old.p.numel()].to(old.p.dtype))
+        want, new = want.float().numpy(), got.p.float().numpy()
+        if dt == "float32":
+            np.testing.assert_allclose(new, want, atol=1e-6, rtol=1e-5)
+        else:
+            ulp = np.spacing(np.abs(want)) * 2.0 ** 16
+            assert (np.abs(new - want) <= ulp).all()
+            assert (new != want).sum() <= max(1, new.size // 1_000)
 
 
 @pytest.fixture()
@@ -327,6 +499,33 @@ def test_cuda_kernels_match_plain(cuda, numel, block, dtype):
     assert torch.equal(p, want_p)
     for state, value in zip((qm, ms, qn, ns), new):
         assert torch.equal(state, value)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 2048])
+def test_cuda_multi_launch_matches_per_leaf_launches(cuda, block):
+    """One launch over a parameter group's leaves (mixed sizes, dtypes
+    and step counts) against one launch per leaf, and the plain step."""
+    rng = np.random.default_rng(10)
+    leaves = [_leaf(n(block), getattr(torch, dt), block, count, rng)
+              for n, dt, count in MULTI_LEAVES]
+    leaves = [pq.QAdamLeaf(*(t.to(cuda) for t in leaf[:6]), *leaf[6:])
+              for leaf in leaves]
+    per_leaf = [_clone_leaf(leaf) for leaf in leaves]
+    plain = [pq.QAdamLeaf(*(t.cpu() for t in leaf[:6]), *leaf[6:])
+             for leaf in leaves]
+    pq.reset_launch_counts()
+    pq.fused_qadam_update_multi_(leaves, **HYPER)
+    assert pq.LAUNCHES["qadam"] == 1
+    for leaf in per_leaf:
+        pq.qadam_step_cuda(*leaf[:6], bc1=leaf.bc1, bc2=leaf.bc2, **HYPER)
+    pq.fused_qadam_update_multi_(plain, **HYPER)
+    torch.cuda.synchronize()
+    assert pq.LAUNCHES["qadam"] == 1 + sum(
+        1 for leaf in leaves if leaf.p.numel())
+    for got, a, b in zip(leaves, per_leaf, plain):
+        for x, y, z in zip(got[:6], a[:6], b[:6]):
+            assert torch.equal(x, y) and torch.equal(x.cpu(), z)
 
 
 def parity_report():
