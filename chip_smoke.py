@@ -43,7 +43,37 @@ Phases, each fatal on failure:
       optimizer's host, wall and device time per step beside the fused
       step's summed bound, and a profiled step by kernel family;
    c. GPT-2 small with 4-bit q-AdamW moments, the path that runs the
-      dequantize kernel.
+      dequantize kernel;
+   each run writes the Trainer's final checkpoint into
+   ``chip_smoke_out/ckpt_*``, waits for its commit, and removes it;
+6. flash checkpoint, each check fatal:
+   a. GPT-2 small AdamW (seq 1024, global batch 32, micro-batch 8),
+      crash and resume through ``Trainer``: this process hosts the
+      agent's ``AsyncCheckpointSaver``; child 1 trains 4 steps
+      (``save_steps`` 2) over the real unix sockets, writes a digest of
+      every parameter and SIGKILLs itself; child 2
+      (``DLROVER_RESTART_COUNT=1``) resumes from shm at step 4 with
+      bit-equal params, then trains 2 more steps with finite losses and
+      exact flash launch counts; the segment is unlinked and child 3
+      resumes from storage with child 2's final params;
+   b. GPT-2 XL with int8 q-AdamW, the state the flash checkpoint exists
+      for (``{"params", "opt_state"}``, ~6.2 GB): 2 steps, then, on a
+      stream of high priority held by a ~1 s sleep kernel while the
+      host queues it all, a third B6 update on step 2's gradients, a
+      reference copy of the state in stream order, ``save_checkpoint``
+      to disk and a fourth B6 update at once (B6 rewrites params and
+      moments in place); the save must hold update 3 and not update 4:
+      restores from shm and from storage, each bit-equal to the
+      reference.  It fails if the sleep ended before the host had
+      queued the race.
+      Prints the save's stall (host, and the card's time in the
+      snapshot copy) beside its byte bound, the D2H rate beside a
+      pinned 256 MB copy, the shm write rate, the persist time to the
+      tracker's commit and each restore stage by tier, ``h2d`` beside
+      the pinned copy the other way.
+   The run uses a socket directory and ``DLROVER_JOB_NAME`` of its own
+   and unlinks its shm segments and removes its checkpoint directories
+   at the end, on failure too.
 
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Exits non-zero with no result
@@ -52,10 +82,14 @@ when there is no CUDA device or no package beside the script.
 
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chip_smoke_out")
@@ -134,6 +168,12 @@ OPT_SLEEP_CYCLES = 40_000_000
 
 SMALL_SEQ = 1024
 XL_BATCH, XL_STEPS = 4, 6
+# ~1 s at 1.98 GHz: phase 6b's host queues its race inside it
+RACE_SLEEP_CYCLES = 2_000_000_000
+# phase 6a: steps before the kill, and in all
+CKPT_KILL_STEP, CKPT_STEPS = 4, 6
+# time for the agent side to commit a step to storage
+COMMIT_TIMEOUT_S = 300.0
 
 
 def log(msg):
@@ -756,13 +796,64 @@ def _loss_fn(module, batch):
     return cross_entropy_loss(module(batch["x"]), batch["y"])
 
 
+def _wait_committed(out: str, step: int, timeout: float = COMMIT_TIMEOUT_S):
+    """Seconds until the tracker file in ``out`` names ``step``."""
+    from dlrover_tpu_torch.common.constants import CheckpointConstant
+
+    tracker = os.path.join(out, CheckpointConstant.TRACKER_FILE)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        try:
+            with open(tracker) as f:
+                if f.read().strip() == str(step):
+                    return time.perf_counter() - t0
+        except FileNotFoundError:
+            pass
+        time.sleep(0.005)
+    raise AssertionError(f"checkpoint step {step} not committed in {out} "
+                         f"within {timeout:.0f} s")
+
+
+def _unlink_segments():
+    """Unlink this run's shm segments (``DLROVER_JOB_NAME`` is the
+    run's own); returns the names it unlinked."""
+    prefix = f"dlrover_tpu_ckpt_shm_{os.environ['DLROVER_JOB_NAME']}_"
+    names = [n for n in os.listdir("/dev/shm") if n.startswith(prefix)]
+    for name in names:
+        os.unlink(os.path.join("/dev/shm", name))
+    return names
+
+
+@contextmanager
+def checkpoint_scope(label: str):
+    """A checkpoint directory of one run under ``chip_smoke_out``; on
+    exit, failure included, the in-process saver is stopped, the shm
+    segment unlinked and the directory removed."""
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+
+    out = os.path.join(OUT_DIR, f"ckpt_{label}")
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        yield out
+    finally:
+        saver = AsyncCheckpointSaver.get_ckpt_saver()
+        AsyncCheckpointSaver.stop_all()
+        if saver is not None:
+            # a persist in flight ends before its directory goes
+            saver._event_thread.join(timeout=COMMIT_TIMEOUT_S)
+        _unlink_segments()
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def run_training(label, cfg, global_batch, micro, steps, expected, card,
                  optim_factory=None):
     """Train ``cfg`` from seed 0 on one fixed batch of random tokens
     through ``Trainer.train()``, with every launch count set to 0 just
     before and read just after; check the losses, the exact launch
     counts (``expected``), the train_step events and the metrics file.
-    Returns ``(trainer, result, counts, step seconds, tokens per step)``."""
+    The Trainer's final checkpoint goes to a directory of the run,
+    which is removed once the save is committed.
+    Returns ``(trainer, result, counts)``."""
     import numpy as np
     import torch
 
@@ -783,17 +874,27 @@ def run_training(label, cfg, global_batch, micro, steps, expected, card,
     data = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (global_batch, seq + 1), dtype=np.int32)
     train_data = [{"x": data[:, :-1], "y": data[:, 1:]}]
-    args = TrainingArguments(max_steps=steps, global_batch_size=global_batch,
-                             micro_batch_size=micro, logging_steps=1)
-    trainer = Trainer(model, args, train_data, _loss_fn,
-                      optim_factory=optim_factory)
-    if os.path.exists(os.environ["DLROVER_EVENT_LOG"]):
-        os.unlink(os.environ["DLROVER_EVENT_LOG"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    result = trainer.train()
-    counts = launch_counts()
+    with checkpoint_scope(label.replace(" ", "_")) as out:
+        args = TrainingArguments(
+            output_dir=out, resume_from_checkpoint=False, max_steps=steps,
+            global_batch_size=global_batch, micro_batch_size=micro,
+            logging_steps=1)
+        trainer = Trainer(model, args, train_data, _loss_fn,
+                          optim_factory=optim_factory)
+        if os.path.exists(os.environ["DLROVER_EVENT_LOG"]):
+            os.unlink(os.environ["DLROVER_EVENT_LOG"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        result = trainer.train()
+        counts = launch_counts()
+        # train() reads its training peak before the final save, whose
+        # snapshot copies the state on the card
+        peak_ckpt = torch.cuda.max_memory_allocated()
+        commit_s = _wait_committed(out, steps)
+    log(f"{label}: final checkpoint committed {commit_s:.3f} s after "
+        f"train() returned; peak memory with its snapshot "
+        f"{peak_ckpt / 2**30:.2f} GiB [{card}]")
 
     losses = result["losses"]
     log(f"{label}: losses {losses}")
@@ -824,8 +925,7 @@ def run_training(label, cfg, global_batch, micro, steps, expected, card,
         f"{tokens / step_s:.1f} tokens/s, model FLOPs utilisation "
         f"{flops / step_s / PEAK_FLOPS['bfloat16']:.4f} of 989 TFLOP/s, "
         f"step times {[round(t * 1e3, 3) for t in result['step_seconds']]} "
-        f"ms, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        f"GiB [{card}]")
+        f"ms, peak memory {result['peak_bytes'] / 2**30:.2f} GiB [{card}]")
     return trainer, result, counts
 
 
@@ -884,7 +984,7 @@ def phase_train_xl(card):
     params = [p for g in opt.param_groups for p in g["params"]]
     if len(params) != n_params:
         raise AssertionError(f"{len(params)} parameters, not {n_params}")
-    peak = torch.cuda.max_memory_allocated()
+    peak = result["peak_bytes"]
     moment_bytes = sum(t.numel() * t.element_size()
                        for st in opt.state.values() for t in st.values()
                        if torch.is_tensor(t))
@@ -998,6 +1098,474 @@ def phase_train_small_4bit(card):
     return counts
 
 
+# -- phase 6: flash checkpoint ------------------------------------------------
+
+
+def _leaf_bytes(t):
+    import torch
+
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _cat_bytes(leaves, out):
+    """``out[:] = torch.cat`` of the leaves' bytes, in groups of at most
+    1 GiB: over the whole XL state (6.2 GB), one ``torch.cat`` and a
+    ``copy_`` per leaf both held the host until the card was idle
+    (H100), grouped ``torch.cat`` calls did not."""
+    import torch
+
+    lo, group, size = 0, [], 0
+    for t in [_leaf_bytes(t) for t in leaves] + [None]:
+        if group and (t is None or size + t.numel() > 2**30):
+            torch.cat(group, out=out[lo:lo + size])
+            lo, group, size = lo + size, [], 0
+        if t is not None:
+            group.append(t)
+            size += t.numel()
+
+
+def _digests(model) -> dict:
+    """sha256 of every parameter's bytes, by name."""
+    import hashlib
+
+    return {name: hashlib.sha256(
+        _leaf_bytes(p).cpu().numpy().tobytes()).hexdigest()
+        for name, p in model.named_parameters()}
+
+
+def _small_trainer(out: str, max_steps: int):
+    """The GPT-2 small AdamW Trainer of phase 6a, from seed 0, on the
+    card, saving every 2 steps into ``out`` and resuming from it."""
+    import numpy as np
+
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.trainer.trainer import Trainer, TrainingArguments
+
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash")
+    data = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (32, SMALL_SEQ + 1), dtype=np.int32)
+    args = TrainingArguments(
+        output_dir=out, max_steps=max_steps, global_batch_size=32,
+        micro_batch_size=8, logging_steps=1, save_steps=2)
+    return Trainer(GPT(cfg, seed=0), args,
+                   [{"x": data[:, :-1], "y": data[:, 1:]}], _loss_fn)
+
+
+def ckpt_child(role: str, out: str, result_path: str) -> int:
+    """One incarnation of phase 6a's trainer, in a process of its own.
+
+    ``kill``: 4 steps from scratch, then SIGKILL without closing
+    anything.  ``resume``: resume at step 4 (no step taken: the params
+    as restored), then a second Trainer resumes again and takes steps 5
+    and 6.  ``storage``: resume at step 6 from storage.  Writes what it
+    saw to ``result_path`` as JSON before it ends."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {"role": role}
+    if role == "resume":
+        trainer = _small_trainer(out, CKPT_KILL_STEP)
+        trainer.train()
+        result["restored"] = _digests(trainer.model)
+        result["restore"] = trainer.last_restore_phases
+        del trainer
+    steps = CKPT_KILL_STEP if role == "kill" else CKPT_STEPS
+    trainer = _small_trainer(out, steps)
+    reset_launch_counts()
+    run = trainer.train()
+    torch.cuda.synchronize()
+    result.update(
+        counts=launch_counts(), steps=run["steps"], losses=run["losses"],
+        digests=_digests(trainer.model),
+        save=trainer._checkpointer.engine.last_save_phases,
+        snapshot=trainer._checkpointer.engine.last_snapshot_phases)
+    result.setdefault("restore", trainer.last_restore_phases)
+    with open(result_path + ".tmp", "w") as f:
+        json.dump(result, f)
+    os.replace(result_path + ".tmp", result_path)
+    if role == "kill":
+        sys.stdout.flush()
+        os.kill(os.getpid(), signal.SIGKILL)
+    return 0
+
+
+def _run_child(role: str, out: str, restart_count: int) -> dict:
+    path = os.path.join(OUT_DIR, f"ckpt_child_{role}.json")
+    log_path = os.path.join(OUT_DIR, f"ckpt_child_{role}.log")
+    if os.path.exists(path):
+        os.unlink(path)
+    env = dict(os.environ, DLROVER_RESTART_COUNT=str(restart_count),
+               PYTHONPATH=ROOT,
+               DLROVER_EVENT_LOG=os.path.join(
+                   OUT_DIR, f"ckpt_child_{role}_events.jsonl"),
+               DLROVER_METRICS_FILE=os.path.join(
+                   OUT_DIR, f"ckpt_child_{role}_metrics.json"))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--ckpt-child", role,
+             out, path], cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+            timeout=600)
+    seconds = time.perf_counter() - t0
+    want = -signal.SIGKILL if role == "kill" else 0
+    if proc.returncode != want or not os.path.exists(path):
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"checkpoint child {role} ended with "
+                             f"{proc.returncode}, not {want}:\n{tail}")
+    with open(path) as f:
+        result = json.load(f)
+    result["seconds"] = seconds
+    return result
+
+
+def phase_ckpt_small(card) -> dict:
+    """6a: GPT-2 small crash and resume through ``Trainer`` with this
+    process in the agent's role.  Returns the launch counts of the
+    paths that launch kernels."""
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash")
+    per_step = cfg.num_layers * 4  # 4 micro-batches a step
+    label = "flash ckpt GPT-2 small"
+    with checkpoint_scope("gpt2_small_resume") as out:
+        AsyncCheckpointSaver.start_async_saving_ckpt()
+        killed = _run_child("kill", out, 0)
+        commit_s = _wait_committed(out, CKPT_KILL_STEP)
+        resumed = _run_child("resume", out, 1)
+        failures = []
+        if resumed["restore"].get("tier") != "shm":
+            failures.append(f"child 2 restored from "
+                            f"{resumed['restore'].get('tier')}, not shm")
+        if resumed["restored"] != killed["digests"]:
+            bad = [n for n in killed["digests"]
+                   if resumed["restored"].get(n) != killed["digests"][n]]
+            failures.append(f"{len(bad)} params differ from child 1's at "
+                            f"step 4: {bad[:5]}")
+        losses = resumed["losses"]
+        if resumed["steps"] != CKPT_STEPS or len(losses) != (
+                CKPT_STEPS - CKPT_KILL_STEP) or not all(
+                    map(_finite, losses)):
+            failures.append(f"child 2 ran to {resumed['steps']} with "
+                            f"losses {losses}")
+        two = (CKPT_STEPS - CKPT_KILL_STEP) * per_step
+        want_resume = _zero_counts(**{f"flash_attention.{k}": two
+                                      for k in ("fwd", "bwd_dq", "bwd_dkv")})
+        if resumed["counts"] != want_resume:
+            failures.append(f"child 2 launches {resumed['counts']} != "
+                            f"{want_resume}")
+        kill_n = CKPT_KILL_STEP * per_step
+        want_kill = _zero_counts(**{f"flash_attention.{k}": kill_n
+                                    for k in ("fwd", "bwd_dq", "bwd_dkv")})
+        if killed["counts"] != want_kill:
+            failures.append(f"child 1 launches {killed['counts']} != "
+                            f"{want_kill}")
+        _wait_committed(out, CKPT_STEPS)
+        gone = _unlink_segments()
+        from_storage = _run_child("storage", out, 2)
+        if from_storage["restore"].get("tier") != "storage":
+            failures.append(f"child 3 restored from "
+                            f"{from_storage['restore'].get('tier')}, not "
+                            "storage")
+        if from_storage["digests"] != resumed["digests"]:
+            failures.append("child 3's params differ from child 2's at "
+                            "step 6")
+        if from_storage["counts"] != _zero_counts():
+            failures.append(f"child 3 launched {from_storage['counts']}")
+        _wait_committed(out, CKPT_STEPS)
+    for name, r in (("child 1 (kill at step 4)", killed),
+                    ("child 2 (resume from shm)", resumed),
+                    ("child 3 (resume from storage)", from_storage)):
+        log(f"{label}: {name}: {r['seconds']:.1f} s, steps {r['steps']}, "
+            f"losses {r['losses']}, restore {json.dumps(r['restore'])}, "
+            f"last save {json.dumps(r['save'])}, snapshot "
+            f"{json.dumps(r['snapshot'])} [{card}]")
+    log(f"{label}: step 4 committed {commit_s:.3f} s after child 1 was "
+        f"killed; unlinked {gone} before child 3; digests of "
+        f"{len(killed['digests'])} params compared [{card}]")
+    if failures:
+        raise AssertionError(f"{label}: " + "; ".join(failures))
+    return {"gpt2_small_ckpt_kill": killed["counts"],
+            "gpt2_small_ckpt_resume": resumed["counts"]}
+
+
+def _finite(x) -> bool:
+    return x == x and abs(x) != float("inf")
+
+
+def _pinned_yardstick_gbs(nbytes: int = 256 * 2**20) -> dict:
+    """GB/s of one pinned ``copy_`` of 256 MB each way (median of 5,
+    between CUDA events)."""
+    import torch
+
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    rates = {}
+    for way, fn in (("d2h", lambda: host.copy_(dev, non_blocking=True)),
+                    ("h2d", lambda: dev.copy_(host, non_blocking=True))):
+        ms = median_ms(fn, 5, warmup=1, device_only=False)
+        rates[way] = nbytes / ms / 1e6
+    return rates
+
+
+def _capacity(out: str) -> dict:
+    st = os.statvfs("/dev/shm")
+    with open("/proc/meminfo") as f:
+        mem = {line.split(":")[0]: int(line.split()[1]) * 1024
+               for line in f}
+    return {"shm_free": st.f_bavail * st.f_frsize,
+            "shm_size": st.f_blocks * st.f_frsize,
+            "mem_available": mem["MemAvailable"],
+            "mem_total": mem["MemTotal"],
+            "disk_free": shutil.disk_usage(os.path.dirname(out)).free}
+
+
+def phase_ckpt_xl(card) -> dict:
+    """6b: GPT-2 XL int8 q-AdamW, the torn-snapshot check on the whole
+    state.  Returns the launch counts of the path."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.checkpoint.checkpointer import (
+        Checkpointer,
+        StorageType,
+        restore_to_template,
+    )
+    from dlrover_tpu_torch.checkpoint.restore import RestoreStats
+    from dlrover_tpu_torch.checkpoint.shm_handler import _flatten_state_dict
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.optim import q_adamw
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        TrainState,
+        make_train_step,
+        to_device,
+    )
+    from dlrover_tpu_torch.utils.convert import params_tree, qadamw_state_tree
+
+    label = "flash ckpt GPT-2 XL int8 q-AdamW"
+    # two training steps, then B6 twice more on step 2's gradients: the
+    # third update is queued before the save and must reach it, the
+    # fourth right after it and must not
+    train_steps, save_step = 2, 3
+    yard = _pinned_yardstick_gbs()
+    with checkpoint_scope("gpt2_xl_torn") as out:
+        cfg = GPTConfig.gpt2_xl(attention_impl="flash", remat=True,
+                                param_dtype=torch.bfloat16)
+        tokens = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (XL_BATCH, cfg.max_seq_len + 1),
+            dtype=np.int32)
+        batch = to_device({"x": tokens[:, :-1], "y": tokens[:, 1:]},
+                          torch.device("cuda"))
+        reset_launch_counts()
+        model = GPT(cfg, seed=0)
+        opt = q_adamw(model.parameters(), lr=3e-4, weight_decay=0.1)
+        train_step = make_train_step(_loss_fn, opt)
+        state = TrainState.create(model, opt)
+        for _ in range(train_steps):
+            state, _ = train_step(state, batch)
+        tree = {"params": params_tree(model),
+                "opt_state": qadamw_state_tree(opt, model)}
+        flat = _flatten_state_dict(tree)
+        nbytes = sum(t.numel() * t.element_size() for t in flat.values())
+        cap = _capacity(out)
+        log(f"{label}: state {nbytes} bytes in {len(flat)} leaves; "
+            f"/dev/shm {cap['shm_free']} of {cap['shm_size']} bytes free, "
+            f"MemAvailable {cap['mem_available']} of {cap['mem_total']}, "
+            f"disk free {cap['disk_free']} [{card}]")
+        # shm holds one copy; host RAM the segment, the reference copy,
+        # the saver's private copy and a restored copy
+        if (cap["shm_free"] < 1.2 * nbytes
+                or cap["mem_available"] < 4 * nbytes + 8 * 2**30
+                or cap["disk_free"] < 2 * nbytes):
+            raise AssertionError(f"{label}: the state does not fit with "
+                                 f"room to spare: {nbytes} bytes, {cap}")
+        ckpt = Checkpointer(out)
+        engine = ckpt.engine
+
+        def finish(step, t0):
+            """Wait for the save of ``step`` queued at host time ``t0``;
+            its numbers."""
+            if not ckpt.wait(600):
+                raise AssertionError(f"{label}: the snapshot write timed "
+                                     "out")
+            shm_s = time.perf_counter() - t0
+            if engine._last_async_error is not None:
+                raise AssertionError(f"{label}: snapshot write failed: "
+                                     f"{engine._last_async_error!r}")
+            persist_s = _wait_committed(out, step) + shm_s
+            return {"shm_s": shm_s, "persist_s": persist_s,
+                    "snap": dict(engine.last_snapshot_phases),
+                    "save": dict(engine.last_save_phases)}
+
+        # A first save of the state at step 2 sets up what a save uses
+        # once (the segment, the pinned staging buffers, the writer
+        # thread, the snapshot stream's block of memory): allocating
+        # pinned or device memory can wait for the card, and would end
+        # the race below before it ran.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not ckpt.save_checkpoint(train_steps, tree,
+                                    storage_type=StorageType.DISK):
+            raise AssertionError(f"{label}: save_checkpoint refused")
+        first = {"stall_s": time.perf_counter() - t0, **finish(train_steps,
+                                                               t0)}
+        # The race runs on a stream of high priority that a sleep kernel
+        # holds while the host queues it: B6 (update 3), the reference
+        # copy of the state in stream order, the save, and B6 (update
+        # 4) at once.  Without the snapshot's wait for this stream its
+        # copy reads update 2; without this stream's wait for the copy,
+        # update 4 is dispatched ahead of the copy's remaining blocks.
+        # The reference's buffer, the copy kernel and the streams are
+        # set up before the sleep, so that nothing in the race waits
+        # for the card.
+        race = torch.cuda.Stream(priority=-1)
+        race.wait_stream(torch.cuda.current_stream())
+        card_dev = model.wte.weight.device
+        on_card = [t for t in flat.values() if t.device == card_dev]
+        with torch.cuda.stream(race):
+            ref_dev = torch.empty(sum(t.numel() * t.element_size()
+                                      for t in on_card),
+                                  dtype=torch.uint8, device=card_dev)
+            torch.cat([_leaf_bytes(t)[:1] for t in on_card[:2]])
+        torch.cuda.synchronize()
+        marks = []
+
+        def mark(what):
+            marks.append(f"{what} {time.perf_counter() - t0:.3f} s "
+                         f"{'sleeping' if not slept.query() else 'awake'}")
+
+        with torch.cuda.stream(race):
+            t0 = time.perf_counter()
+            torch.cuda._sleep(RACE_SLEEP_CYCLES)
+            slept = torch.cuda.Event()
+            slept.record()
+            opt.step()
+            mark("update 3")
+            # the count moves on with the update; the tensors are the
+            # same, so the tree is built again on the host alone
+            tree = {"params": params_tree(model),
+                    "opt_state": qadamw_state_tree(opt, model)}
+            flat = _flatten_state_dict(tree)
+            _cat_bytes([t for t in flat.values() if t.device == card_dev],
+                       ref_dev)
+            ready = torch.cuda.Event()
+            ready.record()
+            mark("reference")
+            t1 = time.perf_counter()
+            if not ckpt.save_checkpoint(save_step, tree,
+                                        storage_type=StorageType.DISK):
+                raise AssertionError(f"{label}: save_checkpoint refused")
+            stall_s = time.perf_counter() - t1
+            mark("save")
+            opt.step()
+            mark("update 4")
+            raced = not slept.query()
+        torch.cuda.current_stream().wait_stream(race)
+        if not raced:
+            raise AssertionError(f"{label}: the sleep ended before the host "
+                                 f"had queued the race: it was not run "
+                                 f"({'; '.join(marks)})")
+        log(f"{label}: race queued while the card slept: {'; '.join(marks)}")
+        # the snapshot's copy starts on the card once the reference is
+        # taken: the save's times run from there
+        ready.synchronize()
+        second = {"stall_s": stall_s, **finish(save_step,
+                                                time.perf_counter())}
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        ref_host, reference, offset = ref_dev.cpu(), {}, 0
+        del ref_dev
+        for k, t in flat.items():
+            if t.device != card_dev:
+                reference[k] = _leaf_bytes(t).clone()
+                continue
+            n = t.numel() * t.element_size()
+            reference[k] = ref_host[offset:offset + n]
+            offset += n
+        changed = sum(not torch.equal(_leaf_bytes(t).cpu(), reference[k])
+                      for k, t in list(flat.items())[:8])
+        restores = {}
+        for tier in ("shm", "storage"):
+            stats = RestoreStats()
+            if tier == "shm":
+                step, restored = ckpt.load_checkpoint()
+            else:
+                _unlink_segments()
+                step, restored = engine.load_from_storage()
+            phases = dict(engine.last_restore_phases)
+            if step != save_step or phases.get("tier") != tier:
+                raise AssertionError(f"{label}: restored step {step} from "
+                                     f"{phases.get('tier')}, not "
+                                     f"{save_step} from {tier}")
+            got = _flatten_state_dict(restored)
+            bad = [k for k in reference
+                   if k not in got or not torch.equal(
+                       _leaf_bytes(got[k]), reference[k])]
+            if bad or len(got) != len(reference):
+                raise AssertionError(f"{label}: {len(bad)} leaves restored "
+                                     f"from {tier} differ from the state at "
+                                     f"the save: {bad[:5]}")
+            restore_to_template(tree, restored, stats=stats)
+            phases["h2d_s"] = stats.h2d_s
+            restores[tier] = phases
+            del restored, got
+        ckpt.close()
+    bound_ms = 2 * nbytes / PEAK_BYTES_S * 1e3
+    for which, r in (("first save (step 2, sets up)", first),
+                     (f"raced save (update {save_step}; the writer's "
+                      f"waits include the sleep)", second)):
+        snap, save = r["snap"], r["save"]
+        d2h_gbs = save["d2h_bytes"] / save["d2h_device_s"] / 1e9
+        log(f"{label}: {which}: save_checkpoint stall "
+            f"{r['stall_s'] * 1e3:.3f} ms on the host, snapshot copy "
+            f"{snap['device_s'] * 1e3:.3f} ms on the device "
+            f"({snap['bytes']} bytes), bound 2 x bytes / 3.35 TB/s = "
+            f"{bound_ms:.3f} ms (bytes) [{card}]")
+        log(f"{label}: {which}: D2H {save['d2h_bytes']} bytes in "
+            f"{save['d2h_device_s']:.4f} s on the device = {d2h_gbs:.2f} "
+            f"GB/s, pinned 256 MB copy_ {yard['d2h']:.2f} GB/s (bound "
+            f"{save['d2h_bytes'] / yard['d2h'] / 1e6:.1f} ms); host waited "
+            f"{save['fetch_s']:.4f} s on it [{card}]")
+        log(f"{label}: {which}: shm write {save['bytes']} bytes, host "
+            f"copies {save['memcpy_s']:.4f} s = "
+            f"{save['bytes'] / save['memcpy_s'] / 1e9:.2f} GB/s, whole shm "
+            f"save {save['total_s']:.4f} s (lock {save['lock_wait_s']:.4f} "
+            f"s); {r['shm_s']:.3f} s to the snapshot in shm, persist "
+            f"{r['persist_s']:.3f} s to the tracker's commit, both from the "
+            f"call (first save) or from the copy's start on the card "
+            f"(raced save) [{card}]")
+    for tier, ph in restores.items():
+        log(f"{label}: restore from {tier}: read {ph['read_s']:.4f} s, "
+            f"assemble {ph['assemble_s']:.4f} s "
+            f"({ph['bytes'] / max(ph['assemble_s'], 1e-9) / 1e9:.2f} GB/s, "
+            f"{ph['workers']} workers), h2d {ph['h2d_s']:.4f} s "
+            f"({ph['bytes'] / ph['h2d_s'] / 1e9:.2f} GB/s; pinned 256 MB "
+            f"copy_ {yard['h2d']:.2f} GB/s, bound "
+            f"{ph['bytes'] / yard['h2d'] / 1e6:.1f} ms) [{card}]")
+    log(f"{label}: update {save_step} queued before the save and update "
+        f"{save_step + 1} at once after it, both while a sleep held the "
+        f"stream; {changed} of the first 8 leaves changed by update "
+        f"{save_step + 1}; shm and storage restores bit-equal to the state "
+        f"at update {save_step} [{card}]")
+    n_params = 12 * cfg.num_layers + 4
+    want = _zero_counts(**{
+        "flash_attention.fwd": 2 * cfg.num_layers * train_steps,
+        "flash_attention.bwd_dq": cfg.num_layers * train_steps,
+        "flash_attention.bwd_dkv": cfg.num_layers * train_steps,
+        "quantization.quantize": 2 * n_params,
+        "quantization.qadam": save_step + 1,
+    })
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} != {want}")
+    if changed == 0:
+        raise AssertionError(f"{label}: update {save_step + 1} changed none "
+                             "of the first 8 leaves: the race was not run")
+    return {"gpt2_xl_ckpt_torn": counts}
+
+
 FAMILIES = ("flash attention (this port)", "quantization (this port)",
             "matmul", "other")
 
@@ -1071,7 +1639,7 @@ def _free_cuda():
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1082,7 +1650,29 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if argv[:1] == ["--ckpt-child"]:
+        return ckpt_child(*argv[1:4])
     os.makedirs(OUT_DIR, exist_ok=True)
+    # the run's own IPC namespace: sockets, and the names of its shm
+    # segments, which it unlinks at the end
+    sockets = tempfile.mkdtemp(prefix="dlrover-smoke-")
+    os.environ["DLROVER_SHARED_DIR"] = sockets
+    os.environ["DLROVER_JOB_NAME"] = f"chipsmoke{os.getpid()}"
+    try:
+        return run_phases(torch)
+    finally:
+        left = _unlink_segments()
+        shutil.rmtree(sockets, ignore_errors=True)
+        for name in os.listdir(OUT_DIR):
+            if name.startswith("ckpt_") and os.path.isdir(
+                    os.path.join(OUT_DIR, name)):
+                shutil.rmtree(os.path.join(OUT_DIR, name),
+                              ignore_errors=True)
+        if left:
+            log(f"chip_smoke: unlinked leftover shm segments {left}")
+
+
+def run_phases(torch) -> int:
     os.environ["DLROVER_EVENT_LOG"] = os.path.join(OUT_DIR,
                                                    "chip_smoke_events.jsonl")
     os.environ["DLROVER_METRICS_FILE"] = os.path.join(
@@ -1107,6 +1697,14 @@ def main() -> int:
                         ("gpt2_small_4bit_qadamw", phase_train_small_4bit)):
         by_path[path] = phase(card)
         _free_cuda()
+    for phase in (phase_ckpt_small, phase_ckpt_xl):
+        by_path.update(phase(card))
+        _free_cuda()
+    leaked = [n for n in os.listdir("/dev/shm")
+              if n.startswith(f"dlrover_tpu_ckpt_shm_"
+                              f"{os.environ['DLROVER_JOB_NAME']}_")]
+    if leaked:
+        raise AssertionError(f"shm segments left behind: {leaked}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = timings[name]
@@ -1132,4 +1730,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

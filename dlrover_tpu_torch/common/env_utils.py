@@ -1,6 +1,7 @@
 """Env accessors for the agent<->trainer contract.
 
-Copy of ``get_node_rank``, ``get_world_size`` and
+Copy of ``get_node_rank``, ``get_rank``, ``get_world_size``,
+``get_local_rank``, ``get_local_world_size``, ``get_job_name`` and
 ``get_restart_count`` from ``dlrover_tpu/common/env_utils.py``.
 """
 
@@ -20,8 +21,24 @@ def get_node_rank() -> int:
     return _get_int(NodeEnv.NODE_RANK)
 
 
+def get_rank() -> int:
+    return _get_int(NodeEnv.RANK)
+
+
 def get_world_size() -> int:
     return _get_int(NodeEnv.WORLD_SIZE, 1)
+
+
+def get_local_rank() -> int:
+    return _get_int(NodeEnv.LOCAL_RANK)
+
+
+def get_local_world_size() -> int:
+    return _get_int(NodeEnv.LOCAL_WORLD_SIZE, 1)
+
+
+def get_job_name() -> str:
+    return os.getenv(NodeEnv.JOB_NAME, "local-job")
 
 
 def get_restart_count() -> int:

@@ -11,9 +11,13 @@ two moments) before activations: 25 GB for this model.
 
     python -m dlrover_tpu_torch.examples.train_xl_lowmem        # on the GPU
     python -m dlrover_tpu_torch.examples.train_xl_lowmem --smoke --device cpu
+
+The Trainer flash-checkpoints into ``--output-dir`` and resumes from
+the last checkpoint of the job (its shm segment, else that directory).
 """
 
 import argparse
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,9 +45,12 @@ def loss_fn(module, batch):
 
 
 def build_trainer(smoke: bool, steps: int, device=None, batch: int = 4,
-                  logging_steps: int = 5) -> Trainer:
+                  logging_steps: int = 5,
+                  output_dir: Optional[str] = None) -> Trainer:
     """The model, one fixed batch of seeded random tokens, and the
-    port's ``Trainer`` with ``q_adamw(lr=3e-4, weight_decay=0.1)``."""
+    port's ``Trainer`` with ``q_adamw(lr=3e-4, weight_decay=0.1)``,
+    checkpointing into ``output_dir`` (the Trainer's default when
+    None)."""
     cfg = config(smoke)
     seq = cfg.max_seq_len
     model = GPT(cfg, device=device, seed=0)
@@ -54,6 +61,8 @@ def build_trainer(smoke: bool, steps: int, device=None, batch: int = 4,
         max_steps=steps, global_batch_size=batch, micro_batch_size=batch,
         logging_steps=logging_steps,
     )
+    if output_dir is not None:
+        args.output_dir = output_dir
     return Trainer(
         model, args, [{"x": tokens[:, :-1], "y": tokens[:, 1:]}], loss_fn,
         optim_factory=lambda ps: q_adamw(ps, lr=3e-4, weight_decay=0.1),
@@ -67,9 +76,12 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="cpu, or a CUDA device (default: the GPU)")
+    ap.add_argument("--output-dir", default=None,
+                    help="checkpoint directory (default: the Trainer's)")
     args = ap.parse_args(argv)
 
-    trainer = build_trainer(args.smoke, args.steps, args.device)
+    trainer = build_trainer(args.smoke, args.steps, args.device,
+                            output_dir=args.output_dir)
     print(f"params: {count_params(trainer.model) / 1e9:.2f}B")
     result = trainer.train()
     for i, (loss, seconds) in enumerate(zip(result["losses"],

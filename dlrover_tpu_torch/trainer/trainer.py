@@ -1,15 +1,18 @@
-"""High-level Trainer: the training loop with metrics, phase profiling
-and loss-spike detection.
+"""High-level Trainer: the training loop with flash checkpoints,
+metrics, phase profiling and loss-spike detection.
 
 Reference: ``dlrover_tpu/trainer/trainer.py`` (``TrainingArguments``,
-``Trainer``).  The loop, the step histogram, the phase profile and the
-loss-spike detection are the reference's; the step is
+``Trainer``).  The loop, the checkpoint cadence (a memory save every
+``save_steps``, a storage save every ``save_storage_steps``, a final
+storage save), the resume (params and the trainer's counters come
+back, the optimizer is built fresh), the step histogram, the phase
+profile and the loss-spike detection are the reference's; the step is
 :func:`dlrover_tpu_torch.trainer.elastic_trainer.make_train_step` on
-one GPU.  Two options of the reference belong to later slices of the
-port and raise ``NotImplementedError`` until then: ``strategy``
-(``auto_accelerate``, slice 4) and the flash checkpoint
-(``save_steps``/``resume_from_checkpoint``, slice 3).  The port
-saves no checkpoint yet.
+one GPU.  The params are saved under their flax paths
+(:func:`dlrover_tpu_torch.utils.convert.params_tree`), so a checkpoint
+of the JAX package's ``Trainer`` resumes this one and the other way
+round.  ``strategy`` (``auto_accelerate``) belongs to slice 4 of the
+port and raises ``NotImplementedError`` until then.
 """
 
 import time
@@ -19,6 +22,12 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.checkpoint.checkpointer import (
+    Checkpointer,
+    StorageType,
+    restore_to_template,
+)
+from dlrover_tpu_torch.checkpoint.restore import RestoreStats
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.telemetry.events import emit_event, set_event_source
@@ -29,6 +38,7 @@ from dlrover_tpu_torch.trainer.elastic_trainer import (
     make_train_step,
     to_device,
 )
+from dlrover_tpu_torch.utils.convert import params_tree
 
 _REG = get_registry()
 _STEP_SECONDS = _REG.histogram(
@@ -46,23 +56,19 @@ _LOSS_SPIKE_TOTAL = _REG.counter(
 @dataclass
 class TrainingArguments:
     """Reference: ``AtorchArguments`` (atorch/trainer/atorch_args.py).
+    ``dry_run_candidates`` comes with ``strategy`` in slice 4."""
 
-    ``save_steps`` defaults to 0 here and ``resume_from_checkpoint``
-    to False: the flash checkpoint comes with slice 3 of the port,
-    and with it the reference's ``output_dir`` and
-    ``save_storage_steps``; ``dry_run_candidates`` comes with
-    ``strategy`` in slice 4.
-    """
-
+    output_dir: str = "/tmp/dlrover_tpu_out"
     max_steps: int = 100
     global_batch_size: int = 8
     micro_batch_size: int = 8
     learning_rate: float = 1e-3
     logging_steps: int = 10
-    save_steps: int = 0
+    save_steps: int = 50
+    save_storage_steps: int = 0  # 0 = same as save_steps
     eval_steps: int = 0          # 0 = no periodic eval
     strategy: Optional[Any] = None
-    resume_from_checkpoint: bool = False
+    resume_from_checkpoint: bool = True
     # loss-spike detection (reference: loss_spike_utils)
     loss_spike_factor: float = 3.0
     loss_ema_beta: float = 0.98
@@ -75,7 +81,8 @@ class Trainer:
     of :mod:`dlrover_tpu_torch.optim` plugs in the same way, e.g.
     ``lambda ps: q_adamw(ps, lr=3e-4, weight_decay=0.1)`` for int8
     AdamW moments).  Runs on ``device``, the GPU unless ``"cpu"`` is
-    passed."""
+    passed.  After :meth:`train`, ``last_restore_phases`` holds the
+    resume's tier and stage times (empty when it started fresh)."""
 
     def __init__(
         self,
@@ -92,11 +99,6 @@ class Trainer:
                 "TrainingArguments.strategy needs auto_accelerate, which "
                 "comes with slice 4 of the port (scale-out)"
             )
-        if args.save_steps or args.resume_from_checkpoint:
-            raise NotImplementedError(
-                "save_steps/resume_from_checkpoint need the flash "
-                "checkpoint, which comes with slice 3 of the port"
-            )
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.args = args
@@ -106,6 +108,8 @@ class Trainer:
         self.optim_factory = optim_factory or self._default_optim
         self.state: Optional[TrainState] = None
         self.train_step: Optional[Callable] = None
+        self._checkpointer: Optional[Checkpointer] = None
+        self.last_restore_phases: Dict[str, Any] = {}
         self.loss_spikes: List[Dict[str, float]] = []
         self._loss_ema: Optional[float] = None
 
@@ -119,15 +123,17 @@ class Trainer:
 
     # -- build -------------------------------------------------------------
 
-    def _build(self):
+    def _build(self, start_step: int):
         args = self.args
         grad_accum = (
             max(1, args.global_batch_size // args.micro_batch_size)
             if args.global_batch_size > args.micro_batch_size
             else 1
         )
+        # after a resume this is the fresh optimizer over the restored
+        # params, as the reference's _try_resume builds it
         optimizer = self.optim_factory(self.model.parameters())
-        self.state = TrainState.create(self.model, optimizer)
+        self.state = TrainState.create(self.model, optimizer, start_step)
         self.train_step = make_train_step(
             self.loss_fn, optimizer, grad_accum, device=self.device
         )
@@ -139,6 +145,38 @@ class Trainer:
 
     def place_batch(self, batch):
         return to_device(batch, self.device)
+
+    # -- checkpoint --------------------------------------------------------
+
+    def _try_resume(self) -> int:
+        """Copy the last checkpoint's params into the model (shm, then
+        storage); the step it was taken at, or 0."""
+        if not self.args.resume_from_checkpoint:
+            return 0
+        step, restored = self._checkpointer.load_checkpoint()
+        if step is None:
+            return 0
+        stats = RestoreStats()
+        restore_to_template(params_tree(self.model), restored["params"],
+                            stats=stats)
+        self.last_restore_phases = {
+            **self._checkpointer.last_restore_phases,
+            "h2d_s": round(stats.h2d_s, 6),
+        }
+        logger.info("resumed training from step %s", step)
+        return int(step)
+
+    def _save(self, step: int, to_storage: bool):
+        self._checkpointer.save_checkpoint(
+            step,
+            {
+                "params": params_tree(self.model),
+                "trainer": self._elastic.state_dict(),
+            },
+            storage_type=(
+                StorageType.DISK if to_storage else StorageType.MEMORY
+            ),
+        )
 
     # -- loss spike --------------------------------------------------------
 
@@ -164,17 +202,25 @@ class Trainer:
     # -- loops -------------------------------------------------------------
 
     def train(self) -> Dict[str, Any]:
-        """Run to ``max_steps``; returns ``{"final_loss", "steps",
-        "losses", "step_seconds"}`` (plus ``eval_loss`` when
-        evaluating), the last two one entry per step."""
+        """Run from the last checkpoint (with ``resume_from_checkpoint``)
+        to ``max_steps``; returns ``{"final_loss", "steps", "losses",
+        "step_seconds"}`` (plus ``eval_loss`` when evaluating), the last
+        two one entry per step taken, and on the card ``peak_bytes``,
+        the allocator's peak before the final save adds its snapshot."""
         set_event_source("trainer")
         data_iter = iter(self.train_data)
         batch = next(data_iter)
-        self._build()
+        self._checkpointer = Checkpointer(self.args.output_dir)
+        start_step = self._try_resume()
+        self._build(start_step)
+        self._elastic.global_step = start_step
 
-        step = 0
+        step = start_step
         metrics_out: Dict[str, Any] = {"losses": [], "step_seconds": []}
         loss = float("nan")
+        save_storage_steps = (
+            self.args.save_storage_steps or self.args.save_steps
+        )
         while step < self.args.max_steps:
             step_start = time.perf_counter()
             with self._elastic.profile("h2d"):
@@ -196,6 +242,10 @@ class Trainer:
                     "step %s loss %.4f grad_norm %.3f",
                     step, loss, float(metrics["grad_norm"]),
                 )
+            with self._elastic.profile("checkpoint"):
+                if (self.args.save_steps
+                        and step % self.args.save_steps == 0):
+                    self._save(step, step % save_storage_steps == 0)
             if self.args.eval_steps and step % self.args.eval_steps == 0:
                 metrics_out["eval_loss"] = self.evaluate()
             with self._elastic.profile("data_wait"):
@@ -204,6 +254,15 @@ class Trainer:
                 except StopIteration:
                     data_iter = iter(self.train_data)
                     batch = next(data_iter)
+        # final storage save; flush in-flight snapshots first so the
+        # save cannot be skipped as busy, then flush it too so a
+        # process exit right after train() cannot lose it
+        self._checkpointer.wait()
+        if self.device.type == "cuda":
+            metrics_out["peak_bytes"] = torch.cuda.max_memory_allocated(
+                self.device)
+        self._save(step, True)
+        self._checkpointer.wait()
         metrics_out.update({"final_loss": loss, "steps": step})
         return metrics_out
 

@@ -118,6 +118,17 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return params
 
 
+def params_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """The model's parameters themselves (no copies) nested under their
+    flax paths: the ``params`` of a checkpoint that the JAX package's
+    ``Trainer`` reads, and a template for
+    :func:`dlrover_tpu_torch.checkpoint.checkpointer.restore_to_template`."""
+    params: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        _set(params, _flax_path(name), p)
+    return params
+
+
 # -- q-AdamW state ------------------------------------------------------------
 
 
@@ -154,6 +165,32 @@ def qadamw_state_from_jax(state, model: torch.nn.Module) -> Dict[str, Any]:
                   "nu_values": _tensor(nu[0]), "nu_scales": _tensor(nu[1])}
     return {"state": out,
             "nu_domain": int(np.asarray(_field(state, "nu_domain")))}
+
+
+def qadamw_state_tree(optimizer, model: torch.nn.Module) -> Dict[str, Any]:
+    """The port's q-AdamW state in the reference's ``QAdamWState``
+    layout, its codes and scales the optimizer's own tensors (no
+    copies): ``{"count", "mu", "nu", "nu_domain"}`` with ``count`` and
+    ``nu_domain`` as 0-d int32 tensors and ``mu``/``nu`` nested like
+    the flax params with ``QMoment(values, scales)`` leaves — the
+    ``opt_state`` of a checkpoint, laid out as the JAX package lays
+    out its own."""
+    from dlrover_tpu_torch.optim.low_bit import NU_DOMAIN_SQRT_V1, QMoment
+
+    tree = {"mu": {}, "nu": {}}
+    steps = set()
+    for name, p in model.named_parameters():
+        st = optimizer.state[p]
+        steps.add(int(st["step"]))
+        for which in ("mu", "nu"):
+            _set(tree[which], _flax_path(name), QMoment(
+                values=st[f"{which}_values"], scales=st[f"{which}_scales"],
+            ))
+    if len(steps) != 1:
+        raise ValueError(f"parameters at different step counts: {steps}")
+    return {"count": torch.tensor(steps.pop(), dtype=torch.int32),
+            "mu": tree["mu"], "nu": tree["nu"],
+            "nu_domain": torch.tensor(NU_DOMAIN_SQRT_V1, dtype=torch.int32)}
 
 
 def qadamw_state_to_jax(optimizer, model: torch.nn.Module) -> Dict[str, Any]:

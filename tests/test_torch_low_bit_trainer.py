@@ -17,6 +17,10 @@ in 10^3 may lie beyond one bf16 ulp (about 0.07% do).  Then the
 example's smoke run on the CPU.
 """
 
+import shutil
+import tempfile
+import uuid
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +30,8 @@ import torch
 from dlrover_tpu.models import gpt as jax_gpt
 from dlrover_tpu.optim import low_bit as jlb
 from dlrover_tpu.trainer import elastic_trainer as jax_et
+from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+from dlrover_tpu_torch.checkpoint.shm_handler import SharedMemoryHandler
 from dlrover_tpu_torch.examples import train_xl_lowmem
 from dlrover_tpu_torch.models import gpt as port_gpt
 from dlrover_tpu_torch.optim import q_adamw
@@ -121,16 +127,41 @@ def test_qadamw_train_steps_match_jax(param_dtype, grad_accum):
 def test_example_smoke_runs_on_cpu(tmp_path, monkeypatch):
     """``python -m dlrover_tpu_torch.examples.train_xl_lowmem --smoke
     --device cpu``, two steps: bf16 params, int8 moments, falling
-    loss, and no kernel launched on the CPU."""
+    loss, and no kernel launched on the CPU.  Each run checkpoints into
+    a directory and an shm namespace (``DLROVER_JOB_NAME``) of its own,
+    so it starts fresh, and the savers bind their sockets in a directory
+    of the test's own."""
     monkeypatch.setenv("DLROVER_METRICS_FILE", str(tmp_path / "m.json"))
     monkeypatch.setenv("DLROVER_EVENT_LOG", str(tmp_path / "events.jsonl"))
+    sockets = tempfile.mkdtemp(prefix="dls")
+    monkeypatch.setenv("DLROVER_SHARED_DIR", sockets)
     pq.reset_launch_counts()
+    jobs = []
+    try:
+        _run_example_smoke(tmp_path, monkeypatch, jobs)
+    finally:
+        AsyncCheckpointSaver.reset()
+        for job in jobs:
+            SharedMemoryHandler(0, job_name=job).unlink()
+        shutil.rmtree(sockets, ignore_errors=True)
+
+
+def _run_example_smoke(tmp_path, monkeypatch, jobs):
+    def new_job():
+        jobs.append(f"test-{uuid.uuid4().hex[:12]}")
+        monkeypatch.setenv("DLROVER_JOB_NAME", jobs[-1])
+        AsyncCheckpointSaver.reset()
+
+    new_job()
     result = train_xl_lowmem.main(["--smoke", "--device", "cpu",
-                                   "--steps", "2"])
+                                   "--steps", "2",
+                                   "--output-dir", str(tmp_path / "a")])
     assert result["steps"] == 2 and all(np.isfinite(result["losses"]))
     assert result["losses"][1] < result["losses"][0]
     assert pq.LAUNCHES == {"quantize": 0, "dequantize": 0, "qadam": 0}
-    trainer = train_xl_lowmem.build_trainer(True, 1, "cpu")
+    new_job()
+    trainer = train_xl_lowmem.build_trainer(
+        True, 1, "cpu", output_dir=str(tmp_path / "b"))
     trainer.train()
     model, opt = trainer.model, trainer.state.optimizer
     assert model.wte.weight.dtype == torch.bfloat16

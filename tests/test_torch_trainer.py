@@ -7,10 +7,16 @@ final params within 1e-4 (fp32; sums run in another order).  Then
 the port alone: gradient accumulation equals one full batch, the
 Trainer writes its metrics file and events on the CPU, refuses to run
 without a GPU unless told ``device="cpu"``, and raises for the options
-of later slices.
+of later slices.  Every Trainer here writes its final checkpoint into
+the test's own directory and does not resume (the shm segment of an
+earlier test in the process would hold one); the in-process saver is
+stopped and the segment unlinked after each test.
 """
 
 import json
+import shutil
+import tempfile
+import uuid
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +27,8 @@ import torch
 
 from dlrover_tpu.models import gpt as jax_gpt
 from dlrover_tpu.trainer import elastic_trainer as jax_et
+from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+from dlrover_tpu_torch.checkpoint.shm_handler import SharedMemoryHandler
 from dlrover_tpu_torch.models import gpt as port_gpt
 from dlrover_tpu_torch.telemetry.events import read_events
 from dlrover_tpu_torch.trainer.elastic_trainer import (
@@ -145,9 +153,22 @@ def test_grad_accum_equals_one_full_batch():
                                        rtol=1e-5)
 
 
-def _trainer(max_steps=4, device="cpu", **kw):
+@pytest.fixture(autouse=True)
+def _checkpoint_scope(monkeypatch):
+    """A shm namespace and a socket directory of the test's own."""
+    sockets = tempfile.mkdtemp(prefix="dls")
+    monkeypatch.setenv("DLROVER_JOB_NAME", f"test-{uuid.uuid4().hex[:12]}")
+    monkeypatch.setenv("DLROVER_SHARED_DIR", sockets)
+    yield
+    AsyncCheckpointSaver.reset()
+    SharedMemoryHandler(0).unlink()
+    shutil.rmtree(sockets, ignore_errors=True)
+
+
+def _trainer(tmp_path, max_steps=4, device="cpu", **kw):
     model = _port_model(seed=1)
     args = TrainingArguments(
+        output_dir=str(tmp_path / "ckpt"), resume_from_checkpoint=False,
         max_steps=max_steps, global_batch_size=8, micro_batch_size=4,
         logging_steps=2, **kw,
     )
@@ -159,7 +180,7 @@ def test_trainer_on_cpu_writes_metrics_and_events(tmp_path, monkeypatch):
     metrics = tmp_path / "metrics.json"
     monkeypatch.setenv("DLROVER_EVENT_LOG", str(events))
     monkeypatch.setenv("DLROVER_METRICS_FILE", str(metrics))
-    trainer = _trainer(max_steps=6)
+    trainer = _trainer(tmp_path, max_steps=6)
     result = trainer.train()
 
     assert result["steps"] == 6 and len(result["losses"]) == 6
@@ -181,7 +202,7 @@ def test_trainer_on_cpu_writes_metrics_and_events(tmp_path, monkeypatch):
 
 
 def test_trainer_evaluate_on_cpu(tmp_path):
-    trainer = _trainer(max_steps=2)
+    trainer = _trainer(tmp_path, max_steps=2)
     trainer.eval_data = _batches(2, seed=7)
     trainer.train()
     loss = trainer.evaluate()
@@ -193,23 +214,21 @@ def test_trainer_runs_on_the_gpu_unless_told_otherwise(tmp_path,
                                                        monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        _trainer(device=None)
+        _trainer(tmp_path, device=None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_train_step(_port_loss, None)
 
 
 @pytest.mark.parametrize("kw,match", [
     (dict(strategy=object()), "slice 4"),
-    (dict(save_steps=5), "slice 3"),
-    (dict(resume_from_checkpoint=True), "slice 3"),
 ])
 def test_trainer_options_of_later_slices_raise(tmp_path, kw, match):
     with pytest.raises(NotImplementedError, match=match):
-        _trainer(**kw)
+        _trainer(tmp_path, **kw)
 
 
 def test_default_optimizer_is_optax_adamw(tmp_path):
-    trainer = _trainer()
+    trainer = _trainer(tmp_path)
     opt = trainer._default_optim(trainer.model.parameters())
     group = opt.param_groups[0]
     assert isinstance(opt, torch.optim.AdamW)
@@ -218,7 +237,7 @@ def test_default_optimizer_is_optax_adamw(tmp_path):
 
 
 def test_loss_spike_detection(tmp_path):
-    trainer = _trainer()
+    trainer = _trainer(tmp_path)
     trainer._loss_ema = 1.0
     trainer.args.loss_spike_factor = 2.0
     trainer._check_loss_spike(1, 5.0)  # 5 > 2*1.0
