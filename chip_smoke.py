@@ -12,21 +12,30 @@ Phases, each fatal on failure:
 2. hold each flash-attention kernel (fwd, bwd_dq, bwd_dkv) against its
    plain PyTorch version on the card, at the training shapes of GPT-2
    small (b=8, s=1024, h=12, d=64, bf16, causal) and GPT-2 XL (b=4,
-   h=25) and at small non-causal, GQA, ragged, head_dim-128 and fp32
-   cases, and hold the bf16 dK/dV kernel to fp32 p and dS and the bf16
-   dQ kernel to dS rounded to bf16 (each closer to the plain version
-   at the TPU kernel's rounding point than to one at the other); time
-   each at both training shapes, on the device alone and per call
-   with the host's launch path inside, beside its bound, its plain
-   version and scaled_dot_product_attention (a yardstick that the
-   port never calls), and the backward pair beside SDPA's backward;
+   h=25) and at small non-causal, GQA, ragged, head_dim-128, fp16 and
+   fp32 cases, and hold the bf16 and fp16 dK/dV kernels to fp32 p and
+   dS and the dQ kernels to dS rounded to the input type (each closer
+   to the plain version at the TPU kernel's rounding point than to one
+   at the other); time each at both training shapes, on the device
+   alone and per call with the host's launch path inside, beside its
+   bound, its plain version and scaled_dot_product_attention (a
+   yardstick that the port never calls), and the backward pair beside
+   SDPA's backward;
+   then the wrapper's repairs: head_dim 16, 32, 80, 96 (padded to 64
+   or 128) and 256, bf16 and fp16, causal and not, at a ragged GQA
+   shape, forward and backward through autograd against the plain
+   version, one launch of each kernel a case; head_dim 320 raises;
+   fp16 timed against bf16 at GPT-2 small's shape, and head_dim 80
+   against 128 through the wrapper, beside their bounds;
 3. hold each quantization kernel (quantize, dequantize, the fused
    q-AdamW step) against its plain version on the card at GPT-2 XL's
    leaves (``wte`` as [39300, 2048], an ``fc_in`` weight as
    [5000, 2048]; bf16 and fp32), a ragged leaf, blocks 64 and 128,
-   qmax 7, an all-zero row and a row of exact .5 ties; time each at
-   ``wte`` beside its bound, its plain version and, for dequantize,
-   ``torch.mul(q, scales)`` (a yardstick the port never calls);
+   blocks 16384 and 65536 (the two-pass kernels), qmax 7, an all-zero
+   row and a row of exact .5 ties; time each at ``wte`` beside its
+   bound, its plain version and, for dequantize, ``torch.mul(q,
+   scales)`` (a yardstick the port never calls), and the long blocks
+   beside their bounds;
 4. check a small GPT on the card: the flash model against the plain
    attention model, logits and gradients;
 5. train through ``Trainer.train()``, each run with every launch count
@@ -71,6 +80,23 @@ Phases, each fatal on failure:
       pinned 256 MB copy, the shm write rate, the persist time to the
       tracker's commit and each restore stage by tier, ``h2d`` beside
       the pinned copy the other way.
+7. the control plane: ``python -m dlrover_tpu_torch.master.main`` as a
+   child for one node, its journal and logs under ``chip_smoke_out``;
+   a port ``MasterClient`` here joins its rendezvous (the world's
+   coordinator then serves as the ``torch.distributed`` rendezvous
+   address) and ``TrainingMonitor`` + ``HeartbeatReporter`` report
+   while GPT-2 small trains 8 steps through ``Trainer`` with flash
+   attention (exact launch counts); the master's global step and
+   running speed, read from its own ``/metrics``, must equal the
+   trainer's last step and be within 10% of the trainer's speed over
+   the steps the master saw; the master is SIGKILLed and restarted on
+   the same journal, which must replay the round and world, and the
+   client's next report must go through and give it back the step;
+   neither master may hold a CUDA context (``nvidia-smi
+   --query-compute-apps`` and the libraries mapped into its process),
+   and no child may be left.  Prints the master's time to serve, the
+   round trip of ``report_global_step``, the restart's time to serve,
+   the client's reconnect and the tokens/s beside 5a's.
    The run uses a socket directory and ``DLROVER_JOB_NAME`` of its own
    and unlinks its shm segments and removes its checkpoint directories
    at the end, on failure too.
@@ -96,7 +122,7 @@ OUT_DIR = os.path.join(ROOT, "chip_smoke_out")
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, FLOP/s by input type
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 SOURCES = ("flash_attention", "quantization")
 _FLASH = "dlrover_tpu_torch/csrc/flash_attention.cu"
@@ -126,20 +152,29 @@ CASES = [
     (2, 328, 8, 4, 64, "bfloat16", True),     # GQA group 2, ragged
     (2, 384, 4, 4, 128, "bfloat16", True),
     (1, 136, 4, 2, 128, "bfloat16", True),    # d 128, GQA, ragged
+    (8, 1024, 12, 12, 64, "float16", True),   # fp16 at GPT-2 small's shape
+    (2, 328, 8, 4, 64, "float16", False),     # fp16, GQA, ragged
+    (1, 136, 4, 2, 128, "float16", True),     # fp16, d 128, GQA, ragged
     (2, 512, 4, 4, 64, "float32", True),
     (2, 320, 8, 2, 128, "float32", False),
     (1, 100, 2, 2, 64, "float32", True),
 ]
 TIMED_CASES = 2
-# dtype -> tolerance on (out, dq, dk, dv), lse, delta: bf16 outputs are
-# rounded once more than the fp32 math inside; fp32 differs only by
-# the order of the sums
+# dtype -> tolerance on (out, dq, dk, dv), lse, delta: bf16 and fp16
+# outputs are rounded once more than the fp32 math inside, fp16 keeping
+# 3 more bits than bf16; fp32 differs only by the order of the sums
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2, lse=1e-3, delta=1e-3),
+       "float16": dict(atol=4e-3, rtol=4e-3, lse=1e-3, delta=1e-3),
        "float32": dict(atol=1e-4, rtol=0.0, lse=1e-4, delta=1e-4)}
-# bf16 dK/dV and dQ: the largest ratio of mean errors to the plain
-# version at the TPU kernel's rounding point and to the one at the other
-# point (_check_dkv_rounding, _check_dq_rounding)
+# bf16 and fp16 dK/dV and dQ: the largest ratio of mean errors to the
+# plain version at the TPU kernel's rounding point and to the one at the
+# other point (_check_dkv_rounding, _check_dq_rounding)
 ROUNDING_RATIO = 0.8
+# the flash wrapper's repairs: head dims it pads (16-96, to 64 or 128)
+# and 256, in bf16 and fp16, causal and not, at a ragged GQA shape
+# (b, s, h, kv_heads), through the autograd wrapper; held to TOL
+PAD_DIMS = (16, 32, 80, 96, 256)
+PAD_SHAPE = (2, 200, 4, 2)
 
 # (leaf, numel, block, dtype, qmax): GPT-2 XL's wte first, the timed case
 QUANT_CASES = [
@@ -152,7 +187,14 @@ QUANT_CASES = [
     ("ragged, block 128", 333 * 128 + 5, 128, "bfloat16", 127.0),
     ("4-bit", 1000 * 2048 + 77, 2048, "float32", 7.0),
     ("4-bit, block 64", 999 * 64 + 3, 64, "bfloat16", 7.0),
+    # blocks past the 8192 a CTA holds in registers: the two-pass kernels
+    ("block 16384", 2048 * 16384 + 777, 16384, "bfloat16", 127.0),
+    ("block 65536", 512 * 65536 + 5, 65536, "bfloat16", 127.0),
+    ("block 65536", 512 * 65536 + 5, 65536, "float32", 127.0),
 ]
+# the longest row the quantization kernels hold in registers; longer
+# rows take the two-pass kernels, whose bf16 cases are timed too
+REG_BLOCK = 8192
 # The quantization kernels and their plain versions do the same IEEE
 # operations in the same order, one rounding each (no FMA contraction,
 # IEEE division and square root, rint), so codes, scales and the new
@@ -237,14 +279,21 @@ def launch_counts() -> dict:
 WGMMA_KERNELS = ("fwd_tma_kernel", "dkv_tma_kernel", "dq_tma_kernel")
 
 
+_MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
+
+
 def _kernel_name(mangled: str) -> str:
-    """``fwd_tma_kernel<64>`` from an Itanium-mangled template name."""
+    """``fwd_tma_kernel<64,bf16>`` from an Itanium-mangled template name."""
     import re
 
-    m = re.search(r"\d+([a-z_]+kernel)I(?:Li(\d+)E)?", mangled)
+    m = re.search(r"\d+([a-z_]+kernel)(?:I((?:Li\d+E)*)(13__nv_bfloat16|"
+                  r"6__half|f)?)?", mangled)
     if not m:
         return mangled[:60]
-    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    if m.group(3):
+        args.append(_MANGLED_TYPES[m.group(3)])
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def sass_counts(lib_path) -> dict:
@@ -322,7 +371,7 @@ def bounds_ms(b, s, h, kvh, d, dtype, causal):
     """Least time per kernel: each input read once, each output written
     once, over HBM; the products the kernel must do over the peak of
     the input type; the larger of the two."""
-    esz = 2 if dtype == "bfloat16" else 4
+    esz = 4 if dtype == "float32" else 2
     qo = b * s * h * d * esz          # q, out, dout, dq: [b, s, h, d]
     kv = b * s * kvh * d * esz        # k, v, dk, dv
     rows = b * h * s * 4              # lse, delta: fp32 [b, h, s]
@@ -381,54 +430,53 @@ def _check(name, got, want, atol, rtol, failures, case):
 
 def _check_dkv_rounding(q, k, v, dout, lse, delta, scale, causal, blocks,
                         dk, dv, failures, case):
-    """The bf16 dK/dV kernel keeps p and dS at fp32 precision (the TPU
-    kernel's rounding point, by a bf16 hi+lo split), which TOL cannot
-    tell from rounding them to bf16.  The mean error to the plain
-    version with fp32 p and dS must be well under the mean error to one
-    that rounds them to bf16: ~0.63 of it for a kernel that keeps fp32,
-    ~1.6 for one that rounds (both outputs rounded to bf16 once).
-    Returns the two ratios (dk, dv)."""
-    import torch
-
+    """The bf16 and fp16 dK/dV kernels keep p and dS at fp32 precision
+    (the TPU kernel's rounding point, by a hi+lo split in the input
+    type), which TOL cannot tell from rounding them to the input type.
+    The mean error to the plain version with fp32 p and dS must be well
+    under the mean error to one that rounds them: ~0.63 of it for a
+    kernel that keeps fp32, ~1.6 for one that rounds (both outputs
+    rounded once).  Returns the two ratios (dk, dv)."""
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     f32 = [x.float() for x in (q, k, v, dout)]
     fine = fa.bwd_dkv_plain(*f32, lse, delta, scale, causal, *blocks)
     coarse = fa.bwd_dkv_plain(*f32, lse, delta, scale, causal, *blocks,
-                              operand_dtype=torch.bfloat16)
+                              operand_dtype=q.dtype)
     ratios = []
     for name, got, a, b in zip(("dk", "dv"), (dk, dv), fine, coarse):
         got = got.float()
         ratio = ((got - a).abs().mean() / (got - b).abs().mean()).item()
         ratios.append(ratio)
         if not ratio <= ROUNDING_RATIO:
-            failures.append(f"{case} {name}: closer to bf16 p and dS than "
-                            f"to fp32 (error ratio {ratio:.4f})")
+            failures.append(f"{case} {name}: closer to {q.dtype} p and dS "
+                            f"than to fp32 (error ratio {ratio:.4f})")
     return ratios
 
 
 def _check_dq_rounding(q, k, v, dout, lse, delta, scale, causal, blocks, dq,
                        failures, case):
-    """The bf16 dQ kernel rounds dS to bf16 before dS K, as the TPU
-    kernel does (``ds.astype(k.dtype)``), which TOL cannot tell from
-    keeping it fp32.  The mean error to the plain version with bf16 dS
-    (fp32 out) must be well under the mean error to one that keeps dS
-    fp32: ~0.63 of it for a kernel that rounds, ~1.6 for one that does
-    not (the output rounded to bf16 once either way).  Returns the
-    ratio."""
+    """The bf16 and fp16 dQ kernels round dS to the input type before
+    dS K, as the TPU kernel does (``ds.astype(k.dtype)``), which TOL
+    cannot tell from keeping it fp32.  The mean error to the plain
+    version with dS rounded (fp32 out) must be well under the mean error
+    to one that keeps dS fp32: ~0.63 of it for a kernel that rounds,
+    ~1.6 for one that does not (the output rounded once either way).
+    Returns the ratio."""
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
     fine = fa.bwd_dq_plain(qf, kf, vf, dof, lse, delta, scale, causal,
                            *blocks)
-    # k in bf16 rounds dS to bf16 (ds.to(k.dtype)); q in fp32 keeps dq fp32
+    # k in its type rounds dS to it (ds.to(k.dtype)); q in fp32 keeps dq
+    # fp32
     coarse = fa.bwd_dq_plain(qf, k, vf, dof, lse, delta, scale, causal,
                              *blocks)
     got = dq.float()
     ratio = ((got - coarse).abs().mean() / (got - fine).abs().mean()).item()
     if not ratio <= ROUNDING_RATIO:
-        failures.append(f"{case} dq: closer to fp32 dS than to bf16 dS "
-                        f"(error ratio {ratio:.4f})")
+        failures.append(f"{case} dq: closer to fp32 dS than to {k.dtype} "
+                        f"dS (error ratio {ratio:.4f})")
     return ratio
 
 
@@ -480,18 +528,18 @@ def phase_kernels(card: str):
         log(f"kernel check {case}: " + ", ".join(
             f"{n} max_abs_err {e:.3e}" for n, e in errs.items())
             + f" (tolerance {tol})")
-        if dtype is torch.bfloat16:
+        if dtype is not torch.float32:
             ratios = _check_dkv_rounding(q, k, v, dout, lse_p, delta_p, scale,
                                          causal, blocks, dk_c, dv_c,
                                          failures, case)
             log(f"dkv rounding point {case}: mean error to the fp32-p/dS "
-                f"version over that to the bf16-p/dS one, dk "
+                f"version over that to the {dtype_name}-p/dS one, dk "
                 f"{ratios[0]:.4f}, dv {ratios[1]:.4f} (must be <= "
                 f"{ROUNDING_RATIO})")
             dq_ratio = _check_dq_rounding(q, k, v, dout, lse_p, delta_p, scale,
                                           causal, blocks, dq_c, failures,
                                           case)
-            log(f"dq rounding point {case}: mean error to the bf16-dS "
+            log(f"dq rounding point {case}: mean error to the {dtype_name}-dS "
                 f"version over that to the fp32-dS one {dq_ratio:.4f} (must "
                 f"be <= {ROUNDING_RATIO})")
         if CASES.index(case) < TIMED_CASES:
@@ -583,6 +631,116 @@ def _time_main_case(case, q, k, v, dout, out, lse, delta, blocks, errs,
         f"{pair / sdpa_bwd:.4f} on the device, {pair_call / sdpa_bwd_call:.4f} "
         f"per call [{card}]")
     return results
+
+
+def phase_flash_repairs(card: str):
+    """The wrapper's repairs on the card: every head_dim up to 256 and
+    fp16 through the kernels (padded to 64, 128 or 256 on the way in),
+    forward and backward through autograd, held to the plain version at
+    TOL with one launch of each kernel a case; a head_dim over 256
+    raises.  Then times, beside their bounds: fp16 against bf16 at
+    GPT-2 small's training shape (the kernels alone), and head_dim 80
+    (padded to 128) against 128 through the wrapper, forward and
+    forward + backward, and head_dim 256 (the FMA kernels) there."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    failures = []
+    b, s, h, kvh = PAD_SHAPE
+    for d in PAD_DIMS:
+        for dtype_name in ("bfloat16", "float16"):
+            for causal in (True, False):
+                case = (b, s, h, kvh, d, dtype_name, causal)
+                dtype = getattr(torch, dtype_name)
+                tol = TOL[dtype_name]
+                q, k, v, dout = (
+                    torch.randn(b, s, n, d, generator=gen, device="cuda")
+                    .to(dtype) for n in (h, kvh, kvh, h))
+                xs = [x.clone().requires_grad_() for x in (q, k, v)]
+                fa.reset_launch_counts()
+                out = fa.flash_attention(*xs, causal=causal)
+                out.backward(dout)
+                torch.cuda.synchronize()
+                if fa.LAUNCHES != {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}:
+                    failures.append(f"{case}: launches {fa.LAUNCHES}")
+                scale, blk = d ** -0.5, fa._fit_block(s, 128)
+                out_p, lse = fa.fwd_plain(q, k, v, scale, causal, blk, blk)
+                delta = fa.delta_plain(out_p, dout)
+                want = [out_p, fa.bwd_dq_plain(q, k, v, dout, lse, delta,
+                                               scale, causal, blk, blk)]
+                want += fa.bwd_dkv_plain(q, k, v, dout, lse, delta, scale,
+                                         causal, blk, blk)
+                errs = [_check(n, g, w, tol["atol"], tol["rtol"], failures,
+                               case)
+                        for n, g, w in zip(("out", "dq", "dk", "dv"),
+                                           [out] + [x.grad for x in xs],
+                                           want)]
+                log(f"flash repair {case} (kernel head_dim "
+                    f"{fa.kernel_head_dim(d)}): max_abs_err out "
+                    f"{errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv "
+                    f"{errs[3]:.3e} (tolerance {tol['atol']})")
+    try:
+        big = torch.zeros((1, 64, 2, 320), dtype=torch.bfloat16,
+                          device="cuda")
+        fa.flash_attention(big, big, big)
+        failures.append("head_dim 320 did not raise")
+    except ValueError as e:
+        if "ROADMAP §C 1" not in str(e):
+            failures.append(f"head_dim 320 raised without the fault: {e}")
+        log(f"flash repair head_dim 320: raises ({e})")
+    if failures:
+        raise AssertionError("flash repair check failed:\n"
+                             + "\n".join(failures))
+
+    # fp16 against bf16 at GPT-2 small's training shape, kernels alone
+    b, s, h, d = 8, SMALL_SEQ, 12, 64
+    for dtype_name in ("bfloat16", "float16"):
+        dtype = getattr(torch, dtype_name)
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=gen,
+                                     device="cuda").to(dtype)
+                         for _ in range(4))
+        scale = d ** -0.5
+        out, lse = fa.fwd_cuda(q, k, v, scale, True)
+        _, delta = fa.bwd_dq_cuda(q, k, v, out, dout, lse, scale, True)
+        bounds = bounds_ms(b, s, h, h, d, dtype_name, True)
+        times = {
+            "flash_attention.fwd": median_ms(
+                lambda: fa.fwd_cuda(q, k, v, scale, True), 20),
+            "flash_attention.bwd_dq": median_ms(
+                lambda: fa.bwd_dq_cuda(q, k, v, out, dout, lse, scale,
+                                       True), 20),
+            "flash_attention.bwd_dkv": median_ms(
+                lambda: fa.bwd_dkv_cuda(q, k, v, dout, lse, delta, scale,
+                                        True), 20),
+        }
+        log(f"flash {dtype_name} at {(b, s, h, d)} causal: " + ", ".join(
+            f"{n} {t:.4f} ms (bound {bounds[n][0]:.4f} ms)"
+            for n, t in times.items()) + f" on the device [{card}]")
+
+    # head_dim 80 (padded to 128) against 128, through the wrapper, and
+    # 256 on the FMA kernels
+    for d in (80, 128, 256):
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+                         for _ in range(4))
+        xs = [x.requires_grad_() for x in (q, k, v)]
+
+        def fwd():
+            return fa.flash_attention(*xs)
+
+        def fwd_bwd():
+            torch.autograd.grad(fa.flash_attention(*xs), xs, dout)
+
+        bounds = bounds_ms(b, s, h, h, d, "bfloat16", True)
+        fb_bound = sum(t for t, _ in bounds.values())
+        log(f"flash wrapper bf16 head_dim {d} (kernel "
+            f"{fa.kernel_head_dim(d)}) at {(b, s, h)} causal: forward "
+            f"{median_ms(fwd, 20):.4f} ms (bound "
+            f"{bounds['flash_attention.fwd'][0]:.4f} ms at the true d), "
+            f"forward + backward {median_ms(fwd_bwd, 20):.4f} ms (bound "
+            f"{fb_bound:.4f} ms) on the device [{card}]")
 
 
 def _quant_inputs(gen, numel, block, dtype, qmax):
@@ -677,6 +835,10 @@ def phase_quant_kernels(card: str):
         if case is QUANT_CASES[0]:
             results = _time_quant_case(case, x, codes, scales, g, p, qm, ms,
                                        qn, ns, bc1, bc2, errs, card)
+        elif block > REG_BLOCK and dtype_name == "bfloat16":
+            # the two-pass kernels beside their bounds
+            _time_quant_case(case, x, codes, scales, g, p, qm, ms, qn, ns,
+                             bc1, bc2, errs, card)
         elif leaf == QUANT_CASES[0][0]:
             # the same leaf in fp32: 1.6x the bytes of the bf16 step, and
             # the same arithmetic; the two times say which one binds
@@ -946,9 +1108,11 @@ def phase_train_small_adamw(card):
         "flash_attention.bwd_dq": per_step * steps,
         "flash_attention.bwd_dkv": per_step * steps,
     })
-    trainer, _, counts = run_training(
+    trainer, result, counts = run_training(
         "train GPT-2 small AdamW", cfg, global_batch, micro, steps, expected,
         card)
+    SMALL_ADAMW["tokens_s"] = (global_batch * SMALL_SEQ
+                               / statistics.median(result["step_seconds"][2:]))
     profile_step(trainer, trainer.train_data[0], card, "GPT-2 small AdamW")
     return counts
 
@@ -1566,6 +1730,303 @@ def phase_ckpt_xl(card) -> dict:
     return {"gpt2_xl_ckpt_torn": counts}
 
 
+# phase 7: steps of GPT-2 small with the monitor attached; the master's
+# running speed against the trainer's over the steps the master saw
+CP_STEPS = 8
+CP_SPEED_RTOL = 0.10
+CP_MONITOR_INTERVAL_S = 0.02
+CP_HEARTBEAT_INTERVAL_S = 0.2
+CP_SERVE_TIMEOUT_S = 60.0
+CP_RTT_REPS = 200
+# tokens/s of phase 5a, which phase 7 repeats with the monitor attached
+SMALL_ADAMW = {}
+
+
+def _metrics_values(port: int) -> dict:
+    """The master's own ``/metrics``: ``{family: value}`` of the
+    unlabelled samples."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as r:
+        text = r.read().decode()
+    values = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#") and "{" not in line:
+            name, _, value = line.partition(" ")
+            values[name] = float(value.split()[0])
+    return values
+
+
+def _cuda_holders() -> dict:
+    """pids with a CUDA context by ``nvidia-smi --query-compute-apps``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def _maps_cuda(pid: int) -> list:
+    """The CUDA driver and runtime libraries mapped into ``pid``: a
+    process that made a CUDA context has libcuda mapped."""
+    with open(f"/proc/{pid}/maps") as f:
+        return sorted({line.split()[-1] for line in f
+                       if "libcuda" in line or "libnvidia" in line
+                       or "libcudart" in line})
+
+
+class _Master:
+    """``python -m dlrover_tpu_torch.master.main`` as a child process on
+    ``port`` for one node, with its journal and event log under
+    ``chip_smoke_out`` and its ``/metrics`` on ``metrics_port``."""
+
+    def __init__(self, port, metrics_port, journal_dir, label):
+        self.port, self.metrics_port = port, metrics_port
+        self.journal_dir, self.label = journal_dir, label
+        self.proc = None
+
+    def start(self) -> float:
+        """Seconds from the spawn until the master answers an RPC."""
+        from dlrover_tpu_torch.common import messages as msg
+        from dlrover_tpu_torch.common.comm import MessageClient
+
+        env = dict(os.environ, PYTHONPATH=ROOT,
+                   DLROVER_MASTER_JOURNAL_DIR=self.journal_dir,
+                   DLROVER_METRICS_PORT=str(self.metrics_port),
+                   DLROVER_EVENT_LOG=os.path.join(
+                       OUT_DIR, "control_plane_master_events.jsonl"))
+        logf = open(os.path.join(OUT_DIR, f"master_{self.label}.log"), "w")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dlrover_tpu_torch.master.main",
+             "--port", str(self.port), "--node_num", "1", "--job_name",
+             os.environ["DLROVER_JOB_NAME"]],
+            cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        logf.close()
+        probe = MessageClient(f"127.0.0.1:{self.port}", node_id=-1,
+                              node_type="probe", timeout=2.0, retries=1)
+        try:
+            while True:
+                if self.proc.poll() is not None:
+                    raise AssertionError(
+                        f"master ({self.label}) exited with "
+                        f"{self.proc.returncode} before serving")
+                try:
+                    probe.get(msg.NumNodesWaitingRequest(
+                        rdzv_name="elastic-training"))
+                    return time.perf_counter() - t0
+                except (ConnectionError, OSError):
+                    if time.perf_counter() - t0 > CP_SERVE_TIMEOUT_S:
+                        raise AssertionError(
+                            f"master ({self.label}) not serving within "
+                            f"{CP_SERVE_TIMEOUT_S:.0f} s")
+                    time.sleep(0.01)
+        finally:
+            probe.close()
+
+    def kill(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+        if self.proc is not None:
+            self.proc.wait(timeout=30)
+
+
+@contextmanager
+def _reporting(client):
+    """A ``TrainingMonitor`` on the metrics file and a
+    ``HeartbeatReporter``, both on ``client``, for the block's run."""
+    from dlrover_tpu_torch.agent.monitor import (
+        HeartbeatReporter,
+        TrainingMonitor,
+    )
+
+    monitor = TrainingMonitor(os.environ["DLROVER_METRICS_FILE"],
+                              interval=CP_MONITOR_INTERVAL_S, client=client)
+    beat = HeartbeatReporter(interval=CP_HEARTBEAT_INTERVAL_S, client=client)
+    monitor.start()
+    beat.start()
+    try:
+        yield
+    finally:
+        for m in (monitor, beat):
+            m.stop()
+            m._thread.join(timeout=30)
+
+
+def phase_control_plane(card) -> dict:
+    """Slice 3b.1 on the card machine: the port's master as a child
+    process, a port ``MasterClient`` in this process joining its
+    rendezvous, and ``TrainingMonitor`` + ``HeartbeatReporter``
+    reporting while GPT-2 small trains on the card through ``Trainer``
+    with flash attention.  The master's global step and running speed
+    are read from its own ``/metrics``; then it is SIGKILLed and
+    restarted on the same journal directory, and the restarted master
+    must replay the rendezvous round and node and take the step back
+    from the client's next report.  The master must never hold a CUDA
+    context, and no child may outlive the phase.  The step's tokens/s
+    is taken in five runs of the same 8 steps: one before the master
+    starts, then monitored, bare, bare, monitored."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.common.comm import find_free_port
+    from dlrover_tpu_torch.models.gpt import GPTConfig
+
+    journal = os.path.join(OUT_DIR, "control_plane_journal")
+    shutil.rmtree(journal, ignore_errors=True)
+    port, metrics_port = find_free_port(), find_free_port()
+    first = _Master(port, metrics_port, journal, "first")
+    second = _Master(port, metrics_port, journal, "restarted")
+    global_batch, micro = 32, 8
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash")
+    per_step = cfg.num_layers * (global_batch // micro) * CP_STEPS
+    expected = _zero_counts(**{
+        f"flash_attention.{k}": per_step
+        for k in ("fwd", "bwd_dq", "bwd_dkv")})
+
+    def train(label):
+        # the last run's garbage (reference cycles) goes first, so each
+        # run's peak memory is its own
+        _free_cuda()
+        _, result, counts = run_training(
+            f"control plane GPT-2 small AdamW{label}", cfg, global_batch,
+            micro, CP_STEPS, expected, card)
+        steady = 1.0 / statistics.median(result["step_seconds"][2:])
+        return result, counts, global_batch * SMALL_SEQ * steady
+
+    client = None
+    holders_seen, master_pids = [], []
+    try:
+        _, _, no_master = train(", before the master starts")
+        start_s = first.start()
+        master_pids.append(first.proc.pid)
+        client = MasterClient(f"127.0.0.1:{port}", node_id=0,
+                              node_type="worker", node_rank=0,
+                              local_world_size=1)
+        client.report_node_event("added", "running")
+        round_ = client.join_rendezvous(0, 1, "elastic-training",
+                                        "127.0.0.1")
+        rdzv = client.get_comm_world("elastic-training", 0)
+        log(f"control plane: master pid {first.proc.pid} serving "
+            f"{start_s:.3f} s after its spawn; rendezvous round {round_}, "
+            f"world {rdzv[2]}, coordinator {rdzv[3]}")
+        if rdzv[0] != 1 or rdzv[2] != {0: 1}:
+            raise AssertionError(f"rendezvous did not complete: {rdzv}")
+        # the coordinator is the torch.distributed rendezvous address
+        dist.init_process_group("gloo", init_method=f"tcp://{rdzv[3]}",
+                                world_size=1, rank=0)
+        dist.destroy_process_group()
+
+        sent = []
+        report = client.report_global_step
+
+        def recorded(step, timestamp=0.0):
+            sent.append((step, timestamp))
+            return report(step, timestamp)
+
+        client.report_global_step = recorded
+        if os.path.exists(os.environ["DLROVER_METRICS_FILE"]):
+            os.unlink(os.environ["DLROVER_METRICS_FILE"])
+        holders_seen.append(_cuda_holders())
+        with _reporting(client):
+            result, counts, monitored = train("")
+        holders_seen.append(_cuda_holders())
+        mapped = {first.proc.pid: _maps_cuda(first.proc.pid)}
+        client.report_global_step = report
+
+        metrics = _metrics_values(metrics_port)
+        m_step = int(metrics["dlrover_global_step"])
+        m_speed = metrics["dlrover_steps_per_second"]
+        seen = sorted({step for step, _ in sent})
+        first_seen = seen[0]
+        # the trainer's own clock over the steps the master saw
+        step_times = result["step_seconds"]
+        own = ((CP_STEPS - first_seen)
+               / sum(step_times[first_seen:CP_STEPS]))
+        log(f"control plane: master /metrics global step {m_step}, running "
+            f"speed {m_speed:.4f} steps/s; the trainer's last step "
+            f"{CP_STEPS}, its speed {own:.4f} steps/s over steps "
+            f"{first_seen + 1}..{CP_STEPS} (the master saw steps {seen}) "
+            f"(tolerance {CP_SPEED_RTOL})")
+        if m_step != CP_STEPS:
+            raise AssertionError(f"the master's global step {m_step} is not "
+                                 f"the trainer's {CP_STEPS}")
+        if abs(m_speed - own) > CP_SPEED_RTOL * own:
+            raise AssertionError(f"the master's speed {m_speed} is not "
+                                 f"within {CP_SPEED_RTOL} of {own}")
+
+        # what the reporting threads cost the step, in turns with the
+        # first monitored run: bare, bare, monitored
+        bare = [train(", no monitor")[2] for _ in range(2)]
+        with _reporting(client):
+            monitored = (monitored + train("")[2]) / 2
+        bare = sum(bare) / 2
+        phase1 = SMALL_ADAMW["tokens_s"]
+        log(f"control plane: tokens/s {monitored:.1f} with the monitor "
+            f"attached, {bare:.1f} with none ({monitored / bare:.4f}; runs "
+            f"in turns, two each), {no_master:.1f} before the master "
+            f"started; phase 5a {phase1:.1f} ({monitored / phase1:.4f}) "
+            f"[{card}]")
+
+        rtts = []
+        for _ in range(CP_RTT_REPS):
+            t0 = time.perf_counter()
+            client.report_global_step(CP_STEPS, time.time())
+            rtts.append(time.perf_counter() - t0)
+        rtt_ms = statistics.median(rtts) * 1e3
+        log(f"control plane: report_global_step round trip median "
+            f"{rtt_ms:.4f} ms over {CP_RTT_REPS} [{card}]")
+
+        os.kill(first.proc.pid, signal.SIGKILL)
+        first.proc.wait(timeout=30)
+        restart_s = second.start()
+        master_pids.append(second.proc.pid)
+        t0 = time.perf_counter()
+        client.report_global_step(CP_STEPS, time.time())
+        reconnect_s = time.perf_counter() - t0
+        after = client.get_comm_world("elastic-training", 0)
+        waiting = client.num_nodes_waiting("elastic-training")
+        metrics = _metrics_values(metrics_port)
+        r_step = int(metrics["dlrover_global_step"])
+        log(f"control plane: restarted master pid {second.proc.pid} serving "
+            f"{restart_s:.3f} s after its spawn (journal replay included); "
+            f"the client's next report went through in {reconnect_s:.3f} s; "
+            f"round {after[0]}, world {after[2]}, waiting {waiting}, "
+            f"/metrics global step {r_step} [{card}]")
+        # round and world replay; each master process picks its
+        # coordinator port anew, as the reference's does
+        if after[:3] != rdzv[:3] or waiting != 0:
+            raise AssertionError(f"restarted master's world {after} "
+                                 f"(waiting {waiting}) is not {rdzv}")
+        if r_step != CP_STEPS:
+            raise AssertionError(f"restarted master's global step {r_step} "
+                                 f"is not {CP_STEPS}")
+        holders_seen.append(_cuda_holders())
+        mapped[second.proc.pid] = _maps_cuda(second.proc.pid)
+        me = os.getpid()
+        log(f"control plane: CUDA holders by nvidia-smi {holders_seen} "
+            f"(this process {me} listed: "
+            f"{any(me in h for h in holders_seen)}); CUDA libraries mapped "
+            f"by the masters: {mapped}")
+        for pid in master_pids:
+            if any(pid in h for h in holders_seen):
+                raise AssertionError(f"master pid {pid} held a CUDA context")
+        if any(mapped.values()):
+            raise AssertionError(f"a master mapped CUDA: {mapped}")
+        return {"control_plane": counts}
+    finally:
+        if client is not None:
+            client.close()
+        for m in (first, second):
+            m.kill()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        alive = [m.proc.pid for m in (first, second)
+                 if m.proc is not None and m.proc.poll() is None]
+        if alive:
+            raise AssertionError(f"master processes left behind: {alive}")
+
+
 FAMILIES = ("flash attention (this port)", "quantization (this port)",
             "matmul", "other")
 
@@ -1688,6 +2149,8 @@ def run_phases(torch) -> int:
     phase_build()
     timings = phase_kernels(card)
     _free_cuda()
+    phase_flash_repairs(card)
+    _free_cuda()
     timings.update(phase_quant_kernels(card))
     _free_cuda()
     phase_model_check()
@@ -1697,7 +2160,7 @@ def run_phases(torch) -> int:
                         ("gpt2_small_4bit_qadamw", phase_train_small_4bit)):
         by_path[path] = phase(card)
         _free_cuda()
-    for phase in (phase_ckpt_small, phase_ckpt_xl):
+    for phase in (phase_ckpt_small, phase_ckpt_xl, phase_control_plane):
         by_path.update(phase(card))
         _free_cuda()
     leaked = [n for n in os.listdir("/dev/shm")

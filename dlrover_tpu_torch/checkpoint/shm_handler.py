@@ -26,8 +26,8 @@ entry per shard (``key@shardN``, with the shard's index ranges in its
 reference's ``_assemble_flat`` does.  Writing shards (DTensor) and
 restoring onto a sharded template come with slice 4 of the port; the
 paged base+delta tier (``DLROVER_SHM_PAGED``, reference ``:425-1058``)
-with the sparse state in slice 6; the ``ckpt.shm_save`` chaos hook
-with the chaos twin of slice 3b.
+with the sparse state in slice 6.  A save fires the reference's
+``ckpt.shm_save`` chaos hook once its snapshot is published.
 """
 
 import io
@@ -553,6 +553,12 @@ class SharedMemoryHandler:
             "d2h_bytes": device_bytes,
             "bytes": total,
         }
+        # chaos hook: a corrupt_shm rule flips bytes of (or tears) the
+        # snapshot that was just published, so restore/persist paths
+        # must prove they reject or survive a damaged segment
+        from dlrover_tpu_torch import chaos as _chaos
+
+        _chaos.fire("ckpt.shm_save", step=config.step, handler=self)
         logger.debug(
             "rank %s wrote %.1f MB checkpoint step %s to shm "
             "(fetch %.3fs, memcpy %.3fs)",

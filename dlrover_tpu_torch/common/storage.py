@@ -5,9 +5,9 @@ Copy of ``dlrover_tpu/common/storage.py`` (role of
 commit surface the async saver uses so storage backends are
 interchangeable.  The port has the POSIX backend (local disk, NFS,
 FUSE-mounted buckets).  The object-store backend over fsspec
-(``FsspecStorage``) comes with slice 8 of the port, and the chaos
-hooks of ``storage.write``/``read``/``move`` with the chaos twin of
-slice 3b.
+(``FsspecStorage``) comes with slice 8 of the port.  The POSIX backend
+fires the reference's chaos hooks ``storage.write``, ``storage.read``
+and ``storage.move``.
 """
 
 import mmap
@@ -17,6 +17,7 @@ import tempfile
 import threading
 from typing import List, Optional
 
+from dlrover_tpu_torch import chaos as _chaos
 from dlrover_tpu_torch.common.log import default_logger as logger
 
 
@@ -108,6 +109,9 @@ class PosixDiskStorage(CheckpointStorage):
         self._deletion_strategy = deletion_strategy
 
     def write(self, content, path: str):
+        # chaos hook: an io_error rule raises OSError into the saver's
+        # per-shard error path; a stall rule models a hung NFS/disk
+        _chaos.fire("storage.write", path=path)
         mode = "wb" if isinstance(content, (bytes, bytearray, memoryview)) else "w"
         os.makedirs(os.path.dirname(path), exist_ok=True)
         # write-to-temp + rename so readers never observe partial files
@@ -122,6 +126,7 @@ class PosixDiskStorage(CheckpointStorage):
             raise
 
     def read(self, path: str, mode: str = "rb"):
+        _chaos.fire("storage.read", path=path)
         if not os.path.exists(path):
             return None
         with open(path, mode) as f:
@@ -133,6 +138,7 @@ class PosixDiskStorage(CheckpointStorage):
         overlap disk read-ahead with assembly instead of waiting for a
         full eager read first.  The mapping outlives the fd (closed
         immediately) and is released when the last view drops."""
+        _chaos.fire("storage.read", path=path)
         if not os.path.exists(path):
             return None
         with open(path, "rb") as f:
@@ -142,6 +148,7 @@ class PosixDiskStorage(CheckpointStorage):
             return mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
 
     def safe_move(self, src: str, dst: str):
+        _chaos.fire("storage.move", path=dst)
         os.makedirs(os.path.dirname(dst), exist_ok=True)
         if os.path.exists(dst):
             self.safe_rmtree(dst)

@@ -5,9 +5,13 @@
 //   dQ       <- _bwd -> _bwd_dq_kernel   (dQ; also writes the row term
 //                                         Delta = rowsum(O * dO))
 //   dK/dV    <- _bwd -> _bwd_dkv_kernel  (dK and dV)
-// each in two versions chosen by dtype: bf16 (the training path) on the
-// tensor cores, fp32 as FMAs on the CUDA cores (an exact-check path,
-// bound by FMA issue, 67 TFLOP/s, and shared-memory reads).
+// each in two versions: bf16 and fp16 at head_dim 64 and 128 on the
+// tensor cores (wgmma; bf16 is the training path), and FMA kernels on the
+// CUDA cores for fp32 at head_dim 64, 128 and 256 (an exact-check path,
+// bound by FMA issue, 67 TFLOP/s, and shared-memory reads) and for bf16
+// and fp16 at head_dim 256 (a simple instance: fp32 arithmetic on
+// tiles of 32 rows).  The Python wrapper zero-pads every other head_dim
+// up to 64, 128 or 256, which leaves QK^T and PV unchanged.
 //
 // What bounds them on an H100: at GPT-2 shapes (seq 1024, head_dim 64)
 // attention does ~250 FLOPs per byte it must move, near the card's
@@ -19,6 +23,9 @@
 // So a fast kernel keeps the tensor cores, the exp2 unit and the copies
 // busy at once.  What the designs do about it:
 //
+//  * The wgmma kernels are written once over the element type T (bf16
+//    or fp16): the same shapes, fragments and fp32 accumulators, the
+//    PTX type and the TMA maps' data type differ.
 //  * bf16 forward (fwd_tma_kernel): persistent, one CTA per SM walking
 //    q tiles of 128 rows heaviest first (a snake over the CTAs).  Two
 //    consumer warpgroups own 64 rows each (the M of one wgmma); a
@@ -90,10 +97,12 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -121,43 +130,82 @@ struct FlashParams {
 
 namespace {
 
-constexpr int kTile = 64;        // q rows and k rows per tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kPLd = kTile + 4;  // row stride of the score tiles
+constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNegInf = -1e30f;
 
-// dst[r][c] = base[(row0 + r) * row_stride + c], zero past seq
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* base,
+using bf16 = __nv_bfloat16;
+using hopper::is_f16;
+
+// Storage types of the FMA kernels (fp32, bf16, fp16) to and from their
+// fp32 arithmetic
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x) {
+  if constexpr (std::is_same<T, float>::value) return x;
+  else if constexpr (is_f16<T>()) return __float2half_rn(x);
+  else return __float2bfloat16_rn(x);
+}
+// x rounded to T: where the TPU kernels cast to the input dtype
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// The FMA kernels' tiles: TM q rows by TM k rows with 256 threads, thread
+// (ty, tx) owning rows ty + 16 i and columns tx + 16 j (i, j < TM / 16)
+// of each score tile, so a row's 16 owners are one half-warp and row
+// max/sum are shuffles.  Shared rows are padded by 4 floats: float4
+// reads along head_dim are bank-conflict free.  TM is 64, and 32 at
+// head_dim 256, where four 64-row fp32 tiles would not fit shared memory.
+template <int D, int TM>
+struct Fma {
+  static constexpr int kI = TM / 16;   // rows (and columns) a thread owns
+  static constexpr int kJ = D / 16;    // head_dim columns a thread owns
+  static constexpr int kLd = D + 4;    // row stride of the q/k/v tiles
+  static constexpr int kPLd = TM + 4;  // row stride of the score tiles
+  static constexpr size_t kTileF = (size_t)TM * kLd;
+  static constexpr size_t kScoreF = (size_t)TM * kPLd;
+  static constexpr size_t kFwdSmem = sizeof(float) * (3 * kTileF + kScoreF);
+  static constexpr size_t kDqSmem =
+      sizeof(float) * (4 * kTileF + kScoreF + 2 * TM);
+  static constexpr size_t kDkvSmem =
+      sizeof(float) * (4 * kTileF + 2 * kScoreF + 2 * TM);
+};
+
+// dst[r][c] = base[(row0 + r) * row_stride + c] in fp32, zero past seq
+template <int D, int TM, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* base,
                                           long long row_stride, int row0,
                                           int S) {
   constexpr int LD = D + 4;
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < TM * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int row = row0 + r;
     dst[r * LD + c] =
-        row < S ? base[(long long)row * row_stride + c] : 0.f;
+        row < S ? to_f(base[(long long)row * row_stride + c]) : 0.f;
   }
 }
 
 // acc[i][j] += sum_c A[ty + 16 i][c] * B[tx + 16 j][c]  (A . B^T)
-template <int D>
+template <int D, int I>
 __device__ __forceinline__ void fma_abt(const float* A, const float* Bm,
-                                        float acc[4][4], int ty, int tx) {
+                                        float acc[I][I], int ty, int tx) {
   constexpr int LD = D + 4;
 #pragma unroll 2
   for (int c = 0; c < D; c += 4) {
-    float4 a[4], b[4];
+    float4 a[I], b[I];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
       a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + c);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < I; ++j)
       b[j] = *reinterpret_cast<const float4*>(Bm + (tx + 16 * j) * LD + c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < I; ++j) {
         float s = acc[i][j];
         s = fmaf(a[i].x, b[j].x, s);
         s = fmaf(a[i].y, b[j].y, s);
@@ -169,17 +217,17 @@ __device__ __forceinline__ void fma_abt(const float* A, const float* Bm,
 }
 
 // acc[i][jj] += sum_k P[ty + 16 i][k] * M[k][tx + 16 jj]  (P . M)
-template <int D>
+template <int D, int TM>
 __device__ __forceinline__ void fma_pm(const float* P, const float* M,
-                                       float acc[4][D / 16], int ty,
+                                       float acc[TM / 16][D / 16], int ty,
                                        int tx) {
-  constexpr int LD = D + 4;
+  constexpr int LD = D + 4, PLD = TM + 4, I = TM / 16;
 #pragma unroll 2
-  for (int k = 0; k < kTile; k += 4) {
-    float4 p[4];
+  for (int k = 0; k < TM; k += 4) {
+    float4 p[I];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * kPLd + k);
+    for (int i = 0; i < I; ++i)
+      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * PLD + k);
 #pragma unroll
     for (int jj = 0; jj < D / 16; ++jj) {
       const float m0 = M[(k + 0) * LD + tx + 16 * jj];
@@ -187,7 +235,7 @@ __device__ __forceinline__ void fma_pm(const float* P, const float* M,
       const float m2 = M[(k + 2) * LD + tx + 16 * jj];
       const float m3 = M[(k + 3) * LD + tx + 16 * jj];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < I; ++i) {
         float s = acc[i][jj];
         s = fmaf(p[i].x, m0, s);
         s = fmaf(p[i].y, m1, s);
@@ -213,80 +261,66 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * kTile * (D + 4) + kTile * kPLd);
-}
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kTile * (D + 4) + kTile * kPLd + 2 * kTile);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(float) *
-         (4 * kTile * (D + 4) + 2 * kTile * kPLd + 2 * kTile);
-}
-
 // ---------------------------------------------------------------------------
-// fp32 on the CUDA cores.  Tiles are 64 x 64 with 256 threads: thread
-// (ty, tx) owns rows ty + 16 i and columns tx + 16 j of each score tile,
-// so a row's 16 owners are one half-warp and row max/sum are shuffles.
-// Shared rows are padded by 4 floats: float4 reads along head_dim are
-// bank-conflict free.
+// The FMA kernels: fp32 (every head_dim), and bf16 and fp16 at head_dim
+// 256, on the CUDA cores.  Storage of type T is read into fp32 tiles and
+// written back as T; p (forward) and dS (dQ) are rounded to T before
+// their products, as the TPU kernels round them, and dK/dV keeps both in
+// fp32.
 //
 // forward: one CTA per (b*H + h, q tile)
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int TM, typename T>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const FlashParams p) {
-  constexpr int LD = D + 4;
-  constexpr int J = D / 16;
+  using F = Fma<D, TM>;
+  constexpr int LD = F::kLd, PLD = F::kPLd, I = F::kI, J = F::kJ;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Ps = Vs + kTile * LD;
+  float* Ks = Qs + TM * LD;
+  float* Vs = Ks + TM * LD;
+  float* Ps = Vs + TM * LD;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H, hk = h / p.group;
   // heaviest (most k tiles under causal) q tiles start first
   const int qt = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qt * kTile;
+  const int q0 = qt * TM;
 
-  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile<D>(Qs, qb, p.q_ss, q0, p.S);
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  load_tile<D, TM>(Qs, qb, p.q_ss, q0, p.S);
 
-  float m[4], l[4], acc[4][J];
+  float m[I], l[I], acc[I][J];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < I; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < J; ++jj) acc[i][jj] = 0.f;
   }
 
-  int n_kt = (p.S + kTile - 1) / kTile;
-  if (p.causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
+  int n_kt = (p.S + TM - 1) / TM;
+  if (p.causal) n_kt = min(n_kt, (q0 + TM - 1) / TM + 1);
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * TM;
     __syncthreads();  // the last tile's readers are done
-    load_tile<D>(Ks, kb, p.k_ss, k0, p.S);
-    load_tile<D>(Vs, vb, p.v_ss, k0, p.S);
+    load_tile<D, TM>(Ks, kb, p.k_ss, k0, p.S);
+    load_tile<D, TM>(Vs, vb, p.v_ss, k0, p.S);
     __syncthreads();
 
-    float s[4][4] = {};
-    fma_abt<D>(Qs, Ks, s, ty, tx);
+    float s[I][I] = {};
+    fma_abt<D, I>(Qs, Ks, s, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < I; ++i) {
       const int qpos = q0 + ty + 16 * i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < I; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float x = s[i][j] * p.scale;
         if (kpos >= p.S || (p.causal && kpos > qpos)) x = kNegInf;
@@ -297,10 +331,11 @@ __global__ void __launch_bounds__(kThreads)
       const float corr = expf(m[i] - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < I; ++j) {
         const float e = expf(s[i][j] - m_new);
         psum += e;
-        Ps[(ty + 16 * i) * kPLd + tx + 16 * j] = e;
+        // p.astype(v.dtype) before P V
+        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = round_to<T>(e);
       }
       l[i] = l[i] * corr + row_sum(psum);
       m[i] = m_new;
@@ -308,20 +343,20 @@ __global__ void __launch_bounds__(kThreads)
       for (int jj = 0; jj < J; ++jj) acc[i][jj] *= corr;
     }
     __syncthreads();
-    fma_pm<D>(Ps, Vs, acc, ty, tx);
+    fma_pm<D, TM>(Ps, Vs, acc, ty, tx);
   }
 
-  float* ob = static_cast<float*>(p.out);
+  T* ob = static_cast<T*>(p.out);
   float* lse = static_cast<float*>(p.lse);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < I; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= p.S) continue;
     const float safe_l = l[i] == 0.f ? 1.f : l[i];
     const long long row = ((long long)b * p.S + qpos) * p.H + h;
 #pragma unroll
     for (int jj = 0; jj < J; ++jj)
-      ob[row * D + tx + 16 * jj] = acc[i][jj] / safe_l;
+      ob[row * D + tx + 16 * jj] = from_f<T>(acc[i][jj] / safe_l);
     if (tx == 0) lse[(long long)bh * p.S + qpos] = m[i] + logf(safe_l);
   }
 }
@@ -330,39 +365,39 @@ __global__ void __launch_bounds__(kThreads)
 // dQ: one CTA per (b*H + h, q tile); writes Delta for the dK/dV kernel
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int TM, typename T>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const FlashParams p) {
-  constexpr int LD = D + 4;
-  constexpr int J = D / 16;
+  using F = Fma<D, TM>;
+  constexpr int LD = F::kLd, PLD = F::kPLd, I = F::kI, J = F::kJ;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* dSs = Vs + kTile * LD;
-  float* lse_s = dSs + kTile * kPLd;
-  float* dl_s = lse_s + kTile;
+  float* dOs = Qs + TM * LD;
+  float* Ks = dOs + TM * LD;
+  float* Vs = Ks + TM * LD;
+  float* dSs = Vs + TM * LD;
+  float* lse_s = dSs + TM * PLD;
+  float* dl_s = lse_s + TM;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H, hk = h / p.group;
   const int qt = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qt * kTile;
+  const int q0 = qt * TM;
 
-  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const float* obase = static_cast<const float*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const float* dob =
-      static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  load_tile<D>(Qs, qb, p.q_ss, q0, p.S);
-  load_tile<D>(dOs, dob, p.do_ss, q0, p.S);
-  load_tile<D>(Ks, obase, p.o_ss, q0, p.S);  // O, for Delta only
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const T* obase = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  load_tile<D, TM>(Qs, qb, p.q_ss, q0, p.S);
+  load_tile<D, TM>(dOs, dob, p.do_ss, q0, p.S);
+  load_tile<D, TM>(Ks, obase, p.o_ss, q0, p.S);  // O, for Delta only
   __syncthreads();
 
-  // Delta = rowsum(O * dO) in fp32; 4 lanes per row
-  {
+  // Delta = rowsum(O * dO) in fp32; 4 lanes per row (whole warps of
+  // threads past the tile's rows skip it)
+  if ((threadIdx.x >> 2) < TM) {
     const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
     float d = 0.f;
     for (int c = part; c < D; c += 4) d += Ks[r * LD + c] * dOs[r * LD + c];
@@ -379,52 +414,52 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float dq[4][J];
+  float dq[I][J];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int jj = 0; jj < J; ++jj) dq[i][jj] = 0.f;
 
-  int n_kt = (p.S + kTile - 1) / kTile;
-  if (p.causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
+  int n_kt = (p.S + TM - 1) / TM;
+  if (p.causal) n_kt = min(n_kt, (q0 + TM - 1) / TM + 1);
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * TM;
     __syncthreads();
-    load_tile<D>(Ks, kb, p.k_ss, k0, p.S);
-    load_tile<D>(Vs, vb, p.v_ss, k0, p.S);
+    load_tile<D, TM>(Ks, kb, p.k_ss, k0, p.S);
+    load_tile<D, TM>(Vs, vb, p.v_ss, k0, p.S);
     __syncthreads();
 
-    float s[4][4] = {}, dp[4][4] = {};
-    fma_abt<D>(Qs, Ks, s, ty, tx);
-    fma_abt<D>(dOs, Vs, dp, ty, tx);
+    float s[I][I] = {}, dp[I][I] = {};
+    fma_abt<D, I>(Qs, Ks, s, ty, tx);
+    fma_abt<D, I>(dOs, Vs, dp, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < I; ++i) {
       const int r = ty + 16 * i, qpos = q0 + r;
       const float lse_r = lse_s[r], dl_r = dl_s[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < I; ++j) {
         const int kpos = k0 + tx + 16 * j;
         const bool ok =
             qpos < p.S && kpos < p.S && !(p.causal && kpos > qpos);
         const float pr = ok ? expf(s[i][j] * p.scale - lse_r) : 0.f;
         const float ds = pr * (dp[i][j] - dl_r) * p.scale;
-        dSs[r * kPLd + tx + 16 * j] = ds;
+        dSs[r * PLD + tx + 16 * j] = round_to<T>(ds);  // ds.astype(k.dtype)
       }
     }
     __syncthreads();
-    fma_pm<D>(dSs, Ks, dq, ty, tx);
+    fma_pm<D, TM>(dSs, Ks, dq, ty, tx);
   }
 
-  float* dqb = static_cast<float*>(p.dq);
+  T* dqb = static_cast<T*>(p.dq);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < I; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= p.S) continue;
     const long long row = ((long long)b * p.S + qpos) * p.H + h;
 #pragma unroll
     for (int jj = 0; jj < J; ++jj)
-      dqb[row * D + tx + 16 * jj] = dq[i][jj];
+      dqb[row * D + tx + 16 * jj] = from_f<T>(dq[i][jj]);
   }
 }
 
@@ -433,55 +468,54 @@ __global__ void __launch_bounds__(kThreads)
 // heads and the q tiles at or past the diagonal
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int TM, typename T>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const FlashParams p) {
-  constexpr int LD = D + 4;
-  constexpr int J = D / 16;
+  using F = Fma<D, TM>;
+  constexpr int LD = F::kLd, PLD = F::kPLd, I = F::kI, J = F::kJ;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* Ps = dOs + kTile * LD;
-  float* dSs = Ps + kTile * kPLd;
-  float* lse_s = dSs + kTile * kPLd;
-  float* dl_s = lse_s + kTile;
+  float* Vs = Ks + TM * LD;
+  float* Qs = Vs + TM * LD;
+  float* dOs = Qs + TM * LD;
+  float* Ps = dOs + TM * LD;
+  float* dSs = Ps + TM * PLD;
+  float* lse_s = dSs + TM * PLD;
+  float* dl_s = lse_s + TM;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bkv = blockIdx.y;
   const int b = bkv / p.KVH, hk = bkv % p.KVH;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * TM;
 
-  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile<D>(Ks, kb, p.k_ss, k0, p.S);
-  load_tile<D>(Vs, vb, p.v_ss, k0, p.S);
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  load_tile<D, TM>(Ks, kb, p.k_ss, k0, p.S);
+  load_tile<D, TM>(Vs, vb, p.v_ss, k0, p.S);
 
   // rows of dk/dv are k rows ty + 16 i, columns tx + 16 jj
-  float dk[4][J], dv[4][J];
+  float dk[I][J], dv[I][J];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int jj = 0; jj < J; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
 
-  const int n_qt = (p.S + kTile - 1) / kTile;
-  const int qt0 = p.causal ? k0 / kTile : 0;
+  const int n_qt = (p.S + TM - 1) / TM;
+  const int qt0 = p.causal ? k0 / TM : 0;
   const float* lse_g = static_cast<const float*>(p.lse);
   const float* dl_g = static_cast<const float*>(p.delta);
 
   for (int g = 0; g < p.group; ++g) {
     const int h = hk * p.group + g;
     const long long bh = (long long)b * p.H + h;
-    const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* dob =
-        static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
     for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kTile;
+      const int q0 = qt * TM;
       __syncthreads();
-      load_tile<D>(Qs, qb, p.q_ss, q0, p.S);
-      load_tile<D>(dOs, dob, p.do_ss, q0, p.S);
-      if (threadIdx.x < kTile) {
+      load_tile<D, TM>(Qs, qb, p.q_ss, q0, p.S);
+      load_tile<D, TM>(dOs, dob, p.do_ss, q0, p.S);
+      if (threadIdx.x < TM) {
         const int qpos = q0 + threadIdx.x;
         const bool ok = qpos < p.S;
         lse_s[threadIdx.x] = ok ? lse_g[bh * p.S + qpos] : 0.f;
@@ -490,40 +524,40 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
 
       // score tile: rows are q (ty + 16 i), columns are k (tx + 16 j)
-      float s[4][4] = {}, dp[4][4] = {};
-      fma_abt<D>(Qs, Ks, s, ty, tx);
-      fma_abt<D>(dOs, Vs, dp, ty, tx);
+      float s[I][I] = {}, dp[I][I] = {};
+      fma_abt<D, I>(Qs, Ks, s, ty, tx);
+      fma_abt<D, I>(dOs, Vs, dp, ty, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < I; ++i) {
         const int r = ty + 16 * i, qpos = q0 + r;
         const float lse_r = lse_s[r], dl_r = dl_s[r];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < I; ++j) {
           const int kpos = k0 + tx + 16 * j;
           const bool ok =
               qpos < p.S && kpos < p.S && !(p.causal && kpos > qpos);
           const float pr = ok ? expf(s[i][j] * p.scale - lse_r) : 0.f;
-          Ps[r * kPLd + tx + 16 * j] = pr;
-          dSs[r * kPLd + tx + 16 * j] = pr * (dp[i][j] - dl_r) * p.scale;
+          Ps[r * PLD + tx + 16 * j] = pr;
+          dSs[r * PLD + tx + 16 * j] = pr * (dp[i][j] - dl_r) * p.scale;
         }
       }
       __syncthreads();
 
       // dV += P^T dO and dK += dS^T Q, all fp32
 #pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float pc[4], dsc[4];
+      for (int r = 0; r < TM; ++r) {
+        float pc[I], dsc[I];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pc[i] = Ps[r * kPLd + ty + 16 * i];
-          dsc[i] = dSs[r * kPLd + ty + 16 * i];
+        for (int i = 0; i < I; ++i) {
+          pc[i] = Ps[r * PLD + ty + 16 * i];
+          dsc[i] = dSs[r * PLD + ty + 16 * i];
         }
 #pragma unroll
         for (int jj = 0; jj < J; ++jj) {
           const float o = dOs[r * LD + tx + 16 * jj];
           const float qv = Qs[r * LD + tx + 16 * jj];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < I; ++i) {
             dv[i][jj] = fmaf(pc[i], o, dv[i][jj]);
             dk[i][jj] = fmaf(dsc[i], qv, dk[i][jj]);
           }
@@ -532,52 +566,66 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float* dkb = static_cast<float*>(p.dk);
-  float* dvb = static_cast<float*>(p.dv);
+  T* dkb = static_cast<T*>(p.dk);
+  T* dvb = static_cast<T*>(p.dv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < I; ++i) {
     const int kpos = k0 + ty + 16 * i;
     if (kpos >= p.S) continue;
     const long long row = ((long long)b * p.S + kpos) * p.KVH + hk;
 #pragma unroll
     for (int jj = 0; jj < J; ++jj) {
-      dkb[row * D + tx + 16 * jj] = dk[i][jj];
-      dvb[row * D + tx + 16 * jj] = dv[i][jj];
+      dkb[row * D + tx + 16 * jj] = from_f<T>(dk[i][jj]);
+      dvb[row * D + tx + 16 * jj] = from_f<T>(dv[i][jj]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 register helpers of the wgmma kernels below.  A wgmma accumulator
-// and a register A operand have the mma.sync m16n8k16 fragment layouts
-// per warp, so packing, the bf16 split, C-to-A fragments and the quad
-// reductions (the four threads that share a row) work on them directly.
+// register helpers of the wgmma kernels below (T is bf16 or fp16).  A
+// wgmma accumulator and a register A operand have the mma.sync m16n8k16
+// fragment layouts per warp, so packing, the split, C-to-A fragments and
+// the quad reductions (the four threads that share a row) work on them
+// directly.
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>()) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// x0, x1 as bf16 pairs: hi = rn(x), lo = rn(x - hi); hi + lo keeps 16
-// significant bits
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  if constexpr (is_f16<T>()) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  }
+}
+
+// x0, x1 as pairs of T: hi = rn(x), lo = rn(x - hi); hi + lo keeps 16
+// significant bits in bf16 and 22 in fp16 (less where lo is subnormal)
+template <typename T>
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = pack2<T>(x0, x1);
+  const float2 hf = unpack2<T>(hi);
+  lo = pack2<T>(x0 - hf.x, x1 - hf.y);
 }
 
 // the C fragments of n tiles 2j and 2j + 1 (cols 2t, 2t + 1 of rows g
 // and g + 8) are the A fragment of k step j
+template <typename T>
 __device__ __forceinline__ void c_to_a(uint32_t a[4], int hi, float c0,
                                        float c1, float c2, float c3) {
-  a[2 * hi] = pack_bf16(c0, c1);
-  a[2 * hi + 1] = pack_bf16(c2, c3);
+  a[2 * hi] = pack2<T>(c0, c1);
+  a[2 * hi + 1] = pack2<T>(c2, c3);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -590,7 +638,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward, dK/dV and dQ on wgmma, fed by TMA.
+// bf16 and fp16 forward, dK/dV and dQ on wgmma, fed by TMA.
 //
 // A CTA is three warpgroups: two consumers (warps 0-7), each owning 64
 // rows of the CTA's 128-row tile, and a producer (warps 8-11) whose
@@ -602,7 +650,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // and issues the copies; the consumers wait on `full`, run their wgmmas
 // and arrive on `empty`.
 //
-// A tile of [rows][head_dim] bf16 is head_dim / 64 blocks of [rows][64]
+// A tile of [rows][head_dim] T is head_dim / 64 blocks of [rows][64]
 // (one TMA box each, rows of 128 bytes, 128-byte swizzle), each block
 // 1024-byte aligned as the swizzle and the wgmma descriptors need.
 // ---------------------------------------------------------------------------
@@ -613,7 +661,7 @@ constexpr int kConsumerWarps = 8;
 constexpr int kTmaThreads = 32 * kConsumerWarps + 128;
 constexpr int kProducerRegs = 56;
 constexpr int kConsumerRegs = 224;
-constexpr int kSwRow = 128;  // bytes of one swizzled row: 64 bf16
+constexpr int kSwRow = 128;  // bytes of one swizzled row: 64 of T
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -638,26 +686,26 @@ struct FwdMaps {
 };
 
 // S = Q K^T for one warpgroup: 64 x BN, both operands K-major
-template <int D, int BN>
+template <int D, int BN, typename T>
 __device__ __forceinline__ void issue_qk(float (&s)[BN / 2], uint32_t q_addr,
                                          uint32_t k_addr, int q_rows) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk & 3) * 32;
-    wgmma_ss<BN>(
+    wgmma_ss<BN, T>(
         s, desc_sw128(q_addr + (kk >> 2) * q_rows * kSwRow + col, 16, 1024),
         desc_sw128(k_addr + (kk >> 2) * BN * kSwRow + col, 16, 1024), kk > 0);
   }
 }
 
 // O += P V: P from registers, V MN-major (16 k rows a step)
-template <int D, int BN>
+template <int D, int BN, typename T>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&pa)[BN / 16][4],
                                          uint32_t v_addr) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs_tb<D>(o, pa[kk],
+    wgmma_rs_tb<D, T>(o, pa[kk],
                    desc_sw128(v_addr + kk * 16 * kSwRow, BN * kSwRow, 1024));
 }
 
@@ -715,14 +763,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2],
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
 }
 
-// p rounded to bf16 (the TPU's p.astype(v.dtype)) as the A fragments of
+// p rounded to T (the TPU's p.astype(v.dtype)) as the A fragments of
 // P V: k step kk is score columns 16 kk .. + 15
-template <int BN>
+template <int BN, typename T>
 __device__ __forceinline__ void p_to_a(const float (&s)[BN / 2],
                                        uint32_t (&pa)[BN / 16][4]) {
 #pragma unroll
   for (int i = 0; i < BN / 8; ++i)
-    c_to_a(pa[i >> 1], i & 1, s[4 * i], s[4 * i + 1], s[4 * i + 2],
+    c_to_a<T>(pa[i >> 1], i & 1, s[4 * i], s[4 * i + 1], s[4 * i + 2],
            s[4 * i + 3]);
 }
 
@@ -735,7 +783,7 @@ __device__ __forceinline__ int snake_index(int r, int c, int G) {
   return r * G + ((r & 1) ? G - 1 - c : c);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     fwd_tma_kernel(const FlashParams p, const __grid_constant__ FwdMaps maps) {
   using C = FwdCfg<D>;
@@ -812,7 +860,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     const float sl2 = p.scale * kLog2e;
     const uint32_t q_addr = smem_u32(q_s) + wg * 64 * kSwRow;
     const uint32_t ring_addr = smem_u32(ring);
-    bf16* ob = static_cast<bf16*>(p.out);
+    T* ob = static_cast<T*>(p.out);
     float* lse = static_cast<float*>(p.lse);
     if (wg == 1) named_arrive(1, 256);  // warpgroup 0 issues first
     int it = 0;
@@ -838,8 +886,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         float s[BN / 2];
         named_sync(1 + wg, 256);
         wgmma_fence();
-        issue_qk<D, BN>(s, q_addr, ring_addr + (it % NS) * C::kStageBytes,
-                        BM);
+        issue_qk<D, BN, T>(s, q_addr,
+                           ring_addr + (it % NS) * C::kStageBytes, BM);
         wgmma_commit();
         named_arrive(2 - wg, 256);
         wgmma_wait<0>();
@@ -848,7 +896,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         softmax_tile<BN>(s, m, l, corr, sl2,
                          BN > p.S || (p.causal && BN - 1 > row_min),
                          p.causal, p.S, 0, row0, t);
-        p_to_a<BN>(s, pa);
+        p_to_a<BN, T>(s, pa);
       }
       // k tile j: S_j = Q K_j^T runs beside O += P_{j-1} V_{j-1}, and the
       // softmax of S_j beside the rest of that product; P_j becomes A
@@ -862,10 +910,10 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         float s[BN / 2];
         named_sync(1 + wg, 256);
         wgmma_fence();
-        issue_qk<D, BN>(s, q_addr, k_addr, BM);
+        issue_qk<D, BN, T>(s, q_addr, k_addr, BM);
         wgmma_commit();
         wgmma_fence();
-        issue_pv<D, BN>(o, pa, v_prev);
+        issue_pv<D, BN, T>(o, pa, v_prev);
         wgmma_commit();
         named_arrive(2 - wg, 256);
         wgmma_wait<1>();
@@ -884,12 +932,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
           o[4 * x + 2] *= corr[1];
           o[4 * x + 3] *= corr[1];
         }
-        p_to_a<BN>(s, pa);
+        p_to_a<BN, T>(s, pa);
       }
       {
         const int last = (it + n_kt - 1) % NS;
         wgmma_fence();
-        issue_pv<D, BN>(o, pa,
+        issue_pv<D, BN, T>(o, pa,
                         ring_addr + last * C::kStageBytes + C::kKVBytes);
         wgmma_commit();
         wgmma_wait<0>();
@@ -909,7 +957,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
         for (int x = 0; x < D / 8; ++x)
           *reinterpret_cast<uint32_t*>(ob + row * D + 8 * x + 2 * t) =
-              pack_bf16(o[4 * x + 2 * rr] * inv, o[4 * x + 2 * rr + 1] * inv);
+              pack2<T>(o[4 * x + 2 * rr] * inv, o[4 * x + 2 * rr + 1] * inv);
         if (t == 0)
           lse[(long long)bh * p.S + qpos] = (m[rr] + log2f(safe_l)) * kLn2;
       }
@@ -938,8 +986,8 @@ struct DkvMaps {
 };
 
 // acc += A . B over BQ q rows, 16 a k step, B MN-major: the high and
-// then the low bf16 part of A's register fragments for each step
-template <int D, int BQ>
+// then the low part of A's register fragments for each step
+template <int D, int BQ, typename T>
 __device__ __forceinline__ void issue_split(float (&acc)[D / 2],
                                             const uint32_t (&hi)[BQ / 16][4],
                                             const uint32_t (&lo)[BQ / 16][4],
@@ -948,12 +996,12 @@ __device__ __forceinline__ void issue_split(float (&acc)[D / 2],
   for (int kk = 0; kk < BQ / 16; ++kk) {
     const uint64_t bd =
         desc_sw128(b_addr + kk * 16 * kSwRow, BQ * kSwRow, 1024);
-    wgmma_rs_tb<D>(acc, hi[kk], bd);
-    wgmma_rs_tb<D>(acc, lo[kk], bd);
+    wgmma_rs_tb<D, T>(acc, hi[kk], bd);
+    wgmma_rs_tb<D, T>(acc, lo[kk], bd);
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     dkv_tma_kernel(const FlashParams p, const __grid_constant__ DkvMaps maps) {
   using C = DkvCfg<D>;
@@ -1066,8 +1114,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         const uint32_t col = (kk & 3) * 32;
         const uint32_t a_off = (kk >> 2) * BK * kSwRow + col;
         const uint32_t b_off = (kk >> 2) * BQ * kSwRow + col;
-        wgmma_ss<BQ>(s, desc_sw128(k_addr + a_off, 16, 1024),
-                     desc_sw128(q_addr + b_off, 16, 1024), kk > 0);
+        wgmma_ss<BQ, T>(s, desc_sw128(k_addr + a_off, 16, 1024),
+                        desc_sw128(q_addr + b_off, 16, 1024), kk > 0);
       }
       wgmma_commit();
 #pragma unroll
@@ -1075,15 +1123,15 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         const uint32_t col = (kk & 3) * 32;
         const uint32_t a_off = (kk >> 2) * BK * kSwRow + col;
         const uint32_t b_off = (kk >> 2) * BQ * kSwRow + col;
-        wgmma_ss<BQ>(dp, desc_sw128(v_addr + a_off, 16, 1024),
-                     desc_sw128(do_addr + b_off, 16, 1024), kk > 0);
+        wgmma_ss<BQ, T>(dp, desc_sw128(v_addr + a_off, 16, 1024),
+                        desc_sw128(do_addr + b_off, 16, 1024), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<1>();
       reg_fence(s);
 
       // p = exp(s * scale - lse) as one FMA and one exp2; dS = p (dP -
-      // Delta) scale; both split into bf16 high and low A fragments
+      // Delta) scale; both split into high and low A fragments of T
       const bool mask = q0 + BQ > p.S || (p.causal && q0 < kmin + 63);
       uint32_t ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4],
           dl[BQ / 16][4];
@@ -1102,8 +1150,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
           s[4 * i + e] = x;
         }
         const int kk = i >> 1, x = 2 * (i & 1);
-        split_bf16(s[4 * i], s[4 * i + 1], ph[kk][x], pl[kk][x]);
-        split_bf16(s[4 * i + 2], s[4 * i + 3], ph[kk][x + 1], pl[kk][x + 1]);
+        split2<T>(s[4 * i], s[4 * i + 1], ph[kk][x], pl[kk][x]);
+        split2<T>(s[4 * i + 2], s[4 * i + 3], ph[kk][x + 1], pl[kk][x + 1]);
       }
       wgmma_wait<0>();
       reg_fence(dp);
@@ -1117,12 +1165,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         for (int e = 0; e < 4; ++e)
           ds[e] = s[4 * i + e] * (dp[4 * i + e] - delta[e & 1]) * p.scale;
         const int kk = i >> 1, x = 2 * (i & 1);
-        split_bf16(ds[0], ds[1], dh[kk][x], dl[kk][x]);
-        split_bf16(ds[2], ds[3], dh[kk][x + 1], dl[kk][x + 1]);
+        split2<T>(ds[0], ds[1], dh[kk][x], dl[kk][x]);
+        split2<T>(ds[2], ds[3], dh[kk][x + 1], dl[kk][x + 1]);
       }
       wgmma_fence();
-      issue_split<D, BQ>(dv, ph, pl, do_addr);
-      issue_split<D, BQ>(dk, dh, dl, q_addr);
+      issue_split<D, BQ, T>(dv, ph, pl, do_addr);
+      issue_split<D, BQ, T>(dk, dh, dl, q_addr);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dk);
@@ -1130,8 +1178,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       if (lane == 0) mbar_arrive(&empty[st]);
     }
 
-    bf16* dkb = static_cast<bf16*>(p.dk);
-    bf16* dvb = static_cast<bf16*>(p.dv);
+    T* dkb = static_cast<T*>(p.dk);
+    T* dvb = static_cast<T*>(p.dv);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int kpos = krow + 8 * r;
@@ -1140,9 +1188,9 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
         *reinterpret_cast<uint32_t*>(dkb + row * D + 8 * i + 2 * t) =
-            pack_bf16(dk[4 * i + 2 * r], dk[4 * i + 2 * r + 1]);
+            pack2<T>(dk[4 * i + 2 * r], dk[4 * i + 2 * r + 1]);
         *reinterpret_cast<uint32_t*>(dvb + row * D + 8 * i + 2 * t) =
-            pack_bf16(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
+            pack2<T>(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
       }
     }
   }
@@ -1173,13 +1221,12 @@ struct DqMaps {
 // Delta = rowsum(O dO) in fp32 for this thread's rows row0 and row0 + 8
 // (the four threads of a quad read a quarter of each row, 16 bytes a
 // load), and -lse log2(e) for the same rows; writes Delta for dK/dV
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void row_terms(const FlashParams& p, int b, int h,
                                           int row0, int t, float (&delta)[2],
                                           float (&nlse)[2]) {
-  const bf16* ob = static_cast<const bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const bf16* db =
-      static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* ob = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const T* db = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const long long bh = (long long)b * p.H + h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1193,14 +1240,12 @@ __device__ __forceinline__ void row_terms(const FlashParams& p, int b, int h,
             *reinterpret_cast<const uint4*>(ob + qpos * p.o_ss + c);
         const uint4 dv =
             *reinterpret_cast<const uint4*>(db + qpos * p.do_ss + c);
-        const __nv_bfloat162* o2 =
-            reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* d2 =
-            reinterpret_cast<const __nv_bfloat162*>(&dv);
+        const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ov);
+        const uint32_t* d2 = reinterpret_cast<const uint32_t*>(&dv);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float2 of = __bfloat1622float2(o2[e]);
-          const float2 df = __bfloat1622float2(d2[e]);
+          const float2 of = unpack2<T>(o2[e]);
+          const float2 df = unpack2<T>(d2[e]);
           d += of.x * df.x + of.y * df.y;
         }
       }
@@ -1247,7 +1292,7 @@ __device__ __forceinline__ void dscore_tile(float (&s)[BN / 2],
     s[x] = s[x] * (dp[x] - delta[(x >> 1) & 1]) * scale;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     dq_tma_kernel(const FlashParams p, const __grid_constant__ DqMaps maps) {
   using C = DqCfg<D>;
@@ -1329,7 +1374,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     const uint32_t q_addr = smem_u32(q_s) + wg * 64 * kSwRow;
     const uint32_t do_addr = smem_u32(do_s) + wg * 64 * kSwRow;
     const uint32_t ring_addr = smem_u32(ring);
-    bf16* dqb = static_cast<bf16*>(p.dq);
+    T* dqb = static_cast<T*>(p.dq);
     if (wg == 1) named_arrive(1, 256);  // warpgroup 0 issues first
     int it = 0;
     for (int r = 0, n = 0;; ++r, ++n) {
@@ -1343,7 +1388,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 
       // Delta and lse of this thread's rows, while the copies land
       float delta[2], nlse[2];
-      row_terms<D>(p, b, h, row0, t, delta, nlse);
+      row_terms<D, T>(p, b, h, row0, t, delta, nlse);
       float dq[D / 2];
 #pragma unroll
       for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
@@ -1357,9 +1402,9 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         float s[BN / 2], dp[BN / 2];
         named_sync(1 + wg, 256);
         wgmma_fence();
-        issue_qk<D, BN>(s, q_addr, k_addr, BM);
+        issue_qk<D, BN, T>(s, q_addr, k_addr, BM);
         wgmma_commit();
-        issue_qk<D, BN>(dp, do_addr, k_addr + C::kKVBytes, BM);
+        issue_qk<D, BN, T>(dp, do_addr, k_addr + C::kKVBytes, BM);
         wgmma_commit();
         named_arrive(2 - wg, 256);
         wgmma_wait<1>();
@@ -1371,7 +1416,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         reg_fence(dp);
         if (n_kt == 1 && lane == 0) mbar_arrive(q_empty);
         dscore_tile<BN>(s, dp, delta, p.scale);
-        p_to_a<BN>(s, da);  // dS rounded to bf16, as the TPU rounds it
+        p_to_a<BN, T>(s, da);  // dS rounded to T, as the TPU rounds it
       }
       // k tile j: S_j and dP_j run beside dQ += dS_{j-1} K_{j-1}; p_j is
       // formed while dP_j runs and dS_j while the dQ product runs; dS_j
@@ -1383,12 +1428,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         float s[BN / 2], dp[BN / 2];
         named_sync(1 + wg, 256);
         wgmma_fence();
-        issue_qk<D, BN>(s, q_addr, k_addr, BM);
+        issue_qk<D, BN, T>(s, q_addr, k_addr, BM);
         wgmma_commit();
-        issue_qk<D, BN>(dp, do_addr, k_addr + C::kKVBytes, BM);
+        issue_qk<D, BN, T>(dp, do_addr, k_addr + C::kKVBytes, BM);
         wgmma_commit();
         wgmma_fence();
-        issue_pv<D, BN>(dq, da, ring_addr + prev * C::kStageBytes);
+        issue_pv<D, BN, T>(dq, da, ring_addr + prev * C::kStageBytes);
         wgmma_commit();
         named_arrive(2 - wg, 256);
         wgmma_wait<2>();
@@ -1403,12 +1448,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         wgmma_wait<0>();
         reg_fence(dq);
         if (lane == 0) mbar_arrive(&empty[prev]);
-        p_to_a<BN>(s, da);
+        p_to_a<BN, T>(s, da);
       }
       {
         const int last = (it + n_kt - 1) % NS;
         wgmma_fence();
-        issue_pv<D, BN>(dq, da, ring_addr + last * C::kStageBytes);
+        issue_pv<D, BN, T>(dq, da, ring_addr + last * C::kStageBytes);
         wgmma_commit();
         wgmma_wait<0>();
         reg_fence(dq);
@@ -1424,7 +1469,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
         for (int x = 0; x < D / 8; ++x)
           *reinterpret_cast<uint32_t*>(dqb + row * D + 8 * x + 2 * t) =
-              pack_bf16(dq[4 * x + 2 * rr], dq[4 * x + 2 * rr + 1]);
+              pack2<T>(dq[4 * x + 2 * rr], dq[4 * x + 2 * rr + 1]);
       }
     }
   }
@@ -1436,21 +1481,22 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// fp32: the FMA kernels
-template <int D>
-cudaError_t launch_fp32(Which which, const FlashParams& p, cudaStream_t st) {
+// the FMA kernels: fp32, and every dtype at head_dim 256
+template <int D, int TM, typename T>
+cudaError_t launch_fma(Which which, const FlashParams& p, cudaStream_t st) {
+  using F = Fma<D, TM>;
   void (*kernel)(const FlashParams);
   size_t smem;
-  dim3 grid((p.S + kTile - 1) / kTile, p.B * p.H);
+  dim3 grid((p.S + TM - 1) / TM, p.B * p.H);
   if (which == kFwd) {
-    kernel = fwd_kernel<D>;
-    smem = fwd_smem<D>();
+    kernel = fwd_kernel<D, TM, T>;
+    smem = F::kFwdSmem;
   } else if (which == kDq) {
-    kernel = dq_kernel<D>;
-    smem = dq_smem<D>();
+    kernel = dq_kernel<D, TM, T>;
+    smem = F::kDqSmem;
   } else {
-    kernel = dkv_kernel<D>;
-    smem = dkv_smem<D>();
+    kernel = dkv_kernel<D, TM, T>;
+    smem = F::kDkvSmem;
     grid.y = p.B * p.KVH;
   }
   // above 48 KB a launch needs the opt-in, or it is refused
@@ -1488,8 +1534,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [b, s, heads, d] bf16 with the caller's strides (in elements), in
-// boxes of [rows][64] with the 128-byte swizzle
+// [b, s, heads, d] of T (bf16 or fp16) with the caller's strides (in
+// elements), in boxes of [rows][64] with the 128-byte swizzle
+template <typename T>
 cudaError_t map_bshd(CUtensorMap* map, const void* base, const FlashParams& p,
                      int heads, long long sb, long long ss, long long sh,
                      int rows) {
@@ -1502,10 +1549,12 @@ cudaError_t map_bshd(CUtensorMap* map, const void* base, const FlashParams& p,
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      is_f16<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -1529,10 +1578,10 @@ cudaError_t map_flat(CUtensorMap* map, const void* base, long long n,
 constexpr int kMaxDevices = 64;
 
 // The current device's SM count, with the kernel's shared-memory
-// opt-in (Cfg::kSmem) set there: both done once per (Cfg, device),
+// opt-in (Cfg::kSmem) set there: both done once per (kernel, device),
 // not on every launch
-template <typename Cfg, typename Kernel>
-cudaError_t prepare(Kernel kernel, int* sms) {
+template <typename Cfg, auto kKernel>
+cudaError_t prepare(int* sms) {
   static std::atomic<int> cached[kMaxDevices];  // 0: not asked yet
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1541,7 +1590,7 @@ cudaError_t prepare(Kernel kernel, int* sms) {
   if (cached[dev].load() == 0) {
     int n = 0;
     if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
              Cfg::kSmem)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess)
@@ -1552,92 +1601,110 @@ cudaError_t prepare(Kernel kernel, int* sms) {
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch_fwd_tma(const FlashParams& p, cudaStream_t st) {
   using C = FwdCfg<D>;
   FwdMaps maps;
   cudaError_t err;
-  if ((err = map_bshd(&maps.q, p.q, p, p.H, p.q_sb, p.q_ss, p.q_sh,
-                      C::kBM)) != cudaSuccess ||
-      (err = map_bshd(&maps.k, p.k, p, p.KVH, p.k_sb, p.k_ss, p.k_sh,
-                      C::kBN)) != cudaSuccess ||
-      (err = map_bshd(&maps.v, p.v, p, p.KVH, p.v_sb, p.v_ss, p.v_sh,
-                      C::kBN)) != cudaSuccess)
+  if ((err = map_bshd<T>(&maps.q, p.q, p, p.H, p.q_sb, p.q_ss, p.q_sh,
+                         C::kBM)) != cudaSuccess ||
+      (err = map_bshd<T>(&maps.k, p.k, p, p.KVH, p.k_sb, p.k_ss, p.k_sh,
+                         C::kBN)) != cudaSuccess ||
+      (err = map_bshd<T>(&maps.v, p.v, p, p.KVH, p.v_sb, p.v_ss, p.v_sh,
+                         C::kBN)) != cudaSuccess)
     return err;
   // persistent: one CTA per SM, or one per q tile if there are fewer
   int sms = 0;
-  if ((err = prepare<C>(fwd_tma_kernel<D>, &sms)) != cudaSuccess) return err;
+  if ((err = prepare<C, fwd_tma_kernel<D, T>>(&sms)) != cudaSuccess)
+    return err;
   const int tiles = p.B * p.H * ((p.S + C::kBM - 1) / C::kBM);
-  fwd_tma_kernel<D><<<min(sms, tiles), kTmaThreads, C::kSmem, st>>>(p, maps);
+  fwd_tma_kernel<D, T>
+      <<<min(sms, tiles), kTmaThreads, C::kSmem, st>>>(p, maps);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch_dkv_tma(const FlashParams& p, cudaStream_t st) {
   using C = DkvCfg<D>;
   const long long rows = (long long)p.B * p.H * p.S;
   DkvMaps maps;
   cudaError_t err;
-  if ((err = map_bshd(&maps.q, p.q, p, p.H, p.q_sb, p.q_ss, p.q_sh,
-                      C::kBQ)) != cudaSuccess ||
-      (err = map_bshd(&maps.dout, p.dout, p, p.H, p.do_sb, p.do_ss, p.do_sh,
-                      C::kBQ)) != cudaSuccess ||
-      (err = map_bshd(&maps.k, p.k, p, p.KVH, p.k_sb, p.k_ss, p.k_sh,
-                      C::kBK)) != cudaSuccess ||
-      (err = map_bshd(&maps.v, p.v, p, p.KVH, p.v_sb, p.v_ss, p.v_sh,
-                      C::kBK)) != cudaSuccess ||
+  if ((err = map_bshd<T>(&maps.q, p.q, p, p.H, p.q_sb, p.q_ss, p.q_sh,
+                         C::kBQ)) != cudaSuccess ||
+      (err = map_bshd<T>(&maps.dout, p.dout, p, p.H, p.do_sb, p.do_ss,
+                         p.do_sh, C::kBQ)) != cudaSuccess ||
+      (err = map_bshd<T>(&maps.k, p.k, p, p.KVH, p.k_sb, p.k_ss, p.k_sh,
+                         C::kBK)) != cudaSuccess ||
+      (err = map_bshd<T>(&maps.v, p.v, p, p.KVH, p.v_sb, p.v_ss, p.v_sh,
+                         C::kBK)) != cudaSuccess ||
       (err = map_flat(&maps.lse, p.lse, rows, C::kBQ)) != cudaSuccess ||
       (err = map_flat(&maps.delta, p.delta, rows, C::kBQ)) != cudaSuccess)
     return err;
   int sms = 0;
-  if ((err = prepare<C>(dkv_tma_kernel<D>, &sms)) != cudaSuccess) return err;
+  if ((err = prepare<C, dkv_tma_kernel<D, T>>(&sms)) != cudaSuccess)
+    return err;
   const dim3 grid(p.B * p.KVH, (p.S + C::kBK - 1) / C::kBK);
-  dkv_tma_kernel<D><<<grid, kTmaThreads, C::kSmem, st>>>(p, maps);
+  dkv_tma_kernel<D, T><<<grid, kTmaThreads, C::kSmem, st>>>(p, maps);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch_dq_tma(const FlashParams& p, cudaStream_t st) {
   using C = DqCfg<D>;
   DqMaps maps;
   cudaError_t err;
-  if ((err = map_bshd(&maps.q, p.q, p, p.H, p.q_sb, p.q_ss, p.q_sh,
-                      C::kBM)) != cudaSuccess ||
-      (err = map_bshd(&maps.dout, p.dout, p, p.H, p.do_sb, p.do_ss, p.do_sh,
-                      C::kBM)) != cudaSuccess ||
-      (err = map_bshd(&maps.k, p.k, p, p.KVH, p.k_sb, p.k_ss, p.k_sh,
-                      C::kBN)) != cudaSuccess ||
-      (err = map_bshd(&maps.v, p.v, p, p.KVH, p.v_sb, p.v_ss, p.v_sh,
-                      C::kBN)) != cudaSuccess)
+  if ((err = map_bshd<T>(&maps.q, p.q, p, p.H, p.q_sb, p.q_ss, p.q_sh,
+                         C::kBM)) != cudaSuccess ||
+      (err = map_bshd<T>(&maps.dout, p.dout, p, p.H, p.do_sb, p.do_ss,
+                         p.do_sh, C::kBM)) != cudaSuccess ||
+      (err = map_bshd<T>(&maps.k, p.k, p, p.KVH, p.k_sb, p.k_ss, p.k_sh,
+                         C::kBN)) != cudaSuccess ||
+      (err = map_bshd<T>(&maps.v, p.v, p, p.KVH, p.v_sb, p.v_ss, p.v_sh,
+                         C::kBN)) != cudaSuccess)
     return err;
   // persistent, as the forward
   int sms = 0;
-  if ((err = prepare<C>(dq_tma_kernel<D>, &sms)) != cudaSuccess) return err;
+  if ((err = prepare<C, dq_tma_kernel<D, T>>(&sms)) != cudaSuccess)
+    return err;
   const int tiles = p.B * p.H * ((p.S + C::kBM - 1) / C::kBM);
-  dq_tma_kernel<D><<<min(sms, tiles), kTmaThreads, C::kSmem, st>>>(p, maps);
+  dq_tma_kernel<D, T>
+      <<<min(sms, tiles), kTmaThreads, C::kSmem, st>>>(p, maps);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(Which which, const FlashParams& p, cudaStream_t st) {
-  if (which == kFwd) return launch_fwd_tma<D>(p, st);
-  if (which == kDq) return launch_dq_tma<D>(p, st);
-  return launch_dkv_tma<D>(p, st);
+// bf16 and fp16 at head_dim 64 and 128: the wgmma kernels
+template <int D, typename T>
+cudaError_t launch_tma(Which which, const FlashParams& p, cudaStream_t st) {
+  if (which == kFwd) return launch_fwd_tma<D, T>(p, st);
+  if (which == kDq) return launch_dq_tma<D, T>(p, st);
+  return launch_dkv_tma<D, T>(p, st);
 }
 
+// dtype: 0 fp32, 1 bf16, 2 fp16 (ops/flash_attention.py _DTYPES); the
+// wrapper pads every other head_dim up to one of these
 int dispatch(Which which, const FlashParams* p, void* stream) {
   if (p->S <= 0 || p->B <= 0 || p->H <= 0) return (int)cudaSuccess;
   if (p->KVH <= 0 || p->H != p->KVH * p->group)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p->dtype == 0 && p->head_dim == 64)
-    return (int)launch_fp32<64>(which, *p, st);
-  if (p->dtype == 0 && p->head_dim == 128)
-    return (int)launch_fp32<128>(which, *p, st);
-  if (p->dtype == 1 && p->head_dim == 64)
-    return (int)launch_bf16<64>(which, *p, st);
-  if (p->dtype == 1 && p->head_dim == 128)
-    return (int)launch_bf16<128>(which, *p, st);
+  const int d = p->head_dim;
+  switch (p->dtype) {
+    case 0:
+      if (d == 64) return (int)launch_fma<64, 64, float>(which, *p, st);
+      if (d == 128) return (int)launch_fma<128, 64, float>(which, *p, st);
+      if (d == 256) return (int)launch_fma<256, 32, float>(which, *p, st);
+      break;
+    case 1:
+      if (d == 64) return (int)launch_tma<64, bf16>(which, *p, st);
+      if (d == 128) return (int)launch_tma<128, bf16>(which, *p, st);
+      if (d == 256) return (int)launch_fma<256, 32, bf16>(which, *p, st);
+      break;
+    case 2:
+      if (d == 64) return (int)launch_tma<64, __half>(which, *p, st);
+      if (d == 128) return (int)launch_tma<128, __half>(which, *p, st);
+      if (d == 256) return (int)launch_fma<256, 32, __half>(which, *p, st);
+      break;
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,7 +21,12 @@
 //    of `block` elements (the unit that shares a scale); thread t holds
 //    elements t, t+256, ... in registers (8 of them at the default
 //    block of 2048, up to 32), so a row is read once, reduced in
-//    registers, and written once.  The row absmax is a warp-shuffle
+//    registers, and written once.  A longer row (block > 8192) does not
+//    fit the registers: quantize_long_kernel and qadam_long_kernel take
+//    two passes over it, the row's absmax first, then the codes (qadam
+//    recomputes the moments from its unchanged inputs in the second
+//    pass before anything is written in place).  dequantize_kernel
+//    loops over a row of any length.  The row absmax is a warp-shuffle
 //    max, then one pass over the eight warps' maxima in shared memory.
 //  * qadam runs once for all the 8-bit leaves of a parameter group: a
 //    table on the device lists each leaf's tensors, element count,
@@ -91,7 +96,9 @@ struct QAdamParams {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlock = 32 * kThreads;  // quantize holds a row in registers
+// quantize and qadam hold a row in registers up to here, and take two
+// passes over a longer one
+constexpr int kMaxRegBlock = 32 * kThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr float kScaleFloor = 1e-12f;
 constexpr float kInv127 = 1.0f / 127.0f;
@@ -170,6 +177,31 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < VPT; ++j) {
     const int i = j * kThreads + threadIdx.x;
     if (i < block) q[row0 + i] = encode(v[j], scale, -qmax, qmax);
+  }
+  if (threadIdx.x == 0) scales[blockIdx.x] = scale;
+}
+
+// A row longer than the registers hold (block > kMaxRegBlock): the absmax
+// in a first pass over the row, the codes in a second, both strided by
+// the CTA's threads.  The same values and roundings as quantize_kernel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quantize_long_kernel(const T* __restrict__ x, long long numel, int block,
+                         float qmax, float inv_qmax, int8_t* __restrict__ q,
+                         float* __restrict__ scales) {
+  const long long row0 = static_cast<long long>(blockIdx.x) * block;
+  float absmax = 0.0f;
+  for (int i = threadIdx.x; i < block; i += kThreads) {
+    const long long e = row0 + i;
+    if (e < numel) absmax = fmaxf(absmax, fabsf(to_float(x[e])));
+  }
+  float unused = 0.0f;
+  block_max2(absmax, unused);
+  const float scale = fmaxf(__fmul_rn(absmax, inv_qmax), kScaleFloor);
+  for (int i = threadIdx.x; i < block; i += kThreads) {
+    const long long e = row0 + i;
+    const float v = e < numel ? to_float(x[e]) : 0.0f;
+    q[row0 + i] = encode(v, scale, -qmax, qmax);
   }
   if (threadIdx.x == 0) scales[blockIdx.x] = scale;
 }
@@ -287,11 +319,11 @@ __device__ __forceinline__ void adam_elem(const QAdamParams& h,
 
 // Elements e0 .. e0 + 7 of a leaf (e0 = row * block + 8 c, `left` of the
 // row's elements from e0 on): the new mu and sqrt(nu) into m and s (0
-// past the row's end), and the new parameter stored as p + round_p(upd)
-// in p's dtype.  Vector accesses where the chunk lies whole in the row
+// past the row's end), and, if WRITE, the new parameter stored as
+// p + round_p(upd) in p's dtype.  Vector accesses where the chunk lies whole in the row
 // and in the leaf and its addresses are aligned; else element by element
 // (a ragged last row, storage off 16 bytes).
-template <typename T>
+template <typename T, bool WRITE = true>
 __device__ __forceinline__ void chunk_step(const QAdamParams& h,
                                            const QAdamLeaf& L, long long e0,
                                            int left, float mu_s, float nu_s,
@@ -327,6 +359,7 @@ __device__ __forceinline__ void chunk_step(const QAdamParams& h,
     adam_elem(h, L, gv[k], pv[k], m0[k], s0[k], m[k], s[k], upd[k]);
     if (k >= left) m[k] = s[k] = 0.0f;
   }
+  if constexpr (!WRITE) return;
 #pragma unroll
   for (int k = 0; k < 8; ++k)
     pv[k] = __fadd_rn(pv[k], to_float(from_float<T>(upd[k])));
@@ -381,6 +414,22 @@ __device__ __forceinline__ void encode_chunk(int8_t* qm, int8_t* qn,
   }
 }
 
+// the leaf of a row: the last whose first row is at or before it
+__device__ __forceinline__ int find_leaf(const QAdamParams& h,
+                                         const QAdamLeaf* leaves,
+                                         long long row) {
+  int leaf = 0, hi = static_cast<int>(h.n_leaves) - 1;
+  while (leaf < hi) {
+    const int mid = (leaf + hi + 1) >> 1;
+    if (__ldg(&leaves[mid].row0) <= row) {
+      leaf = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return leaf;
+}
+
 template <int TPR, int C>
 __global__ void __launch_bounds__(kQThreads, C == 1 ? 4 : 1)
     qadam_kernel(const QAdamParams h) {
@@ -391,20 +440,7 @@ __global__ void __launch_bounds__(kQThreads, C == 1 ? 4 : 1)
       threadIdx.x / TPR;
   const bool active = row < h.rows;
   const QAdamLeaf* leaves = static_cast<const QAdamLeaf*>(h.leaves);
-  // the leaf of this row: the last whose first row is at or before it
-  int leaf = 0;
-  if (active) {
-    int hi = static_cast<int>(h.n_leaves) - 1;
-    while (leaf < hi) {
-      const int mid = (leaf + hi + 1) >> 1;
-      if (__ldg(&leaves[mid].row0) <= row) {
-        leaf = mid;
-      } else {
-        hi = mid - 1;
-      }
-    }
-  }
-  const QAdamLeaf L = leaves[leaf];
+  const QAdamLeaf L = leaves[active ? find_leaf(h, leaves, row) : 0];
   const long long r = row - L.row0;
   const int block = h.block, n_chunks = (block + 7) / 8;
   float* mu_scales = static_cast<float*>(L.mu_scales);
@@ -463,6 +499,63 @@ __global__ void __launch_bounds__(kQThreads, C == 1 ? 4 : 1)
   }
 }
 
+// A row longer than the registers hold (block > kMaxRegBlock): one CTA a
+// row and two passes over it.  The first computes each chunk's new
+// moments for the row's maxima and writes nothing; the second recomputes
+// them from the same, still unchanged, inputs, writes the parameter and
+// encodes the codes.  A chunk is read and written by one thread, and the
+// old scales are read before the first pass, so the in-place writes
+// race with no read.
+__global__ void __launch_bounds__(kQThreads)
+    qadam_long_kernel(const QAdamParams h) {
+  const long long row = blockIdx.x;
+  const QAdamLeaf* leaves = static_cast<const QAdamLeaf*>(h.leaves);
+  const QAdamLeaf L = leaves[find_leaf(h, leaves, row)];
+  const long long r = row - L.row0;
+  const int block = h.block, n_chunks = (block + 7) / 8;
+  float* mu_scales = static_cast<float*>(L.mu_scales);
+  float* nu_scales = static_cast<float*>(L.nu_scales);
+  const float mu_s = mu_scales[r], nu_s = nu_scales[r];
+  const bool bf16 = L.dtype == 1;
+  float mu_max = 0.0f, nu_max = 0.0f;
+  for (int c = threadIdx.x; c < n_chunks; c += kQThreads) {
+    const long long e0 = r * block + 8 * c;
+    float m[8], s[8];
+    if (bf16) {
+      chunk_step<__nv_bfloat16, false>(h, L, e0, block - 8 * c, mu_s, nu_s,
+                                       m, s);
+    } else {
+      chunk_step<float, false>(h, L, e0, block - 8 * c, mu_s, nu_s, m, s);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      mu_max = fmaxf(mu_max, fabsf(m[k]));
+      nu_max = fmaxf(nu_max, s[k]);
+    }
+  }
+  block_max2(mu_max, nu_max);
+  const float mu_scale = fmaxf(__fmul_rn(mu_max, kInv127), kScaleFloor);
+  const float nu_scale = fmaxf(__fmul_rn(nu_max, kInv127), kScaleFloor);
+  const float mu_inv = __frcp_rn(mu_scale), nu_inv = __frcp_rn(nu_scale);
+  int8_t* q_mu = static_cast<int8_t*>(L.q_mu);
+  int8_t* q_nu = static_cast<int8_t*>(L.q_nu);
+  for (int c = threadIdx.x; c < n_chunks; c += kQThreads) {
+    const long long e0 = r * block + 8 * c;
+    float m[8], s[8];
+    if (bf16) {
+      chunk_step<__nv_bfloat16>(h, L, e0, block - 8 * c, mu_s, nu_s, m, s);
+    } else {
+      chunk_step<float>(h, L, e0, block - 8 * c, mu_s, nu_s, m, s);
+    }
+    encode_chunk(q_mu + e0, q_nu + e0, m, s, block - 8 * c, mu_scale, mu_inv,
+                 nu_scale, nu_inv);
+  }
+  if (threadIdx.x == 0) {
+    mu_scales[r] = mu_scale;
+    nu_scales[r] = nu_scale;
+  }
+}
+
 template <int TPR, int C>
 int launch_qadam(const QAdamParams* h, cudaStream_t stream) {
   constexpr long long per_cta = kQThreads / TPR;
@@ -490,11 +583,14 @@ int quantize_dispatch(const void* x, long long numel, long long rows,
   if (block <= 8 * kThreads) {
     launch_quantize<T, 8>(x, numel, rows, block, qmax, inv_qmax, q, scales,
                           stream);
-  } else if (block <= 32 * kThreads) {
+  } else if (block <= kMaxRegBlock) {
     launch_quantize<T, 32>(x, numel, rows, block, qmax, inv_qmax, q,
                            scales, stream);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    quantize_long_kernel<T><<<static_cast<unsigned>(rows), kThreads, 0,
+                              stream>>>(
+        static_cast<const T*>(x), numel, block, qmax, inv_qmax,
+        static_cast<int8_t*>(q), static_cast<float*>(scales));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -532,7 +628,7 @@ int dlr_dequantize(const void* q, const void* scales, long long numel,
 
 int dlr_qadam_step(const QAdamParams* p, void* stream) {
   if (p->rows <= 0 || p->n_leaves <= 0 || p->n_leaves > 0x7fffffffLL ||
-      p->block <= 0 || p->block > kMaxBlock) {
+      p->block <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -542,7 +638,10 @@ int dlr_qadam_step(const QAdamParams* p, void* stream) {
   if (n_chunks <= 32) return launch_qadam<32, 1>(p, s);
   if (n_chunks <= kQThreads) return launch_qadam<kQThreads, 1>(p, s);
   if (n_chunks <= 2 * kQThreads) return launch_qadam<kQThreads, 2>(p, s);
-  return launch_qadam<kQThreads, 4>(p, s);  // block <= kMaxBlock
+  if (p->block <= kMaxRegBlock) return launch_qadam<kQThreads, 4>(p, s);
+  if (p->rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  qadam_long_kernel<<<static_cast<unsigned>(p->rows), kQThreads, 0, s>>>(*p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* dlr_quant_error_string(int err) {

@@ -18,14 +18,20 @@ Dispatch is by device: a CPU tensor takes the plain PyTorch version
 below (the same tiled online-softmax algorithm with the same casts,
 tiled by the public ``block_q``/``block_k``); a CUDA tensor launches
 the kernel or raises.  The kernels tile by rows of their own: the bf16
-forward and dK/dV (wgmma, fed by TMA) by 128, the others by 64.
-``LAUNCHES`` counts kernel launches only.
+and fp16 forward and dK/dV (wgmma, fed by TMA) by 128, the FMA kernels
+by 64 (32 at head_dim 256).  They take head_dim 64, 128 and 256
+(:data:`KERNEL_HEAD_DIMS`); any other head_dim up to 256 is zero-padded
+to the next of them on the way in and sliced on the way out, with the
+scale of the true head_dim.  That is exact: the padded columns add
+zeros to QK^T and to Delta, and the padded columns of O, dQ, dK and
+dV are zero.  ``LAUNCHES`` counts kernel launches only.
 """
 
 import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 # tile of the plain version when the caller names none; the CUDA
@@ -190,8 +196,27 @@ def bwd_dkv_plain(
 # CUDA kernels (csrc/flash_attention.cu)
 # ---------------------------------------------------------------------------
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the head dims the kernels are built for; others are padded up to one
+KERNEL_HEAD_DIMS = (64, 128, 256)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head_dim a CUDA launch runs at for a true head_dim ``d``:
+    the least of :data:`KERNEL_HEAD_DIMS` that holds it."""
+    for kd in KERNEL_HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(
+        f"CUDA flash attention takes head_dim up to "
+        f"{KERNEL_HEAD_DIMS[-1]}, not {d} (open fault: ROADMAP §C 1)"
+    )
+
+
+def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x`` with zero columns appended to head_dim up to ``d``."""
+    extra = d - x.shape[-1]
+    return F.pad(x, (0, extra)) if extra else x
 
 
 class _Params(ctypes.Structure):
@@ -232,9 +257,9 @@ def _lib():
 
 def _cuda_inputs(*xs: torch.Tensor):
     """Check what the kernels take and return the inputs ready for
-    them.  The bf16 kernels read rows through TMA tensor maps (and
-    16-byte copies), which need a 16-byte-aligned base and 16-byte
-    strides, so a bf16 view that breaks either is copied first; the
+    them.  The bf16 and fp16 wgmma kernels read rows through TMA tensor
+    maps (and 16-byte copies), which need a 16-byte-aligned base and
+    16-byte strides, so a view that breaks either is copied first; the
     fused-qkv views of the model pass as they are."""
     q = xs[0]
     for x in xs:
@@ -250,15 +275,16 @@ def _cuda_inputs(*xs: torch.Tensor):
             raise ValueError("flash attention needs head_dim contiguous")
     if q.dtype not in _DTYPES:
         raise ValueError(
-            f"CUDA flash attention takes bfloat16 or float32, not {q.dtype}"
+            f"CUDA flash attention takes float32, bfloat16 or float16, "
+            f"not {q.dtype}"
         )
-    if q.shape[-1] not in _HEAD_DIMS:
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"CUDA flash attention takes head_dim in {_HEAD_DIMS}, "
-            f"not {q.shape[-1]}"
+            f"the CUDA flash kernels take head_dim in {KERNEL_HEAD_DIMS}, "
+            f"not {q.shape[-1]}: pad it first (pad_head_dim)"
         )
-    if q.dtype != torch.bfloat16:
-        return xs
+    if q.dtype == torch.float32 or q.shape[-1] == 256:
+        return xs  # the FMA kernels read elements, not TMA boxes
     return tuple(
         x.clone(memory_format=torch.contiguous_format)
         if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:-1])
@@ -349,20 +375,29 @@ def _on_cpu(x: torch.Tensor) -> bool:
 
 
 class _FlashAttention(torch.autograd.Function):
+    """On a CUDA tensor q, k and v are padded to the kernels' head_dim
+    once, in the forward; the padded tensors and the padded output are
+    what the backward's kernels read."""
+
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, block_q, block_k):
+        d = q.shape[-1]
         if _on_cpu(q):
             out, lse = fwd_plain(q, k, v, scale, causal, block_q, block_k)
+            out_k = out
         else:
-            out, lse = fwd_cuda(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = (scale, causal, block_q, block_k)
+            kd = kernel_head_dim(d)
+            q, k, v = (pad_head_dim(x, kd) for x in (q, k, v))
+            out_k, lse = fwd_cuda(q, k, v, scale, causal)
+            out = out_k[..., :d].contiguous() if kd != d else out_k
+        ctx.save_for_backward(q, k, v, out_k, lse)
+        ctx.cfg = (scale, causal, block_q, block_k, d)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        scale, causal, block_q, block_k = ctx.cfg
+        scale, causal, block_q, block_k, d = ctx.cfg
         dout = dout.contiguous()
         if _on_cpu(q):
             delta = delta_plain(out, dout)
@@ -371,8 +406,11 @@ class _FlashAttention(torch.autograd.Function):
             dk, dv = bwd_dkv_plain(q, k, v, dout, lse, delta, scale,
                                    causal, block_q, block_k)
         else:
+            dout = pad_head_dim(dout, q.shape[-1])
             dq, delta = bwd_dq_cuda(q, k, v, out, dout, lse, scale, causal)
             dk, dv = bwd_dkv_cuda(q, k, v, dout, lse, delta, scale, causal)
+            if q.shape[-1] != d:
+                dq, dk, dv = (x[..., :d] for x in (dq, dk, dv))
         return dq, dk, dv, None, None, None, None
 
 
@@ -407,6 +445,9 @@ def flash_attention(
     GQA: ``k``/``v`` may carry fewer heads than ``q`` (``kv_heads``
     dividing ``heads``, kv-head-major q layout as in the Llama
     family); no kernel builds the repeated kv tensor.
+
+    On the card: fp32, bf16 or fp16, any head_dim up to 256 (padded to
+    the kernels' 64, 128 or 256); a larger head_dim raises.
     """
     b, s, h, d = q.shape
     kvh = k.shape[2]

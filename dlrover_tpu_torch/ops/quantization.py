@@ -30,8 +30,6 @@ import numpy as np
 import torch
 
 DEFAULT_BLOCK = 2048  # elements per scale block
-# the kernels hold a row in registers: 256 threads x 32 elements
-MAX_BLOCK = 8192
 SCALE_FLOOR = 1e-12
 
 # kernel launches, one count per kernel, bumped where it launches
@@ -259,10 +257,12 @@ def _stream(device: torch.device) -> int:
 
 
 def _check_block(block_size: int):
-    if not 0 < block_size <= MAX_BLOCK:
+    # the kernels hold a row of up to 8192 elements in registers and take
+    # two passes over a longer one; the block is a C int
+    if not 0 < block_size < 2**31:
         raise ValueError(
             f"the CUDA quantization kernels take block_size in "
-            f"[1, {MAX_BLOCK}], not {block_size}"
+            f"[1, 2**31 - 1], not {block_size}"
         )
 
 

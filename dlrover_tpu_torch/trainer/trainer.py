@@ -263,6 +263,10 @@ class Trainer:
                 self.device)
         self._save(step, True)
         self._checkpointer.wait()
+        # the next train() builds its own: end this one's writer thread,
+        # which would otherwise keep the engine and its snapshot (on the
+        # card) alive after the Trainer is gone; the shm segment stays
+        self._checkpointer.close()
         metrics_out.update({"final_loss": loss, "steps": step})
         return metrics_out
 

@@ -195,6 +195,65 @@ def test_plain_kernels_take_a_ragged_seq():
     np.testing.assert_allclose(_np(out), _np(ref), atol=2e-6)
 
 
+@pytest.mark.parametrize("d", [16, 80])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_jax_at_head_dims_the_kernels_pad(d, causal):
+    """head_dim 16 (the tiny GPT, Llama and BERT configs) and 80, which
+    the CUDA wrapper pads to 64 and 128: the plain version against the
+    JAX package, forward and gradients."""
+    xs = _qkv(b=1, s=64, h=2, d=d)
+    out, ref = forward_pair(xs, causal=causal, block_q=32, block_k=32)
+    np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+    for name, got, want in gradient_pairs(xs, _cot(xs), causal=causal,
+                                          block_q=32, block_k=32):
+        np.testing.assert_allclose(got, want, atol=5e-5, rtol=5e-4,
+                                   err_msg=f"grad mismatch for {name}")
+
+
+def test_fp16_matches_jax():
+    """fp16 inputs, which the CUDA path now takes: p is rounded to fp16
+    before P.V on both sides.  fp16 keeps 11 significant bits, so the
+    output is held to 2e-3 (bf16's 3e-2 scaled by 2^-4)."""
+    out, ref = forward_pair(_qkv(s=128), "float16")
+    np.testing.assert_allclose(out, ref, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("d", [16, 32, 80, 96, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padding_head_dim_is_exact(d, dtype):
+    """What the CUDA wrapper does around the kernels, on the plain
+    version: zero columns up to the kernel's head_dim, the true d's
+    scale, the extra columns of O, dQ, dK and dV zero and sliced off.
+    The result is the unpadded one up to fp32 summation order."""
+    kd = fa.kernel_head_dim(d)
+    assert kd == (64 if d <= 64 else 128 if d <= 128 else 256)
+    xs = [torch.from_numpy(x).to(dtype) for x in _qkv(b=1, s=64, h=4, d=d,
+                                                      kvh=2)]
+    dout = torch.from_numpy(_cot(xs)).to(dtype)
+    scale = d ** -0.5
+
+    def run(q, k, v, do):
+        out, lse = fa.fwd_plain(q, k, v, scale, True, 32, 32)
+        delta = fa.delta_plain(out, do)
+        dq = fa.bwd_dq_plain(q, k, v, do, lse, delta, scale, True, 32, 32)
+        return [out, lse, dq, *fa.bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                scale, True, 32, 32)]
+
+    want = run(*xs, dout)
+    got = run(*(fa.pad_head_dim(x, kd) for x in (*xs, dout)))
+    for g in (got[0], got[2], got[3], got[4]):
+        assert g.shape[-1] == kd and not g[..., d:].any()
+    for g, w in zip(got, want):
+        g = g[..., :d] if g.dim() == 4 else g
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-5)
+
+
+def test_head_dim_over_256_raises_naming_the_fault():
+    assert fa.kernel_head_dim(256) == 256
+    with pytest.raises(ValueError, match="ROADMAP §C 1"):
+        fa.kernel_head_dim(257)
+
+
 def test_cpu_path_launches_no_kernel():
     fa.reset_launch_counts()
     q, k, v = _torch(_qkv(s=64, d=16))
@@ -203,7 +262,7 @@ def test_cpu_path_launches_no_kernel():
 
 
 @pytest.mark.parametrize("dtype,d,match", [
-    (torch.float16, 64, "bfloat16 or float32"),
+    (torch.float64, 64, "float32, bfloat16 or float16"),
     (torch.float32, 32, "head_dim"),
 ])
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(dtype, d, match):
@@ -362,6 +421,56 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol, causal, b, s, h, kvh, d):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+# fp16 holds 11 significant bits to bf16's 8; the head_dim-256 FMA
+# kernels round p and dS where the wgmma kernels do
+PAD_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 80, 96, 256])
+@pytest.mark.parametrize("b,s,h,kvh", [
+    (2, 200, 4, 2),  # ragged last tile, GQA group 2
+    (1, 256, 4, 4),
+])
+def test_cuda_head_dims_and_fp16_match_plain(cuda, dtype, causal, d, b, s,
+                                             h, kvh):
+    """Every head_dim up to 256 and fp16 go through the kernels on the
+    card (padded to 64, 128 or 256), forward and backward through
+    autograd, and match the plain version on the same inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, dout = (
+        torch.randn(b, s, n, d, generator=gen, device=cuda).to(dtype)
+        for n in (h, kvh, kvh, h)
+    )
+    fa.reset_launch_counts()
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*xs, causal=causal)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    assert out.shape == q.shape and out.dtype == dtype
+    scale, blk = d ** -0.5, fa._fit_block(s, 128)
+    w_out, lse = fa.fwd_plain(q, k, v, scale, causal, blk, blk)
+    delta = fa.delta_plain(w_out, dout)
+    want = [w_out, fa.bwd_dq_plain(q, k, v, dout, lse, delta, scale, causal,
+                                   blk, blk)]
+    want += fa.bwd_dkv_plain(q, k, v, dout, lse, delta, scale, causal, blk,
+                             blk)
+    tol = PAD_TOL[dtype]
+    for g, w in zip([out] + [x.grad for x in xs], want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim_over_256_raises(cuda):
+    q = torch.zeros((1, 64, 2, 320), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP §C 1"):
+        fa.flash_attention(q, q, q)
 
 
 @pytest.mark.cuda

@@ -62,3 +62,23 @@ def test_module_docstring_names_its_reference(module):
     assert "dlrover_tpu/" in doc or "Port-only" in doc or (
         path.name == "__init__.py" and doc
     ), f"{module} names no reference file"
+
+
+def test_the_master_loads_no_torch():
+    """The master has no device work: its import closure, and its
+    client's, loads no torch, so it cannot make a CUDA context that
+    would take memory on the training card."""
+    code = (
+        "import json, sys\n"
+        "import dlrover_tpu_torch.master.main\n"
+        "import dlrover_tpu_torch.agent.master_client\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, check=True,
+    ).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert "dlrover_tpu_torch.master.master" in loaded
+    assert [m for m in loaded if m == "torch" or m.startswith("torch.")] == []

@@ -181,6 +181,36 @@ def test_fused_qadam_step_matches_jax(rows, block, dtype):
     assert ms[1, 0] == ns[1, 0] == np.float32(1e-12)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_long_blocks_match_jax(dtype):
+    """A block of 16384, past the 8192 that the CUDA kernels hold in
+    registers: the plain versions, which the two-pass kernels are held
+    to, against the JAX package."""
+    rows, block = 3, 16384
+    x = _tie_row(_tiles(rows, block), 127.0)
+    jx, tx = _as(x, dtype)
+    jcodes, jscales = jq._quantize_tiles(jx, block, 127.0)
+    codes, scales = pq.quantize_plain(tx, 127.0)
+    np.testing.assert_allclose(scales.numpy(), np.asarray(jscales),
+                               rtol=1e-6)
+    assert code_mismatches(codes.numpy(), jcodes) == 0
+    np.testing.assert_array_equal(
+        pq.dequantize_plain(codes, scales).numpy(),
+        np.asarray(jq._dequantize_tiles(jcodes, jscales)))
+    (upd, qm, ms, qn, ns), (jupd, jqm, jms, jqn, jns) = qadam_pair(
+        rows, block, dtype)
+    if dtype == "float32":
+        np.testing.assert_allclose(upd, jupd, atol=1e-6, rtol=1e-5)
+    else:
+        ulp = np.spacing(np.abs(jupd)) * 2.0 ** 16
+        assert (np.abs(upd - jupd) <= ulp).all()
+        assert (np.abs(upd - jupd) > 0).sum() <= max(1, upd.size // 1_000)
+    for got, want in ((ms, jms), (ns, jns)):
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+    code_mismatches(qm, jqm)
+    code_mismatches(qn, jqn)
+
+
 def test_bias_corrections_match_jax():
     counts = jnp.arange(1, 41, dtype=jnp.int32)
     want = jax.jit(lambda c: jnp.stack(
@@ -257,7 +287,7 @@ def test_fused_update_in_place_is_plain_step_plus_apply():
 @pytest.mark.parametrize("call,match", [
     (lambda: pq.quantize_cuda(torch.zeros(64, dtype=torch.float16), 64),
      "bfloat16 or float32"),
-    (lambda: pq.quantize_cuda(torch.zeros(64), 16384), "block_size"),
+    (lambda: pq.quantize_cuda(torch.zeros(64), 0), "block_size"),
     (lambda: pq.quantize_cuda(torch.zeros(8, 8).t(), 64), "contiguous"),
     (lambda: pq.qadam_step_cuda(
         torch.zeros(100), torch.zeros(100, dtype=torch.bfloat16),
@@ -499,6 +529,15 @@ def test_cuda_kernels_match_plain(cuda, numel, block, dtype):
     assert torch.equal(p, want_p)
     for state, value in zip((qm, ms, qn, ns), new):
         assert torch.equal(state, value)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [16384, 65536])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_long_blocks_match_plain(cuda, block, dtype):
+    """Blocks past the 8192 elements a CTA holds in registers take the
+    two-pass kernels: zero mismatches against the plain versions."""
+    test_cuda_kernels_match_plain(cuda, 3 * block + 700, block, dtype)
 
 
 @pytest.mark.cuda

@@ -10,6 +10,7 @@ params under their flax paths, and the flat layout is the same.
 """
 
 import os
+import threading
 import shutil
 import tempfile
 import time
@@ -158,6 +159,23 @@ def test_save_cadence_memory_and_storage(tmp_path):
     dirs = sorted(d for d in os.listdir(tmp_path)
                   if d.startswith(CheckpointConstant.CKPT_NAME_PREFIX))
     assert dirs == ["checkpoint-4", "checkpoint-6"]
+
+
+def test_train_ends_its_checkpoint_threads(tmp_path):
+    """train() closes its checkpointer: no snapshot writer thread of the
+    run outlives it (one that did kept the engine and its snapshot alive
+    in a process that trains again), and the shm segment still holds
+    the last save for the next Trainer."""
+    trainer = _port_trainer(tmp_path, 4, save_steps=2)
+    trainer.train()
+    writer = trainer._checkpointer.engine._writer_thread
+    assert writer is not None and not writer.is_alive()
+    assert not [t for t in threading.enumerate()
+                if t.name == "ckpt-snapshot-writer"]
+    again = _port_trainer(tmp_path, 4, seed=2)
+    again.train()
+    assert again.last_restore_phases["tier"] == "shm"
+    assert again._elastic.global_step == 4
 
 
 def test_no_resume_ignores_an_existing_checkpoint(tmp_path):
