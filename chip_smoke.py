@@ -97,6 +97,27 @@ Phases, each fatal on failure:
    and no child may be left.  Prints the master's time to serve, the
    round trip of ``report_global_step``, the restart's time to serve,
    the client's reconnect and the tokens/s beside 5a's.
+8. the launcher, the agent and worker recovery: ``python -m
+   dlrover_tpu_torch.run`` (its ``main``, in a child process of its
+   own that never touches CUDA: ``chip_smoke.py --launcher-child``)
+   supervises a GPT-2 small worker (seq 1024, global batch 32,
+   micro-batch 8, AdamW, flash attention, the whole train state to shm
+   every 2 steps, 8 steps, the final step to storage) that it writes
+   into the run's directory.  A control run under no scenario; then,
+   under ``kill_worker_midstep(seed=42)`` with step window [3, 6],
+   a: cold restarts, b: ``--warm-restart`` (the worker forked from the
+   forkserver template), in turns a, b, a, b while the time allows.
+   Each kill run must pass ``default_invariants(8, 2, workdir)``, a
+   restore from shm and ``LossTrajectoryMatches`` against the control
+   (rtol 1e-3, atol 1e-5): one kill, one restart, step 8 committed,
+   48 launches of each flash kernel a step in every incarnation,
+   finite losses; the agent and the master load no torch and map no
+   CUDA library, the forkserver template (it imports torch, which maps
+   the libraries) opens no ``/dev/nvidia*`` file, and each worker holds
+   the card; no process or shm segment of the run is left.  Prints the seconds from
+   the kill to the respawned worker's first step by recovery phase,
+   the steps lost, the goodput and the steady steps' tokens/s beside
+   5a's.
    The run uses a socket directory and ``DLROVER_JOB_NAME`` of its own
    and unlinks its shm segments and removes its checkpoint directories
    at the end, on failure too.
@@ -2027,6 +2048,588 @@ def phase_control_plane(card) -> dict:
             raise AssertionError(f"master processes left behind: {alive}")
 
 
+# -- phase 8: the launcher, the agent and worker recovery ----------------------
+
+L_STEPS = 8
+L_CKPT_EVERY = 2
+L_KILL_WINDOW = [3, 6]
+L_SEED = 42
+L_MONITOR_INTERVAL_S = 0.3
+L_MAX_RESTARTS = 2
+L_GLOBAL_BATCH, L_MICRO = 32, 8
+# the second pair of turns (8a, 8b again) runs only when the script has
+# used less than this since it started
+L_TURNS_BUDGET_S = 480.0
+
+# The GPT-2 small worker of phase 8, written into each run's directory:
+# the structure of the port's chaos train loop
+# (``dlrover_tpu_torch/chaos/scenarios.py``) at phase 5a's width on the
+# card.  Each incarnation rewrites ``incarnation_<restart>.json`` in its
+# output directory after every step, before ``report_step`` (where a
+# kill lands): its launch counts, losses, step times, recovery phases
+# and the CUDA libraries it maps.  argv: ckpt_dir out_dir
+LAUNCHER_WORKER_SCRIPT = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+
+from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer, StorageType
+from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, cross_entropy_loss
+from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.trainer.elastic_trainer import (
+    ElasticTrainer, TrainState, make_train_step, restore_train_state,
+    train_state_tree,
+)
+from dlrover_tpu_torch.trainer.recovery import RecoveryProfiler
+
+ckpt_dir, out_dir = sys.argv[1], sys.argv[2]
+TOTAL_STEPS = int(os.environ["DLROVER_CHAOS_TOTAL_STEPS"])
+CKPT_EVERY = int(os.environ["DLROVER_CHAOS_CKPT_EVERY"])
+GLOBAL_BATCH, MICRO, SEQ = 32, 8, 1024
+RESTART = int(os.environ.get("DLROVER_RESTART_COUNT", "0") or 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+prof = RecoveryProfiler()
+tracker = os.path.join(ckpt_dir, "latest_checkpointed_iteration.txt")
+
+def committed_step():
+    try:
+        with open(tracker) as f:
+            return int(f.read().strip() or -1)
+    except (OSError, ValueError):
+        return -1
+
+with prof.phase("ckpt_init"):
+    ckpt = Checkpointer(ckpt_dir)
+    load_handle = ckpt.load_checkpoint_async()
+
+# model_build's parts, timed here beside the profiler's phase: the
+# CUDA context, the model on the card, the optimizer
+parts = {}
+with prof.phase("model_build"):
+    t0 = time.perf_counter()
+    cfg = GPTConfig.gpt2_small(max_seq_len=SEQ, attention_impl="flash")
+    # no device named: the card, or an error where there is none
+    model = GPT(cfg, seed=0)
+    t1 = time.perf_counter()
+    optimizer = torch.optim.AdamW(model.parameters(), lr=1e-3,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=1e-4)
+    t2 = time.perf_counter()
+    parts.update(model_s=t1 - t0, optimizer_s=t2 - t1)
+
+    def loss_fn(module, batch):
+        return cross_entropy_loss(module(batch["x"]), batch["y"])
+
+    step_fn = make_train_step(loss_fn, optimizer,
+                              grad_accum=GLOBAL_BATCH // MICRO)
+
+data = np.random.default_rng(0).integers(
+    0, cfg.vocab_size, (GLOBAL_BATCH, SEQ + 1), dtype=np.int32)
+batch = {"x": data[:, :-1], "y": data[:, 1:]}
+step = prof.resolve_step(step_fn, restore_busy=lambda: not load_handle.done())
+
+start_step, restored = load_handle.result()
+prof.record_restore(ckpt.last_restore_phases)
+with prof.phase("state_build"):
+    state = TrainState.create(model, optimizer)
+    if start_step is None:
+        start_step = 0
+    else:
+        restore_train_state(state, restored["state"])
+        torch.cuda.synchronize()
+
+trainer = ElasticTrainer(global_batch_size=GLOBAL_BATCH,
+                         micro_batch_size=MICRO, dp_size=1)
+trainer.global_step = start_step
+
+def cuda_maps():
+    with open("/proc/self/maps") as f:
+        return sorted({line.split()[-1] for line in f
+                       if "libcuda" in line or "nvidia" in line})
+
+with open("/proc/self/cmdline", "rb") as f:
+    cmdline = f.read().replace(b"\0", b" ").decode().strip()
+record = {"pid": os.getpid(), "ppid": os.getppid(), "cmdline": cmdline,
+          "restart_count": RESTART, "start_step": start_step,
+          "model_build_parts": parts,
+          "restore": ckpt.last_restore_phases, "losses": {},
+          "step_seconds": {}, "done": False}
+path = os.path.join(out_dir, f"incarnation_{RESTART}.json")
+
+def write():
+    record["counts"] = dict(fa.LAUNCHES)
+    record["phases"] = dict(prof.phases)
+    record["maps"] = cuda_maps()
+    with open(path + ".tmp", "w") as f:
+        json.dump(record, f)
+    os.replace(path + ".tmp", path)
+
+fa.reset_launch_counts()
+first = True
+for i in range(start_step, TOTAL_STEPS):
+    t0 = time.perf_counter()
+    with trainer.profile("compute") as p:
+        state, metrics = step(state, batch)
+        p.block(metrics)
+    if first:
+        first = False
+        prof.record_first_step()
+    record["step_seconds"][str(i + 1)] = time.perf_counter() - t0
+    record["losses"][str(i + 1)] = float(metrics["loss"])
+    write()
+    # the train_step event and the trainer.step chaos hook: a kill
+    # rule ends the process here
+    trainer.report_step(metrics)
+    with trainer.profile("checkpoint"):
+        if trainer.global_step % CKPT_EVERY == 0:
+            ckpt.save_checkpoint(
+                trainer.global_step,
+                {"state": train_state_tree(state),
+                 "trainer": trainer.state_dict()},
+                storage_type=StorageType.MEMORY)
+
+# the final step to storage, waiting for its commit
+t0 = time.perf_counter()
+final_sd = {"state": train_state_tree(state), "trainer": trainer.state_dict()}
+deadline = time.time() + 300
+while time.time() < deadline and committed_step() < TOTAL_STEPS:
+    ckpt.save_checkpoint(TOTAL_STEPS, final_sd, storage_type=StorageType.DISK)
+    ckpt.wait()
+    poll_end = time.time() + 60
+    while time.time() < poll_end and committed_step() < TOTAL_STEPS:
+        time.sleep(0.05)
+assert committed_step() >= TOTAL_STEPS, "checkpoint commit did not land"
+record["final_save_s"] = time.perf_counter() - t0
+record["done"] = True
+write()
+ckpt.close()
+'''
+
+
+def _cuda_device_files(pid) -> list:
+    """The ``/dev/nvidia*`` files ``pid`` holds open or mapped: the CUDA
+    driver was initialised in it (``cuInit`` opens ``/dev/nvidiactl``
+    and the card's node, a context maps them).  Loading the libraries
+    opens none: ``import torch`` maps ``libcudart`` and ``libcuda.so``
+    (torch 2.11) without touching the card."""
+    found = set()
+    with open(f"/proc/{pid}/maps") as f:
+        found.update(line.split()[-1] for line in f
+                     if line.rstrip().split()[-1].startswith("/dev/nvidia"))
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            found.add(target)
+    return sorted(found)
+
+
+class _ProcSampler:
+    """Samples, every 0.2 s, the live processes of the run (those
+    ``harness.scan_processes`` finds by ``marker``, which leaves out this
+    process): their command line, parent, the CUDA libraries they map
+    and the ``/dev/nvidia*`` files they hold (unions over the
+    samples)."""
+
+    def __init__(self, marker: str):
+        import threading
+
+        self.marker = marker
+        self.seen = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self):
+        from dlrover_tpu_torch.chaos.harness import scan_processes
+
+        for pid in scan_processes(self.marker):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmdline = f.read().replace(b"\0", b" ").decode().strip()
+                with open(f"/proc/{pid}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+                libs = _maps_cuda(pid)
+                devices = _cuda_device_files(pid)
+            except (OSError, ValueError, IndexError):
+                continue
+            rec = self.seen.setdefault(pid, {
+                "cmdline": cmdline, "ppid": ppid, "maps": [],
+                "devices": []})
+            rec["maps"] = sorted(set(rec["maps"]) | set(libs))
+            rec["devices"] = sorted(set(rec["devices"]) | set(devices))
+
+    def _run(self):
+        while not self._stop.wait(0.2):
+            self._sample()
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def launcher_child(label: str, workdir: str, ckpt_dir: str,
+                   result_path: str, control_path: str = "") -> int:
+    """One launcher run of phase 8, in a process of its own that never
+    touches CUDA (this process is the agent): ``run.main`` with the
+    GPT-2 small worker under ``kill_worker_midstep`` (``8a``, ``8b``
+    with ``--warm-restart``) or under no scenario (``control``).  The
+    run's invariants are evaluated on its event log; what this process
+    and its children mapped goes into ``result_path``."""
+    from dlrover_tpu_torch.agent.forkserver import TRAINER_PRELOAD
+    from dlrover_tpu_torch.chaos import harness, scenarios
+    from dlrover_tpu_torch.chaos.schedule import Scenario
+
+    warm = label == "8b"
+    if label == "control":
+        scenario = Scenario.from_dict({"name": "control", "seed": 0,
+                                       "rules": []})
+    else:
+        scenario = scenarios.kill_worker_midstep(seed=L_SEED)
+        scenario.rules[0].step_window = list(L_KILL_WINDOW)
+    out_dir = os.path.join(workdir, "out")
+    os.makedirs(out_dir, exist_ok=True)
+    env, event_log = harness.scenario_env(
+        scenario, workdir, L_STEPS, L_CKPT_EVERY)
+    if warm:
+        env["DLROVER_PRELOAD"] = TRAINER_PRELOAD
+    script = os.path.join(workdir, "gpt2_small_worker.py")
+    with open(script, "w") as f:
+        f.write(LAUNCHER_WORKER_SCRIPT)
+    t0 = time.time()
+    with _ProcSampler(workdir) as sampler:
+        rc = harness.launch(
+            None if label == "control" else scenario, env,
+            [script, ckpt_dir, out_dir], max_restarts=L_MAX_RESTARTS,
+            monitor_interval=L_MONITOR_INTERVAL_S, warm_restart=warm)
+    wall = time.time() - t0
+    report = harness._build_report(scenario, rc, workdir, event_log)
+    checks = []
+    if label != "control":
+        with open(control_path) as f:
+            control = json.load(f)
+        # the tier-1 twin's set: the reference's acceptance, whose
+        # goodput ledger must name >= 90% of the lost time
+        checks = harness.invariants_for_scenario(
+            scenario.name, L_STEPS, L_CKPT_EVERY, workdir) + [
+            harness.RestoredFromTier("shm"),
+            harness.LossTrajectoryMatches(control),
+        ]
+    harness.check_invariants(report, checks)
+    result = {
+        "label": label, "rc": rc, "ok": report.ok, "wall_s": wall,
+        "summary": report.summary(), "timeline": report.timeline,
+        "attribution": report.attribution,
+        "invariants": [[r.name, r.ok, r.detail] for r in report.invariants],
+        "agent": {"pid": os.getpid(), "maps": _maps_cuda(os.getpid()),
+                  "devices": _cuda_device_files(os.getpid()),
+                  "torch_loaded": "torch" in sys.modules},
+        "procs": {str(k): v for k, v in sampler.seen.items()},
+        "incarnations": [],
+    }
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith("incarnation_") and name.endswith(".json"):
+            with open(os.path.join(out_dir, name)) as f:
+                result["incarnations"].append(json.load(f))
+    with open(result_path + ".tmp", "w") as f:
+        json.dump(result, f)
+    os.replace(result_path + ".tmp", result_path)
+    return 0
+
+
+def _launcher_run(label: str, turn: int, control_path: str = "") -> dict:
+    """Run ``launcher_child`` for ``label`` in a process of its own and
+    return its result, with the run's events.  The run gets a short
+    work directory (unix socket paths) and a job name of its own; its
+    checkpoint goes under ``chip_smoke_out``.  Afterwards its shm
+    segment is unlinked and no segment of its job may remain."""
+    from dlrover_tpu_torch.checkpoint.saver import read_last_checkpoint
+    from dlrover_tpu_torch.telemetry.events import read_events
+
+    workdir = tempfile.mkdtemp(prefix=f"dl8{label}")
+    ckpt_dir = os.path.join(OUT_DIR, f"ckpt_launcher_{label}_{turn}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    result_path = os.path.join(OUT_DIR, f"launcher_{label}_{turn}.json")
+    log_path = os.path.join(OUT_DIR, f"launcher_{label}_{turn}.log")
+    job = f"{os.environ['DLROVER_JOB_NAME']}_l{turn}"
+    env = dict(os.environ, PYTHONPATH=ROOT, DLROVER_JOB_NAME=job)
+    for key in ("DLROVER_EVENT_LOG", "DLROVER_METRICS_FILE"):
+        env.pop(key, None)
+    if os.path.exists(result_path):
+        os.unlink(result_path)
+    try:
+        with open(log_path, "w") as f:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--launcher-child", label, workdir, ckpt_dir, result_path,
+                 control_path],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                timeout=600)
+        if proc.returncode != 0 or not os.path.exists(result_path):
+            with open(log_path) as f:
+                tail = f.read()[-6000:]
+            raise AssertionError(f"launcher run {label} ended with "
+                                 f"{proc.returncode}:\n{tail}")
+        with open(result_path) as f:
+            result = json.load(f)
+        events = os.path.join(workdir, "events.jsonl")
+        result["events"] = list(read_events(events))
+        shutil.copy(events, os.path.join(
+            OUT_DIR, f"launcher_{label}_{turn}_events.jsonl"))
+        result["committed"] = read_last_checkpoint(ckpt_dir)[0]
+    finally:
+        prefix = f"dlrover_tpu_ckpt_shm_{job}_"
+        unlinked = [n for n in os.listdir("/dev/shm") if n.startswith(prefix)]
+        for name in unlinked:
+            os.unlink(os.path.join("/dev/shm", name))
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    left = [n for n in os.listdir("/dev/shm") if n.startswith(prefix)]
+    result["shm_unlinked"], result["shm_left"] = unlinked, left
+    return result
+
+
+def _incarnation_counts(inc) -> dict:
+    return _zero_counts(**{f"flash_attention.{k}": v
+                           for k, v in inc["counts"].items()})
+
+
+def _check_launcher_run(r, per_step, control=None) -> list:
+    """The failures of one launcher run of phase 8, as text.  With
+    ``control`` (the control run's losses of steps 1..L_STEPS) every
+    loss of every incarnation must equal the control's at its step bit
+    for bit: the replay from shm is exact on the card."""
+    failures = []
+    label = r["label"]
+    incs = sorted(r["incarnations"], key=lambda i: i["restart_count"])
+    bad = [inv for inv in r["invariants"] if not inv[1]]
+    if r["rc"] != 0 or bad:
+        failures.append(f"rc {r['rc']}, failed invariants {bad}")
+    if r["committed"] != L_STEPS:
+        failures.append(f"committed step {r['committed']}, not {L_STEPS}")
+    want = 1 if label == "control" else 2
+    if len(incs) != want:
+        failures.append(f"{len(incs)} incarnations, not {want}")
+    for inc in incs:
+        steps = len(inc["losses"])
+        expect = _zero_counts(**{f"flash_attention.{k}": per_step * steps
+                                 for k in ("fwd", "bwd_dq", "bwd_dkv")})
+        if _incarnation_counts(inc) != expect:
+            failures.append(f"incarnation {inc['restart_count']} launched "
+                            f"{inc['counts']} in {steps} steps, not "
+                            f"{per_step} of each a step")
+        if not all(map(_finite, inc["losses"].values())):
+            failures.append(f"incarnation {inc['restart_count']}: "
+                            f"non-finite loss {inc['losses']}")
+        if control is not None:
+            differ = {k: (v, control[int(k) - 1])
+                      for k, v in inc["losses"].items()
+                      if v != control[int(k) - 1]}
+            if differ:
+                failures.append(f"incarnation {inc['restart_count']}: "
+                                f"losses differ from the control's "
+                                f"(step: (run, control)) {differ}")
+        if not any(m.startswith("/dev/nvidia") for m in inc["maps"]):
+            failures.append(f"incarnation {inc['restart_count']} (pid "
+                            f"{inc['pid']}) holds no CUDA device: "
+                            f"{inc['maps']}")
+    if incs and not incs[-1]["done"]:
+        failures.append("the last incarnation did not finish")
+    agent = r["agent"]
+    if agent["maps"] or agent["devices"] or agent["torch_loaded"]:
+        failures.append(f"the agent (pid {agent['pid']}) maps CUDA "
+                        f"{agent['maps'] + agent['devices']} (torch "
+                        f"loaded: {agent['torch_loaded']})")
+    masters = {p: v for p, v in r["procs"].items()
+               if "dlrover_tpu_torch.master.main" in v["cmdline"]}
+    if not masters:
+        failures.append("no master process was sampled")
+    for pid, v in masters.items():
+        if v["maps"] or v["devices"]:
+            failures.append(f"the master (pid {pid}) maps CUDA: "
+                            f"{v['maps'] + v['devices']}")
+    if r["shm_left"] or len(r["shm_unlinked"]) != 1:
+        failures.append(f"shm segments: unlinked {r['shm_unlinked']}, "
+                        f"left {r['shm_left']}")
+    events = r["events"]
+    if label == "control":
+        losses = [incs[0]["losses"][str(s)] for s in range(1, L_STEPS + 1)] \
+            if incs else []
+        if incs and not losses[-1] < losses[0]:
+            failures.append(f"the control's loss did not fall: {losses}")
+        return failures
+    kills = [t for t in r["timeline"] if t[3] == "kill"]
+    if len(r["timeline"]) != 1 or len(kills) != 1 or not (
+            L_KILL_WINDOW[0] <= kills[0][4] <= L_KILL_WINDOW[1]):
+        failures.append(f"not one kill in {L_KILL_WINDOW}: {r['timeline']}")
+    restarts = [e for e in events if e.get("type") == "worker_restart"]
+    if len(restarts) != 1:
+        failures.append(f"{len(restarts)} worker restarts, not 1")
+    if len(incs) == 2 and incs[1]["restore"].get("tier") != "shm":
+        failures.append(f"the respawned worker restored from "
+                        f"{incs[1]['restore'].get('tier')}, not shm")
+    if label == "8b":
+        templates = {p: v for p, v in r["procs"].items()
+                     if "dlrover_tpu_torch.agent.forkserver" in v["cmdline"]
+                     and v["ppid"] == agent["pid"]}
+        if not templates:
+            failures.append("no forkserver template was sampled")
+        for pid, v in templates.items():
+            # it imports torch, which maps the libraries; the driver
+            # must never have been initialised in it
+            if v["devices"]:
+                failures.append(f"the template (pid {pid}) initialised "
+                                f"the CUDA driver: {v['devices']}")
+        for inc in incs:
+            if (str(inc["ppid"]) not in templates
+                    or "agent.forkserver" not in inc["cmdline"]):
+                failures.append(f"incarnation {inc['restart_count']} was "
+                                f"not forked from the template: ppid "
+                                f"{inc['ppid']}, {inc['cmdline']!r}")
+        fallbacks = [e for e in events
+                     if e.get("type") == "warm_fork_fallback"]
+        if fallbacks:
+            failures.append(f"warm fork fell back: {fallbacks}")
+    return failures
+
+
+L_BREAKDOWN = ("spawn", "import", "ckpt_init", "model_build", "aot",
+               "restore", "state_build", "loop_setup", "retrace",
+               "first_step")
+
+
+def _recovery_breakdown(r) -> dict:
+    """Seconds from the kill to the respawned worker's first step, and
+    its parts: the death's detection (kill -> the agent's restart
+    event), the respawned worker's recovery phases and the restore's
+    stages."""
+    events = r["events"]
+    kill = next(e for e in events if e.get("type") == "chaos_inject")
+    witnessed = next(e for e in events if e.get("type") == "worker_restart")
+    first = next(e for e in events if e.get("type") == "train_step"
+                 and e.get("restart_count", 0) > 0)
+    inc = max(r["incarnations"], key=lambda i: i["restart_count"])
+    last = max(int(s) for s in min(
+        r["incarnations"], key=lambda i: i["restart_count"])["losses"])
+    phases = {p: inc["phases"][p] for p in L_BREAKDOWN if p in inc["phases"]}
+    total = first["ts"] - kill["ts"]
+    detect = witnessed["ts"] - kill["ts"]
+    # the serial chain; the restore overlaps model_build on its thread,
+    # and first_step is the profiler's remainder since its construction
+    serial = sum(phases.get(p, 0.0) for p in (
+        "spawn", "import", "ckpt_init", "model_build", "state_build",
+        "loop_setup", "retrace"))
+    out = {
+        "kill_step": kill.get("step"),
+        "kill_to_first_step_s": total,
+        "detect_s": detect,
+        "other_s": total - detect - serial,
+        "phases": phases,
+        "restore_stages": {k: inc["restore"].get(k) for k in
+                           ("tier", "read_s", "assemble_s", "h2d_s",
+                            "total_s", "bytes")},
+        "steps_lost": last - inc["start_step"],
+        "model_build_parts": inc.get("model_build_parts"),
+        "goodput": (r["attribution"] or {}).get("goodput"),
+        "start_step": inc["start_step"],
+    }
+    return out
+
+
+def phase_launcher(card, t_start: float) -> dict:
+    """Phase 8: slice 3b.2 on the card — ``python -m
+    dlrover_tpu_torch.run`` (its ``main``) supervising the GPT-2 small
+    worker, which is SIGKILLed mid-step by ``kill_worker_midstep`` and
+    must be respawned and restored from shm: 8a cold, 8b with
+    ``--warm-restart``, after a control run under no scenario; in
+    turns 8a, 8b, 8a, 8b while the time allows.  Returns the launch
+    counts of the runs, summed over their incarnations."""
+    from dlrover_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash")
+    per_step = cfg.num_layers * (L_GLOBAL_BATCH // L_MICRO)
+    tokens = L_GLOBAL_BATCH * SMALL_SEQ
+    failures = []
+    control = _launcher_run("control", 0)
+    failures += [f"control: {f}" for f in _check_launcher_run(
+        control, per_step)]
+    if failures:
+        raise AssertionError("launcher: " + "; ".join(failures))
+    inc = control["incarnations"][0]
+    control_losses = [inc["losses"][str(s)] for s in range(1, L_STEPS + 1)]
+    control_path = os.path.join(OUT_DIR, "launcher_control_losses.json")
+    with open(control_path, "w") as f:
+        json.dump(control_losses, f)
+    steady = statistics.median(
+        inc["step_seconds"][str(s)] for s in range(3, L_STEPS + 1))
+    phase5a = SMALL_ADAMW["tokens_s"]
+    log(f"launcher: control run (no scenario) {control['wall_s']:.1f} s, "
+        f"losses {control_losses}; steady steps 3..{L_STEPS} median "
+        f"{steady * 1e3:.3f} ms, {tokens / steady:.1f} tokens/s, phase 5a "
+        f"{phase5a:.1f} ({tokens / steady / phase5a:.4f}) [{card}]")
+    counts = {"launcher_control": _zero_counts(**{
+        f"flash_attention.{k}": v for k, v in inc["counts"].items()})}
+    runs = []
+    for turn, label in enumerate(("8a", "8b", "8a", "8b"), start=1):
+        if turn > 2 and time.perf_counter() - t_start > L_TURNS_BUDGET_S:
+            log(f"launcher: turn {turn} skipped, "
+                f"{time.perf_counter() - t_start:.0f} s used of "
+                f"{L_TURNS_BUDGET_S:.0f}")
+            break
+        r = _launcher_run(label, turn, control_path)
+        bad = _check_launcher_run(r, per_step, control_losses)
+        failures += [f"{label} turn {turn}: {f}" for f in bad]
+        b = _recovery_breakdown(r) if not bad else {}
+        runs.append((label, turn, r, b))
+        path = "launcher_cold" if label == "8a" else "launcher_warm"
+        summed = _zero_counts()
+        for i in r["incarnations"]:
+            for k, v in _incarnation_counts(i).items():
+                summed[k] += v
+        if path not in counts:
+            counts[path] = summed
+        log(f"launcher {label} turn {turn} "
+            f"({'warm' if label == '8b' else 'cold'}): "
+            f"{r['wall_s']:.1f} s, invariants "
+            f"{[(n, ok) for n, ok, _ in r['invariants']]}")
+        for line in r["summary"].splitlines():
+            log(f"  {line}")
+        if b:
+            steps = [s for i in r["incarnations"]
+                     for k, s in i["step_seconds"].items()
+                     if int(k) >= i["start_step"] + 3]
+            rate = tokens / statistics.median(steps) if steps else float("nan")
+            log(f"launcher {label} turn {turn}: kill at step "
+                f"{b['kill_step']}, restored at step {b['start_step']} from "
+                f"{b['restore_stages']['tier']}, {b['steps_lost']} step(s) "
+                f"lost, goodput {b['goodput']}; kill -> first step "
+                f"{b['kill_to_first_step_s']:.3f} s: detection "
+                f"{b['detect_s']:.3f} s, other (the restore's join, the "
+                f"step's report) {b['other_s']:.3f} s, recovery phases "
+                f"{json.dumps(b['phases'])} (model_build: "
+                f"{json.dumps(b['model_build_parts'])}), restore stages "
+                f"{json.dumps(b['restore_stages'])}; steady steps "
+                f"{rate:.1f} tokens/s ({rate / phase5a:.4f} of 5a) [{card}]")
+    cold = [b["kill_to_first_step_s"] for lb, _, _, b in runs
+            if lb == "8a" and b]
+    warm = [b["kill_to_first_step_s"] for lb, _, _, b in runs
+            if lb == "8b" and b]
+    log(f"launcher: kill -> first step, cold {[round(x, 3) for x in cold]} "
+        f"s, warm {[round(x, 3) for x in warm]} s (turns "
+        f"{[lb for lb, *_ in runs]}) [{card}]")
+    if failures:
+        raise AssertionError("launcher: " + "; ".join(failures))
+    return counts
+
+
 FAMILIES = ("flash attention (this port)", "quantization (this port)",
             "matmul", "other")
 
@@ -2101,6 +2704,11 @@ def _free_cuda():
 
 
 def main(argv) -> int:
+    if argv[:1] == ["--launcher-child"]:
+        # phase 8's agent: this process must never touch CUDA, so it
+        # returns before the check below initialises the driver
+        sys.path.insert(0, ROOT)
+        return launcher_child(*argv[1:6])
     import torch
 
     if not torch.cuda.is_available():
@@ -2163,6 +2771,7 @@ def run_phases(torch) -> int:
     for phase in (phase_ckpt_small, phase_ckpt_xl, phase_control_plane):
         by_path.update(phase(card))
         _free_cuda()
+    by_path.update(phase_launcher(card, t_start))
     leaked = [n for n in os.listdir("/dev/shm")
               if n.startswith(f"dlrover_tpu_ckpt_shm_"
                               f"{os.environ['DLROVER_JOB_NAME']}_")]

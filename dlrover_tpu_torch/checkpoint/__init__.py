@@ -3,15 +3,22 @@ asynchronous persistence from the agent process.
 
 Port of ``dlrover_tpu/checkpoint/__init__.py`` (reference:
 ``dlrover/python/elastic_agent/torch/ckpt_saver.py`` +
-``dlrover/trainer/torch/flash_checkpoint/``)."""
+``dlrover/trainer/torch/flash_checkpoint/``).  The names load at first
+use, so the agent's process can import the saver without torch."""
 
-from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer, StorageType
-from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
-from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+import importlib
 
-__all__ = [
-    "AsyncCheckpointSaver",
-    "CheckpointEngine",
-    "Checkpointer",
-    "StorageType",
-]
+_EXPORTS = {
+    "AsyncCheckpointSaver": "dlrover_tpu_torch.checkpoint.saver",
+    "CheckpointEngine": "dlrover_tpu_torch.checkpoint.engine",
+    "Checkpointer": "dlrover_tpu_torch.checkpoint.checkpointer",
+    "StorageType": "dlrover_tpu_torch.checkpoint.checkpointer",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(_EXPORTS[name]), name)

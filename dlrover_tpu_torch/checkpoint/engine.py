@@ -14,12 +14,14 @@ The snapshot.  The JAX engine's asynchronous save is safe because a
 thread fetch the copy.  Torch tensors change in place (AdamW's step,
 the q-AdamW kernel writing ``p`` and the moments), so the port orders
 the copy against the training stream explicitly (``_device_snapshot``):
-every CUDA leaf is cloned on a side stream that first waits for the
-caller's current stream; an event recorded after the clones is waited
-on by the current stream before any later work (the next optimizer
-step) and by the copy stream of the device->host transfer; the clones
-stay referenced until that transfer is done.  Host tensors and numpy
-leaves are copied on the host before the call returns.
+the CUDA leaves of each device are copied back to back into one new
+uint8 buffer (a few ``torch.cat`` launches, one allocation) on a side
+stream that first waits for the caller's current stream; an event
+recorded after the copies is waited on by the current stream before
+any later work (the next optimizer step) and by the copy stream of the
+device->host transfer; the buffer stays referenced until that transfer
+is done.  Host tensors and numpy leaves are copied on the host before
+the call returns.
 
 Sparse state (``register_sparse``) comes with slice 6 of the port, the
 target-sharded restore (``load_sharded``) with slice 4.
@@ -187,9 +189,7 @@ class CheckpointEngine:
         # is (mostly) warm.  Only for respawns — a first incarnation
         # has no snapshot to warm.
         self._prefault_thread = None
-        if env_utils.get_restart_count() > 0 and os.getenv(
-            "DLROVER_RESTORE_PREFETCH", "1"
-        ).strip().lower() not in ("0", "false", "no", "off"):
+        if env_utils.get_restart_count() > 0:
             self._prefault_thread = threading.Thread(
                 target=self._prefault_shm,
                 daemon=True,
@@ -455,7 +455,7 @@ class CheckpointEngine:
                 )
             finally:
                 # drop the snapshot before waiting for the next one:
-                # its clones hold as much device memory as the state
+                # its buffer holds as much device memory as the state
                 snap = ready = None
                 self._writer_queue.task_done()
 

@@ -28,8 +28,16 @@ restoring onto a sharded template come with slice 4 of the port; the
 paged base+delta tier (``DLROVER_SHM_PAGED``, reference ``:425-1058``)
 with the sparse state in slice 6.  A save fires the reference's
 ``ckpt.shm_save`` chaos hook once its snapshot is published.
+
+torch is imported where a tensor is made or read, not with the module:
+the agent's side of it (segments, meta, the raw bytes it persists, the
+restore prefetch) runs in the launcher's process, which never loads
+torch (a CUDA build maps the CUDA driver's library at ``import torch``).
 """
 
+from __future__ import annotations
+
+import functools
 import io
 import os
 import pickle
@@ -41,7 +49,6 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.common.multi_process import (
@@ -82,29 +89,34 @@ class CheckpointConfig:
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
-# numpy's dtype names, which TensorMeta.dtype keeps, and torch's dtypes
-_TORCH_DTYPES = {
-    "bool": torch.bool,
-    "uint8": torch.uint8,
-    "int8": torch.int8,
-    "int16": torch.int16,
-    "int32": torch.int32,
-    "int64": torch.int64,
-    "float16": torch.float16,
-    "bfloat16": torch.bfloat16,
-    "float32": torch.float32,
-    "float64": torch.float64,
-    "complex64": torch.complex64,
-    "complex128": torch.complex128,
-    "float8_e4m3fn": torch.float8_e4m3fn,
-    "float8_e5m2": torch.float8_e5m2,
-}
-_DTYPE_NAMES = {dt: name for name, dt in _TORCH_DTYPES.items()}
+@functools.lru_cache(maxsize=None)
+def _dtype_tables():
+    """numpy's dtype names, which TensorMeta.dtype keeps, and torch's
+    dtypes, both ways."""
+    import torch
+
+    names = {
+        "bool": torch.bool,
+        "uint8": torch.uint8,
+        "int8": torch.int8,
+        "int16": torch.int16,
+        "int32": torch.int32,
+        "int64": torch.int64,
+        "float16": torch.float16,
+        "bfloat16": torch.bfloat16,
+        "float32": torch.float32,
+        "float64": torch.float64,
+        "complex64": torch.complex64,
+        "complex128": torch.complex128,
+        "float8_e4m3fn": torch.float8_e4m3fn,
+        "float8_e5m2": torch.float8_e5m2,
+    }
+    return names, {dt: name for name, dt in names.items()}
 
 
 def torch_dtype(name: str) -> torch.dtype:
     try:
-        return _TORCH_DTYPES[name]
+        return _dtype_tables()[0][name]
     except KeyError:
         raise TypeError(f"checkpoint leaf dtype {name!r} has no torch "
                         "counterpart") from None
@@ -112,7 +124,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def dtype_name(dtype: torch.dtype) -> str:
     try:
-        return _DTYPE_NAMES[dtype]
+        return _dtype_tables()[1][dtype]
     except KeyError:
         raise TypeError(f"torch dtype {dtype} has no checkpoint "
                         "name") from None
@@ -201,6 +213,7 @@ def _assemble_flat(flat: Dict[str, Any], metas: Dict[str, Any]):
     """Assemble ``@shardN`` entries into full tensors (raises if the
     visible shards do not cover a leaf — the topology changed across
     hosts; that restore comes with slice 4 of the port)."""
+    import torch
     grouped: Dict[str, list] = {}
     plain: Dict[str, Any] = {}
     for key, value in flat.items():
@@ -248,6 +261,7 @@ def _extract_entries(state_dict):
     scalars)``, entries ``[(key, leaf)]`` in layout order (tensors and
     snapshot leaves as they are, numpy leaves as contiguous arrays),
     scalars the non-array leaves."""
+    import torch
     entries = []
     scalars: Dict[str, Any] = {}
     for key, leaf in _flatten_state_dict(state_dict).items():
@@ -262,6 +276,7 @@ def _extract_entries(state_dict):
 
 def _leaf_meta(leaf) -> Tuple[Tuple[int, ...], str, int]:
     """(shape, dtype name, nbytes) of an array leaf."""
+    import torch
     shape = tuple(int(d) for d in leaf.shape)
     if isinstance(leaf.dtype, torch.dtype):
         name = dtype_name(leaf.dtype)
@@ -290,6 +305,7 @@ def _add_piece(pieces: list, base: torch.Tensor, start: int, nbytes: int,
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     """A tensor's bytes as a flat uint8 tensor (a copy only when it is
     not contiguous)."""
+    import torch
     if not t.is_contiguous():
         t = t.contiguous()
     return t.detach().view(-1).view(torch.uint8)
@@ -298,6 +314,7 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
 def _buffer_bytes(buf, offset: int, nbytes: int) -> torch.Tensor:
     """``buf[offset:offset + nbytes]`` as a uint8 tensor without a copy
     (a read-only buffer, such as a storage mmap, is only read)."""
+    import torch
     if nbytes == 0:
         return torch.empty(0, dtype=torch.uint8)
     with warnings.catch_warnings():
@@ -370,6 +387,7 @@ class _DeviceStager:
     pinned memory, then a CPU ``copy_`` into the destination)."""
 
     def __init__(self, device: torch.device):
+        import torch
         self.device = device
         self.stream = torch.cuda.Stream(device)
         self.buffers = [
@@ -388,6 +406,7 @@ class _DeviceStager:
         copy stream first waits for ``ready`` (events after which the
         sources are complete) or, without them, for the caller's
         current stream.  Returns when every byte is in ``dst_buf``."""
+        import torch
         if ready:
             for ev in ready:
                 self.stream.wait_event(ev)
@@ -420,6 +439,7 @@ class _DeviceStager:
         self._drain(cur, dst_buf)
 
     def _submit(self, i, batch, start):
+        import torch
         end = torch.cuda.Event(enable_timing=True)
         end.record(self.stream)
         self._timing.append((start, end))

@@ -12,9 +12,13 @@ Python loop of forward/backward passes that accumulate into ``.grad``
 and then one ``optimizer.step()``, with loss and gradients averaged
 over the micro-batches exactly as the reference averages them.
 
-The ``trainer.step`` chaos hook, the AOT step resolution and
-multi-process initialisation come with the launcher in slice 3 of the
-port.
+:func:`init_torch_distributed` is the counterpart of the reference's
+``init_jax_distributed``: it forms the ``torch.distributed`` process
+group from the agent's env contract.  :func:`train_state_tree` and
+:func:`restore_train_state` carry the whole train state (params,
+optimizer slots, step) through a checkpoint, as the reference's
+``restore_train_state`` does.  The AOT step resolution
+(``resolve_train_step``) comes with slice 8 of the port.
 """
 
 import json
@@ -27,6 +31,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import torch
 
+from dlrover_tpu_torch import chaos as _chaos
 from dlrover_tpu_torch.common import env_utils
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
@@ -272,6 +277,10 @@ class ElasticTrainer:
             except (TypeError, ValueError):
                 pass
         emit_event("train_step", **step_event)
+        # chaos hook AFTER the event: a kill rule at step N must leave
+        # step N's completion in the log before the process dies; a
+        # slow rule stretches the observable step time (straggler)
+        _chaos.fire("trainer.step", step=self.global_step)
         self.profiler.add(
             "report", time.perf_counter() - report_start
         )
@@ -321,3 +330,84 @@ class ElasticTrainer:
     def load_state_dict(self, state: Dict[str, int]):
         self.global_step = int(state.get("global_step", 0))
         self._epoch = int(state.get("epoch", 0))
+
+
+def train_state_tree(state: TrainState) -> Dict[str, Any]:
+    """The whole train state as a checkpoint tree, of the state's own
+    tensors (no copies): ``{"params", "opt_state", "step"}``, with the
+    params under their flax paths
+    (:func:`~dlrover_tpu_torch.utils.convert.params_tree`) and each of
+    the optimizer's per-parameter slots (Adam's ``exp_avg``,
+    ``exp_avg_sq`` and ``step``) nested the same way under its name."""
+    from dlrover_tpu_torch.utils.convert import _flax_path, _set, params_tree
+
+    names = {id(p): n for n, p in state.module.named_parameters()}
+    slots: Dict[str, Any] = {}
+    for p, st in state.optimizer.state.items():
+        for key, value in st.items():
+            _set(slots.setdefault(key, {}), _flax_path(names[id(p)]), value)
+    return {"params": params_tree(state.module), "opt_state": slots,
+            "step": state.step}
+
+
+def restore_train_state(state: TrainState, restored) -> TrainState:
+    """Load a restored :func:`train_state_tree` into ``state`` in
+    place: the params are copied onto the module's tensors, the slots
+    go through ``optimizer.load_state_dict`` (which places them as the
+    optimizer keeps them), and the step comes back.  The optimizer is
+    never stepped or re-initialised, as in the reference, where the
+    restore supplies params and slots alike."""
+    from dlrover_tpu_torch.checkpoint.checkpointer import restore_to_template
+    from dlrover_tpu_torch.utils.convert import _flax_path, params_tree
+
+    restore_to_template(params_tree(state.module), restored["params"])
+    names = {id(p): n for n, p in state.module.named_parameters()}
+    order = [p for g in state.optimizer.param_groups for p in g["params"]]
+    slots = restored.get("opt_state") or {}
+    per_param = {}
+    for i, p in enumerate(order):
+        st = {}
+        for key, tree in slots.items():
+            node = tree
+            for part in _flax_path(names[id(p)]):
+                node = node[part]
+            st[key] = node
+        if st:
+            per_param[i] = st
+    state.optimizer.load_state_dict({
+        "state": per_param,
+        "param_groups": state.optimizer.state_dict()["param_groups"],
+    })
+    state.step = int(restored["step"])
+    return state
+
+
+def init_torch_distributed(
+    device: Optional[Union[str, torch.device]] = None,
+) -> bool:
+    """Form the ``torch.distributed`` process group from the agent's
+    env contract (reference: ``init_jax_distributed``, itself the
+    analog of ``dist.init_process_group`` with the agent's
+    MASTER_ADDR/PORT, training.py:430-447): the coordinator address
+    the master's rendezvous handed out, this process's id and the
+    number of processes.  ``False`` for one process (no group is
+    formed), ``True`` once the group is up: ``nccl`` on the card,
+    ``gloo`` when the caller names the CPU."""
+    coordinator = env_utils.get_coordinator_addr()
+    num_processes = int(os.getenv("DLROVER_NUM_PROCESSES", "1"))
+    if not coordinator or num_processes <= 1:
+        return False
+    device = resolve_device(device)
+    process_id = int(os.getenv("DLROVER_PROCESS_ID", "0"))
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    torch.distributed.init_process_group(
+        backend=backend,
+        init_method=f"tcp://{coordinator}",
+        world_size=num_processes,
+        rank=process_id,
+    )
+    logger.info(
+        "torch.distributed initialized (%s): process %s/%s via %s",
+        backend, process_id, num_processes, coordinator,
+    )
+    return True

@@ -82,3 +82,29 @@ def test_the_master_loads_no_torch():
     loaded = json.loads(out.strip().splitlines()[-1])
     assert "dlrover_tpu_torch.master.master" in loaded
     assert [m for m in loaded if m == "torch" or m.startswith("torch.")] == []
+
+
+def test_the_launcher_and_the_agent_load_no_torch():
+    """The launcher, the agent, its saver and the chaos harness run in
+    a process that never touches the card; a CUDA build of torch maps
+    the CUDA driver's library at import, so that process loads no
+    torch at all (the worker does)."""
+    code = (
+        "import json, sys\n"
+        "import dlrover_tpu_torch.run\n"
+        "import dlrover_tpu_torch.agent.training\n"
+        "import dlrover_tpu_torch.agent.forkserver\n"
+        "import dlrover_tpu_torch.checkpoint.saver\n"
+        "import dlrover_tpu_torch.chaos.harness\n"
+        "import dlrover_tpu_torch.chaos.__main__\n"
+        "from dlrover_tpu_torch.checkpoint import AsyncCheckpointSaver\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, check=True,
+    ).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert "dlrover_tpu_torch.agent.training" in loaded
+    assert [m for m in loaded if m == "torch" or m.startswith("torch.")] == []
