@@ -22,11 +22,14 @@ Phases, each fatal on failure:
    yardstick that the port never calls), and the backward pair beside
    SDPA's backward;
    then the wrapper's repairs: head_dim 16, 32, 80, 96 (padded to 64
-   or 128) and 256, bf16 and fp16, causal and not, at a ragged GQA
+   or 128), 256, and 320 and 512 (the wide kernels, head_dim walked in
+   chunks of 64), bf16 and fp16, causal and not, at a ragged GQA
    shape, forward and backward through autograd against the plain
-   version, one launch of each kernel a case; head_dim 320 raises;
-   fp16 timed against bf16 at GPT-2 small's shape, and head_dim 80
-   against 128 through the wrapper, beside their bounds;
+   version, one launch of each kernel a case; fp16 timed against bf16
+   at GPT-2 small's shape, and head_dim 80 against 128, 256, 320 and
+   512 through the wrapper, beside their bounds; each kernel at 320
+   and 512 alone beside its bound, its plain version and SDPA where
+   SDPA takes the head_dim;
 3. hold each quantization kernel (quantize, dequantize, the fused
    q-AdamW step) against its plain version on the card at GPT-2 XL's
    leaves (``wte`` as [39300, 2048], an ``fc_in`` weight as
@@ -121,6 +124,30 @@ Phases, each fatal on failure:
    The run uses a socket directory and ``DLROVER_JOB_NAME`` of its own
    and unlinks its shm segments and removes its checkpoint directories
    at the end, on failure too.
+9. ``auto_accelerate`` and its strategy search:
+   a. GPT-2 XL at full width and depth (48 layers, d 1600, seq 1024,
+      batch 4, fp32 params, flash attention) with the int8-optimizer
+      opt-in and the hybrid search (every candidate counted on the
+      ``meta`` device, the best two profiled on the card): one line a
+      candidate (pruned or kept, its estimate, its profiled step and
+      peak; a failed profile must be out of memory), then 6 steps of
+      the chosen plan: finite losses that fall, B1-B3 launched as
+      phase 5 counts them for its remat and grad accumulation, B4 only
+      at its build and B6 once a step when it is low-bit, and neither
+      otherwise; its tokens/s;
+   b. GPT-2 small (phase 5a's config, seed and batch) under ``fsdp`` +
+      ``amp_native`` + ``checkpoint`` on a one-rank NCCL group from a
+      ``FileStore`` (FSDP2's hooks, DTensor parameters and the kernels
+      together), 6 steps with AdamW and again with int8 q-AdamW (B6
+      over the DTensors' local tiles), each against an unwrapped remat
+      run: losses within rtol 1e-3 and atol 1e-5, exact launches;
+   c. ``offload_opt`` at GPT-2 XL with remat: AdamW's fp32 moments in
+      pinned host memory against the same plan on the card: peak at
+      least 10 GiB lower, losses within rtol 1e-3, both step times;
+   d. ``Trainer(strategy=...)`` on GPT-2 small for 4 steps (the plan
+      rebuilds the model with remat), with phase 5's checks, one
+      ``step_phases`` event a step and the phases in the metrics file.
+   Every phase prints its seconds.
 
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Exits non-zero with no result
@@ -191,10 +218,12 @@ TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2, lse=1e-3, delta=1e-3),
 # plain version at the TPU kernel's rounding point and to the one at the
 # other point (_check_dkv_rounding, _check_dq_rounding)
 ROUNDING_RATIO = 0.8
-# the flash wrapper's repairs: head dims it pads (16-96, to 64 or 128)
-# and 256, in bf16 and fp16, causal and not, at a ragged GQA shape
-# (b, s, h, kv_heads), through the autograd wrapper; held to TOL
-PAD_DIMS = (16, 32, 80, 96, 256)
+# the flash wrapper's repairs: head dims it pads (16-96, to 64 or 128),
+# 256, and 320 and 512 on the wide kernels, in bf16 and fp16, causal and
+# not, at a ragged GQA shape (b, s, h, kv_heads), through the autograd
+# wrapper; held to TOL
+PAD_DIMS = (16, 32, 80, 96, 256, 320, 512)
+WIDE_DIMS = (320, 512)
 PAD_SHAPE = (2, 200, 4, 2)
 
 # (leaf, numel, block, dtype, qmax): GPT-2 XL's wte first, the timed case
@@ -655,14 +684,15 @@ def _time_main_case(case, q, k, v, dout, out, lse, delta, blocks, errs,
 
 
 def phase_flash_repairs(card: str):
-    """The wrapper's repairs on the card: every head_dim up to 256 and
-    fp16 through the kernels (padded to 64, 128 or 256 on the way in),
-    forward and backward through autograd, held to the plain version at
-    TOL with one launch of each kernel a case; a head_dim over 256
-    raises.  Then times, beside their bounds: fp16 against bf16 at
-    GPT-2 small's training shape (the kernels alone), and head_dim 80
-    (padded to 128) against 128 through the wrapper, forward and
-    forward + backward, and head_dim 256 (the FMA kernels) there."""
+    """The wrapper's repairs on the card: every head_dim and fp16
+    through the kernels (padded to 64, 128 or 256 on the way in; 320
+    and 512 on the wide kernels), forward and backward through
+    autograd, held to the plain version at TOL with one launch of each
+    kernel a case.  Then times, beside their bounds: fp16 against bf16
+    at GPT-2 small's training shape (the kernels alone), head_dim 80
+    (padded to 128) against 128, 256 (the FMA kernels) and 320 and 512
+    (the wide kernels) through the wrapper, forward and forward +
+    backward; and each kernel at 320 and 512 alone (``time_wide``)."""
     import torch
 
     from dlrover_tpu_torch.ops import flash_attention as fa
@@ -702,15 +732,6 @@ def phase_flash_repairs(card: str):
                     f"{fa.kernel_head_dim(d)}): max_abs_err out "
                     f"{errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv "
                     f"{errs[3]:.3e} (tolerance {tol['atol']})")
-    try:
-        big = torch.zeros((1, 64, 2, 320), dtype=torch.bfloat16,
-                          device="cuda")
-        fa.flash_attention(big, big, big)
-        failures.append("head_dim 320 did not raise")
-    except ValueError as e:
-        if "ROADMAP §C 1" not in str(e):
-            failures.append(f"head_dim 320 raised without the fault: {e}")
-        log(f"flash repair head_dim 320: raises ({e})")
     if failures:
         raise AssertionError("flash repair check failed:\n"
                              + "\n".join(failures))
@@ -740,9 +761,9 @@ def phase_flash_repairs(card: str):
             f"{n} {t:.4f} ms (bound {bounds[n][0]:.4f} ms)"
             for n, t in times.items()) + f" on the device [{card}]")
 
-    # head_dim 80 (padded to 128) against 128, through the wrapper, and
-    # 256 on the FMA kernels
-    for d in (80, 128, 256):
+    # head_dim 80 (padded to 128) against 128, through the wrapper, 256
+    # on the FMA kernels, and 320 and 512 on the wide kernels
+    for d in (80, 128, 256) + WIDE_DIMS:
         q, k, v, dout = (torch.randn(b, s, h, d, generator=gen,
                                      device="cuda").to(torch.bfloat16)
                          for _ in range(4))
@@ -762,6 +783,73 @@ def phase_flash_repairs(card: str):
             f"{bounds['flash_attention.fwd'][0]:.4f} ms at the true d), "
             f"forward + backward {median_ms(fwd_bwd, 20):.4f} ms (bound "
             f"{fb_bound:.4f} ms) on the device [{card}]")
+
+
+def time_wide(card: str) -> dict:
+    """The wide kernels (head_dim 320 and 512, bf16, causal) at GPT-2
+    small's training shape (b 8, s 1024, h 12), each alone on the device
+    beside its bound, its plain version and SDPA's call (forward, and
+    forward + backward less forward, where SDPA takes the head_dim);
+    ``{d: {kernel: {"ms", "bound_ms", "plain_ms"}, "sdpa_fwd_ms",
+    "sdpa_bwd_ms"}}``."""
+    import torch
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, s, h = 8, SMALL_SEQ, 12
+    out_all = {}
+    for d in WIDE_DIMS:
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+                         for _ in range(4))
+        scale = d ** -0.5
+        out, lse = fa.fwd_cuda(q, k, v, scale, True)
+        _, delta = fa.bwd_dq_cuda(q, k, v, out, dout, lse, scale, True)
+        bounds = bounds_ms(b, s, h, h, d, "bfloat16", True)
+        blk = fa._fit_block(s, 128)
+        rec = {
+            "flash_attention.fwd": (
+                lambda: fa.fwd_cuda(q, k, v, scale, True),
+                lambda: fa.fwd_plain(q, k, v, scale, True, blk, blk)),
+            "flash_attention.bwd_dq": (
+                lambda: fa.bwd_dq_cuda(q, k, v, out, dout, lse, scale, True),
+                lambda: fa.bwd_dq_plain(q, k, v, dout, lse, delta, scale,
+                                        True, blk, blk)),
+            "flash_attention.bwd_dkv": (
+                lambda: fa.bwd_dkv_cuda(q, k, v, dout, lse, delta, scale,
+                                        True),
+                lambda: fa.bwd_dkv_plain(q, k, v, dout, lse, delta, scale,
+                                         True, blk, blk)),
+        }
+        res = {}
+        for name, (kern, plain) in rec.items():
+            res[name] = {"ms": median_ms(kern, 10),
+                         "bound_ms": bounds[name][0],
+                         "bound_by": bounds[name][1],
+                         "plain_ms": median_ms(plain, 2, warmup=1)}
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            sd_f = median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 10)
+            xs = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+            do_t = dout.transpose(1, 2)
+            sd_fb = median_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(*xs, is_causal=True), xs,
+                do_t), 10)
+            res["sdpa_fwd_ms"], res["sdpa_bwd_ms"] = sd_f, sd_fb - sd_f
+        except RuntimeError as e:  # no SDPA backend takes this head_dim
+            res["sdpa_fwd_ms"] = res["sdpa_bwd_ms"] = None
+            log(f"sdpa at head_dim {d}: {str(e).splitlines()[0]}")
+        out_all[d] = res
+        log(f"flash wide head_dim {d} at {(b, s, h)} bf16 causal: " + ", ".join(
+            f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+            f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms)"
+            for n, r in res.items() if isinstance(r, dict))
+            + f"; sdpa fwd {res['sdpa_fwd_ms']} ms, bwd {res['sdpa_bwd_ms']} "
+            f"ms on the device [{card}]")
+    return out_all
 
 
 def _quant_inputs(gen, numel, block, dtype, qmax):
@@ -1029,7 +1117,7 @@ def checkpoint_scope(label: str):
 
 
 def run_training(label, cfg, global_batch, micro, steps, expected, card,
-                 optim_factory=None):
+                 optim_factory=None, strategy=None):
     """Train ``cfg`` from seed 0 on one fixed batch of random tokens
     through ``Trainer.train()``, with every launch count set to 0 just
     before and read just after; check the losses, the exact launch
@@ -1061,7 +1149,7 @@ def run_training(label, cfg, global_batch, micro, steps, expected, card,
         args = TrainingArguments(
             output_dir=out, resume_from_checkpoint=False, max_steps=steps,
             global_batch_size=global_batch, micro_batch_size=micro,
-            logging_steps=1)
+            logging_steps=1, strategy=strategy)
         trainer = Trainer(model, args, train_data, _loss_fn,
                           optim_factory=optim_factory)
         if os.path.exists(os.environ["DLROVER_EVENT_LOG"]):
@@ -2048,6 +2136,337 @@ def phase_control_plane(card) -> dict:
             raise AssertionError(f"master processes left behind: {alive}")
 
 
+# -- phase 9: auto_accelerate and its strategy search --------------------------
+
+
+def _xl_batch(vocab, batch=XL_BATCH, seed=0):
+    import numpy as np
+
+    data = np.random.default_rng(seed).integers(
+        0, vocab, (batch, SMALL_SEQ + 1), dtype=np.int32)
+    return {"x": data[:, :-1], "y": data[:, 1:]}
+
+
+def _flash_expected(layers, micro, steps, remat, low_bit=0, n_params=0):
+    return _zero_counts(**{
+        "flash_attention.fwd": (2 if remat else 1) * layers * micro * steps,
+        "flash_attention.bwd_dq": layers * micro * steps,
+        "flash_attention.bwd_dkv": layers * micro * steps,
+        **({"quantization.quantize": 2 * n_params,
+            "quantization.qadam": steps} if low_bit else {}),
+    })
+
+
+def _train(result, batch, steps):
+    """``steps`` of an ``auto_accelerate`` result on one fixed batch:
+    (losses, step seconds), each step synchronised."""
+    import torch
+
+    state, losses, secs = result.state, [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = result.train_step(state, result.place_batch(batch))
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def _adamw_factory(lr=1e-3, wd=1e-4):
+    import torch
+
+    return lambda ps: torch.optim.AdamW(ps, lr=lr, betas=(0.9, 0.999),
+                                        eps=1e-8, weight_decay=wd)
+
+
+def phase_search_xl(card) -> dict:
+    """9a: ``auto_accelerate`` over GPT-2 XL at full width and depth
+    (48 layers, d 1600, seq 1024, batch 4, flash attention, fp32 params)
+    with the int8-optimizer opt-in, the hybrid search (the count tier
+    ranks every candidate, the best two are profiled on the card); the
+    chosen plan then trains 6 steps with exact launch counts."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.accel import (
+        ModelContext,
+        analyser,
+        auto_accelerate,
+        strategy_search,
+    )
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+
+    cfg = GPTConfig.gpt2_xl(attention_impl="flash")
+    model = GPT(cfg, seed=0)
+    n_params = 12 * cfg.num_layers + 4
+    batch = _xl_batch(cfg.vocab_size)
+    real_search = strategy_search.search_strategy
+    found = {}
+
+    def search(*args, **kw):
+        t0 = time.perf_counter()
+        result = real_search(*args, **kw)
+        found["seconds"] = time.perf_counter() - t0
+        # the chosen plan's build and steps are the path read below
+        reset_launch_counts()
+        return result
+
+    strategy_search.search_strategy = search
+    try:
+        result = auto_accelerate(
+            model, _adamw_factory(3e-4, 0.1), _loss_fn, batch,
+            extra={"search_optimizer": True}, rank_mode="hybrid",
+            profile_top_k=2)
+        build_counts = launch_counts()
+        losses, secs = _train(result, batch, XL_STEPS)
+        counts = launch_counts()
+    finally:
+        strategy_search.search_strategy = real_search
+    context = ModelContext(
+        model=model, optim_factory=None, loss_fn=_loss_fn,
+        sample_batch=batch, extra={"search_optimizer": True},
+        device=torch.device("cuda"))
+    unbounded = analyser.analyse(context)
+    unbounded.per_device_hbm = 2 ** 62
+    every = strategy_search.generate_candidates(context, 1,
+                                                analysis=unbounded)
+    log(f"9a search: {len(result.search.evaluated)} candidates kept of "
+        f"{len(every)} (memory pruning at "
+        f"{analyser._device_hbm('cuda') / 2**30:.2f} GiB), "
+        f"{found['seconds']:.1f} s [{card}]")
+    failures = []
+    kept = {c.describe() for c in result.search.evaluated}
+    for c in every:
+        if c.describe() not in kept:
+            log(f"9a candidate {c.describe()}: pruned")
+    for got in result.search.evaluated:
+        prof = ("not profiled" if got.step_time_s is None else
+                f"failed ({got.error})" if not np.isfinite(got.step_time_s)
+                else f"profiled {got.step_time_s * 1e3:.3f} ms/step, peak "
+                f"{got.peak_bytes / 2**30:.2f} GiB")
+        log(f"9a candidate {got.describe()}: kept, estimate "
+            f"{got.est_step_time_s * 1e3:.3f} ms, {prof}")
+        if (got.step_time_s is not None and not np.isfinite(got.step_time_s)
+                and not got.error.startswith("out of memory")):
+            failures.append(f"{got.describe()} failed by {got.error}")
+    best = result.search.best
+    plan = result.plan
+    micro = plan.grad_accum
+    expected = _flash_expected(cfg.num_layers, micro, XL_STEPS, plan.remat,
+                               plan.low_bit_opt, n_params)
+    init = expected.pop("quantization.quantize", 0)
+    expected["quantization.quantize"] = 0
+    want_build = _zero_counts(**({"quantization.quantize": init}
+                                 if init else {}))
+    got_steps = {k: counts[k] - build_counts[k] for k in counts}
+    step_s = statistics.median(secs[2:])
+    tokens = XL_BATCH * SMALL_SEQ
+    log(f"9a chosen plan {best.describe()} ({result.strategy.opts}): losses "
+        f"{losses}, median step {step_s * 1e3:.3f} ms over steps "
+        f"3..{XL_STEPS}, {tokens / step_s:.1f} tokens/s; launches at build "
+        f"{build_counts}, expected {want_build}; in the steps {got_steps}, "
+        f"expected {expected} [{card}]")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"losses {losses}")
+    if build_counts != want_build or got_steps != expected:
+        failures.append(f"launch counts {build_counts} / {got_steps}")
+    if failures:
+        raise AssertionError("9a: " + "; ".join(failures))
+    del result, model
+    return {"accel_search_xl": counts}
+
+
+def _one_rank_group(tmpdir):
+    import torch.distributed as dist
+
+    store = dist.FileStore(os.path.join(tmpdir, "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+
+
+def phase_fsdp_one_rank(card) -> dict:
+    """9b: GPT-2 small under the main-path example's semi-auto strategy
+    (fsdp, amp_native, checkpoint) on a one-rank NCCL group: FSDP2's
+    hooks, DTensor parameters and the kernels together.  6 steps of
+    phase 5a's seed and batch against an unwrapped remat run, then the
+    same with int8 q-AdamW (B6 over views of the DTensors' local shards)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from dlrover_tpu_torch.accel import Strategy, auto_accelerate
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.optim import q_adamw
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        TrainState,
+        make_train_step,
+    )
+
+    steps, global_batch, micro_bs = 6, 32, 8
+    accum = global_batch // micro_bs
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash",
+                               remat=True)
+    data = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (global_batch, SMALL_SEQ + 1), dtype=np.int32)
+    batch = {"x": data[:, :-1], "y": data[:, 1:]}
+    n_params = 12 * cfg.num_layers + 4
+    tmp = tempfile.mkdtemp(prefix="fsdp1-")
+    _one_rank_group(tmp)
+    by_path, failures = {}, []
+    try:
+        for low_bit in (0, 8):
+            opts = [("fsdp", {}), ("amp_native", {}), ("checkpoint", {}),
+                    ("module_replace", {"attention": "flash"})]
+            factory = _adamw_factory()
+            if low_bit:
+                opts.append(("low_bit_opt", {"bits": 8, "learning_rate": 1e-3,
+                                             "weight_decay": 0.1}))
+                factory = (lambda ps: q_adamw(ps, lr=1e-3, weight_decay=0.1))
+            # the unwrapped run: no plan, the plain step
+            plain_model = GPT(cfg, seed=0)
+            opt = factory(plain_model.parameters())
+            step = make_train_step(_loss_fn, opt, accum)
+            state, want, plain_secs = TrainState.create(plain_model, opt), [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                want.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                plain_secs.append(time.perf_counter() - t0)
+            del plain_model, opt, state, step
+            _free_cuda()
+            model = GPT(cfg, seed=0)
+            reset_launch_counts()
+            result = auto_accelerate(model, _adamw_factory(), _loss_fn, batch,
+                                     strategy=Strategy(opts=opts),
+                                     grad_accum=accum)
+            dtensors = sum(isinstance(p, DTensor)
+                           for p in result.model.parameters())
+            got, secs = _train(result, batch, steps)
+            counts = launch_counts()
+            expected = _flash_expected(cfg.num_layers, accum, steps, True,
+                                       low_bit, n_params)
+            label = "9b fsdp" + (" int8 q-AdamW" if low_bit else " AdamW")
+            err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            log(f"{label}: mesh {result.mesh.shape}, {dtensors} DTensor "
+                f"parameters, losses {got}, unwrapped {want}, largest "
+                f"relative difference {err:.3e} (rtol 1e-3, atol 1e-5), "
+                f"median step {statistics.median(secs[2:]) * 1e3:.3f} ms "
+                f"(unwrapped {statistics.median(plain_secs[2:]) * 1e3:.3f} "
+                f"ms), "
+                f"launches {counts}, expected {expected} [{card}]")
+            if dtensors != n_params:
+                failures.append(f"{label}: {dtensors} DTensor params")
+            if not np.allclose(got, want, rtol=1e-3, atol=1e-5):
+                failures.append(f"{label}: losses {got} vs {want}")
+            if counts != expected:
+                failures.append(f"{label}: launches {counts}")
+            by_path[f"accel_fsdp_one_rank{'_int8' if low_bit else ''}"] = \
+                counts
+            del result, model
+            _free_cuda()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return by_path
+
+
+def phase_offload_xl(card) -> dict:
+    """9c: ``offload_opt`` at GPT-2 XL: AdamW's fp32 moments (12.46 GB)
+    in pinned host memory against the same plan's on-device AdamW, from
+    the same init: peak device memory at least 10 GiB lower, losses
+    within rtol 1e-3, both step times."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.accel import Strategy, auto_accelerate
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+
+    cfg = GPTConfig.gpt2_xl(attention_impl="flash", remat=True)
+    batch = _xl_batch(cfg.vocab_size)
+    steps = 4
+    runs = {}
+    for offload in (False, True):
+        opts = [("parallel_mode", {}), ("amp_native", {}),
+                ("module_replace", {"attention": "flash"}),
+                ("checkpoint", {})] + ([("offload_opt", {})] if offload
+                                       else [])
+        model = GPT(cfg, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        result = auto_accelerate(model, _adamw_factory(3e-4, 0.1), _loss_fn,
+                                 batch, strategy=Strategy(opts=opts))
+        losses, secs = _train(result, batch, steps)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        host = sum(t.numel() * t.element_size()
+                   for st in result.state.optimizer.state.values()
+                   for t in st.values()
+                   if torch.is_tensor(t) and t.dim() and t.is_pinned())
+        runs[offload] = (losses, peak, statistics.median(secs[1:]), counts)
+        log(f"9c {'offload' if offload else 'on-device'} AdamW: losses "
+            f"{losses}, peak {peak / 2**30:.2f} GiB, state in pinned host "
+            f"memory {host / 1e9:.2f} GB, median step "
+            f"{runs[offload][2] * 1e3:.3f} ms over steps 2..{steps}, "
+            f"launches {counts} [{card}]")
+        del result, model
+        _free_cuda()
+    (l0, p0, t0, c0), (l1, p1, t1, c1) = runs[False], runs[True]
+    failures = []
+    if p0 - p1 < 10 * 2**30:
+        failures.append(f"peak {p1 / 2**30:.2f} GiB not 10 GiB below "
+                        f"{p0 / 2**30:.2f}")
+    if not np.allclose(l1, l0, rtol=1e-3):
+        failures.append(f"losses {l1} vs {l0}")
+    want = _flash_expected(cfg.num_layers, 1, steps, True)
+    if c0 != want or c1 != want:
+        failures.append(f"launches {c0} / {c1}, expected {want}")
+    log(f"9c offload_opt: peak {p1 / 2**30:.2f} GiB against "
+        f"{p0 / 2**30:.2f} GiB on the device ({(p0 - p1) / 2**30:.2f} GiB "
+        f"less), step {t1 * 1e3:.3f} ms against {t0 * 1e3:.3f} ms [{card}]")
+    if failures:
+        raise AssertionError("9c: " + "; ".join(failures))
+    return {"accel_offload_xl": c1}
+
+
+def phase_trainer_strategy(card) -> dict:
+    """9d: ``Trainer(strategy=...)`` on GPT-2 small for 4 steps through
+    ``auto_accelerate`` (flash, bf16, remat: the model rebuilt with
+    remat), with the checks of ``run_training``, a ``step_phases`` event
+    a step and the step's phases in the metrics file."""
+    from dlrover_tpu_torch.accel import Strategy
+    from dlrover_tpu_torch.models.gpt import GPTConfig
+
+    steps, global_batch, micro = 4, 32, 8
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash")
+    strategy = Strategy(opts=[("parallel_mode", {}), ("amp_native", {}),
+                              ("module_replace", {"attention": "flash"}),
+                              ("checkpoint", {})])
+    expected = _flash_expected(cfg.num_layers, global_batch // micro, steps,
+                               True)
+    trainer, result, counts = run_training(
+        "9d Trainer with a strategy", cfg, global_batch, micro, steps,
+        expected, card, strategy=strategy)
+    from dlrover_tpu_torch.telemetry.events import read_events
+
+    phases = [e for e in read_events(os.environ["DLROVER_EVENT_LOG"])
+              if e.get("type") == "step_phases"]
+    with open(os.environ["DLROVER_METRICS_FILE"]) as f:
+        record = json.load(f)
+    log(f"9d: {len(phases)} step_phases events, the last {phases[-1]}; "
+        f"metrics file phases {record['phases']}")
+    if not trainer.model.config.remat:
+        raise AssertionError("9d: the plan's remat did not reach the model")
+    if len(phases) != steps or not all("compute" in e for e in phases):
+        raise AssertionError(f"9d: step_phases events {phases}")
+    if not {"compute", "h2d", "report", "total_s"} <= set(record["phases"]):
+        raise AssertionError(f"9d: metrics file phases {record['phases']}")
+    return {"accel_trainer_strategy": counts}
+
+
 # -- phase 8: the launcher, the agent and worker recovery ----------------------
 
 L_STEPS = 8
@@ -2754,24 +3173,34 @@ def run_phases(torch) -> int:
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    phase_build()
-    timings = phase_kernels(card)
-    _free_cuda()
-    phase_flash_repairs(card)
-    _free_cuda()
-    timings.update(phase_quant_kernels(card))
-    _free_cuda()
-    phase_model_check()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _free_cuda()
+        log(f"chip_smoke: phase {name} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("1 build", phase_build)
+    timings = timed("2 flash kernels", phase_kernels, card)
+    timed("2 flash repairs", phase_flash_repairs, card)
+    timed("2 flash wide head dims", time_wide, card)
+    timings.update(timed("3 quantization kernels", phase_quant_kernels, card))
+    timed("4 model check", phase_model_check)
     by_path = {}
-    for path, phase in (("gpt2_small_adamw", phase_train_small_adamw),
-                        ("gpt2_xl_int8_qadamw", phase_train_xl),
-                        ("gpt2_small_4bit_qadamw", phase_train_small_4bit)):
-        by_path[path] = phase(card)
-        _free_cuda()
-    for phase in (phase_ckpt_small, phase_ckpt_xl, phase_control_plane):
-        by_path.update(phase(card))
-        _free_cuda()
-    by_path.update(phase_launcher(card, t_start))
+    for path, name, phase in (
+            ("gpt2_small_adamw", "5a", phase_train_small_adamw),
+            ("gpt2_xl_int8_qadamw", "5b", phase_train_xl),
+            ("gpt2_small_4bit_qadamw", "5c", phase_train_small_4bit)):
+        by_path[path] = timed(name, phase, card)
+    for name, phase in (("6a", phase_ckpt_small), ("6b", phase_ckpt_xl),
+                        ("7", phase_control_plane)):
+        by_path.update(timed(name, phase, card))
+    by_path.update(timed("8", phase_launcher, card, t_start))
+    for name, phase in (("9a", phase_search_xl), ("9b", phase_fsdp_one_rank),
+                        ("9c", phase_offload_xl),
+                        ("9d", phase_trainer_strategy)):
+        by_path.update(timed(name, phase, card))
     leaked = [n for n in os.listdir("/dev/shm")
               if n.startswith(f"dlrover_tpu_ckpt_shm_"
                               f"{os.environ['DLROVER_JOB_NAME']}_")]

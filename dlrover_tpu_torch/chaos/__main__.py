@@ -12,7 +12,7 @@ Examples::
 
 Copy of ``dlrover_tpu/chaos/__main__.py``, for the scenarios the port
 has (the single-node harness, ``chaos/scenarios.py``).  The
-multi-agent runner (``--nnodes`` > 1) comes with slice 4 of the port,
+multi-agent runner (``--nnodes`` > 1) comes with slice 4.2 of the port,
 the serving runners with slice 9.
 """
 
@@ -58,7 +58,7 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument(
         "--nnodes", type=int, default=1,
         help=">1 runs the multi-agent harness (one journal-backed "
-        "master + N launcher processes), which comes with slice 4 "
+        "master + N launcher processes), which comes with slice 4.2 "
         "of the port",
     )
     parser.add_argument(
@@ -101,7 +101,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.nnodes > 1:
         raise NotImplementedError(
             "the multi-agent chaos harness (--nnodes > 1) comes with "
-            "slice 4 of the port"
+            "slice 4.2 of the port"
         )
     report = harness.run_scenario(
         scenario,

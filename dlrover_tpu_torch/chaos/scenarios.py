@@ -13,7 +13,7 @@ SIGTERM), the torn shm snapshot with its storage-tier fallback, the
 trainer hang and the two warm-template kills.  The train loop is the
 torch twin of the reference's ``CHAOS_TRAIN_SCRIPT``.  The other
 scripts and scenarios come with the slices that bring what they drive:
-the multi-node and resize scenarios with slice 4, the sparse and
+the multi-node and resize scenarios with slice 4.2, the sparse and
 serving ones with slices 6 and 9, the RL one with slice 7, the
 master-recovery ones (they need the sharding client) and the
 compile-cache one with slice 8.

@@ -8,7 +8,7 @@ and per-process shards (``replicated=False``).  The orbax tier of the
 reference (``orbax_dir``/``orbax_every``, a re-shardable durable copy
 through ``torch.distributed.checkpoint``) comes with slice 8 of the
 port, the restore onto a sharded template (``load_checkpoint(
-target_state=...)``) with slice 4.
+target_state=...)``) with slice 4.2.
 """
 
 import threading

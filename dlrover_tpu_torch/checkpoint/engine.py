@@ -24,7 +24,7 @@ is done.  Host tensors and numpy leaves are copied on the host before
 the call returns.
 
 Sparse state (``register_sparse``) comes with slice 6 of the port, the
-target-sharded restore (``load_sharded``) with slice 4.
+target-sharded restore (``load_sharded``) with slice 4.2.
 """
 
 import os
@@ -640,7 +640,7 @@ class CheckpointEngine:
     def load_sharded(self, target_state, orbax_dir: str = ""):
         raise NotImplementedError(
             "the target-sharded restore (load_sharded) comes with "
-            "slice 4 of the port (scale-out)"
+            "slice 4.2 of the port (scale-out)"
         )
 
     def close(self):

@@ -24,7 +24,7 @@ A snapshot the JAX package took of global sharded arrays holds one
 entry per shard (``key@shardN``, with the shard's index ranges in its
 ``TensorMeta``); the reads here assemble them into full tensors, as the
 reference's ``_assemble_flat`` does.  Writing shards (DTensor) and
-restoring onto a sharded template come with slice 4 of the port; the
+restoring onto a sharded template come with slice 4.2 of the port; the
 paged base+delta tier (``DLROVER_SHM_PAGED``, reference ``:425-1058``)
 with the sparse state in slice 6.  A save fires the reference's
 ``ckpt.shm_save`` chaos hook once its snapshot is published.
@@ -212,7 +212,7 @@ SHARD_SEP = "@shard"
 def _assemble_flat(flat: Dict[str, Any], metas: Dict[str, Any]):
     """Assemble ``@shardN`` entries into full tensors (raises if the
     visible shards do not cover a leaf — the topology changed across
-    hosts; that restore comes with slice 4 of the port)."""
+    hosts; that restore comes with slice 4.2 of the port)."""
     import torch
     grouped: Dict[str, list] = {}
     plain: Dict[str, Any] = {}
@@ -235,7 +235,7 @@ def _assemble_flat(flat: Dict[str, Any], metas: Dict[str, Any]):
         if not bool(covered.all()):
             raise ValueError(
                 f"shards of '{base}' do not cover its global shape "
-                f"{gshape}: a restore across hosts comes with slice 4 of "
+                f"{gshape}: a restore across hosts comes with slice 4.2 of "
                 "the port"
             )
         plain[base] = full

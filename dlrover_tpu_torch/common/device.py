@@ -11,6 +11,16 @@ from typing import Optional, Union
 import torch
 
 
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed`` DTensor (the parameters
+    and gradients that FSDP2 and tensor parallelism leave)."""
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:  # a torch built without distributed
+        return False
+    return isinstance(x, DTensor)
+
+
 def resolve_device(
     device: Optional[Union[str, torch.device]] = None,
 ) -> torch.device:

@@ -10,8 +10,11 @@
 // CUDA cores for fp32 at head_dim 64, 128 and 256 (an exact-check path,
 // bound by FMA issue, 67 TFLOP/s, and shared-memory reads) and for bf16
 // and fp16 at head_dim 256 (a simple instance: fp32 arithmetic on
-// tiles of 32 rows).  The Python wrapper zero-pads every other head_dim
-// up to 64, 128 or 256, which leaves QK^T and PV unchanged.
+// tiles of 32 rows), and wide kernels past head_dim 256 that walk
+// head_dim at run time in chunks of 64 columns (fp32 accumulators in the
+// caller's scratch).  The Python wrapper zero-pads every other head_dim
+// up to 64, 128 or 256, or past 256 up to a multiple of 64, which leaves
+// QK^T and PV unchanged.
 //
 // What bounds them on an H100: at GPT-2 shapes (seq 1024, head_dim 64)
 // attention does ~250 FLOPs per byte it must move, near the card's
@@ -106,7 +109,10 @@
 
 #include "hopper.cuh"
 
-// Mirrored field for field by ctypes in ops/flash_attention.py.
+// Mirrored field for field by ctypes in ops/flash_attention.py.  scratch
+// holds the fp32 accumulators of the wide kernels (head_dim > 256),
+// allocated by the caller: O or dQ as [b * H, S, head_dim], or dK then dV
+// as [b * KVH, S, head_dim] each; the other kernels leave it unread.
 struct FlashParams {
   const void* q;
   const void* k;
@@ -126,6 +132,7 @@ struct FlashParams {
   long long do_sb, do_ss, do_sh;
   int B, S, H, KVH, group, causal, dtype, head_dim;
   float scale;
+  void* scratch;
 };
 
 namespace {
@@ -578,6 +585,437 @@ __global__ void __launch_bounds__(kThreads)
       dkb[row * D + tx + 16 * jj] = from_f<T>(dk[i][jj]);
       dvb[row * D + tx + 16 * jj] = from_f<T>(dv[i][jj]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide kernels: every head_dim past 256 that is a multiple of 64, in
+// fp32, bf16 and fp16, on the CUDA cores.  head_dim is walked at run time
+// in chunks of 64 columns: S = sum_c Q_c K_c^T, and once P (or dS) is
+// formed the output's column chunks are independent (O_c = P V_c,
+// dQ_c = dS K_c, dV_c = P^T dO_c, dK_c = dS^T Q_c).  The accumulators live
+// in the caller's fp32 scratch (FlashParams::scratch), each element read
+// and written by the one thread that owns it, so they take no barrier and
+// any head_dim fits.  A simple instance: tiles of 32 rows, the FMA kernels'
+// thread layout and rounding points, Q, K and V re-read per chunk through
+// L2.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideTM = 32;    // q (or k) rows a CTA owns
+constexpr int kWideChunk = 64;  // head_dim columns of one chunk
+
+struct Wide {
+  using F = Fma<kWideChunk, kWideTM>;
+  static constexpr size_t kTileF = F::kTileF, kScoreF = F::kScoreF;
+  static constexpr size_t kFwdSmem = sizeof(float) * (2 * kTileF + kScoreF);
+  static constexpr size_t kDqSmem =
+      sizeof(float) * (4 * kTileF + kScoreF + 2 * kWideTM);
+  static constexpr size_t kDkvSmem =
+      sizeof(float) * (4 * kTileF + 2 * kScoreF + 2 * kWideTM);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fwd_wide_kernel(const FlashParams p) {
+  constexpr int TM = kWideTM, DC = kWideChunk;
+  using F = Wide::F;
+  constexpr int LD = F::kLd, PLD = F::kPLd, I = F::kI, J = F::kJ;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* KVs = Qs + TM * LD;  // a K chunk, then a V chunk
+  float* Ps = KVs + TM * LD;
+
+  const int D = p.head_dim, nc = D / DC;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H, hk = h / p.group;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TM;
+
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  float* oacc = static_cast<float*>(p.scratch) + (long long)bh * p.S * D;
+
+  float m[I], l[I], corr[I];
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos < p.S)
+      for (int c = 0; c < D; c += DC)
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
+          oacc[(long long)qpos * D + c + tx + 16 * jj] = 0.f;
+  }
+
+  int n_kt = (p.S + TM - 1) / TM;
+  if (p.causal) n_kt = min(n_kt, (q0 + TM - 1) / TM + 1);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * TM;
+    float s[I][I] = {};
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();  // the last chunk's readers are done
+      load_tile<DC, TM>(Qs, qb + c * DC, p.q_ss, q0, p.S);
+      load_tile<DC, TM>(KVs, kb + c * DC, p.k_ss, k0, p.S);
+      __syncthreads();
+      fma_abt<DC, I>(Qs, KVs, s, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+      const int qpos = q0 + ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < I; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        float x = s[i][j] * p.scale;
+        if (kpos >= p.S || (p.causal && kpos > qpos)) x = kNegInf;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      corr[i] = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < I; ++j) {
+        const float e = expf(s[i][j] - m_new);
+        psum += e;
+        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = round_to<T>(e);
+      }
+      l[i] = l[i] * corr[i] + row_sum(psum);
+      m[i] = m_new;
+    }
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();  // P is written; the last chunk's readers are done
+      load_tile<DC, TM>(KVs, vb + c * DC, p.v_ss, k0, p.S);
+      __syncthreads();
+      float acc[I][J];
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+        const int qpos = q0 + ty + 16 * i;
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
+          acc[i][jj] = qpos < p.S
+              ? oacc[(long long)qpos * D + c * DC + tx + 16 * jj] * corr[i]
+              : 0.f;
+      }
+      fma_pm<DC, TM>(Ps, KVs, acc, ty, tx);
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+        const int qpos = q0 + ty + 16 * i;
+        if (qpos >= p.S) continue;
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
+          oacc[(long long)qpos * D + c * DC + tx + 16 * jj] = acc[i][jj];
+      }
+    }
+  }
+
+  T* ob = static_cast<T*>(p.out);
+  float* lse = static_cast<float*>(p.lse);
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= p.S) continue;
+    const float safe_l = l[i] == 0.f ? 1.f : l[i];
+    const long long row = ((long long)b * p.S + qpos) * p.H + h;
+    for (int c = 0; c < D; c += DC)
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj)
+        ob[row * D + c + tx + 16 * jj] = from_f<T>(
+            oacc[(long long)qpos * D + c + tx + 16 * jj] / safe_l);
+    if (tx == 0) lse[(long long)bh * p.S + qpos] = m[i] + logf(safe_l);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dq_wide_kernel(const FlashParams p) {
+  constexpr int TM = kWideTM, DC = kWideChunk;
+  using F = Wide::F;
+  constexpr int LD = F::kLd, PLD = F::kPLd, I = F::kI, J = F::kJ;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + TM * LD;
+  float* Ks = dOs + TM * LD;
+  float* Vs = Ks + TM * LD;
+  float* dSs = Vs + TM * LD;
+  float* lse_s = dSs + TM * PLD;
+  float* dl_s = lse_s + TM;
+
+  const int D = p.head_dim, nc = D / DC;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H, hk = h / p.group;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TM;
+
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const T* obase = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  float* dqacc = static_cast<float*>(p.scratch) + (long long)bh * p.S * D;
+
+  // Delta = rowsum(O * dO) in fp32 over the chunks, 4 lanes per row in
+  // the column order of the FMA kernels
+  const bool delta_lane = (threadIdx.x >> 2) < TM;
+  const int dr = threadIdx.x >> 2, part = threadIdx.x & 3;
+  float dsum = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    __syncthreads();
+    load_tile<DC, TM>(Ks, obase + c * DC, p.o_ss, q0, p.S);  // O chunk
+    load_tile<DC, TM>(dOs, dob + c * DC, p.do_ss, q0, p.S);
+    __syncthreads();
+    if (delta_lane)
+      for (int cc = part; cc < DC; cc += 4)
+        dsum += Ks[dr * LD + cc] * dOs[dr * LD + cc];
+  }
+  if (delta_lane) {
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+    if (part == 0) {
+      const int qpos = q0 + dr;
+      const bool ok = qpos < p.S;
+      dl_s[dr] = dsum;
+      lse_s[dr] =
+          ok ? static_cast<const float*>(p.lse)[(long long)bh * p.S + qpos]
+             : 0.f;
+      if (ok) static_cast<float*>(p.delta)[(long long)bh * p.S + qpos] = dsum;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos < p.S)
+      for (int c = 0; c < D; c += DC)
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
+          dqacc[(long long)qpos * D + c + tx + 16 * jj] = 0.f;
+  }
+
+  int n_kt = (p.S + TM - 1) / TM;
+  if (p.causal) n_kt = min(n_kt, (q0 + TM - 1) / TM + 1);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * TM;
+    float s[I][I] = {}, dp[I][I] = {};
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();
+      load_tile<DC, TM>(Qs, qb + c * DC, p.q_ss, q0, p.S);
+      load_tile<DC, TM>(dOs, dob + c * DC, p.do_ss, q0, p.S);
+      load_tile<DC, TM>(Ks, kb + c * DC, p.k_ss, k0, p.S);
+      load_tile<DC, TM>(Vs, vb + c * DC, p.v_ss, k0, p.S);
+      __syncthreads();
+      fma_abt<DC, I>(Qs, Ks, s, ty, tx);
+      fma_abt<DC, I>(dOs, Vs, dp, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+      const int r = ty + 16 * i, qpos = q0 + r;
+      const float lse_r = lse_s[r], dl_r = dl_s[r];
+#pragma unroll
+      for (int j = 0; j < I; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool ok =
+            qpos < p.S && kpos < p.S && !(p.causal && kpos > qpos);
+        const float pr = ok ? expf(s[i][j] * p.scale - lse_r) : 0.f;
+        const float ds = pr * (dp[i][j] - dl_r) * p.scale;
+        dSs[r * PLD + tx + 16 * j] = round_to<T>(ds);  // ds.astype(k.dtype)
+      }
+    }
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();
+      load_tile<DC, TM>(Ks, kb + c * DC, p.k_ss, k0, p.S);
+      __syncthreads();
+      float acc[I][J];
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+        const int qpos = q0 + ty + 16 * i;
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
+          acc[i][jj] = qpos < p.S
+              ? dqacc[(long long)qpos * D + c * DC + tx + 16 * jj]
+              : 0.f;
+      }
+      fma_pm<DC, TM>(dSs, Ks, acc, ty, tx);
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+        const int qpos = q0 + ty + 16 * i;
+        if (qpos >= p.S) continue;
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
+          dqacc[(long long)qpos * D + c * DC + tx + 16 * jj] = acc[i][jj];
+      }
+    }
+  }
+
+  T* dqb = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= p.S) continue;
+    const long long row = ((long long)b * p.S + qpos) * p.H + h;
+    for (int c = 0; c < D; c += DC)
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj)
+        dqb[row * D + c + tx + 16 * jj] =
+            from_f<T>(dqacc[(long long)qpos * D + c + tx + 16 * jj]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dkv_wide_kernel(const FlashParams p) {
+  constexpr int TM = kWideTM, DC = kWideChunk;
+  using F = Wide::F;
+  constexpr int LD = F::kLd, PLD = F::kPLd, I = F::kI, J = F::kJ;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + TM * LD;
+  float* Qs = Vs + TM * LD;
+  float* dOs = Qs + TM * LD;
+  float* Ps = dOs + TM * LD;
+  float* dSs = Ps + TM * PLD;
+  float* lse_s = dSs + TM * PLD;
+  float* dl_s = lse_s + TM;
+
+  const int D = p.head_dim, nc = D / DC;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bkv = blockIdx.y;
+  const int b = bkv / p.KVH, hk = bkv % p.KVH;
+  const int k0 = blockIdx.x * TM;
+
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const long long kv_rows = (long long)p.B * p.KVH * p.S;
+  float* dkacc = static_cast<float*>(p.scratch) + (long long)bkv * p.S * D;
+  float* dvacc = dkacc + kv_rows * D;
+
+  // rows of dk/dv are k rows ty + 16 i, columns tx + 16 jj of each chunk
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int kpos = k0 + ty + 16 * i;
+    if (kpos < p.S)
+      for (int c = 0; c < D; c += DC)
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          const long long at = (long long)kpos * D + c + tx + 16 * jj;
+          dkacc[at] = 0.f;
+          dvacc[at] = 0.f;
+        }
+  }
+
+  const int n_qt = (p.S + TM - 1) / TM;
+  const int qt0 = p.causal ? k0 / TM : 0;
+  const float* lse_g = static_cast<const float*>(p.lse);
+  const float* dl_g = static_cast<const float*>(p.delta);
+
+  for (int g = 0; g < p.group; ++g) {
+    const int h = hk * p.group + g;
+    const long long bh = (long long)b * p.H + h;
+    const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * TM;
+      __syncthreads();  // the last tile's readers of lse_s/dl_s are done
+      if (threadIdx.x < TM) {
+        const int qpos = q0 + threadIdx.x;
+        const bool ok = qpos < p.S;
+        lse_s[threadIdx.x] = ok ? lse_g[bh * p.S + qpos] : 0.f;
+        dl_s[threadIdx.x] = ok ? dl_g[bh * p.S + qpos] : 0.f;
+      }
+      // score tile: rows are q (ty + 16 i), columns are k (tx + 16 j)
+      float s[I][I] = {}, dp[I][I] = {};
+      for (int c = 0; c < nc; ++c) {
+        __syncthreads();
+        load_tile<DC, TM>(Qs, qb + c * DC, p.q_ss, q0, p.S);
+        load_tile<DC, TM>(dOs, dob + c * DC, p.do_ss, q0, p.S);
+        load_tile<DC, TM>(Ks, kb + c * DC, p.k_ss, k0, p.S);
+        load_tile<DC, TM>(Vs, vb + c * DC, p.v_ss, k0, p.S);
+        __syncthreads();
+        fma_abt<DC, I>(Qs, Ks, s, ty, tx);
+        fma_abt<DC, I>(dOs, Vs, dp, ty, tx);
+      }
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+        const int r = ty + 16 * i, qpos = q0 + r;
+        const float lse_r = lse_s[r], dl_r = dl_s[r];
+#pragma unroll
+        for (int j = 0; j < I; ++j) {
+          const int kpos = k0 + tx + 16 * j;
+          const bool ok =
+              qpos < p.S && kpos < p.S && !(p.causal && kpos > qpos);
+          const float pr = ok ? expf(s[i][j] * p.scale - lse_r) : 0.f;
+          Ps[r * PLD + tx + 16 * j] = pr;
+          dSs[r * PLD + tx + 16 * j] = pr * (dp[i][j] - dl_r) * p.scale;
+        }
+      }
+      // dV_c += P^T dO_c and dK_c += dS^T Q_c, all fp32
+      for (int c = 0; c < nc; ++c) {
+        __syncthreads();
+        load_tile<DC, TM>(Qs, qb + c * DC, p.q_ss, q0, p.S);
+        load_tile<DC, TM>(dOs, dob + c * DC, p.do_ss, q0, p.S);
+        __syncthreads();
+        float dk[I][J], dv[I][J];
+#pragma unroll
+        for (int i = 0; i < I; ++i) {
+          const int kpos = k0 + ty + 16 * i;
+#pragma unroll
+          for (int jj = 0; jj < J; ++jj) {
+            const long long at = (long long)kpos * D + c * DC + tx + 16 * jj;
+            dk[i][jj] = kpos < p.S ? dkacc[at] : 0.f;
+            dv[i][jj] = kpos < p.S ? dvacc[at] : 0.f;
+          }
+        }
+#pragma unroll 4
+        for (int r = 0; r < TM; ++r) {
+          float pc[I], dsc[I];
+#pragma unroll
+          for (int i = 0; i < I; ++i) {
+            pc[i] = Ps[r * PLD + ty + 16 * i];
+            dsc[i] = dSs[r * PLD + ty + 16 * i];
+          }
+#pragma unroll
+          for (int jj = 0; jj < J; ++jj) {
+            const float o = dOs[r * LD + tx + 16 * jj];
+            const float qv = Qs[r * LD + tx + 16 * jj];
+#pragma unroll
+            for (int i = 0; i < I; ++i) {
+              dv[i][jj] = fmaf(pc[i], o, dv[i][jj]);
+              dk[i][jj] = fmaf(dsc[i], qv, dk[i][jj]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < I; ++i) {
+          const int kpos = k0 + ty + 16 * i;
+          if (kpos >= p.S) continue;
+#pragma unroll
+          for (int jj = 0; jj < J; ++jj) {
+            const long long at = (long long)kpos * D + c * DC + tx + 16 * jj;
+            dkacc[at] = dk[i][jj];
+            dvacc[at] = dv[i][jj];
+          }
+        }
+      }
+    }
+  }
+
+  T* dkb = static_cast<T*>(p.dk);
+  T* dvb = static_cast<T*>(p.dv);
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int kpos = k0 + ty + 16 * i;
+    if (kpos >= p.S) continue;
+    const long long row = ((long long)b * p.S + kpos) * p.KVH + hk;
+    for (int c = 0; c < D; c += DC)
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj) {
+        const long long at = (long long)kpos * D + c + tx + 16 * jj;
+        dkb[row * D + c + tx + 16 * jj] = from_f<T>(dkacc[at]);
+        dvb[row * D + c + tx + 16 * jj] = from_f<T>(dvacc[at]);
+      }
   }
 }
 
@@ -1507,6 +1945,32 @@ cudaError_t launch_fma(Which which, const FlashParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// the wide kernels: head_dim a multiple of 64 past 256, every dtype
+template <typename T>
+cudaError_t launch_wide(Which which, const FlashParams& p, cudaStream_t st) {
+  if (p.head_dim % kWideChunk || p.scratch == nullptr)
+    return cudaErrorInvalidValue;
+  void (*kernel)(const FlashParams);
+  size_t smem;
+  dim3 grid((p.S + kWideTM - 1) / kWideTM, p.B * p.H);
+  if (which == kFwd) {
+    kernel = fwd_wide_kernel<T>;
+    smem = Wide::kFwdSmem;
+  } else if (which == kDq) {
+    kernel = dq_wide_kernel<T>;
+    smem = Wide::kDqSmem;
+  } else {
+    kernel = dkv_wide_kernel<T>;
+    smem = Wide::kDkvSmem;
+    grid.y = p.B * p.KVH;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -1681,13 +2145,22 @@ cudaError_t launch_tma(Which which, const FlashParams& p, cudaStream_t st) {
 }
 
 // dtype: 0 fp32, 1 bf16, 2 fp16 (ops/flash_attention.py _DTYPES); the
-// wrapper pads every other head_dim up to one of these
+// wrapper pads every other head_dim up to one of these, or past 256 up to a
+// multiple of 64 (the wide kernels)
 int dispatch(Which which, const FlashParams* p, void* stream) {
   if (p->S <= 0 || p->B <= 0 || p->H <= 0) return (int)cudaSuccess;
   if (p->KVH <= 0 || p->H != p->KVH * p->group)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int d = p->head_dim;
+  if (d > 256) {
+    switch (p->dtype) {
+      case 0: return (int)launch_wide<float>(which, *p, st);
+      case 1: return (int)launch_wide<bf16>(which, *p, st);
+      case 2: return (int)launch_wide<__half>(which, *p, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (p->dtype) {
     case 0:
       if (d == 64) return (int)launch_fma<64, 64, float>(which, *p, st);

@@ -19,13 +19,21 @@ the same numerics policy:
   name for config parity and is the plain PyTorch math of
   ``xla_causal_attention``;
 - ``remat=True`` recomputes each block in the backward through
-  ``torch.utils.checkpoint`` (the ``"full"`` policy).
+  ``torch.utils.checkpoint`` (the ``"full"`` policy); the ``"offload"``
+  policy keeps each block's checkpointed input in pinned host memory
+  between the forward and the backward
+  (``torch.autograd.graph.save_on_cpu``), the reference's
+  ``pinned_host`` residuals;
+- tensor parallelism (:mod:`dlrover_tpu_torch.accel.accelerate`) makes
+  the Dense weights DTensors: the fused qkv comes out sharded over the
+  tensor axis and is split by heads, so attention (the CUDA kernels
+  included) sees each rank's own heads as plain tensors.
 
 Parameter names follow the flax tree (``block_i/attn/qkv`` is
 ``blocks.i.attn.qkv``), so :mod:`dlrover_tpu_torch.utils.convert`
 maps one onto the other.  Decode with a KV cache, the value head, MoE,
-fp8, the offload/save_attn remat policies and pipeline parallelism are
-later slices of the port and raise ``NotImplementedError``.
+fp8, the save_attn remat policy and pipeline parallelism are later
+slices of the port and raise ``NotImplementedError``.
 """
 
 import math
@@ -35,9 +43,10 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.graph import save_on_cpu
 from torch.utils.checkpoint import checkpoint
 
-from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
 
 _MODEL_ZOO_SLICE = "slice 5 of the port (model zoo and long context)"
 
@@ -110,7 +119,7 @@ def _check_supported(cfg: GPTConfig):
          "slice 7 of the port (RL)"),
         (cfg.moe_experts > 0, "moe_experts > 0", _MODEL_ZOO_SLICE),
         (cfg.fp8, "fp8 matmuls", _MODEL_ZOO_SLICE),
-        (cfg.remat_policy != "full",
+        (cfg.remat_policy == "save_attn",
          f"remat_policy={cfg.remat_policy!r}", _MODEL_ZOO_SLICE),
         (cfg.attention_impl not in ("xla", "flash"),
          f"attention_impl={cfg.attention_impl!r}", _MODEL_ZOO_SLICE),
@@ -139,6 +148,16 @@ def xla_causal_attention(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
 
 
+def _local_heads(t):
+    """This rank's heads of a replicated-or-sharded DTensor
+    ``[b, s, heads, head_dim]``, as a plain tensor: the heads dim
+    sharded over the tensor axis (no copy when it was replicated, an
+    all-gather of the grads in the backward)."""
+    from torch.distributed.tensor import Shard
+
+    return t.redistribute(placements=[Shard(2)]).to_local()
+
+
 def get_attention_fn(impl: str):
     """xla | flash (sequence-parallel impls come with a later slice)."""
     if impl == "flash":
@@ -150,7 +169,8 @@ def get_attention_fn(impl: str):
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``weight`` is flax's kernel, ``[in, out]``
-    (``nn.Linear`` keeps ``[out, in]``)."""
+    (``nn.Linear`` keeps ``[out, in]``).  Called as ``dense(x, dtype)``
+    so that tensor parallelism's module hooks see every projection."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, dtype=torch.float32, device=None):
@@ -160,6 +180,9 @@ class Dense(nn.Module):
             in_features, out_features, dtype=dtype, device=device))
         self.bias = nn.Parameter(torch.empty(
             out_features, dtype=dtype, device=device)) if bias else None
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return _linear(x, self, dtype)
 
 
 def _linear(x, layer: Dense, dtype):
@@ -184,13 +207,18 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         b, s, d = x.shape
-        qkv = _linear(x, self.qkv, cfg.dtype)
-        q, k, v = (
-            t.reshape(b, s, cfg.num_heads, cfg.head_dim)
-            for t in qkv.split(d, dim=-1)
-        )
+        qkv = self.qkv(x, cfg.dtype)
+        if is_dtensor(qkv):
+            # tensor parallel: q|k|v sharded over the tensor axis as a
+            # whole; each rank takes its own heads of each
+            q, k, v = (_local_heads(t.reshape(b, s, cfg.num_heads,
+                                              cfg.head_dim))
+                       for t in qkv.split(d, dim=-1))
+        else:
+            q, k, v = (t.reshape(b, s, -1, cfg.head_dim)
+                       for t in qkv.split(d, dim=-1))
         out = self._attn(q, k, v, dtype=cfg.dtype)
-        return _linear(out.reshape(b, s, d), self.o_proj, cfg.dtype)
+        return self.o_proj(out.reshape(b, s, -1), cfg.dtype)
 
 
 class MLP(nn.Module):
@@ -204,8 +232,8 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.config.dtype
         # flax nn.gelu defaults to the tanh approximation
-        h = F.gelu(_linear(x, self.fc_in, dtype), approximate="tanh")
-        return _linear(h, self.fc_out, dtype)
+        h = F.gelu(self.fc_in(x, dtype), approximate="tanh")
+        return self.fc_out(h, dtype)
 
 
 def _layer_norm(config: GPTConfig, device) -> nn.LayerNorm:
@@ -263,7 +291,9 @@ class GPT(nn.Module):
         if not config.tie_embeddings:
             self.lm_head = Dense(d, config.vocab_size, bias=False, dtype=pd,
                                  device=device)
-        self._init_weights(torch.Generator(device=device).manual_seed(seed))
+        if device.type != "meta":  # shapes only (the strategy analyser)
+            self._init_weights(
+                torch.Generator(device=device).manual_seed(seed))
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator):
@@ -300,14 +330,21 @@ class GPT(nn.Module):
         )
         for block in self.blocks:
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                if cfg.remat_policy == "offload":
+                    # the reentrant checkpoint saves the block's input
+                    # with save_for_backward, which save_on_cpu moves to
+                    # pinned host memory until the backward needs it
+                    with save_on_cpu(pin_memory=True):
+                        x = checkpoint(block, x, use_reentrant=True)
+                else:
+                    x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x)
         x = self.ln_f(x.float()).to(cfg.dtype)
         if cfg.tie_embeddings:
             logits = x @ self.wte.weight.to(cfg.dtype).t()
         else:
-            logits = _linear(x, self.lm_head, cfg.dtype)
+            logits = self.lm_head(x, cfg.dtype)
         return logits.float()
 
 

@@ -20,11 +20,13 @@ tiled by the public ``block_q``/``block_k``); a CUDA tensor launches
 the kernel or raises.  The kernels tile by rows of their own: the bf16
 and fp16 forward and dK/dV (wgmma, fed by TMA) by 128, the FMA kernels
 by 64 (32 at head_dim 256).  They take head_dim 64, 128 and 256
-(:data:`KERNEL_HEAD_DIMS`); any other head_dim up to 256 is zero-padded
-to the next of them on the way in and sliced on the way out, with the
-scale of the true head_dim.  That is exact: the padded columns add
-zeros to QK^T and to Delta, and the padded columns of O, dQ, dK and
-dV are zero.  ``LAUNCHES`` counts kernel launches only.
+(:data:`KERNEL_HEAD_DIMS`), and past 256 any multiple of 64 (the wide
+kernels, which walk head_dim in chunks of 64 columns with fp32
+accumulators in a scratch buffer allocated here); any other head_dim is
+zero-padded to the next of them on the way in and sliced on the way
+out, with the scale of the true head_dim.  That is exact: the padded
+columns add zeros to QK^T and to Delta, and the padded columns of O,
+dQ, dK and dV are zero.  ``LAUNCHES`` counts kernel launches only.
 """
 
 import ctypes
@@ -197,20 +199,26 @@ def bwd_dkv_plain(
 # ---------------------------------------------------------------------------
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the head dims the kernels are built for; others are padded up to one
+# the head dims the kernels are built for; others up to 256 are padded
+# up to one, and past 256 up to a multiple of WIDE_CHUNK (the wide kernels)
 KERNEL_HEAD_DIMS = (64, 128, 256)
+WIDE_CHUNK = 64
 
 
 def kernel_head_dim(d: int) -> int:
     """The head_dim a CUDA launch runs at for a true head_dim ``d``:
-    the least of :data:`KERNEL_HEAD_DIMS` that holds it."""
+    the least of :data:`KERNEL_HEAD_DIMS` that holds it, or past 256 the
+    least multiple of :data:`WIDE_CHUNK` that does."""
+    if d <= 0:
+        raise ValueError(f"head_dim must be positive, not {d}")
     for kd in KERNEL_HEAD_DIMS:
         if d <= kd:
             return kd
-    raise ValueError(
-        f"CUDA flash attention takes head_dim up to "
-        f"{KERNEL_HEAD_DIMS[-1]}, not {d} (open fault: ROADMAP §C 1)"
-    )
+    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
+
+
+def _is_wide(d: int) -> bool:
+    return d > KERNEL_HEAD_DIMS[-1]
 
 
 def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -232,7 +240,7 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_int) for n in (
             "B", "S", "H", "KVH", "group", "causal", "dtype", "head_dim",
         )]
-        + [("scale", ctypes.c_float)]
+        + [("scale", ctypes.c_float), ("scratch", ctypes.c_void_p)]
     )
 
 
@@ -278,13 +286,15 @@ def _cuda_inputs(*xs: torch.Tensor):
             f"CUDA flash attention takes float32, bfloat16 or float16, "
             f"not {q.dtype}"
         )
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+    d = q.shape[-1]
+    if d not in KERNEL_HEAD_DIMS and not (_is_wide(d) and d % WIDE_CHUNK == 0):
         raise ValueError(
-            f"the CUDA flash kernels take head_dim in {KERNEL_HEAD_DIMS}, "
-            f"not {q.shape[-1]}: pad it first (pad_head_dim)"
+            f"the CUDA flash kernels take head_dim in {KERNEL_HEAD_DIMS} "
+            f"or a multiple of {WIDE_CHUNK} past them, not {d}: pad it "
+            "first (pad_head_dim)"
         )
-    if q.dtype == torch.float32 or q.shape[-1] == 256:
-        return xs  # the FMA kernels read elements, not TMA boxes
+    if q.dtype == torch.float32 or d >= 256:
+        return xs  # the FMA and wide kernels read elements, not TMA boxes
     return tuple(
         x.clone(memory_format=torch.contiguous_format)
         if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:-1])
@@ -293,12 +303,21 @@ def _cuda_inputs(*xs: torch.Tensor):
     )
 
 
+def _scratch(rows: int, d: int, device) -> Optional[torch.Tensor]:
+    """The wide kernels' fp32 accumulators, ``rows * d`` of them; None
+    below head_dim 256, whose kernels keep theirs in registers."""
+    if not _is_wide(d):
+        return None
+    return torch.empty(rows * d, dtype=torch.float32, device=device)
+
+
 def _params(q, k, v, scale, causal, **ptrs) -> _Params:
     b, s, h, d = q.shape
     kvh = k.shape[2]
     p = _Params()
     for name, t in dict(q=q, k=k, v=v, **ptrs).items():
-        setattr(p, name, t.data_ptr())
+        if t is not None:
+            setattr(p, name, t.data_ptr())
     for name, t in (("q", q), ("k", k), ("v", v),
                     ("o", ptrs.get("o")), ("do", ptrs.get("dout"))):
         if t is not None:
@@ -327,8 +346,9 @@ def fwd_cuda(q, k, v, scale: float, causal: bool):
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("dlr_flash_fwd", _params(q, k, v, scale, causal, out=out,
-                                     lse=lse), q.device)
+    _launch("dlr_flash_fwd", _params(
+        q, k, v, scale, causal, out=out, lse=lse,
+        scratch=_scratch(b * h * s, d, q.device)), q.device)
     LAUNCHES["fwd"] += 1
     return out, lse
 
@@ -342,7 +362,7 @@ def bwd_dq_cuda(q, k, v, out, dout, lse, scale: float, causal: bool):
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _launch("dlr_flash_bwd_dq", _params(
         q, k, v, scale, causal, o=out, dout=dout, lse=lse.contiguous(),
-        delta=delta, dq=dq,
+        delta=delta, dq=dq, scratch=_scratch(b * h * s, d, q.device),
     ), q.device)
     LAUNCHES["bwd_dq"] += 1
     return dq, delta
@@ -353,9 +373,11 @@ def bwd_dkv_cuda(q, k, v, dout, lse, delta, scale: float, causal: bool):
     q, k, v, dout = _cuda_inputs(q, k, v, dout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    b, s, kvh, d = k.shape
     _launch("dlr_flash_bwd_dkv", _params(
         q, k, v, scale, causal, dout=dout, lse=lse.contiguous(),
         delta=delta.contiguous(), dk=dk, dv=dv,
+        scratch=_scratch(2 * b * kvh * s, d, q.device),
     ), q.device)
     LAUNCHES["bwd_dkv"] += 1
     return dk, dv
@@ -446,8 +468,8 @@ def flash_attention(
     dividing ``heads``, kv-head-major q layout as in the Llama
     family); no kernel builds the repeated kv tensor.
 
-    On the card: fp32, bf16 or fp16, any head_dim up to 256 (padded to
-    the kernels' 64, 128 or 256); a larger head_dim raises.
+    On the card: fp32, bf16 or fp16, any head_dim (padded to the
+    kernels' 64, 128 or 256, or past 256 to a multiple of 64).
     """
     b, s, h, d = q.shape
     kvh = k.shape[2]

@@ -1,8 +1,18 @@
 """Optimizers of the port (reference: ``dlrover_tpu/optim/``): the
 low-bit family, whose moments live as blockwise int8 or int4 codes
 through the CUDA kernels of :mod:`dlrover_tpu_torch.ops.quantization`,
-and the factored CAME / Adafactor family.
+the factored CAME / Adafactor family, AGD, WSAM, bf16 params over fp32
+masters and host-offloaded states.  ``local_sgd`` (DiLoCo) comes with
+slice 4.2 of the port.
 """
+
+from dlrover_tpu_torch.optim.agd import AGD, agd
+from dlrover_tpu_torch.optim.bf16 import (
+    Fp32Master,
+    OptaxAdamW,
+    adamw_bf16,
+    with_fp32_master,
+)
 
 from dlrover_tpu_torch.optim.came import (
     CAME,
@@ -20,9 +30,23 @@ from dlrover_tpu_torch.optim.low_bit import (
     q_adamw,
     q_agd,
 )
+from dlrover_tpu_torch.optim.offload import Offload, adamw_offload, offload
+from dlrover_tpu_torch.optim.wsam import WSAM, sam_gradient, wsam
 
 __all__ = [
+    "AGD",
     "CAME",
+    "Fp32Master",
+    "Offload",
+    "OptaxAdamW",
+    "WSAM",
+    "adamw_bf16",
+    "adamw_offload",
+    "agd",
+    "offload",
+    "sam_gradient",
+    "with_fp32_master",
+    "wsam",
     "NU_DOMAIN_SQRT_V1",
     "QAdafactor",
     "QAGD",

@@ -30,14 +30,29 @@ The 4-bit step and q-AGD are elementwise torch ops around the quantize
 and dequantize kernels, as the reference leaves those chains to XLA.
 State is built at construction (the reference's ``init``), through
 the quantize kernel.
+
+Sharded parameters (FSDP2's DTensors, ``Shard(0)`` over one mesh dim)
+keep the reference's *global* block grid: the reference quantizes the
+whole tensor flattened in blocks of ``block_size``, so here each rank
+holds the state rows of the blocks its contiguous slice of that
+flattening touches (:class:`ShardGrid`).  The blocks a rank holds whole
+go to the fused kernel as views of its shard and state.  A block that a
+shard boundary splits is gathered whole on every rank that shares it
+(one sum all-reduce a step over every split block of a process group),
+and each of those ranks steps the whole block in the same launch, from
+the same state, so that block's codes and scale are the reference's
+and alike on those ranks; each keeps its own elements of the new
+parameter.  Other placements (tensor parallel) come with slice 4.2 of
+the port.
 """
 
 from collections import defaultdict
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.common.device import is_dtensor
 from dlrover_tpu_torch.ops.quantization import (
     DEFAULT_BLOCK,
     SCALE_FLOOR,
@@ -60,6 +75,72 @@ class QMoment(NamedTuple):
 
     values: torch.Tensor
     scales: torch.Tensor
+
+
+class ShardGrid(NamedTuple):
+    """Where a rank's shard of a ``Shard(0)`` DTensor lies on the
+    global block grid: its flat ``start`` and ``numel`` in the global
+    tensor, the first global block ``row0`` of its ``rows`` state rows,
+    its ``split`` rows (local row, index in the parameter's split
+    table) whose blocks other ranks share, that table's size
+    ``n_split`` (the same on every rank) and the mesh dim's process
+    ``group``."""
+
+    start: int
+    numel: int
+    row0: int
+    rows: int
+    split: Tuple[Tuple[int, int], ...]
+    n_split: int
+    group: Any
+
+
+def shard_grid(p, block: int) -> Optional[ShardGrid]:
+    """The :class:`ShardGrid` of a DTensor parameter (None for a plain
+    one).  Shards follow ``torch.chunk`` over dim 0, as DTensor and
+    FSDP2 cut them."""
+    if not is_dtensor(p):
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = [i for i, pl in enumerate(p.placements) if isinstance(pl, Shard)]
+    if (len(dims) != 1 or p.placements[dims[0]].dim != 0
+            or any(not isinstance(pl, (Shard, Replicate))
+                   for pl in p.placements)):
+        raise NotImplementedError(
+            f"low-bit state of a parameter placed {p.placements}: only "
+            "Shard(0) over one mesh dim (FSDP2) keeps the global block grid; "
+            "the rest comes with slice 4.2 of the port")
+    mesh_dim = dims[0]
+    n = p.device_mesh.size(mesh_dim)
+    r = p.device_mesh.get_local_rank(mesh_dim)
+    dim0, total = p.shape[0], p.numel()
+    inner = total // dim0 if dim0 else 0
+    chunk = -(-dim0 // n)
+    cuts = [min(i * chunk, dim0) * inner for i in range(n + 1)]
+    start, end = cuts[r], cuts[r + 1]
+    if tuple(p.to_local().shape) != ((end - start) // max(inner, 1),
+                                     *p.shape[1:]):
+        raise ValueError(f"shard of {tuple(p.to_local().shape)} is not "
+                         "the torch.chunk of dim 0")
+    shared = sorted({c // block for c in cuts[1:-1] if 0 < c < total
+                     and c % block})
+    row0 = start // block
+    rows = -(-end // block) - row0 if end > start else 0
+    split = tuple((j - row0, i) for i, j in enumerate(shared)
+                  if row0 <= j < row0 + rows)
+    return ShardGrid(start, end - start, row0, rows, split, len(shared),
+                     p.device_mesh.get_group(mesh_dim))
+
+
+def _own_span(grid: ShardGrid, row: int, block: int) -> Tuple[int, int, int]:
+    """The shard's elements in its local state row ``row``: the flat
+    range ``[a, b)`` of the local tensor, and the column of ``a`` in
+    the row."""
+    off = grid.start - grid.row0 * block
+    a = max(row * block - off, 0)
+    b = min((row + 1) * block - off, grid.numel)
+    return a, b, a + off - row * block
 
 
 # nu-storage domain tag carried in the optimizer state: 1 = sqrt-domain
@@ -120,7 +201,14 @@ class _LowBitOptimizer(torch.optim.Optimizer):
                 self._param_state(p)
 
     def _init_state(self, p: torch.Tensor) -> Dict[str, Any]:
-        zeros = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        grid = shard_grid(p, self.block_size)
+        if grid is not None and self.bits != 8:
+            raise NotImplementedError(
+                "4-bit state of sharded parameters comes with slice 4.2 of "
+                "the port")
+        shape = (grid.rows * self.block_size,) if grid else p.shape
+        device = p.to_local().device if grid else p.device
+        zeros = torch.zeros(shape, dtype=torch.float32, device=device)
         mu, nu = self._qmu(zeros), self._qnu(zeros)
         return {"step": 0, "mu_values": mu.values, "mu_scales": mu.scales,
                 "nu_values": nu.values, "nu_scales": nu.scales}
@@ -188,7 +276,8 @@ class _LowBitOptimizer(torch.optim.Optimizer):
                 )
 
     def _init_state_shapes(self, p):
-        rows = -(-p.numel() // self.block_size)
+        grid = shard_grid(p, self.block_size)
+        rows = grid.rows if grid else -(-p.numel() // self.block_size)
         width = self.block_size if self.bits == 8 else self.block_size // 2
         codes = torch.int8 if self.bits == 8 else torch.uint8
         return {f"{m}_values": ((rows, width), codes) for m in ("mu", "nu")} | {
@@ -236,7 +325,7 @@ class QAdamW(_LowBitOptimizer):
             hyper = dict(b1=group["b1"], b2=group["b2"], eps=group["eps"],
                          lr=group["lr"], wd=group["weight_decay"])
             corrections = {}  # step count -> (bc1, bc2)
-            leaves = []
+            leaves, shards = [], []
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -246,17 +335,87 @@ class QAdamW(_LowBitOptimizer):
                     corrections[st["step"]] = bias_corrections(
                         hyper["b1"], hyper["b2"], st["step"])
                 bc1, bc2 = corrections[st["step"]]
-                g = self._grad(p)
-                if self.bits == 8:
+                grid = shard_grid(p, self.block_size)
+                if grid is not None:
+                    leaves += self._whole_rows_leaf(p, st, grid, bc1, bc2)
+                    if grid.n_split:
+                        shards.append((p, st, grid, bc1, bc2))
+                elif self.bits == 8:
                     leaves.append(QAdamLeaf(
-                        p, g, st["mu_values"], st["mu_scales"],
+                        p, self._grad(p), st["mu_values"], st["mu_scales"],
                         st["nu_values"], st["nu_scales"], bc1, bc2))
                 else:
-                    self._step_4bit(p, g, st, bc1, bc2, **hyper)
+                    self._step_4bit(p, self._grad(p), st, bc1, bc2, **hyper)
+            split_leaves, own = self._split_row_leaves(shards)
             # the state was built on each parameter's device at init, or
             # loaded there contiguous and checked (load_state_dict)
-            fused_qadam_update_multi_(leaves, state_checked=True, **hyper)
+            fused_qadam_update_multi_(leaves + split_leaves,
+                                      state_checked=True, **hyper)
+            for dst, src in own:
+                dst.copy_(src)
         return loss
+
+    @staticmethod
+    def _state_rows(st, rows: slice):
+        return (st["mu_values"][rows], st["mu_scales"][rows],
+                st["nu_values"][rows], st["nu_scales"][rows])
+
+    def _whole_rows_leaf(self, p, st, grid: ShardGrid, bc1, bc2):
+        """The blocks a shard holds whole, as one leaf of views of the
+        shard, its gradient and its state rows (no copy: the kernel
+        takes storage off 16 bytes element by element)."""
+        block = self.block_size
+        split = {r for r, _ in grid.split}
+        lo = 1 if 0 in split else 0
+        hi = grid.rows - 1 if grid.rows - 1 in split else grid.rows
+        if hi <= lo:
+            return []
+        a = _own_span(grid, lo, block)[0]
+        b = _own_span(grid, hi - 1, block)[1]
+        return [QAdamLeaf(p.to_local().view(-1)[a:b],
+                          p.grad.to_local().reshape(-1)[a:b],
+                          *self._state_rows(st, slice(lo, hi)), bc1, bc2)]
+
+    def _split_row_leaves(self, shards):
+        """One leaf a split row, over the whole global block: each rank
+        puts its elements of the parameter and the gradient at their
+        columns, and one sum all-reduce a process group gathers every
+        split block of it.  Also the (shard elements, new block
+        elements) pairs that hand each rank its part of the update."""
+        import torch.distributed as dist
+
+        block = self.block_size
+        tables: Dict[Any, Tuple[Any, List[torch.Tensor]]] = {}
+        for p, _, grid, _, _ in shards:
+            local = p.to_local().view(-1)
+            grad = p.grad.to_local().reshape(-1)
+            part = torch.zeros(grid.n_split, 2, block, dtype=torch.float32,
+                               device=local.device)
+            for r, i in grid.split:
+                a, b, col = _own_span(grid, r, block)
+                part[i, 0, col:col + b - a] = local[a:b]
+                part[i, 1, col:col + b - a] = grad[a:b]
+            tables.setdefault(id(grid.group), (grid.group, []))[1].append(
+                part)
+        gathered = {}
+        for key, (grp, parts) in tables.items():
+            gathered[key] = torch.cat(parts)
+            dist.all_reduce(gathered[key], group=grp)
+        leaves, own, bases = [], [], {}
+        for p, st, grid, bc1, bc2 in shards:
+            key = id(grid.group)
+            base = bases.get(key, 0)
+            bases[key] = base + grid.n_split
+            local = p.to_local().view(-1)
+            for r, i in grid.split:
+                n = min(block, p.numel() - (grid.row0 + r) * block)
+                whole = gathered[key][base + i, :, :n].to(p.dtype)
+                leaves.append(QAdamLeaf(
+                    whole[0], whole[1], *self._state_rows(st, slice(r, r + 1)),
+                    bc1, bc2))
+                a, b, col = _own_span(grid, r, block)
+                own.append((local[a:b], whole[0, col:col + b - a]))
+        return leaves, own
 
     def _step_4bit(self, p, g, st, bc1, bc2, *, b1, b2, eps, lr, wd):
         # dequant -> fp32 AdamW -> requant, the reference's op order

@@ -1,0 +1,335 @@
+"""Partition rules: parameter path patterns -> placements.
+
+Reference: ``dlrover_tpu/parallel/sharding.py``.  A strategy emits
+rules, ordered ``(regex, spec)`` pairs over the flax parameter paths
+(first match wins; a spec names mesh axes per tensor dim), and GSPMD
+inserts the collectives.  The port keeps the rules and their regexes
+as they are: its parameter names map onto the flax paths through
+:func:`dlrover_tpu_torch.utils.convert.flax_path`.  What changes is
+what a spec becomes: :func:`placements_for`, a pure function of the
+path, the shape and the mesh shape, gives a parameter one
+``torch.distributed.tensor`` placement per mesh dim of
+:data:`~dlrover_tpu_torch.parallel.mesh.TORCH_AXES` (``Shard(d)``
+where the spec names that axis on tensor dim ``d``, else
+``Replicate()``), after the reference's fitting rules
+(:func:`fit_spec`): an axis the mesh lacks is replicated, and so is a
+dim the axis sizes do not divide.  FSDP2's ``fully_shard`` applies the
+``fsdp`` axis and DTensor the ``tensor`` axis
+(:mod:`dlrover_tpu_torch.accel.accelerate`).
+
+``pipeline_rules`` and ``moe_rules`` are copied as data; the
+optimizations that apply them raise until slice 5 of the port.
+"""
+
+import re
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Mapping, Sequence, Tuple, Union
+
+from dlrover_tpu_torch.parallel.mesh import TORCH_AXES
+
+SpecLike = Union[None, str, Tuple]
+
+
+@dataclass
+class PartitionRules:
+    """Ordered (path-regex, partition-spec) pairs, first match wins.
+
+    Spec entries name mesh axes per tensor dimension, e.g.
+    ``("fsdp", None)`` shards dim 0 over the fsdp axis.  ``None``
+    replicates the dimension.
+    """
+
+    rules: List[Tuple[str, Tuple[SpecLike, ...]]] = field(
+        default_factory=list
+    )
+    default: Tuple[SpecLike, ...] = ()
+
+    def spec_for(self, path: str) -> Tuple[SpecLike, ...]:
+        for pattern, spec in self.rules:
+            if re.search(pattern, path):
+                return tuple(spec)
+        return tuple(self.default)
+
+    def extended(self, extra: Sequence[Tuple[str, Tuple]], front=True):
+        new = list(extra) + self.rules if front else self.rules + list(extra)
+        return PartitionRules(rules=new, default=self.default)
+
+
+_WARNED_MISSING_AXES = set()
+
+
+def fit_spec(spec: Sequence[SpecLike], shape: Sequence[int],
+             mesh_shape: Mapping[str, int]) -> Tuple[SpecLike, ...]:
+    """The reference's ``_fit_spec``: the spec cut to the tensor's rank,
+    axes the mesh does not have dropped (warned once per axis and mesh
+    factorization), and a dim replicated where its axes' sizes do not
+    divide it."""
+    spec = tuple(spec)[: len(shape)]
+    fitted = []
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            fitted.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        missing = [a for a in axes if a not in mesh_shape]
+        for a in missing:
+            warn_key = (a, tuple(sorted(mesh_shape.items())))
+            if warn_key not in _WARNED_MISSING_AXES:
+                _WARNED_MISSING_AXES.add(warn_key)
+                from dlrover_tpu_torch.common.log import default_logger
+
+                default_logger.warning(
+                    "partition spec names mesh axis %r which mesh %s "
+                    "does not have; replicating that dimension",
+                    a, dict(mesh_shape),
+                )
+        axes = tuple(a for a in axes if a in mesh_shape)
+        if not axes:
+            fitted.append(None)
+            continue
+        size = 1
+        for a in axes:
+            size *= mesh_shape[a]
+        if shape[dim] % size == 0:
+            fitted.append(axes if len(axes) > 1 else axes[0])
+        else:
+            fitted.append(None)
+    return tuple(fitted)
+
+
+def spec_to_placements(spec: Sequence[SpecLike],
+                       mesh_axes: Sequence[str] = TORCH_AXES) -> tuple:
+    """One placement per mesh dim: ``Shard(d)`` where the (fitted) spec
+    names the axis on tensor dim ``d``, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for axis in mesh_axes:
+        dims = [d for d, entry in enumerate(spec) if entry is not None
+                and axis in (entry if isinstance(entry, tuple) else (entry,))]
+        if len(dims) > 1:
+            raise ValueError(f"spec {spec} names axis {axis!r} twice")
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def placements_for(path: str, shape: Sequence[int],
+                   mesh_shape: Mapping[str, int],
+                   rules: PartitionRules) -> tuple:
+    """A parameter's placements over :data:`TORCH_AXES` for its flax
+    ``path``, its ``shape`` and the mesh's axis sizes."""
+    return spec_to_placements(
+        fit_spec(rules.spec_for(path), shape, mesh_shape))
+
+
+def param_placements(model, mesh_shape: Mapping[str, int],
+                     rules: PartitionRules) -> Dict[str, tuple]:
+    """``{parameter name: placements}`` over the module's parameters,
+    matched by their flax paths."""
+    from dlrover_tpu_torch.utils.convert import flax_path
+
+    return {
+        name: placements_for("/".join(flax_path(name)), tuple(p.shape),
+                             mesh_shape, rules)
+        for name, p in model.named_parameters()
+    }
+
+
+def shards_over(placements: Mapping[str, tuple], axis: str) -> bool:
+    """Whether any parameter is sharded over ``axis``."""
+    from torch.distributed.tensor import Shard
+
+    i = TORCH_AXES.index(axis)
+    return any(isinstance(pl[i], Shard) for pl in placements.values())
+
+
+# ---------------------------------------------------------------------------
+# Canonical rule sets (copies of the reference's)
+# ---------------------------------------------------------------------------
+
+
+def replicated_rules() -> PartitionRules:
+    """Pure DP: everything replicated (torch DDP parity)."""
+    return PartitionRules(rules=[], default=())
+
+
+def pipeline_rules() -> PartitionRules:
+    """Stage-stacked block params shard dim 0 over the pipeline axis;
+    embed/head replicate.  Data only until slice 5 of the port."""
+    return PartitionRules(
+        rules=[(r"(^|/)blocks/", ("pipeline",))], default=()
+    )
+
+
+def fsdp_rules(min_size_divisor: int = 1) -> PartitionRules:
+    """ZeRO-3 parity: shard the largest dim of every weight over
+    ``fsdp``.  Biases/norms stay replicated."""
+    return PartitionRules(
+        rules=[
+            (r"(scale|bias|ln_\w+|layernorm)", ()),
+            (r"embedding$|wte|wpe", ("fsdp",)),
+            (r"kernel$|w$", ("fsdp", None)),
+        ],
+        default=(),
+    )
+
+
+def gpt_tp_rules() -> PartitionRules:
+    """Megatron-style TP for transformer blocks: attention qkv + mlp-in
+    column-parallel (shard the output dim), attention out + mlp-out
+    row-parallel (shard the input dim), embeddings vocab-parallel;
+    combined with fsdp on the other dim."""
+    return PartitionRules(
+        rules=[
+            (r"(scale|bias|ln_\w+|layernorm)", ()),
+            # vocab-parallel embedding
+            (r"(wte|embedding)/embedding$", ("tensor", "fsdp")),
+            (r"wpe/embedding$", (None, "fsdp")),
+            # column-parallel: qkv projections, mlp up
+            (r"(q_proj|k_proj|v_proj|qkv|fc_in|up|gate)/kernel$",
+             ("fsdp", "tensor")),
+            # row-parallel: attention output, mlp down
+            (r"(o_proj|out_proj|fc_out|down)/kernel$",
+             ("tensor", "fsdp")),
+            (r"lm_head/kernel$", ("fsdp", "tensor")),
+            (r"kernel$", ("fsdp", None)),
+        ],
+        default=(),
+    )
+
+
+def moe_rules() -> PartitionRules:
+    """Expert-parallel MoE: expert weights carry a leading expert dim
+    sharded over ``expert``; the rest follows the TP rules.  Data only
+    until slice 5 of the port."""
+    base = gpt_tp_rules()
+    return base.extended(
+        [
+            (r"experts_w_(in|out|gate)$",
+             ("expert", "fsdp", "tensor")),
+            (r"router/kernel$", (None, None)),
+        ]
+    )
+
+
+def batch_spec(extra_seq_axis: bool = False) -> Tuple[SpecLike, ...]:
+    """Spec of input batches: dim 0 split over data x fsdp; with
+    sequence parallelism the sequence dim too."""
+    if extra_seq_axis:
+        return (("data", "fsdp"), "sequence")
+    return (("data", "fsdp"),)
+
+
+def batch_shard(batch: Mapping[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's rows of a global batch under :func:`batch_spec`: the
+    batch dim split over data x fsdp in that order (data outer), the
+    same on every tensor-parallel rank."""
+    coord = mesh.coordinate()
+    n = mesh.shape["data"] * mesh.shape["fsdp"]
+    i = coord["data"] * mesh.shape["fsdp"] + coord["fsdp"]
+    out = {}
+    for k, v in batch.items():
+        rows = v.shape[0]
+        if rows % n:
+            raise ValueError(f"batch of {rows} rows not divisible over "
+                             f"{n} data x fsdp ranks")
+        per = rows // n
+        out[k] = v[i * per:(i + 1) * per]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Applying placements: DTensor on the tensor axis, FSDP2 on fsdp
+# ---------------------------------------------------------------------------
+
+
+def _dense_style(colwise: bool):
+    """A ``ParallelStyle`` for the flax-layout ``Dense`` (weight
+    ``[in, out]``, so torch's ``ColwiseParallel``/``RowwiseParallel``
+    for ``nn.Linear`` do not apply).  Column: weight ``Shard(1)``, bias
+    ``Shard(0)``, a plain input taken as replicated, the output left a
+    DTensor sharded on its last dim.  Row: weight ``Shard(0)``, bias
+    replicated, a plain input taken as sharded on its last dim (a
+    DTensor one as it is), the output all-reduced to a plain tensor."""
+    from torch import nn
+    from torch.distributed.tensor import (
+        DTensor,
+        Replicate,
+        Shard,
+        distribute_module,
+        distribute_tensor,
+    )
+    from torch.distributed.tensor.parallel import ParallelStyle
+
+    class DenseParallel(ParallelStyle):
+        def _apply(self, module, device_mesh):
+            def partition(name, mod, mesh):
+                if mod is not module:
+                    return
+                for n, p in list(mod.named_parameters(recurse=False)):
+                    if colwise:
+                        pl = Shard(1) if n == "weight" else Shard(0)
+                    else:
+                        pl = Shard(0) if n == "weight" else Replicate()
+                    mod.register_parameter(n, nn.Parameter(
+                        distribute_tensor(p, mesh, [pl]),
+                        requires_grad=p.requires_grad))
+
+            def input_fn(mod, inputs, mesh):
+                x = inputs[0]
+                if not isinstance(x, DTensor):
+                    x = DTensor.from_local(
+                        x, mesh, [Replicate() if colwise else
+                                  Shard(x.dim() - 1)], run_check=False)
+                return (x, *inputs[1:])
+
+            def output_fn(mod, out, mesh):
+                if colwise:
+                    return out
+                return out.redistribute(placements=[Replicate()]).to_local()
+
+            return distribute_module(module, device_mesh, partition,
+                                     input_fn, output_fn)
+
+    return DenseParallel()
+
+
+def apply_tensor_parallel(model, mesh, placements: Mapping[str, tuple]):
+    """Shard the Dense layers of the transformer blocks over the tensor
+    axis as the placements say (``Shard(1)`` column, ``Shard(0)`` row
+    parallel).  The vocab-parallel embedding and head of
+    :func:`gpt_tp_rules` run replicated over the tensor axis: every
+    tensor rank computes the same residual stream, so their gradients
+    agree without a collective (their fsdp placement stands)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.parallel import parallelize_module
+
+    i = TORCH_AXES.index("tensor")
+    tp_plan = {}
+    for name, module in model.named_modules():
+        pl = placements.get(f"{name}.weight")
+        if (pl is None or ".blocks." not in f".{name}."
+                or not hasattr(module, "in_features")):
+            continue
+        if isinstance(pl[i], Shard) and pl[i].dim in (0, 1):
+            tp_plan[name] = _dense_style(colwise=pl[i].dim == 1)
+    parallelize_module(model, mesh["tensor"], tp_plan)
+    return model
+
+
+def apply_fsdp(model, mesh, reshard_after_forward: bool = True):
+    """FSDP2 over the fsdp axis (HSDP over data x fsdp when data > 1):
+    each transformer block is its own unit, the root holds the rest.
+    FSDP2 shards dim 0 of every parameter of a unit (padding a dim the
+    axis does not divide) and gathers it before the unit's forward, so
+    the kernels see plain tensors."""
+    from torch.distributed.fsdp import fully_shard
+
+    fsdp_mesh = (mesh[("data", "fsdp")] if mesh.shape["data"] > 1
+                 else mesh["fsdp"])
+    for block in getattr(model, "blocks", []):
+        fully_shard(block, mesh=fsdp_mesh,
+                    reshard_after_forward=reshard_after_forward)
+    fully_shard(model, mesh=fsdp_mesh,
+                reshard_after_forward=reshard_after_forward)
+    return model

@@ -12,7 +12,7 @@ spawns/monitors the training script.
 Copy of ``dlrover_tpu/run.py`` (``tpurun``).  The launcher, the agent
 and the master never touch CUDA; only the training processes do.
 ``--auto-config`` keeps one training process a node, as the
-reference does; several GPUs a node come with slice 4 of the port.
+reference does; several GPUs a node come with slice 4.2 of the port.
 
 Usage::
 
@@ -241,7 +241,7 @@ def apply_auto_config(args):
     ``dlrover-run --auto-config``, elastic_run.py:125).  As in the
     reference, one training process a node: the several-GPUs-a-node
     layout (one process per GPU over ``torch.distributed``) comes with
-    slice 4 of the port."""
+    slice 4.2 of the port."""
     if not (args.auto_config or args.nproc_per_node <= 0):
         return args
     args.nproc_per_node = 1

@@ -33,7 +33,7 @@ import torch
 
 from dlrover_tpu_torch import chaos as _chaos
 from dlrover_tpu_torch.common import env_utils
-from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.telemetry.events import emit_event
 from dlrover_tpu_torch.telemetry.metrics import get_registry
@@ -160,11 +160,32 @@ def to_device(batch, device: torch.device):
     return torch.as_tensor(batch).to(device, non_blocking=True)
 
 
+def global_grad_norm(grads) -> torch.Tensor:
+    """The global L2 norm of ``grads`` (``optax.global_norm``).  DTensor
+    gradients (FSDP2, tensor parallel) are summed per mesh and
+    placements and reduced once per group, so a sharded gradient counts
+    once."""
+    plain = [g for g in grads if not is_dtensor(g)]
+    total = (torch.stack([g.float().square().sum() for g in plain]).sum()
+             if plain else None)
+    groups: Dict[Any, Any] = {}
+    for g in grads:
+        if is_dtensor(g):
+            key = (id(g.device_mesh), tuple(g.placements))
+            sq = g.float().square().sum()
+            groups[key] = sq if key not in groups else groups[key] + sq
+    for sq in groups.values():
+        full = sq.full_tensor()
+        total = full if total is None else total + full
+    return total.sqrt()
+
+
 def make_train_step(
     loss_fn: Callable,
     optimizer: torch.optim.Optimizer,
     grad_accum: int = 1,
     device: Optional[Union[str, torch.device]] = None,
+    grad_hook: Optional[Callable[[torch.nn.Module], None]] = None,
 ):
     """Build the ``(state, batch) -> (state, metrics)`` step.
 
@@ -174,6 +195,9 @@ def make_train_step(
     ``grad_accum * micro``: the micro-batches are its consecutive
     slices, their gradients are summed in ``.grad`` and divided by
     ``grad_accum``, and the loss is their mean, as in the reference.
+    ``grad_hook(module)``, when given, runs after the backward passes and
+    before the gradients are averaged and measured (the data-parallel
+    all-reduce of :mod:`dlrover_tpu_torch.accel.accelerate`).
     ``metrics`` holds 0-d tensors ``loss`` and ``grad_norm`` (the
     global L2 norm of the averaged gradients, as ``optax.global_norm``).
     """
@@ -195,12 +219,12 @@ def make_train_step(
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         loss = loss_sum / grad_accum
+        if grad_hook is not None:
+            grad_hook(module)
         grads = [p.grad for p in module.parameters() if p.grad is not None]
         for g in grads:
             g.div_(grad_accum)
-        grad_norm = torch.stack(
-            [g.float().square().sum() for g in grads]
-        ).sum().sqrt()
+        grad_norm = global_grad_norm(grads)
         optimizer.step()
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm}
@@ -339,13 +363,13 @@ def train_state_tree(state: TrainState) -> Dict[str, Any]:
     (:func:`~dlrover_tpu_torch.utils.convert.params_tree`) and each of
     the optimizer's per-parameter slots (Adam's ``exp_avg``,
     ``exp_avg_sq`` and ``step``) nested the same way under its name."""
-    from dlrover_tpu_torch.utils.convert import _flax_path, _set, params_tree
+    from dlrover_tpu_torch.utils.convert import flax_path, _set, params_tree
 
     names = {id(p): n for n, p in state.module.named_parameters()}
     slots: Dict[str, Any] = {}
     for p, st in state.optimizer.state.items():
         for key, value in st.items():
-            _set(slots.setdefault(key, {}), _flax_path(names[id(p)]), value)
+            _set(slots.setdefault(key, {}), flax_path(names[id(p)]), value)
     return {"params": params_tree(state.module), "opt_state": slots,
             "step": state.step}
 
@@ -358,7 +382,7 @@ def restore_train_state(state: TrainState, restored) -> TrainState:
     never stepped or re-initialised, as in the reference, where the
     restore supplies params and slots alike."""
     from dlrover_tpu_torch.checkpoint.checkpointer import restore_to_template
-    from dlrover_tpu_torch.utils.convert import _flax_path, params_tree
+    from dlrover_tpu_torch.utils.convert import flax_path, params_tree
 
     restore_to_template(params_tree(state.module), restored["params"])
     names = {id(p): n for n, p in state.module.named_parameters()}
@@ -369,7 +393,7 @@ def restore_train_state(state: TrainState, restored) -> TrainState:
         st = {}
         for key, tree in slots.items():
             node = tree
-            for part in _flax_path(names[id(p)]):
+            for part in flax_path(names[id(p)]):
                 node = node[part]
             st[key] = node
         if st:

@@ -11,8 +11,16 @@ profile and the loss-spike detection are the reference's; the step is
 one GPU.  The params are saved under their flax paths
 (:func:`dlrover_tpu_torch.utils.convert.params_tree`), so a checkpoint
 of the JAX package's ``Trainer`` resumes this one and the other way
-round.  ``strategy`` (``auto_accelerate``) belongs to slice 4 of the
-port and raises ``NotImplementedError`` until then.
+round.  As in the reference, the model is built through
+:func:`dlrover_tpu_torch.accel.auto_accelerate` with ``strategy`` and
+``dry_run_candidates``; with neither, the plan is plain data
+parallelism in the model's own compute dtype (``parallel_mode`` and
+``amp_native`` at the config's ``dtype``), which leaves the model as it
+is (the reference would take the search's first candidate, whose
+``amp_native`` recasts an fp32 model to bf16).  A plan that shards the
+params (DTensors on a process group) trains, but its checkpoint (the
+sharded state) comes with slice 4.2 of the port and raises at the first
+save.
 """
 
 import time
@@ -22,20 +30,21 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.accel import OptimizationLibrary, Strategy
+from dlrover_tpu_torch.accel.accelerate import auto_accelerate
 from dlrover_tpu_torch.checkpoint.checkpointer import (
     Checkpointer,
     StorageType,
     restore_to_template,
 )
 from dlrover_tpu_torch.checkpoint.restore import RestoreStats
-from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.telemetry.events import emit_event, set_event_source
 from dlrover_tpu_torch.telemetry.metrics import get_registry
 from dlrover_tpu_torch.trainer.elastic_trainer import (
     ElasticTrainer,
     TrainState,
-    make_train_step,
     to_device,
 )
 from dlrover_tpu_torch.utils.convert import params_tree
@@ -55,8 +64,7 @@ _LOSS_SPIKE_TOTAL = _REG.counter(
 
 @dataclass
 class TrainingArguments:
-    """Reference: ``AtorchArguments`` (atorch/trainer/atorch_args.py).
-    ``dry_run_candidates`` comes with ``strategy`` in slice 4."""
+    """Reference: ``AtorchArguments`` (atorch/trainer/atorch_args.py)."""
 
     output_dir: str = "/tmp/dlrover_tpu_out"
     max_steps: int = 100
@@ -67,7 +75,8 @@ class TrainingArguments:
     save_steps: int = 50
     save_storage_steps: int = 0  # 0 = same as save_steps
     eval_steps: int = 0          # 0 = no periodic eval
-    strategy: Optional[Any] = None
+    strategy: Optional[Strategy] = None
+    dry_run_candidates: bool = False
     resume_from_checkpoint: bool = True
     # loss-spike detection (reference: loss_spike_utils)
     loss_spike_factor: float = 3.0
@@ -95,10 +104,9 @@ class Trainer:
         device: Optional[Union[str, torch.device]] = None,
     ):
         if args.strategy is not None:
-            raise NotImplementedError(
-                "TrainingArguments.strategy needs auto_accelerate, which "
-                "comes with slice 4 of the port (scale-out)"
-            )
+            # an optimization of a later slice raises here, not after
+            # the first batch
+            OptimizationLibrary().apply_strategy(args.strategy)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.args = args
@@ -108,10 +116,30 @@ class Trainer:
         self.optim_factory = optim_factory or self._default_optim
         self.state: Optional[TrainState] = None
         self.train_step: Optional[Callable] = None
+        self._accel = None
         self._checkpointer: Optional[Checkpointer] = None
         self.last_restore_phases: Dict[str, Any] = {}
         self.loss_spikes: List[Dict[str, float]] = []
         self._loss_ema: Optional[float] = None
+
+    @staticmethod
+    def default_strategy(model) -> Strategy:
+        """Plain data parallelism that leaves the model as it is: a plan
+        defaults to bf16 compute, "xla" attention and no remat, so the
+        model config's own are named."""
+        opts = [("parallel_mode", {})]
+        cfg = getattr(model, "config", None)
+        if isinstance(getattr(cfg, "dtype", None), torch.dtype):
+            opts.append(("amp_native",
+                         {"dtype": str(cfg.dtype).removeprefix("torch.")}))
+        if getattr(cfg, "attention_impl", "xla") != "xla":
+            opts.append(("module_replace",
+                         {"attention": cfg.attention_impl}))
+        if getattr(cfg, "remat", False):
+            opts.append(("offload_activation", {})
+                        if cfg.remat_policy == "offload"
+                        else ("checkpoint", {}))
+        return Strategy(opts=opts)
 
     def _default_optim(self, params):
         # optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8, and a
@@ -123,20 +151,27 @@ class Trainer:
 
     # -- build -------------------------------------------------------------
 
-    def _build(self, start_step: int):
+    def _build(self, start_step: int, sample_batch):
         args = self.args
         grad_accum = (
             max(1, args.global_batch_size // args.micro_batch_size)
             if args.global_batch_size > args.micro_batch_size
             else 1
         )
-        # after a resume this is the fresh optimizer over the restored
+        strategy = args.strategy
+        if strategy is None and not args.dry_run_candidates:
+            strategy = self.default_strategy(self.model)
+        # after a resume the optimizer is built fresh over the restored
         # params, as the reference's _try_resume builds it
-        optimizer = self.optim_factory(self.model.parameters())
-        self.state = TrainState.create(self.model, optimizer, start_step)
-        self.train_step = make_train_step(
-            self.loss_fn, optimizer, grad_accum, device=self.device
+        self._accel = auto_accelerate(
+            self.model, self.optim_factory, self.loss_fn, sample_batch,
+            strategy=strategy, dry_run_candidates=args.dry_run_candidates,
+            device=self.device, grad_accum=grad_accum,
         )
+        self.model = self._accel.model
+        self.state = self._accel.state
+        self.state.step = start_step
+        self.train_step = self._accel.train_step
         self._elastic = ElasticTrainer(
             global_batch_size=args.global_batch_size,
             micro_batch_size=args.micro_batch_size,
@@ -144,6 +179,8 @@ class Trainer:
         )
 
     def place_batch(self, batch):
+        if self._accel is not None:
+            return self._accel.place_batch(batch)
         return to_device(batch, self.device)
 
     # -- checkpoint --------------------------------------------------------
@@ -166,11 +203,20 @@ class Trainer:
         logger.info("resumed training from step %s", step)
         return int(step)
 
+    def _params_tree(self):
+        """The params to save; a plan whose params are DTensors (FSDP2,
+        TP) saves through the sharded checkpoint of slice 4.2."""
+        if any(is_dtensor(p) for p in self.model.parameters()):
+            raise NotImplementedError(
+                "saving DTensor params (a sharded plan on a process group) "
+                "comes with slice 4.2 of the port (the sharded checkpoint)")
+        return params_tree(self.model)
+
     def _save(self, step: int, to_storage: bool):
         self._checkpointer.save_checkpoint(
             step,
             {
-                "params": params_tree(self.model),
+                "params": self._params_tree(),
                 "trainer": self._elastic.state_dict(),
             },
             storage_type=(
@@ -212,7 +258,7 @@ class Trainer:
         batch = next(data_iter)
         self._checkpointer = Checkpointer(self.args.output_dir)
         start_step = self._try_resume()
-        self._build(start_step)
+        self._build(start_step, batch)
         self._elastic.global_step = start_step
 
         step = start_step

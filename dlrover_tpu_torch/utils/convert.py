@@ -53,8 +53,10 @@ def _torch_name(path) -> str:
     return ".".join(parts + ["bias" if leaf == "bias" else "weight"])
 
 
-def _flax_path(name: str) -> Tuple[str, ...]:
-    """The port's parameter name -> flax leaf path."""
+def flax_path(name: str) -> Tuple[str, ...]:
+    """The port's parameter name -> the flax leaf path (the one the
+    partition rules of :mod:`dlrover_tpu_torch.parallel.sharding`
+    match)."""
     *module, last = name.split(".")
     path = []
     i = 0
@@ -114,7 +116,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """GPT state dict -> flax GPT params (nested dict of numpy)."""
     params: Dict[str, Any] = {}
     for key, tensor in state_dict.items():
-        _set(params, _flax_path(key), _numpy(tensor))
+        _set(params, flax_path(key), _numpy(tensor))
     return params
 
 
@@ -125,7 +127,7 @@ def params_tree(model: torch.nn.Module) -> Dict[str, Any]:
     :func:`dlrover_tpu_torch.checkpoint.checkpointer.restore_to_template`."""
     params: Dict[str, Any] = {}
     for name, p in model.named_parameters():
-        _set(params, _flax_path(name), p)
+        _set(params, flax_path(name), p)
     return params
 
 
@@ -183,7 +185,7 @@ def qadamw_state_tree(optimizer, model: torch.nn.Module) -> Dict[str, Any]:
         st = optimizer.state[p]
         steps.add(int(st["step"]))
         for which in ("mu", "nu"):
-            _set(tree[which], _flax_path(name), QMoment(
+            _set(tree[which], flax_path(name), QMoment(
                 values=st[f"{which}_values"], scales=st[f"{which}_scales"],
             ))
     if len(steps) != 1:
@@ -209,10 +211,86 @@ def qadamw_state_to_jax(optimizer, model: torch.nn.Module) -> Dict[str, Any]:
     for i, name in enumerate(names):
         st = sd["state"][i]
         for which in ("mu", "nu"):
-            _set(tree[which], _flax_path(name), QMoment(
+            _set(tree[which], flax_path(name), QMoment(
                 values=_numpy(st[f"{which}_values"]),
                 scales=_numpy(st[f"{which}_scales"]),
             ))
     return {"count": np.asarray(steps.pop(), np.int32), "mu": tree["mu"],
             "nu": tree["nu"],
             "nu_domain": np.asarray(sd["nu_domain"], np.int32)}
+
+
+# -- the optimizers of slice 4.1 ----------------------------------------------
+
+
+def _moment_state(state):
+    """The first node of an optax state (a namedtuple, or a tuple of
+    them) with ``count``/``mu``/``nu`` fields (``ScaleByAdamState``,
+    ``AGDState``), or with a ``trace`` (SGD momentum)."""
+    if hasattr(state, "_fields"):
+        if {"count", "mu", "nu"} <= set(state._fields) or \
+                "trace" in state._fields:
+            return state
+    if isinstance(state, (tuple, list)):
+        for node in state:
+            found = _moment_state(node)
+            if found is not None:
+                return found
+    return None
+
+
+def _by_name(tree, model) -> Dict[str, torch.Tensor]:
+    leaves = {_torch_name(path): _tensor(v) for path, v in _flat(tree)}
+    names = [name for name, _ in model.named_parameters()]
+    if set(leaves) != set(names):
+        raise KeyError(f"leaves {sorted(leaves)} are not the model's "
+                       f"parameters {sorted(names)}")
+    return leaves
+
+
+def optimizer_state_from_jax(opt_state, optimizer, model: torch.nn.Module
+                             ) -> Dict[str, Any]:
+    """A JAX ``TrainState.opt_state`` (numpy leaves) of the reference's
+    ``optax.adamw``, ``adamw_bf16``, ``agd``, ``with_fp32_master(...)``,
+    ``offload(...)`` or ``wsam(optax.sgd(...))`` -> a state dict for
+    ``optimizer.load_state_dict``, where ``optimizer`` is the port's
+    counterpart (``torch.optim.AdamW`` or :class:`~dlrover_tpu_torch.
+    optim.OptaxAdamW`, :class:`~dlrover_tpu_torch.optim.AGD`,
+    :class:`~dlrover_tpu_torch.optim.Fp32Master`,
+    :class:`~dlrover_tpu_torch.optim.Offload`,
+    :class:`~dlrover_tpu_torch.optim.WSAM` over ``torch.optim.SGD``)
+    built over ``model.parameters()``.  The parameters are indexed in
+    ``model.named_parameters()`` order; the optimizer keeps its own
+    hyperparameters."""
+    from dlrover_tpu_torch.optim import AGD, WSAM, Fp32Master, OptaxAdamW
+    from dlrover_tpu_torch.optim.offload import Offload
+
+    names = [name for name, _ in model.named_parameters()]
+    groups = optimizer.state_dict().get("param_groups")
+    if isinstance(optimizer, Offload):
+        return optimizer_state_from_jax(opt_state, optimizer.inner, model)
+    if isinstance(optimizer, Fp32Master):
+        master = _by_name(_field(opt_state, "master"), model)
+        return {"master": [master[n] for n in names],
+                "inner": optimizer_state_from_jax(
+                    _field(opt_state, "inner"), optimizer.inner, model)}
+    if isinstance(optimizer, WSAM):
+        return {"wsam": optimizer.state_dict()["wsam"],
+                "base": optimizer_state_from_jax(opt_state, optimizer.base,
+                                                 model)}
+    node = _moment_state(opt_state)
+    state: Dict[int, Dict[str, Any]] = {}
+    if node is not None and "trace" in node._fields:
+        trace = _by_name(node.trace, model)
+        state = {i: {"momentum_buffer": trace[n]}
+                 for i, n in enumerate(names)}
+    elif node is not None:
+        count = int(np.asarray(node.count))
+        mu, nu = _by_name(node.mu, model), _by_name(node.nu, model)
+        for i, n in enumerate(names):
+            if isinstance(optimizer, (AGD, OptaxAdamW)):
+                state[i] = {"step": count, "mu": mu[n], "nu": nu[n]}
+            else:  # torch.optim.AdamW
+                state[i] = {"step": torch.tensor(float(count)),
+                            "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+    return {"state": state, "param_groups": groups}

@@ -195,12 +195,13 @@ def test_plain_kernels_take_a_ragged_seq():
     np.testing.assert_allclose(_np(out), _np(ref), atol=2e-6)
 
 
-@pytest.mark.parametrize("d", [16, 80])
+@pytest.mark.parametrize("d", [16, 80, 320, 512])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_matches_jax_at_head_dims_the_kernels_pad(d, causal):
     """head_dim 16 (the tiny GPT, Llama and BERT configs) and 80, which
-    the CUDA wrapper pads to 64 and 128: the plain version against the
-    JAX package, forward and gradients."""
+    the CUDA wrapper pads to 64 and 128, and 320 and 512, which the wide
+    kernels take as they are: the plain version against the JAX package,
+    forward and gradients."""
     xs = _qkv(b=1, s=64, h=2, d=d)
     out, ref = forward_pair(xs, causal=causal, block_q=32, block_k=32)
     np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
@@ -249,9 +250,14 @@ def test_padding_head_dim_is_exact(d, dtype):
 
 
 def test_head_dim_over_256_raises_naming_the_fault():
+    """ROADMAP §C 1 is closed: past 256 a head_dim maps to the least
+    multiple of 64 that holds it (the wide kernels), a multiple of 64
+    unpadded; only a head_dim that is not positive raises."""
     assert fa.kernel_head_dim(256) == 256
-    with pytest.raises(ValueError, match="ROADMAP §C 1"):
-        fa.kernel_head_dim(257)
+    assert [fa.kernel_head_dim(d) for d in (257, 320, 400, 512, 1000)] == [
+        320, 320, 448, 512, 1024]
+    with pytest.raises(ValueError, match="positive"):
+        fa.kernel_head_dim(0)
 
 
 def test_cpu_path_launches_no_kernel():
@@ -431,16 +437,17 @@ PAD_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3}
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [16, 32, 80, 96, 256])
+@pytest.mark.parametrize("d", [16, 32, 80, 96, 256, 320, 512])
 @pytest.mark.parametrize("b,s,h,kvh", [
     (2, 200, 4, 2),  # ragged last tile, GQA group 2
     (1, 256, 4, 4),
 ])
 def test_cuda_head_dims_and_fp16_match_plain(cuda, dtype, causal, d, b, s,
                                              h, kvh):
-    """Every head_dim up to 256 and fp16 go through the kernels on the
-    card (padded to 64, 128 or 256), forward and backward through
-    autograd, and match the plain version on the same inputs."""
+    """Every head_dim and fp16 go through the kernels on the card
+    (padded to 64, 128 or 256; 320 and 512 on the wide kernels), forward
+    and backward through autograd, and match the plain version on the
+    same inputs."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v, dout = (
         torch.randn(b, s, n, d, generator=gen, device=cuda).to(dtype)
@@ -467,10 +474,31 @@ def test_cuda_head_dims_and_fp16_match_plain(cuda, dtype, causal, d, b, s,
 
 
 @pytest.mark.cuda
-def test_cuda_head_dim_over_256_raises(cuda):
-    q = torch.zeros((1, 64, 2, 320), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP §C 1"):
-        fa.flash_attention(q, q, q)
+@pytest.mark.parametrize("d", [320, 400, 512])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_head_dim_over_256_runs_the_wide_kernels(cuda, d, causal):
+    """ROADMAP §C 1 is closed: past head_dim 256 the wide kernels run
+    (400 padded to 448) and fp32 matches the plain version to 1e-4 at a
+    ragged GQA shape."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, s, h, kvh = 2, 200, 4, 2
+    q, k, v, dout = (torch.randn(b, s, n, d, generator=gen, device=cuda)
+                     for n in (h, kvh, kvh, h))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_launch_counts()
+    out = fa.flash_attention(*xs, causal=causal)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    scale, blk = d ** -0.5, fa._fit_block(s, 128)
+    w_out, lse = fa.fwd_plain(q, k, v, scale, causal, blk, blk)
+    delta = fa.delta_plain(w_out, dout)
+    want = [w_out, fa.bwd_dq_plain(q, k, v, dout, lse, delta, scale, causal,
+                                   blk, blk)]
+    want += fa.bwd_dkv_plain(q, k, v, dout, lse, delta, scale, causal, blk,
+                             blk)
+    for g, w in zip([out] + [x.grad for x in xs], want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -235,13 +235,36 @@ def test_count_params_matches_jax(flax_init):
     dict(head="value"),
     dict(moe_experts=4),
     dict(fp8=True),
-    dict(remat=True, remat_policy="offload"),
+    # the offload remat policy came with slice 4.1
+    # (test_offload_remat_matches_full_remat); ulysses stays in slice 5
+    dict(attention_impl="ulysses"),
     dict(remat=True, remat_policy="save_attn"),
     dict(attention_impl="ring"),
 ])
 def test_later_slices_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         port_gpt.GPT(port_gpt.GPTConfig.tiny(**kw), device="cpu")
+
+
+def test_offload_remat_matches_full_remat():
+    """``remat_policy="offload"`` keeps each block's checkpointed input
+    in host memory (``save_on_cpu``) and recomputes the block as the
+    full policy does: the same loss and gradients."""
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 17))).long()
+    results = []
+    for policy in ("full", "offload"):
+        model = port_gpt.GPT(port_gpt.GPTConfig.tiny(
+            dtype=torch.float32, remat=True, remat_policy=policy),
+            device="cpu", seed=2)
+        loss = port_gpt.cross_entropy_loss(model(tokens[:, :-1]),
+                                           tokens[:, 1:])
+        loss.backward()
+        results.append((loss.detach(), [p.grad for p in model.parameters()]))
+    (l0, g0), (l1, g1) = results
+    torch.testing.assert_close(l1, l0, rtol=0, atol=0)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
 def test_config_validation_matches_reference():

@@ -64,6 +64,38 @@ def test_module_docstring_names_its_reference(module):
     ), f"{module} names no reference file"
 
 
+SLICE_4_1 = [
+    "dlrover_tpu_torch.accel.accelerate",
+    "dlrover_tpu_torch.accel.analyser",
+    "dlrover_tpu_torch.accel.dry_runner",
+    "dlrover_tpu_torch.accel.model_context",
+    "dlrover_tpu_torch.accel.opt_lib",
+    "dlrover_tpu_torch.accel.strategy",
+    "dlrover_tpu_torch.accel.strategy_search",
+    "dlrover_tpu_torch.brain.bo",
+    "dlrover_tpu_torch.optim.agd",
+    "dlrover_tpu_torch.optim.bf16",
+    "dlrover_tpu_torch.optim.offload",
+    "dlrover_tpu_torch.optim.wsam",
+    "dlrover_tpu_torch.parallel.mesh",
+    "dlrover_tpu_torch.parallel.registry",
+    "dlrover_tpu_torch.parallel.sharding",
+]
+
+
+@pytest.mark.parametrize("module", SLICE_4_1)
+def test_the_modules_of_slice_4_1_are_checked_and_mirror_a_reference(module):
+    """The accel/, parallel/ and optim/ modules of slice 4.1 are among
+    the modules the tests above import and scan, each at the path of
+    the reference file it names."""
+    assert module in MODULES
+    rel = module.split(".", 1)[1].replace(".", "/") + ".py"
+    assert (ROOT / "dlrover_tpu" / rel).exists()
+    doc = ast.get_docstring(ast.parse(
+        (ROOT / module.replace(".", os.sep)).with_suffix(".py").read_text()))
+    assert f"dlrover_tpu/{rel}" in doc
+
+
 def test_the_master_loads_no_torch():
     """The master has no device work: its import closure, and its
     client's, loads no torch, so it cannot make a CUDA context that

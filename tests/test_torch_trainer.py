@@ -27,6 +27,7 @@ import torch
 
 from dlrover_tpu.models import gpt as jax_gpt
 from dlrover_tpu.trainer import elastic_trainer as jax_et
+from dlrover_tpu_torch.accel import Strategy
 from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
 from dlrover_tpu_torch.checkpoint.shm_handler import SharedMemoryHandler
 from dlrover_tpu_torch.models import gpt as port_gpt
@@ -220,7 +221,12 @@ def test_trainer_runs_on_the_gpu_unless_told_otherwise(tmp_path,
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(strategy=object()), "slice 4"),
+    # a strategy is taken since slice 4.1; the optimizations of slice 5
+    # raise when the Trainer is built
+    (dict(strategy=Strategy(opts=[("pipeline_parallel", {"size": 2})])),
+     "slice 5"),
+    (dict(strategy=Strategy(opts=[("parallel_mode", {}), ("fp8", {})])),
+     "slice 5"),
 ])
 def test_trainer_options_of_later_slices_raise(tmp_path, kw, match):
     with pytest.raises(NotImplementedError, match=match):
