@@ -148,9 +148,37 @@ Phases, each fatal on failure:
       rebuilds the model with remat), with phase 5's checks, one
       ``step_phases`` event a step and the phases in the metrics file.
    Every phase prints its seconds.
+10. the elastic example, ``dlrover_tpu_torch/examples/train_gpt_elastic.py``
+   (the twin of ``examples/train_gpt_elastic.py``), at GPT-2 small's
+   full width (124,475,904 params, seq 1024, global batch 32 in one
+   micro-batch) under ``fsdp`` + ``amp_native`` + ``checkpoint``
+   (FSDP2, bf16, remat) on a one-rank NCCL group, through ``python -m
+   dlrover_tpu_torch.run --nproc_per_node=1 --max_restarts=3``, depth
+   cut to 25 and 24 steps, a storage save every 4 steps with an orbax
+   (DCP) copy of every 2nd:
+   a. an uninterrupted control of 25 steps, then a run of 24 SIGKILLed
+      once its snapshot of step 16 is in shm (after committed saves)
+      whose respawned worker
+      restores params and AdamW moments from shm through
+      ``load_checkpoint(target_state=...)``: every loss of every
+      incarnation within rtol 1e-3 / atol 1e-5 of the control's (bit
+      equality reported), exactly 24 B1 and 12 B2 and B3 launches in
+      every step, step 24 committed;
+   b. the killed run's committed step 24, saved under FSDP2 (DTensors),
+      restores from storage bit-equal into an unwrapped data plan and
+      into a one-rank tensor plan (DTensor Dense layers); each then
+      takes step 25 with the control's loss (rtol 1e-3 / atol 1e-5);
+      with the flash storage removed, the orbax tier alone restores
+      step 20 bit-equal;
+   c. prints the sharded save's stall on the host and on the card, the
+      seconds to shm and to commit, each restore's read / assemble /
+      h2d by tier and its rate, and the example's tokens/s beside
+      phase 9b's FSDP2 step.
 
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, "device": {...}}`` line.  Exits non-zero with no result
+``{"ok": true, "device": {...}}`` line.  ``--only 9b,10`` runs the build
+and the named phases alone (9b and 10 so far) and prints no result
+lines.  Exits non-zero with no result
 when there is no CUDA device or no package beside the script.
 """
 
@@ -2276,6 +2304,10 @@ def phase_search_xl(card) -> dict:
     return {"accel_search_xl": counts}
 
 
+# phase 9b's FSDP2 AdamW median step (seconds), for phase 10c's comparison
+PHASE_9B: dict = {}
+
+
 def _one_rank_group(tmpdir):
     import torch.distributed as dist
 
@@ -2363,6 +2395,8 @@ def phase_fsdp_one_rank(card) -> dict:
                 failures.append(f"{label}: launches {counts}")
             by_path[f"accel_fsdp_one_rank{'_int8' if low_bit else ''}"] = \
                 counts
+            if not low_bit:
+                PHASE_9B["fsdp_step_s"] = statistics.median(secs[2:])
             del result, model
             _free_cuda()
     finally:
@@ -3113,6 +3147,397 @@ def profile_step(trainer, batch, card, label):
         log(f"profile {label}:   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
+# -- phase 10: the elastic example -------------------------------------------
+
+EXAMPLE = os.path.join(ROOT, "dlrover_tpu_torch", "examples",
+                       "train_gpt_elastic.py")
+E_STEPS, E_SAVE_EVERY, E_ORBAX_EVERY, E_KILL_AT = 24, 4, 2, 16
+E_GLOBAL_BATCH = 32
+# seconds one launcher run of the example may take (about 40-75 s)
+E_RUN_TIMEOUT_S = 300
+# the example's compute dtype (amp_native's default, bf16)
+E_AMP: dict = {}
+
+
+def _example_run(label: str, steps: int, kill_at=None) -> dict:
+    """One ``python -m dlrover_tpu_torch.run`` run of the example (the
+    launcher in a process of its own), with a SIGKILL of the worker at
+    ``kill_at`` when given: rc, the incarnations' records, the events,
+    the checkpoint directory (kept for 10b) and the wall time.  The run
+    gets a short socket directory and a job name of its own; its shm
+    segments are unlinked at the end."""
+    from dlrover_tpu_torch.chaos import harness
+    from dlrover_tpu_torch.chaos.schedule import Scenario
+    from dlrover_tpu_torch.telemetry.events import read_events
+
+    rules = []
+    if kill_at:
+        # the kill lands once the snapshot of step ``kill_at`` is whole
+        # in shm (a kill mid-write would leave the segment torn)
+        rules.append({"name": "kill-after-save", "point": "ckpt.shm_save",
+                      "action": "kill", "at_step": kill_at,
+                      "only_first_incarnation": True})
+    scenario = Scenario.from_dict({"name": f"example-{label}", "seed": 0,
+                                   "rules": rules})
+    workdir = tempfile.mkdtemp(prefix=f"dl10{label}")
+    ckpt = os.path.join(OUT_DIR, f"ckpt_example_{label}")
+    rec = os.path.join(OUT_DIR, f"example_{label}")
+    for path in (ckpt, ckpt + "_durable", rec):
+        shutil.rmtree(path, ignore_errors=True)
+    env, event_log = harness.scenario_env(scenario, workdir, steps,
+                                          E_SAVE_EVERY)
+    job = f"{os.environ['DLROVER_JOB_NAME']}_e{label}"
+    env = {**os.environ, **env, "PYTHONPATH": ROOT, "DLROVER_JOB_NAME": job}
+    # a run that outlives its limit dumps every thread's stack of every
+    # process of it (SIGABRT with the fault handler on) into its log
+    env["PYTHONFAULTHANDLER"] = "1"
+    log_path = os.path.join(OUT_DIR, f"example_{label}.log")
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "dlrover_tpu_torch.run",
+                 "--nproc_per_node=1", "--max_restarts=3",
+                 "--monitor_interval=0.3", EXAMPLE, "--steps", str(steps),
+                 "--save-every", str(E_SAVE_EVERY),
+                 "--orbax-every", str(E_ORBAX_EVERY), "--ckpt-dir", ckpt,
+                 "--record", rec],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True)
+            try:
+                rc = proc.wait(timeout=E_RUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGABRT)
+                time.sleep(5)
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                rc = "a timeout"
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            with open(log_path) as f:
+                tail = f.read()[-12000:]
+            raise AssertionError(f"example run {label} ended with "
+                                 f"{rc} after {wall:.1f} s:\n{tail}")
+        records = []
+        for name in sorted(os.listdir(rec)):
+            if name.startswith("incarnation_") and name.endswith(".json"):
+                with open(os.path.join(rec, name)) as f:
+                    records.append(json.load(f))
+        events = list(read_events(event_log))
+        shutil.copy(event_log, os.path.join(OUT_DIR,
+                                            f"example_{label}_events.jsonl"))
+    finally:
+        prefix = f"dlrover_tpu_ckpt_shm_{job}_"
+        for name in os.listdir("/dev/shm"):
+            if name.startswith(prefix):
+                os.unlink(os.path.join("/dev/shm", name))
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"label": label, "records": records, "events": events,
+            "ckpt": ckpt, "wall_s": wall}
+
+
+def _check_example_run(r, per_step, control=None) -> list:
+    """The failures of one example run, as text: every step of every
+    incarnation launches ``per_step``, and with ``control`` (step ->
+    loss) its loss is the control's within rtol 1e-3 / atol 1e-5."""
+    failures = []
+    for inc in r["records"]:
+        for st in inc["steps"]:
+            counts = _zero_counts(**{f"flash_attention.{k}": v
+                                     for k, v in st["launches"].items()})
+            if counts != per_step:
+                failures.append(f"{r['label']} r{inc['restart']} step "
+                                f"{st['step']}: launches {counts}")
+            if not _finite(st["loss"]):
+                failures.append(f"{r['label']} step {st['step']}: loss "
+                                f"{st['loss']}")
+            if control is not None:
+                want = control[st["step"]]
+                if abs(st["loss"] - want) > 1e-5 + 1e-3 * abs(want):
+                    failures.append(
+                        f"{r['label']} r{inc['restart']} step {st['step']}: "
+                        f"loss {st['loss']} vs control {want}")
+    return failures
+
+
+def _flat_full(tree) -> dict:
+    """flat key -> a full CPU tensor of each tensor leaf (DTensors
+    gathered)."""
+    from dlrover_tpu_torch.checkpoint.shm_handler import _flatten_state_dict
+    from dlrover_tpu_torch.checkpoint.sharded import is_dtensor
+
+    out = {}
+    for key, leaf in _flatten_state_dict(tree).items():
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        out[key] = leaf.detach().cpu().clone()
+    return out
+
+
+def _same_bytes(got: dict, want: dict) -> list:
+    import torch
+
+    bad = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+           or not torch.equal(got[k].view(-1).view(torch.uint8),
+                              want[k].contiguous().view(-1).view(
+                                  torch.uint8))]
+    return bad + sorted(set(got) - set(want))
+
+
+def _example_batch(step: int, vocab: int):
+    """The example's batch of ``step``: draw ``step`` of default_rng(0)
+    after the sample batch (draw 0)."""
+    import numpy as np
+
+    from dlrover_tpu_torch.examples import train_gpt_elastic as ex
+
+    data = ex.batches(vocab, SMALL_SEQ, np.random.default_rng(0))
+    for _ in range(step):
+        next(data)
+    return next(data)
+
+
+def _restore_plan(kind: str, ckpt_dir: str, orbax_dir: str = ""):
+    """A fresh GPT-2 small (another seed: a leaf the restore missed
+    shows) in the ``data`` plan (plain tensors) or a one-rank ``tensor``
+    plan (the blocks' Dense layers as DTensors), restored from
+    ``ckpt_dir`` through ``load_checkpoint(target_state=...)``: (model,
+    optimizer, step function, step, restored flat, restore phases)."""
+    import torch
+
+    from dlrover_tpu_torch.accel import Strategy, auto_accelerate
+    from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.examples import train_gpt_elastic as ex
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.parallel import sharding
+    from dlrover_tpu_torch.parallel.mesh import build_mesh
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        TrainState,
+        make_train_step,
+    )
+    from dlrover_tpu_torch.utils.convert import (
+        adamw_state_from_tree,
+        adamw_state_tree,
+        params_tree,
+    )
+
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash",
+                               remat=True)
+    model = GPT(cfg, seed=1)
+    if kind == "data":
+        res = auto_accelerate(
+            model, ex.optimizer, ex.loss_fn, _example_batch(0,
+                                                            cfg.vocab_size),
+            strategy=Strategy(opts=[
+                ("parallel_mode", {}), ("amp_native", E_AMP),
+                ("checkpoint", {}),
+                ("module_replace", {"attention": "flash"})]))
+        model, opt, step_fn = res.model, res.state.optimizer, res.train_step
+        state = res.state
+        place = res.place_batch
+    else:
+        mesh = build_mesh(
+            device_type=next(model.parameters()).device.type)
+        placements = sharding.param_placements(model, mesh.shape,
+                                               sharding.gpt_tp_rules())
+        sharding.apply_tensor_parallel(model, mesh, placements)
+        # the blocks' Dense layers are DTensors and the rest plain
+        # tensors: AdamW's foreach kernels take one kind at a time
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=0.1, foreach=False)
+        step_fn = make_train_step(ex.loss_fn, opt)
+        state = TrainState.create(model, opt)
+        place = None
+    AsyncCheckpointSaver.reset()
+    ckpt = Checkpointer(ckpt_dir, replicated=False, orbax_dir=orbax_dir)
+    target = {"params": params_tree(model),
+              "opt_state": adamw_state_tree(opt, model)}
+    step, restored = ckpt.load_checkpoint(target_state=target)
+    phases = ckpt.last_restore_phases
+    ckpt.close()
+    AsyncCheckpointSaver.reset()
+    if step is not None:
+        adamw_state_from_tree(restored["opt_state"], opt, model)
+        state.step = step
+    return {"model": model, "opt": opt, "step_fn": step_fn, "state": state,
+            "place": place, "step": step, "restored": _flat_full(restored),
+            "phases": phases}
+
+
+def _reference_state(ckpt_dir: str, step: int) -> dict:
+    """The committed step ``step`` of ``ckpt_dir`` as full CPU tensors
+    (its shards assembled on the host, no target)."""
+    from dlrover_tpu_torch.checkpoint.saver import read_checkpoint_at
+    from dlrover_tpu_torch.checkpoint.shm_handler import (
+        _flatten_state_dict,
+        state_dict_from_raw,
+    )
+
+    _, shards = read_checkpoint_at(ckpt_dir, step)
+    meta, raw = shards[0]
+    return _flatten_state_dict(state_dict_from_raw(meta, raw))
+
+
+def _rate(phases) -> str:
+    secs = sum(phases.get(k, 0.0) or 0.0
+               for k in ("read_s", "assemble_s", "h2d_s"))
+    gbs = phases.get("bytes", 0) / secs / 1e9 if secs else float("nan")
+    return (f"tier {phases.get('tier')}: read {phases.get('read_s')} s, "
+            f"assemble {phases.get('assemble_s')} s, h2d "
+            f"{phases.get('h2d_s')} s, total {phases.get('total_s')} s, "
+            f"{phases.get('bytes', 0) / 1e9:.4f} GB at {gbs:.3f} GB/s over "
+            f"read+assemble+h2d")
+
+
+def phase_example(card) -> dict:
+    """10: the elastic example at GPT-2 small's full width under FSDP2:
+    a control, a SIGKILLed run restored through the target state, the
+    reshard of its state into other plans and the orbax tier alone."""
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.checkpoint.saver import read_last_checkpoint
+    from dlrover_tpu_torch.models.gpt import GPTConfig
+
+    per_step = _flash_expected(12, 1, 1, True)
+    failures = []
+    # 10a
+    control = _example_run("control", E_STEPS + 1)
+    want = {st["step"]: st["loss"]
+            for inc in control["records"] for st in inc["steps"]}
+    failures += _check_example_run(control, per_step)
+    if sorted(want) != list(range(1, E_STEPS + 2)):
+        failures.append(f"control steps {sorted(want)}")
+    kill = _example_run("kill", E_STEPS, kill_at=E_KILL_AT)
+    failures += _check_example_run(kill, per_step, want)
+    incs = {inc["restart"]: inc for inc in kill["records"]}
+    first, second = incs.get(0), incs.get(1)
+    kills = [e for e in kill["events"] if e.get("type") == "chaos_inject"]
+    commits = [e for e in kill["events"]
+               if e.get("type") == "checkpoint_commit"]
+    restore = (second or {}).get("restore", {})
+    bit_equal = all(st["loss"] == want[st["step"]]
+                    for inc in kill["records"] for st in inc["steps"])
+    if (len(incs) != 2 or len(kills) != 1 or first["steps"][-1]["step"]
+            < E_KILL_AT):
+        failures.append(f"kill run: incarnations {sorted(incs)}, kills "
+                        f"{kills}")
+    elif not [c for c in commits if c["ts"] < kills[0]["ts"]]:
+        failures.append("kill run: no save committed before the kill")
+    if restore.get("tier") != "shm" or restore.get("step") != E_KILL_AT \
+            or not restore.get("sharded"):
+        failures.append(f"kill run: restore {restore}")
+    if second and [st["step"] for st in second["steps"]] != list(
+            range(restore.get("step", 0) + 1, E_STEPS + 1)):
+        failures.append("kill run: the respawned worker's steps "
+                        f"{[st['step'] for st in second['steps']]}")
+    committed = read_last_checkpoint(kill["ckpt"])[0]
+    if committed != E_STEPS:
+        failures.append(f"kill run: committed step {committed}")
+    log(f"10a example: control {control['wall_s']:.1f} s, kill run "
+        f"{kill['wall_s']:.1f} s; killed at step "
+        f"{kills[0]['step'] if kills else None}, restored step "
+        f"{restore.get('step')} from {restore.get('tier')}; replayed "
+        f"losses {'bit-equal to' if bit_equal else 'within 1e-3 of'} the "
+        f"control's; launches a step {per_step}; committed {committed} "
+        f"[{card}]")
+    # 10c: the sharded save and the restores, from the records
+    saves = control["records"][0]["saves"]
+    commit_ts = {e["step"]: e["ts"] for e in control["events"]
+                 if e.get("type") == "checkpoint_commit"}
+    for sv in saves:
+        if not sv["ok"]:
+            log(f"10c save of step {sv['step']}: skipped, the previous "
+                f"snapshot still writing [{card}]")
+            continue
+        to_commit = commit_ts.get(sv["step"], float("nan")) - sv["t"]
+        write = sv.get("write", {})
+        device_ms = (sv["device_s"] * 1e3 if sv.get("device_s")
+                     else float("nan"))
+        log(f"10c save of step {sv['step']}: {sv.get('bytes', 0) / 1e9:.4f} "
+            f"GB of local shards, stall {sv['stall_s'] * 1e3:.3f} ms on the "
+            f"host, {device_ms:.3f} ms on the card; to shm "
+            f"{write.get('total_s')} s after the writer took it (fetch "
+            f"{write.get('fetch_s')} s, memcpy {write.get('memcpy_s')} s); "
+            f"to commit {to_commit:.3f} s after the call [{card}]")
+    log(f"10c restore after the kill: {_rate(restore)} [{card}]")
+    steady = [st["seconds"] for st in control["records"][0]["steps"][2:]]
+    step_s = statistics.median(steady)
+    fsdp_s = PHASE_9B.get("fsdp_step_s")
+    log(f"10c example: median step {step_s * 1e3:.3f} ms, "
+        f"{E_GLOBAL_BATCH * SMALL_SEQ / step_s:.1f} tokens/s (batch 32 in "
+        f"one micro-batch); phase 9b's FSDP2 step "
+        f"{fsdp_s * 1e3 if fsdp_s else float('nan'):.3f} ms = "
+        f"{E_GLOBAL_BATCH * SMALL_SEQ / fsdp_s if fsdp_s else float('nan'):.1f} "
+        f"tokens/s (4 micro-batches of 8) [{card}]")
+    # 10b: reshard on the card
+    vocab = GPTConfig.gpt2_small().vocab_size
+    # the killed run's final state (its replay equals the control's)
+    saved = kill["ckpt"]
+    ref24 = _reference_state(saved, E_STEPS)
+    orbax_steps = sorted(int(n.split("_")[1]) for n in os.listdir(
+        saved + "_durable") if n.startswith("step_"))
+    ref_orbax = _reference_state(saved, orbax_steps[-1])
+    tmp = tempfile.mkdtemp(prefix="ex10-")
+    _one_rank_group(tmp)
+    try:
+        for kind in ("data", "tensor"):
+            plan = _restore_plan(kind, saved)
+            bad = _same_bytes(plan["restored"], ref24)
+            dts = sum(p.__class__.__name__ == "DTensor"
+                      for p in plan["model"].parameters())
+            batch = _example_batch(E_STEPS + 1, vocab)
+            if plan["place"] is not None:
+                batch = plan["place"](batch)
+            _, metrics = plan["step_fn"](plan["state"], batch)
+            loss = float(metrics["loss"])
+            ok = abs(loss - want[E_STEPS + 1]) <= 1e-5 + 1e-3 * abs(
+                want[E_STEPS + 1])
+            log(f"10b {kind} plan ({dts} DTensor params): restored step "
+                f"{plan['step']} {'bit-equal' if not bad else bad[:5]}; "
+                f"step {E_STEPS + 1} loss {loss} vs the control's "
+                f"{want[E_STEPS + 1]} ({'bit-equal' if loss == want[E_STEPS + 1] else 'within 1e-3' if ok else 'OFF'}); "
+                f"{_rate(plan['phases'])} [{card}]")
+            if plan["step"] != E_STEPS or bad or not ok:
+                failures.append(f"10b {kind}: step {plan['step']}, "
+                                f"mismatched {bad[:5]}, loss {loss}")
+            if kind == "tensor" and dts == 0:
+                failures.append("10b tensor: no DTensor params")
+            del plan
+            _free_cuda()
+        # the orbax tier alone: shm unlinked (after each run) and the
+        # flash storage removed
+        shutil.rmtree(saved, ignore_errors=True)
+        plan = _restore_plan("data", saved, orbax_dir=saved + "_durable")
+        bad = _same_bytes(plan["restored"], ref_orbax)
+        log(f"10b orbax tier alone: restored step {plan['step']} of "
+            f"{orbax_steps} {'bit-equal' if not bad else bad[:5]}; "
+            f"{plan['phases'].get('tier')} in "
+            f"{plan['phases'].get('total_s')} s [{card}]")
+        if plan["step"] != orbax_steps[-1] or bad or \
+                plan["phases"].get("tier") != "orbax":
+            failures.append(f"10b orbax: step {plan['step']}, mismatched "
+                            f"{bad[:5]}, {plan['phases']}")
+        del plan
+        _free_cuda()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    counts = {}
+    for r in (control, kill):
+        total = _zero_counts()
+        for inc in r["records"]:
+            for st in inc["steps"]:
+                for k, v in st["launches"].items():
+                    total[f"flash_attention.{k}"] += v
+        counts[f"example_{r['label']}"] = total
+    return counts
+
+
 def _free_cuda():
     import gc
 
@@ -3147,6 +3572,8 @@ def main(argv) -> int:
     os.environ["DLROVER_SHARED_DIR"] = sockets
     os.environ["DLROVER_JOB_NAME"] = f"chipsmoke{os.getpid()}"
     try:
+        if argv[:1] == ["--only"]:
+            return run_only(torch, argv[1].split(","))
         return run_phases(torch)
     finally:
         left = _unlink_segments()
@@ -3158,6 +3585,26 @@ def main(argv) -> int:
                               ignore_errors=True)
         if left:
             log(f"chip_smoke: unlinked leftover shm segments {left}")
+
+
+ONLY = {"9b": phase_fsdp_one_rank, "10": phase_example}
+
+
+def run_only(torch, names) -> int:
+    """``--only 9b,10``: the build, then the named phases alone (a quick
+    check of one path; the full run, with no arguments, is the card's
+    check and prints the result lines)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    phase_build()
+    for name in names:
+        t0 = time.perf_counter()
+        ONLY[name](card)
+        _free_cuda()
+        log(f"chip_smoke: phase {name} took {time.perf_counter() - t0:.1f} s")
+    print(card)
+    return 0
 
 
 def run_phases(torch) -> int:
@@ -3199,7 +3646,8 @@ def run_phases(torch) -> int:
     by_path.update(timed("8", phase_launcher, card, t_start))
     for name, phase in (("9a", phase_search_xl), ("9b", phase_fsdp_one_rank),
                         ("9c", phase_offload_xl),
-                        ("9d", phase_trainer_strategy)):
+                        ("9d", phase_trainer_strategy),
+                        ("10", phase_example)):
         by_path.update(timed(name, phase, card))
     leaked = [n for n in os.listdir("/dev/shm")
               if n.startswith(f"dlrover_tpu_ckpt_shm_"

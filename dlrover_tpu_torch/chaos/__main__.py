@@ -11,9 +11,10 @@ Examples::
     python -m dlrover_tpu_torch.chaos --spec my_scenario.yaml --steps 20
 
 Copy of ``dlrover_tpu/chaos/__main__.py``, for the scenarios the port
-has (the single-node harness, ``chaos/scenarios.py``).  The
-multi-agent runner (``--nnodes`` > 1) comes with slice 4.2 of the port,
-the serving runners with slice 9.
+has (``chaos/scenarios.py``): the single-node harness, the multi-agent
+runner (``--nnodes`` > 1, N launcher processes on one box against one
+master) and the elastic-resize runner.  The serving runners come with
+slice 9.
 """
 
 import argparse
@@ -58,8 +59,7 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument(
         "--nnodes", type=int, default=1,
         help=">1 runs the multi-agent harness (one journal-backed "
-        "master + N launcher processes), which comes with slice 4.2 "
-        "of the port",
+        "master + N launcher processes on this box)",
     )
     parser.add_argument(
         "--warm-restart", action="store_true",
@@ -98,19 +98,39 @@ def main(argv: Optional[List[str]] = None) -> int:
         f"running scenario {scenario.name!r} (seed {scenario.seed}) "
         f"in {workdir}"
     )
-    if args.nnodes > 1:
-        raise NotImplementedError(
-            "the multi-agent chaos harness (--nnodes > 1) comes with "
-            "slice 4.2 of the port"
+    nnodes = args.nnodes
+    if nnodes <= 1 and scenario.name == "elastic-resize-churn":
+        # the subset-fault scenario is meaningless single-node
+        nnodes = 2
+    if scenario.name == "elastic-resize-churn":
+        # needs the elastic runner: a min_nodes<nnodes master, a
+        # shared checkpoint dir, and the replacement-agent respawn
+        report = harness.run_elastic_resize_scenario(
+            scenario,
+            workdir=workdir,
+            nnodes=nnodes,
+            total_steps=args.steps,
+            max_restarts=args.max_restarts,
         )
-    report = harness.run_scenario(
-        scenario,
-        workdir=workdir,
-        total_steps=args.steps,
-        ckpt_every=args.ckpt_every,
-        max_restarts=args.max_restarts,
-        warm_restart=args.warm_restart,
-    )
+    elif nnodes > 1:
+        report = harness.run_scenario_multinode(
+            scenario,
+            workdir=workdir,
+            nnodes=nnodes,
+            total_steps=args.steps,
+            ckpt_every=args.ckpt_every,
+            max_restarts=args.max_restarts,
+            warm_restart=args.warm_restart,
+        )
+    else:
+        report = harness.run_scenario(
+            scenario,
+            workdir=workdir,
+            total_steps=args.steps,
+            ckpt_every=args.ckpt_every,
+            max_restarts=args.max_restarts,
+            warm_restart=args.warm_restart,
+        )
     print(report.summary())
     return 0 if report.ok else 1
 

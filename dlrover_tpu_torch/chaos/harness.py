@@ -34,13 +34,24 @@ and the invariants its scenarios need:
 - :class:`NoOrphanProcesses` — nothing spawned for the job outlives
   it (forkserver children included).
 
-The multi-agent, elastic-resize and serving runners come with slices
-4 and 9 of the port, the sparse, RL and compile-cache invariants with
-slices 6, 7 and 8.
+Multi-agent runs (slice 4.2): :func:`run_scenario_multinode` drives N
+launcher processes against one journal-backed master subprocess, and
+:func:`run_elastic_resize_scenario` the world-resize churn (a shared
+checkpoint directory on one box stands in for the shared filesystem),
+with :class:`WorldSizeTrajectory`, :class:`BoundedStepLossPerRestart`,
+:class:`ResizePhasesOnTimeline`, :class:`NodeCompletedSteps`,
+:class:`NoRestartForNode` and :class:`InjectionsOnlyOnNode`.  The
+reference's resize set also holds ``NoDuplicateShards`` over the loop's
+sharded dataset, whose sharding client comes with slice 8 of the port.
+The serving runners come with slice 9, the sparse, RL and
+compile-cache invariants with slices 6, 7 and 8.
 """
 
 import json
 import os
+import signal
+import subprocess
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -50,8 +61,11 @@ from dlrover_tpu_torch.chaos.scenarios import (
     CHAOS_TRAIN_SCRIPT,
     CKPT_EVERY_ENV,
     DISK_EVERY_ENV,
+    RESIZE_TRAIN_SCRIPT,
     RUN_OPTIONS,
+    STEP_SLEEP_ENV,
     TOTAL_STEPS_ENV,
+    resize_reference_losses,
 )
 from dlrover_tpu_torch.chaos.schedule import load_scenario
 from dlrover_tpu_torch.common.env_utils import proc_stat_fields
@@ -59,10 +73,16 @@ from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.telemetry import timeline as flight
 from dlrover_tpu_torch.telemetry.events import (
     EVENT_LOG_ENV,
+    EVENTS_AGGREGATE_ENV,
     collect_events,
 )
 
 CHAOS_EVENT = "chaos_inject"
+
+TRAIN_SCRIPTS = {
+    "default": CHAOS_TRAIN_SCRIPT,
+    "resize": RESIZE_TRAIN_SCRIPT,
+}
 
 
 @dataclass
@@ -436,6 +456,269 @@ class LossTrajectoryMatches(Invariant):
 
 
 
+class WorldSizeTrajectory(Invariant):
+    """Elastic-resize invariant: the completed-world size actually
+    changed through the expected sequence — e.g. ``[2, 1, 2]`` means
+    the elastic-training rendezvous completed at 2 nodes, later at 1,
+    later at 2 again (extra rounds between are allowed; the FINAL
+    round must match the last expected size)."""
+
+    name = "world_size_trajectory"
+
+    def __init__(self, expected: Sequence[int]):
+        self.expected = list(expected)
+
+    def check(self, events, run):
+        sizes = [
+            len(e.get("nodes") or [])
+            for e in events
+            if e.get("type") == "rendezvous_complete"
+            and e.get("rdzv") == "elastic-training"
+        ]
+        if not sizes:
+            return InvariantResult(
+                self.name, False, "no elastic rendezvous rounds"
+            )
+        want = list(self.expected)
+        i = 0
+        for size in sizes:
+            if i < len(want) and size == want[i]:
+                i += 1
+        if i < len(want):
+            return InvariantResult(
+                self.name, False,
+                f"round sizes {sizes} do not contain the expected "
+                f"trajectory {want} (matched {i}/{len(want)})",
+            )
+        if sizes[-1] != want[-1]:
+            return InvariantResult(
+                self.name, False,
+                f"final world is {sizes[-1]}, expected {want[-1]} "
+                f"(sizes: {sizes})",
+            )
+        return InvariantResult(
+            self.name, True, f"round sizes {sizes} ⊇ {want}"
+        )
+
+
+class BoundedStepLossPerRestart(Invariant):
+    """Per-restart step loss: for every ``worker_restart`` on node N
+    at incarnation C, the steps lost between incarnation C-1's last
+    step and C's first step stay within one durable-checkpoint
+    interval, and the new incarnation never resumes AHEAD of recorded
+    progress.  A restart that lost more passes only if it resumed
+    exactly from the newest durable commit that existed when the new
+    incarnation booted (a kill can land past the last commit by more
+    than the cadence, and a cross-world restore skips the per-node shm
+    tier)."""
+
+    name = "bounded_step_loss_per_restart"
+
+    def __init__(self, interval: int):
+        self.interval = interval
+
+    def check(self, events, run):
+        steps = {}
+        first_ts = {}
+        for e in events:
+            if e.get("type") != "train_step":
+                continue
+            key = (e.get("node_rank"), e.get("restart_count", 0))
+            steps.setdefault(key, []).append(int(e.get("step", 0)))
+            ts = e.get("ts")
+            if ts is not None:
+                prev = first_ts.get(key)
+                if prev is None or ts < prev:
+                    first_ts[key] = ts
+        commits = sorted(
+            (e["ts"], int(e.get("step", 0)))
+            for e in events
+            if e.get("type") == "checkpoint_commit"
+            and e.get("ts") is not None
+        )
+        checked = 0
+        problems = []
+        for e in events:
+            if e.get("type") != "worker_restart":
+                continue
+            rank = e.get("node_rank")
+            count = e.get("restart_count")
+            before = steps.get((rank, count - 1))
+            after = steps.get((rank, count))
+            if not before or not after:
+                continue  # an incarnation never stepped: nothing lost
+            lost = max(before) - (min(after) - 1)
+            checked += 1
+            if lost < 0:
+                problems.append(
+                    f"node{rank} r{count} resumed AHEAD "
+                    f"({min(after)} after {max(before)})"
+                )
+            elif lost > self.interval:
+                boot_ts = first_ts.get((rank, count))
+                best = max(
+                    (step for ts, step in commits
+                     if boot_ts is None or ts <= boot_ts),
+                    default=None,
+                )
+                if best is not None and min(after) - 1 == best:
+                    continue  # resumed from the newest durable commit
+                problems.append(
+                    f"node{rank} r{count} lost {lost} step(s) > "
+                    f"interval {self.interval} and did not resume "
+                    f"from the newest commit "
+                    f"({best if best is not None else 'none seen'})"
+                )
+        if problems:
+            return InvariantResult(self.name, False, "; ".join(problems))
+        if not checked:
+            return InvariantResult(
+                self.name, False,
+                "no restart had steps on both sides to compare",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"{checked} restart(s) within interval {self.interval}",
+        )
+
+
+class ResizePhasesOnTimeline(Invariant):
+    """The assembled flight-recorder timeline carries the
+    ``dlrover_resize_seconds`` phase breakdown: per resize decision a
+    ``decide``/``rendezvous``/``first_step`` trail (``drain`` and
+    ``reshard_restore`` where the events exist), rendered as
+    ``resize``-cause slices."""
+
+    name = "resize_phases_on_timeline"
+
+    def __init__(self, min_resizes: int = 1):
+        self.min_resizes = min_resizes
+
+    def check(self, events, run):
+        tl = run.job_timeline
+        if tl is None:
+            tl = flight.assemble(events)
+        slices = tl.slices_by_cat(flight.CAUSE_RESIZE)
+        if not slices:
+            return InvariantResult(
+                self.name, False, "no resize slices on the timeline"
+            )
+        phases = {}
+        for s in slices:
+            phases.setdefault(s.meta.get("phase"), []).append(
+                round(s.duration, 3)
+            )
+        completed = len(phases.get("rendezvous", []))
+        if completed < self.min_resizes:
+            return InvariantResult(
+                self.name, False,
+                f"only {completed} resize(s) reached a completed "
+                f"rendezvous phase (need {self.min_resizes}); "
+                f"phases: {phases}",
+            )
+        missing = {"decide", "rendezvous", "first_step"} - set(phases)
+        if missing:
+            return InvariantResult(
+                self.name, False,
+                f"phase(s) {sorted(missing)} absent from the "
+                f"timeline (have {sorted(phases)})",
+            )
+        if "reshard_restore" not in phases:
+            return InvariantResult(
+                self.name, False,
+                f"no reshard_restore phase on any resize — the "
+                f"re-formed world never restored (phases: {phases})",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"{completed} completed resize(s); phase durations "
+            f"{ {k: v for k, v in sorted(phases.items())} }",
+        )
+
+
+class NodeCompletedSteps(Invariant):
+    """Per-node progress in a multi-agent run: node ``rank`` stepped
+    through at least ``total_steps`` (train_step events carry
+    node_rank)."""
+
+    def __init__(self, rank: int, total_steps: int):
+        self.rank = rank
+        self.total_steps = total_steps
+        self.name = f"node{rank}_completed"
+
+    def check(self, events, run):
+        steps = [
+            e["step"] for e in events
+            if e.get("type") == "train_step"
+            and e.get("node_rank") == self.rank
+        ]
+        top = max(steps) if steps else None
+        if top is None or top < self.total_steps:
+            return InvariantResult(
+                self.name, False,
+                f"node {self.rank} reached step {top} < budget "
+                f"{self.total_steps}",
+            )
+        return InvariantResult(
+            self.name, True, f"node {self.rank} reached step {top}",
+        )
+
+
+class NoRestartForNode(Invariant):
+    """An un-faulted node must never be restarted by someone else's
+    fault."""
+
+    def __init__(self, rank: int):
+        self.rank = rank
+        self.name = f"node{rank}_not_restarted"
+
+    def check(self, events, run):
+        restarts = [
+            e for e in events
+            if e.get("type") == "worker_restart"
+            and e.get("node_rank") == self.rank
+        ]
+        if restarts:
+            return InvariantResult(
+                self.name, False,
+                f"node {self.rank} restarted {len(restarts)} "
+                "time(s) though it was never faulted",
+            )
+        return InvariantResult(
+            self.name, True, f"node {self.rank} never restarted"
+        )
+
+
+class InjectionsOnlyOnNode(Invariant):
+    """The fault stayed confined to its target: every injection's
+    node_rank equals ``rank`` (subset-partition scenarios)."""
+
+    def __init__(self, rank: int, action: str = ""):
+        self.rank = rank
+        self.action = action
+        self.name = f"injections_only_on_node{rank}"
+
+    def check(self, events, run):
+        inj = _injections(events)
+        if self.action:
+            inj = [e for e in inj if e.get("action") == self.action]
+        if not inj:
+            return InvariantResult(
+                self.name, False, "no matching injections recorded"
+            )
+        strays = [e for e in inj if e.get("node_rank") != self.rank]
+        if strays:
+            return InvariantResult(
+                self.name, False,
+                f"{len(strays)} injection(s) fired on other nodes: "
+                f"{[e.get('node_rank') for e in strays]}",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"{len(inj)} injection(s), all on node {self.rank}",
+        )
+
+
 class DeterministicTimeline(Invariant):
     """The run's fault timeline equals a reference timeline (usually a
     prior run of the same scenario+seed)."""
@@ -793,6 +1076,9 @@ class ChaosRunReport:
     # re-parsing of raw events)
     job_timeline: Optional[flight.JobTimeline] = None
     attribution: Optional[dict] = None
+    # wall clock at which the harness respawned the job's master (the
+    # resize runner's ``respawn_master``), None when it did not
+    master_respawned_at: Optional[float] = None
 
     @property
     def ok(self) -> bool:
@@ -1095,5 +1381,430 @@ def run_scenario(
             scenario.name, total_steps, ckpt_every, workdir,
             disk_every=disk_every,
         )
+    )
+    return check_invariants(report, checks)
+
+
+# -- multi-agent runners -------------------------------------------------------
+
+
+def _pkg_env(base: Dict[str, str]) -> Dict[str, str]:
+    """``base`` with the port's package root on ``PYTHONPATH``, so the
+    subprocesses import it wherever the caller runs from."""
+    import dlrover_tpu_torch
+
+    pkg_root = os.path.dirname(os.path.dirname(dlrover_tpu_torch.__file__))
+    prev = base.get("PYTHONPATH", "")
+    if pkg_root not in prev.split(os.pathsep):
+        base["PYTHONPATH"] = (
+            f"{pkg_root}{os.pathsep}{prev}" if prev else pkg_root
+        )
+    return base
+
+
+def _start_master(base_env, workdir, port, nnodes, min_nodes=0,
+                  restart_count=0) -> subprocess.Popen:
+    """The job's journal-backed master as a subprocess on ``port``; a
+    respawn (``restart_count`` > 0) replays the same journal."""
+    from dlrover_tpu_torch.common.comm import addr_connected
+
+    env = dict(
+        base_env,
+        DLROVER_MASTER_JOURNAL_DIR=os.path.join(workdir, "master_journal"),
+        DLROVER_RESTART_COUNT=str(restart_count),
+    )
+    argv = [sys.executable, "-m", "dlrover_tpu_torch.master.main",
+            "--port", str(port), "--node_num", str(nnodes)]
+    if min_nodes:
+        argv += ["--min_nodes", str(min_nodes)]
+    master = subprocess.Popen(argv, env=env)  # noqa: S603
+    deadline = time.time() + 30
+    while not addr_connected(f"127.0.0.1:{port}"):
+        if master.poll() is not None or time.time() > deadline:
+            master.kill()
+            raise RuntimeError("multinode master failed to start")
+        time.sleep(0.2)
+    return master
+
+
+def _stop_master(master: subprocess.Popen):
+    if master.poll() is None:
+        master.terminate()
+        try:
+            master.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            master.kill()
+            master.wait()
+
+
+def default_multinode_invariants(
+    nnodes: int, total_steps: int, workdir: str,
+    faulted_rank: Optional[int] = None,
+) -> List[Invariant]:
+    """Per-node completion for every rank; when one rank carries the
+    fault, additionally pin the blast radius: injections confined to
+    it and no restart of the healthy ranks."""
+    checks: List[Invariant] = [
+        NodeCompletedSteps(rank, total_steps) for rank in range(nnodes)
+    ]
+    if faulted_rank is not None:
+        checks.append(InjectionsOnlyOnNode(faulted_rank))
+        checks.extend(
+            NoRestartForNode(rank)
+            for rank in range(nnodes) if rank != faulted_rank
+        )
+    checks.append(NoOrphanProcesses(marker=workdir))
+    return checks
+
+
+def run_scenario_multinode(
+    scenario,
+    workdir: str,
+    nnodes: int = 2,
+    total_steps: Optional[int] = None,
+    ckpt_every: Optional[int] = None,
+    max_restarts: int = 2,
+    monitor_interval: float = 0.3,
+    warm_restart: bool = False,
+    invariants: Optional[List[Invariant]] = None,
+    faulted_rank: Optional[int] = None,
+    timeout: float = 240.0,
+) -> ChaosRunReport:
+    """Drive ``nnodes`` REAL agent processes (each a full
+    ``python -m dlrover_tpu_torch.run`` supervision tree with its own
+    trainer, one box) against one shared, journal-backed master
+    subprocess.  Every process arms the same scenario via
+    ``DLROVER_CHAOS``; rules target a subset with ``env_equals:
+    {"DLROVER_NODE_RANK": ...}``.  One event log collects the whole
+    job (the master's, plus a log a node folded in through the
+    aggregate glob), and the invariants decide from it alone."""
+    from dlrover_tpu_torch.common.comm import find_free_port
+
+    scenario = load_scenario(scenario)
+    opts = RUN_OPTIONS.get(scenario.name, {})
+    if total_steps is None:
+        total_steps = int(opts.get("total_steps", 10))
+    if ckpt_every is None:
+        ckpt_every = int(opts.get("ckpt_every", 2))
+    step_sleep = float(opts.get("step_sleep", 0.0))
+    warm_restart = warm_restart or bool(opts.get("warm_restart"))
+    os.makedirs(workdir, exist_ok=True)
+    spec_path = os.path.join(workdir, "chaos_scenario.json")
+    with open(spec_path, "w") as f:
+        json.dump(scenario.to_dict(), f, indent=2)
+    script = os.path.join(workdir, "chaos_train.py")
+    with open(script, "w") as f:
+        f.write(CHAOS_TRAIN_SCRIPT)
+    event_log = os.path.join(workdir, "events.jsonl")
+    agent_event_glob = os.path.join(workdir, "events_node*.jsonl")
+    base_env = _pkg_env(dict(
+        os.environ,
+        **{
+            _chaos.CHAOS_ENV: spec_path,
+            EVENT_LOG_ENV: event_log,
+            EVENTS_AGGREGATE_ENV: agent_event_glob,
+            TOTAL_STEPS_ENV: str(total_steps),
+            CKPT_EVERY_ENV: str(ckpt_every),
+        },
+    ))
+    if step_sleep:
+        base_env[STEP_SLEEP_ENV] = str(step_sleep)
+    base_env.update(opts.get("extra_env", {}))
+    port = find_free_port()
+    addr = f"127.0.0.1:{port}"
+    master = _start_master(base_env, workdir, port, nnodes)
+    agents: List[subprocess.Popen] = []
+    logs: List = []
+    rc = 0
+    try:
+        for rank in range(nnodes):
+            env = dict(
+                base_env,
+                DLROVER_MASTER_ADDR=addr,
+                **{EVENT_LOG_ENV: os.path.join(
+                    workdir, f"events_node{rank}.jsonl")},
+                DLROVER_NODE_RANK=str(rank),
+                DLROVER_NODE_ID=str(rank),
+                DLROVER_SHARED_DIR=os.path.join(workdir, f"sock{rank}"),
+                DLROVER_METRICS_FILE=os.path.join(
+                    workdir, f"metrics_{rank}.json"),
+            )
+            out = open(os.path.join(workdir, f"agent{rank}.log"), "w")
+            logs.append(out)
+            argv = [
+                sys.executable, "-m", "dlrover_tpu_torch.run",
+                "--nnodes", str(nnodes),
+                "--nproc_per_node", "1",
+                f"--max_restarts={max_restarts}",
+                f"--monitor_interval={monitor_interval}",
+                "--node_rank", str(rank),
+            ]
+            if warm_restart:
+                argv.append("--warm-restart")
+            argv += [script, os.path.join(workdir, f"ckpt{rank}")]
+            agents.append(subprocess.Popen(  # noqa: S603
+                argv, env=env, stdout=out, stderr=subprocess.STDOUT,
+            ))
+        deadline = time.time() + timeout
+        for p in agents:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                rc = rc or 124
+            rc = rc or (p.returncode or 0)
+    finally:
+        for p in agents:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        _stop_master(master)
+        for out in logs:
+            out.close()
+
+    report = _build_report(scenario, rc, workdir, event_log,
+                           extra_sources=[agent_event_glob])
+    checks = (
+        invariants if invariants is not None
+        else default_multinode_invariants(
+            nnodes, total_steps, workdir, faulted_rank=faulted_rank)
+    )
+    return check_invariants(report, checks)
+
+
+def elastic_resize_invariants(
+    nnodes: int, total_steps: int, disk_every: int, workdir: str,
+) -> List[Invariant]:
+    """The elastic-resize acceptance set: the completed world really
+    changed N -> N-1 -> N, the cross-world restores came RESHARDED
+    from the committed storage tier, every reported loss matches the
+    uninterrupted control, per-restart step loss is bounded by the
+    durable interval, the final step commits, the resize phase
+    breakdown is on the timeline, and the goodput loss is booked under
+    the resize cause.  (The reference also holds the loop's sharded
+    dataset to exactly-once; its sharding client comes with slice 8 of
+    the port.)"""
+    return [
+        WorldSizeTrajectory([nnodes, nnodes - 1, nnodes]),
+        EventRecorded("resize_decision", min_count=2),
+        RestoredFromTier("storage"),
+        LossTrajectoryMatches(resize_reference_losses(total_steps)),
+        BoundedStepLossPerRestart(interval=disk_every),
+        FinalStepCommitted(),
+        ResizePhasesOnTimeline(min_resizes=2),
+        GoodputLossAttributed(
+            min_attributed_frac=0.5, expect_cause=flight.CAUSE_RESIZE,
+        ),
+        # overlapping incarnations (old world draining while the new
+        # world rendezvouses) must still each close their books
+        GoodputConservation(),
+        NoOrphanProcesses(marker=workdir),
+    ]
+
+
+def run_elastic_resize_scenario(
+    scenario,
+    workdir: str,
+    nnodes: int = 2,
+    min_nodes: int = 1,
+    kill_rank: Optional[int] = None,
+    total_steps: Optional[int] = None,
+    disk_every: Optional[int] = None,
+    max_restarts: int = 3,
+    monitor_interval: float = 0.3,
+    invariants: Optional[List[Invariant]] = None,
+    rejoin_after_steps: int = 2,
+    timeout: float = 240.0,
+    respawn_master: bool = False,
+) -> ChaosRunReport:
+    """Drive the elastic world-resize churn: ``nnodes`` real launcher
+    agents against a ``min_nodes``-floored master, ALL sharing one
+    checkpoint directory (the shared filesystem that makes cross-node
+    shard redistribution possible).  The scenario's ``kill_node`` rule
+    takes one agent's whole supervision tree down mid-run; the master
+    shrinks the world and the survivor reshards-restores.  Once the
+    shrunken world has made ``rejoin_after_steps`` steps, the harness
+    plays the cluster scheduler and starts a REPLACEMENT agent for the
+    lost rank (fresh shm namespace, a new host, and
+    ``DLROVER_AGENT_RESPAWNED=1`` so seeded rules never re-fire), which
+    grows the world back.  With ``respawn_master`` the harness first
+    SIGKILLs the master and respawns it on the same port and journal
+    (``report.master_respawned_at``), so the grown world rendezvouses
+    on the respawned master.  Invariants then decide everything from
+    the telemetry event log."""
+    from dlrover_tpu_torch.common.comm import find_free_port
+
+    scenario = load_scenario(scenario)
+    opts = RUN_OPTIONS.get(scenario.name, {})
+    if total_steps is None:
+        total_steps = int(opts.get("total_steps", 24))
+    if disk_every is None:
+        disk_every = int(opts.get("disk_every", 3))
+    step_sleep = float(opts.get("step_sleep", 0.0))
+    if kill_rank is None:
+        kill_rank = nnodes - 1
+    os.makedirs(workdir, exist_ok=True)
+    spec_path = os.path.join(workdir, "chaos_scenario.json")
+    with open(spec_path, "w") as f:
+        json.dump(scenario.to_dict(), f, indent=2)
+    script = os.path.join(workdir, "resize_train.py")
+    with open(script, "w") as f:
+        f.write(TRAIN_SCRIPTS[opts.get("train_script", "resize")])
+    event_log = os.path.join(workdir, "events.jsonl")
+    agent_event_glob = os.path.join(workdir, "events_node*.jsonl")
+    ckpt_dir = os.path.join(workdir, "ckpt")  # SHARED across nodes
+    base_env = _pkg_env(dict(
+        os.environ,
+        **{
+            _chaos.CHAOS_ENV: spec_path,
+            EVENT_LOG_ENV: event_log,
+            EVENTS_AGGREGATE_ENV: agent_event_glob,
+            TOTAL_STEPS_ENV: str(total_steps),
+            DISK_EVERY_ENV: str(disk_every),
+        },
+    ))
+    if step_sleep:
+        base_env[STEP_SLEEP_ENV] = str(step_sleep)
+    shrunk_sleep = float(opts.get("shrunk_step_sleep", 0.0))
+    if shrunk_sleep:
+        base_env["DLROVER_CHAOS_NNODES"] = str(nnodes)
+        base_env["DLROVER_CHAOS_SHRUNK_STEP_SLEEP"] = str(shrunk_sleep)
+    base_env.update(opts.get("extra_env", {}))
+    port = find_free_port()
+    addr = f"127.0.0.1:{port}"
+    master = _start_master(base_env, workdir, port, nnodes,
+                           min_nodes=min_nodes)
+
+    def agent_env(rank: int, respawn: bool) -> Dict[str, str]:
+        # a respawned rank is a REPLACEMENT host: a fresh IPC/shm
+        # namespace and the respawn marker protecting it from seeded
+        # rules
+        suffix = "b" if respawn else ""
+        env = dict(
+            base_env,
+            DLROVER_MASTER_ADDR=addr,
+            **{EVENT_LOG_ENV: os.path.join(
+                workdir, f"events_node{rank}.jsonl")},
+            DLROVER_NODE_RANK=str(rank),
+            DLROVER_NODE_ID=str(rank),
+            DLROVER_SHARED_DIR=os.path.join(workdir, f"sock{rank}{suffix}"),
+            DLROVER_METRICS_FILE=os.path.join(
+                workdir, f"metrics_{rank}{suffix}.json"),
+        )
+        if respawn:
+            env["DLROVER_AGENT_RESPAWNED"] = "1"
+        return env
+
+    def spawn_agent(rank: int, respawn: bool, logs: List):
+        out = open(os.path.join(
+            workdir, f"agent{rank}{'_respawn' if respawn else ''}.log"),
+            "w")
+        logs.append(out)
+        argv = [
+            sys.executable, "-m", "dlrover_tpu_torch.run",
+            "--nnodes", f"{min_nodes}:{nnodes}",
+            "--nproc_per_node", "1",
+            f"--max_restarts={max_restarts}",
+            f"--monitor_interval={monitor_interval}",
+            "--node_rank", str(rank),
+            script, ckpt_dir,
+        ]
+        return subprocess.Popen(  # noqa: S603
+            argv, env=agent_env(rank, respawn),
+            stdout=out, stderr=subprocess.STDOUT,
+        )
+
+    def shrunken_world_stepping() -> bool:
+        """The respawn trigger, from the event log alone: the world
+        reconverged at nnodes-1 AND made rejoin_after_steps steps since
+        (replacement capacity arriving mid-recovery would race the
+        shrink and prove nothing)."""
+        try:
+            ev = collect_events([event_log, agent_event_glob])
+        except Exception:  # noqa: BLE001 - torn mid-write reads retry
+            return False
+        round_ts = None
+        for e in ev:
+            if (
+                e.get("type") == "rendezvous_complete"
+                and e.get("rdzv") == "elastic-training"
+                and len(e.get("nodes") or []) == nnodes - 1
+            ):
+                round_ts = e["ts"]
+                break
+        if round_ts is None:
+            return False
+        later = [e for e in ev
+                 if e.get("type") == "train_step" and e["ts"] > round_ts]
+        return len(later) >= rejoin_after_steps
+
+    agents: Dict[int, subprocess.Popen] = {}
+    logs: List = []
+    rc = 0
+    respawned = False
+    master_respawned_at = None
+    try:
+        for rank in range(nnodes):
+            agents[rank] = spawn_agent(rank, respawn=False, logs=logs)
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            states = {r: p.poll() for r, p in agents.items()}
+            if not respawned and states.get(kill_rank) is not None:
+                if shrunken_world_stepping():
+                    if respawn_master:
+                        # the master dies between the shrink and the
+                        # grow; the grown world must rendezvous on its
+                        # respawn (same port, same journal)
+                        master.send_signal(signal.SIGKILL)
+                        master.wait()
+                        master_respawned_at = time.time()
+                        master = _start_master(
+                            base_env, workdir, port, nnodes,
+                            min_nodes=min_nodes, restart_count=1)
+                    logger.info(
+                        "shrunken world is stepping; respawning "
+                        "replacement agent for rank %s", kill_rank,
+                    )
+                    agents[kill_rank] = spawn_agent(
+                        kill_rank, respawn=True, logs=logs)
+                    respawned = True
+            elif all(st is not None for st in states.values()):
+                if respawned or states.get(kill_rank) is None:
+                    break
+            time.sleep(0.3)
+        else:
+            rc = 124  # deadline: kill whatever is left
+        for p in agents.values():
+            if p.poll() is None and rc == 124:
+                p.kill()
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                rc = rc or 124
+        if not respawned:
+            rc = rc or 125  # the churn never completed its arc
+        for p in agents.values():
+            # the killed rank's FIRST incarnation legitimately dies
+            # non-zero; every final incarnation must succeed
+            rc = rc or (p.returncode or 0)
+    finally:
+        for p in agents.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        _stop_master(master)
+        for out in logs:
+            out.close()
+
+    report = _build_report(scenario, rc, workdir, event_log,
+                           extra_sources=[agent_event_glob])
+    report.master_respawned_at = master_respawned_at
+    checks = (
+        invariants if invariants is not None
+        else elastic_resize_invariants(nnodes, total_steps, disk_every,
+                                       workdir)
     )
     return check_invariants(report, checks)

@@ -7,15 +7,21 @@ They are deliberately small compositions of the schedule vocabulary —
 the point of the subsystem is that new failure modes are a dict away,
 not a new test file away.
 
-Copy of ``dlrover_tpu/chaos/scenarios.py``, cut to the single-node
-scenarios of the port's slice 3b.2: the worker kill (SIGKILL and
-SIGTERM), the torn shm snapshot with its storage-tier fallback, the
-trainer hang and the two warm-template kills.  The train loop is the
-torch twin of the reference's ``CHAOS_TRAIN_SCRIPT``.  The other
-scripts and scenarios come with the slices that bring what they drive:
-the multi-node and resize scenarios with slice 4.2, the sparse and
-serving ones with slices 6 and 9, the RL one with slice 7, the
-master-recovery ones (they need the sharding client) and the
+Copy of ``dlrover_tpu/chaos/scenarios.py``, cut to the scenarios of
+the port's slices 3b.2 and 4.2: the worker kill (SIGKILL and SIGTERM),
+the torn shm snapshot with its storage-tier fallback, the trainer hang,
+the two warm-template kills and the elastic world resize
+(``elastic_resize_churn``).  The train loops are the torch twins of the
+reference's ``CHAOS_TRAIN_SCRIPT`` and ``RESIZE_TRAIN_SCRIPT`` (the
+latter a tiny GPT under FSDP2 on gloo).  The other scripts and
+scenarios come with the slices that bring what they drive: the other
+single-node scenarios (``rpc_partition``, ``storage_brownout``,
+``storage_stall``, ``straggler``, ``preemption_notice``,
+``shm_corruption``, ``ckpt_brownout_during_preemption``,
+``goodput_under_scheduled_churn``) and the multi-node hang and
+partition ones with slice 4.3, the sparse and serving ones with slices
+6 and 9, the RL one with slice 7, the master-recovery ones and the
+resize loop's sharded dataset (they need the sharding client) and the
 compile-cache one with slice 8.
 """
 
@@ -26,6 +32,7 @@ from dlrover_tpu_torch.chaos.schedule import Scenario
 # knobs the harness exports to the training subprocess
 TOTAL_STEPS_ENV = "DLROVER_CHAOS_TOTAL_STEPS"
 CKPT_EVERY_ENV = "DLROVER_CHAOS_CKPT_EVERY"
+STEP_SLEEP_ENV = "DLROVER_CHAOS_STEP_SLEEP"
 # durable mid-run saves every N steps (0 = only the final step goes
 # to disk) — the tier-fallback scenarios restore from these when the
 # shm snapshot is refused
@@ -193,6 +200,234 @@ ckpt.close()
 '''
 
 
+# Elastic world-resize train loop, the torch twin of the reference's
+# (its GSPMD toy parameter becomes the tiny GPT under FSDP2): every
+# incarnation forms its gloo group from the agent's env (a one-rank
+# group at world 1), shards the GPT with FSDP2 over every rank of it and
+# restores params and AdamW moments RESHARDED onto this world's
+# DTensors through load_checkpoint(target_state=...).  The storage tier
+# holds a shard file per rank, so a 2-node -> 1-node restore genuinely
+# redistributes node 1's shards onto node 0.  The batch of step k is a
+# pure function of k (:func:`resize_batch`), so the loss at step k is
+# the same for any world size and restart history:
+# :func:`resize_reference_losses` recomputes the uninterrupted control
+# in-process.  argv: ckpt_dir (SHARED across all nodes: that is what
+# makes cross-node redistribution possible).
+RESIZE_TRAIN_SCRIPT = r"""
+import os, sys, time
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from dlrover_tpu_torch.chaos.scenarios import (
+    resize_batch, resize_fsdp_model, resize_loss, resize_optimizer,
+)
+from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer, StorageType
+from dlrover_tpu_torch.common.comm import find_free_port
+from dlrover_tpu_torch.telemetry.events import emit_event
+from dlrover_tpu_torch.trainer.elastic_trainer import (
+    ElasticTrainer, TrainState, init_torch_distributed, make_train_step,
+)
+from dlrover_tpu_torch.utils.convert import (
+    adamw_state_from_tree, adamw_state_tree, params_tree,
+)
+
+ckpt_dir = sys.argv[1]
+TOTAL_STEPS = int(os.environ.get("DLROVER_CHAOS_TOTAL_STEPS", "24"))
+DISK_EVERY = int(os.environ.get("DLROVER_CHAOS_DISK_EVERY", "3"))
+STEP_SLEEP = float(os.environ.get("DLROVER_CHAOS_STEP_SLEEP", "0"))
+# tail-stretch: while below full strength (the shrunken world between
+# the kill and the grow-back) the loop crawls, so the job cannot finish
+# before the coordinator's grow-back decision lands
+NNODES = int(os.environ.get("DLROVER_CHAOS_NNODES", "0") or 0)
+SHRUNK_SLEEP = float(
+    os.environ.get("DLROVER_CHAOS_SHRUNK_STEP_SLEEP", "0") or 0
+)
+
+if not init_torch_distributed(device="cpu"):
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{find_free_port()}",
+        rank=0, world_size=1)
+# the rendezvous address this group formed on, as the master's reply for
+# the round handed it out (ROADMAP C 3: a respawned master picks anew)
+emit_event("process_group", world_size=dist.get_world_size(),
+           rank=dist.get_rank(),
+           coordinator=os.environ.get("DLROVER_COORDINATOR_ADDR", ""),
+           node_rank=int(os.environ.get("DLROVER_NODE_RANK", "0") or 0),
+           restart_count=int(
+               os.environ.get("DLROVER_RESTART_COUNT", "0") or 0))
+# the mesh spans EVERY rank of this world, as the reference's spans every
+# device: FSDP2 over it (an fsdp plan of auto_accelerate would keep the
+# fsdp axis inside a node)
+WORLD, RANK = dist.get_world_size(), dist.get_rank()
+model = resize_fsdp_model(init_device_mesh("cpu", (WORLD,)))
+optimizer = resize_optimizer(model.parameters())
+step_fn = make_train_step(resize_loss, optimizer, device="cpu")
+state = TrainState.create(model, optimizer)
+
+def place(k):
+    rows = 8 // WORLD
+    return {key: v[RANK * rows:(RANK + 1) * rows]
+            for key, v in resize_batch(k).items()}
+
+def tree():
+    return {"params": params_tree(model),
+            "opt_state": adamw_state_tree(optimizer, model)}
+
+tracker = os.path.join(ckpt_dir, "latest_checkpointed_iteration.txt")
+
+def committed_step():
+    try:
+        with open(tracker) as f:
+            return int(f.read().strip() or -1)
+    except (OSError, ValueError):
+        return -1
+
+ckpt = Checkpointer(ckpt_dir, replicated=False)
+# cross-world restores skip the shm tier (per-node, possibly another
+# step) and RESHARD from the committed storage tier
+step0, restored = ckpt.load_checkpoint(target_state=tree())
+start_step = 0
+if step0 is not None:
+    start_step = int(step0)
+    adamw_state_from_tree(restored["opt_state"], optimizer, model)
+    state.step = start_step
+
+trainer = ElasticTrainer(global_batch_size=8, micro_batch_size=8,
+                         dp_size=1)
+trainer.global_step = start_step
+
+for k in range(start_step, TOTAL_STEPS):
+    try:
+        with trainer.profile("compute") as p:
+            state, metrics = step_fn(state, place(k + 1))
+            loss = metrics["loss"].detach().clone()
+            dist.all_reduce(loss)
+            p.block(loss)
+    except RuntimeError as e:
+        # a lost peer surfaces in gloo as an error at the next
+        # collective, where the reference's collective wedges: wait here
+        # for the agent's drain, as the reference's wedged trainer does,
+        # so the master's resize coordinator (not a failure restart)
+        # re-forms the world
+        print(f"collective failed ({e}); waiting for the drain",
+              flush=True)
+        while True:
+            time.sleep(1.0)
+    trainer.report_step({"loss": float(loss) / WORLD})
+    if NNODES and WORLD < NNODES and SHRUNK_SLEEP:
+        time.sleep(SHRUNK_SLEEP)
+    elif STEP_SLEEP:
+        time.sleep(STEP_SLEEP)
+    with trainer.profile("checkpoint"):
+        if DISK_EVERY and trainer.global_step % DISK_EVERY == 0:
+            ckpt.save_checkpoint(
+                trainer.global_step, tree(), storage_type=StorageType.DISK,
+            )
+            ckpt.wait()
+            deadline = time.time() + 30
+            while (time.time() < deadline
+                   and committed_step() < trainer.global_step):
+                time.sleep(0.1)
+        else:
+            ckpt.save_checkpoint(
+                trainer.global_step, tree(), storage_type=StorageType.MEMORY,
+            )
+
+# final durable save: every rank persists its shard; the lead rank
+# waits for the commit (needs every surviving rank's done file)
+if RANK == 0:
+    deadline = time.time() + 60
+    while time.time() < deadline and committed_step() < TOTAL_STEPS:
+        ckpt.save_checkpoint(
+            TOTAL_STEPS, tree(), storage_type=StorageType.DISK,
+        )
+        ckpt.wait()
+        poll_end = time.time() + 10
+        while time.time() < poll_end and committed_step() < TOTAL_STEPS:
+            time.sleep(0.2)
+    assert committed_step() >= TOTAL_STEPS, (
+        "checkpoint commit did not land"
+    )
+else:
+    ckpt.save_checkpoint(
+        TOTAL_STEPS, tree(), storage_type=StorageType.DISK,
+    )
+    ckpt.wait()
+ckpt.close()
+"""
+
+# the resize loop's model, data and optimizer (torch is imported in the
+# worker and in the harness's control computation, never with this
+# module: the harness process of a single-node run is the agent's)
+RESIZE_SEQ = 16
+
+
+def resize_model():
+    """The tiny GPT in fp32, from a fixed seed."""
+    import torch
+
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+
+    return GPT(GPTConfig.tiny(max_seq_len=RESIZE_SEQ, dtype=torch.float32),
+               device="cpu", seed=0)
+
+
+def resize_batch(k: int):
+    """The batch of step ``k``: a pure function of ``k``, 8 rows."""
+    import numpy as np
+
+    data = np.random.default_rng(1000 + k).integers(
+        0, 256, (8, RESIZE_SEQ + 1), dtype=np.int32)
+    return {"x": data[:, :-1], "y": data[:, 1:]}
+
+
+def resize_loss(module, batch):
+    from dlrover_tpu_torch.models.gpt import cross_entropy_loss
+
+    return cross_entropy_loss(module(batch["x"]), batch["y"])
+
+
+def resize_optimizer(params):
+    import torch
+
+    return torch.optim.AdamW(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=0.1)
+
+
+def resize_fsdp_model(mesh):
+    """:func:`resize_model` under FSDP2 over ``mesh`` (each block, then
+    the root, as the port's fsdp plan wraps a GPT)."""
+    from torch.distributed.fsdp import fully_shard
+
+    model = resize_model()
+    for block in model.blocks:
+        fully_shard(block, mesh=mesh)
+    fully_shard(model, mesh=mesh)
+    return model
+
+
+def resize_reference_losses(total_steps: int):
+    """Uninterrupted-control loss trajectory of
+    :data:`RESIZE_TRAIN_SCRIPT`'s update rule, computed in-process on
+    one process with no group (the plain model and step).
+    ``result[k-1]`` is the loss the job must report at step ``k``
+    whatever its world size, restarts or resharded restores."""
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        TrainState,
+        make_train_step,
+    )
+
+    model = resize_model()
+    opt = resize_optimizer(model.parameters())
+    step = make_train_step(resize_loss, opt, device="cpu")
+    state = TrainState.create(model, opt)
+    out = []
+    for k in range(1, total_steps + 1):
+        state, metrics = step(state, resize_batch(k))
+        out.append(float(metrics["loss"]))
+    return out
+
+
 def kill_worker_midstep(seed: int = 42) -> Scenario:
     """THE acceptance scenario: SIGKILL the worker at a seed-chosen
     step mid-run.  The agent's monitor loop observes the death,
@@ -336,6 +571,39 @@ def trainer_hang_detected(seed: int = 47) -> Scenario:
     })
 
 
+def elastic_resize_churn(seed: int = 53) -> Scenario:
+    """Elastic world-resize acceptance: a NODE LOSS — one of two agents
+    dies with its whole worker tree (``kill_node``, no failure report,
+    exactly like a vanished VM) — and the job survives by training
+    SMALLER: the master's resize coordinator detects the silence,
+    decides world 2 -> 1, drains the survivor over the heartbeat-action
+    channel, and the re-formed world restores the checkpoint RESHARDED
+    (node 1's storage shards redistributed onto node 0).  The harness
+    then respawns the lost agent (a replacement host: fresh shm
+    namespace, ``DLROVER_AGENT_RESPAWNED`` marks it so the kill rule
+    never re-fires) and the job grows back to world 2 the same way.
+    Where the reference fires the loss 8 s after the agent starts, here
+    it fires once node 1 has trained past step 7 (past the commits of
+    steps 3 and 6): an incarnation of the port takes several seconds to
+    import torch and set up FSDP2, and a loss before the first commit
+    would leave the shrunken world nothing to reshard.  The timeline is
+    bounded, not byte-stable."""
+    return Scenario.from_dict({
+        "name": "elastic-resize-churn",
+        "seed": seed,
+        "rules": [{
+            "name": "node1-loss",
+            "point": "agent.monitor",
+            "action": "kill_node",
+            "after_step": 7,
+            "env_equals": {
+                "DLROVER_NODE_RANK": "1",
+                "DLROVER_AGENT_RESPAWNED": "",
+            },
+        }],
+    })
+
+
 SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
     "kill_worker_midstep": kill_worker_midstep,
     "sigterm_worker_midstep": sigterm_worker_midstep,
@@ -343,6 +611,7 @@ SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
     "warm_template_import_kill": warm_template_import_kill,
     "warm_template_midspawn_kill": warm_template_midspawn_kill,
     "trainer_hang_detected": trainer_hang_detected,
+    "elastic_resize_churn": elastic_resize_churn,
 }
 
 
@@ -353,6 +622,33 @@ SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
 # thresholds
 RUN_OPTIONS: Dict[str, Dict] = {
     "shm-corrupt-storage-fallback": {"disk_every": 4},
+    # the loop is stretched so the kill lands mid-run and disk commits
+    # every 3 steps bound the cross-world restore's step loss.  The
+    # reference's sharded dataset rides along on rank 0; its sharding
+    # client comes with slice 8 of the port, so this loop has none.
+    "elastic-resize-churn": {
+        "total_steps": 24,
+        "disk_every": 3,
+        "step_sleep": 0.3,
+        # while the world is shrunken the loop crawls: the replacement
+        # takes seconds to boot, and at 0.3 s/step the survivor would
+        # otherwise finish before the grow-back decision fires
+        "shrunk_step_sleep": 1.0,
+        "train_script": "resize",
+        "extra_env": {
+            "DLROVER_MONITOR_REPORT_INTERVAL": "0.5",
+            "DLROVER_HANG_DETECTION_S": "2.5",
+            "DLROVER_RESIZE_GRACE_S": "1.0",
+            "DLROVER_RESIZE_REDELIVER_S": "15.0",
+            "DLROVER_RESIZE_STOP_TIMEOUT_S": "1.5",
+            "DLROVER_SECONDS_TO_CHECK_HANG": "0.5",
+            "DLROVER_BREAKPOINT_COMMIT_TIMEOUT_S": "3",
+            # the coordinator owns BOTH resize directions: the
+            # agent-side membership fallback would race it on the
+            # grow-back and leave the decision un-journaled
+            "DLROVER_MEMBERSHIP_SELF_RESTART": "0",
+        },
+    },
     "warm-template-import-kill": {"warm_restart": True},
     "warm-template-midspawn-kill": {"warm_restart": True},
     # hang diagnosis in seconds instead of half an hour: fast step

@@ -4,11 +4,13 @@ Copy of ``dlrover_tpu/checkpoint/checkpointer.py`` (reference:
 ``Checkpointer`` ABC + ``DdpCheckpointer``,
 ``dlrover/trainer/torch/flash_checkpoint/checkpointer.py:23``,
 ``ddp.py:25``).  One class covers replicated state dicts (DDP parity)
-and per-process shards (``replicated=False``).  The orbax tier of the
-reference (``orbax_dir``/``orbax_every``, a re-shardable durable copy
-through ``torch.distributed.checkpoint``) comes with slice 8 of the
-port, the restore onto a sharded template (``load_checkpoint(
-target_state=...)``) with slice 4.2.
+and per-process shards (``replicated=False``, DTensor state).
+``load_checkpoint(target_state=...)`` restores onto the target's own
+tensors, resharded (``CheckpointEngine.load_sharded``), and the orbax
+tier (``orbax_dir``/``orbax_every``) writes every Nth storage save as a
+reshardable durable copy through ``torch.distributed.checkpoint``
+(:mod:`dlrover_tpu_torch.checkpoint.orbax_compat`), the last resort of
+a restore.
 """
 
 import threading
@@ -85,11 +87,10 @@ class Checkpointer:
         orbax_every: int = 0,
         **engine_kwargs,
     ):
-        if orbax_dir or orbax_every:
-            raise NotImplementedError(
-                "the orbax tier (orbax_dir/orbax_every) comes with slice "
-                "8 of the port"
-            )
+        """``orbax_dir`` + ``orbax_every``: additionally write every Nth
+        storage save through the orbax tier, the reshardable durable
+        copy a topology change restores from (reference: the DCP tier
+        next to flash saves)."""
         self.checkpoint_dir = checkpoint_dir
         self._engine = CheckpointEngine(
             checkpoint_dir,
@@ -97,6 +98,22 @@ class Checkpointer:
             deletion_keep_latest=deletion_keep_latest,
             **engine_kwargs,
         )
+        self._orbax_dir = orbax_dir
+        self._orbax_every = orbax_every
+        self._orbax = None
+        self._orbax_waiter: Optional[threading.Thread] = None
+        self._orbax_hung = False
+        self._orbax_dirty = False
+        self._storage_saves = 0
+
+    def _orbax_tier(self):
+        if self._orbax is None and self._orbax_dir:
+            from dlrover_tpu_torch.checkpoint.orbax_compat import (
+                GlobalCheckpointer,
+            )
+
+            self._orbax = GlobalCheckpointer(self._orbax_dir)
+        return self._orbax
 
     @property
     def engine(self) -> CheckpointEngine:
@@ -114,7 +131,22 @@ class Checkpointer:
     ) -> bool:
         if storage_type == StorageType.MEMORY:
             return self._engine.save_to_memory(step, state_dict, path)
-        return self._engine.save_to_storage(step, state_dict, path)
+        ok = self._engine.save_to_storage(step, state_dict, path)
+        # the durable tier is independent of the flash tier: a flash
+        # save skipped as busy must not starve the orbax cadence, and
+        # the cadence counts SAVES (not raw step numbers, which may
+        # never hit the modulo)
+        self._storage_saves += 1
+        if (
+            self._orbax_every
+            and (self._storage_saves - 1) % self._orbax_every == 0
+            and self._orbax_tier() is not None
+        ):
+            # DCP stages a CPU copy before returning, so the next
+            # in-place update cannot reach the write
+            self._orbax_tier().save(step, state_dict)
+            self._orbax_dirty = True
+        return ok
 
     @property
     def last_restore_phases(self):
@@ -126,17 +158,45 @@ class Checkpointer:
     def load_checkpoint(
         self, target_state: Any = None, orbax_dir: str = "",
     ) -> Tuple[Optional[int], Any]:
-        """``(step, state)``: shm first, then storage; the state is a
-        nested dict of private CPU tensors and scalars
-        (:func:`restore_to_template` copies it onto the caller's
-        tensors).  ``(None, {})`` when there is no checkpoint."""
+        """``(step, state)``.  Without ``target_state``: shm first, then
+        storage, then the orbax tier (``orbax_dir`` or the configured
+        one); the state is a nested dict of private CPU tensors and
+        scalars (:func:`restore_to_template` copies it onto the
+        caller's tensors).  With ``target_state`` (a tree of DTensors,
+        tensors and other leaves): every tensor of the target is
+        restored in place, resharded onto its placements, from shm,
+        then every rank file of storage, then the orbax tier
+        (``CheckpointEngine.load_sharded``).  ``(None, {})`` when there
+        is no checkpoint.
+
+        Both paths run the staged restore pipeline
+        (``DLROVER_RESTORE_WORKERS`` sizes the pool, ``1`` is the exact
+        serial path)."""
         if target_state is not None:
-            return self._engine.load_sharded(target_state)
-        if orbax_dir:
-            raise NotImplementedError(
-                "the orbax tier comes with slice 8 of the port"
+            return self._engine.load_sharded(
+                target_state, orbax_dir=orbax_dir or self._orbax_dir
             )
-        return self._engine.load()
+        step, state = self._engine.load()
+        if step is None and (orbax_dir or self._orbax_dir):
+            # shm and flash storage gone (a replaced node): the durable
+            # tier is the last resort even without a target; a per-call
+            # orbax_dir overrides the configured one
+            if orbax_dir and orbax_dir != self._orbax_dir:
+                from dlrover_tpu_torch.checkpoint.orbax_compat import (
+                    GlobalCheckpointer,
+                )
+
+                tier = GlobalCheckpointer(orbax_dir)
+                try:
+                    return tier.restore()
+                finally:
+                    tier.close()
+            tier = self._orbax_tier()
+            if tier is not None:
+                step, state = tier.restore()
+                if step is not None:
+                    return step, state
+        return step, state
 
     def load_checkpoint_async(
         self, target_state: Any = None, orbax_dir: str = "",
@@ -155,11 +215,45 @@ class Checkpointer:
 
     def wait(self, timeout: float = 600.0) -> bool:
         """Block until in-flight async snapshot writes reach shared
-        memory (call before process exit so the last save is
-        restorable)."""
-        return self._engine.wait_async(timeout=timeout)
+        memory AND in-flight orbax-tier writes complete (call before
+        process exit so the last save is restorable).  The timeout
+        bounds the whole call: a hung store cannot block a preemption
+        grace period."""
+        import time as _time
+
+        deadline = _time.monotonic() + timeout
+        # split the budget only when the durable tier has pending work
+        orbax_pending = self._orbax is not None and (
+            self._orbax_dirty or self._orbax_waiter is not None
+        )
+        engine_budget = (
+            max(0.1, timeout * 0.7) if orbax_pending else timeout
+        )
+        ok = self._engine.wait_async(timeout=engine_budget)
+        if orbax_pending:
+            # a stale waiter entered the wait BEFORE saves issued since,
+            # so only a fresh wait that completes counts as success
+            stale = self._orbax_waiter
+            if stale is not None and stale.is_alive():
+                stale.join(timeout=max(0.05, deadline - _time.monotonic()))
+                if stale.is_alive():
+                    self._orbax_hung = True
+                    return False
+            fresh = threading.Thread(target=self._orbax.wait, daemon=True)
+            fresh.start()
+            fresh.join(timeout=max(0.05, deadline - _time.monotonic()))
+            timed_out = fresh.is_alive()
+            self._orbax_waiter = fresh if timed_out else None
+            self._orbax_hung = timed_out
+            self._orbax_dirty = timed_out
+            ok = ok and not timed_out
+        return ok
 
     def close(self):
+        if self._orbax is not None and not self._orbax_hung:
+            # a wait() that already timed out means the store is hung;
+            # an unbounded wait here would outlast the caller's bound
+            self._orbax.close()
         self._engine.close()
 
 
@@ -172,8 +266,10 @@ def restore_to_template(template, restored, stats=None):
     template's (named tuples, lists, tuples), numpy leaves as numpy,
     other leaves as restored.  Returns the rebuilt tree.
 
-    Missing leaves raise ``KeyError``; a shape or dtype that differs
-    from the template's raises ``ValueError``.  With ``stats`` (a
+    A DTensor leaf of the template takes its own box of the restored
+    full tensor into its local part.  Missing leaves raise
+    ``KeyError``; a shape or dtype that differs from the template's
+    raises ``ValueError``.  With ``stats`` (a
     :class:`~.restore.RestoreStats`), the copies' wall time, through
     the end of the device copies, is added to ``stats.h2d_s``.
     """
@@ -190,6 +286,8 @@ def restore_to_template(template, restored, stats=None):
                 )
         return node
 
+    from dlrover_tpu_torch.checkpoint.sharded import is_dtensor, local_box
+
     devices = set()
 
     def put(path, tleaf):
@@ -202,9 +300,15 @@ def restore_to_template(template, restored, stats=None):
                     f"{val.dtype}{list(val.shape)}, the template "
                     f"{tleaf.dtype}{list(tleaf.shape)}"
                 )
-            tleaf.copy_(val, non_blocking=tleaf.is_cuda)
-            if tleaf.is_cuda:
-                devices.add(tleaf.device)
+            dst = tleaf
+            if is_dtensor(tleaf):
+                # this rank's box of the full tensor into its local part
+                dst = tleaf.to_local()
+                val = val[tuple(slice(lo, hi) for lo, hi in
+                                local_box(tleaf))]
+            dst.copy_(val, non_blocking=dst.is_cuda)
+            if dst.is_cuda:
+                devices.add(dst.device)
             return tleaf
         if isinstance(tleaf, np.ndarray):
             return val.numpy() if isinstance(val, torch.Tensor) else val

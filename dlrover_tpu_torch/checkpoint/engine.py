@@ -23,8 +23,17 @@ device->host transfer; the buffer stays referenced until that transfer
 is done.  Host tensors and numpy leaves are copied on the host before
 the call returns.
 
-Sparse state (``register_sparse``) comes with slice 6 of the port, the
-target-sharded restore (``load_sharded``) with slice 4.2.
+A sharded leaf (a DTensor whose placements are not all ``Replicate``:
+FSDP2's parameters and AdamW's moments of them, tensor-parallel
+weights) goes into the snapshot as this rank's local tensor only
+(``to_local()``, never ``full_tensor()``), written under ``key@shardN``
+with its global box; with ``replicated=False`` every rank persists its
+own shard file.  :meth:`CheckpointEngine.load_sharded` restores onto a
+target state's own tensors, resharded (reference ``engine.py:1017-1417``).
+
+Sparse state (``register_sparse``) and the sparse and kv branches of
+``load_sharded`` (reference ``:1164-1207``) come with slice 6 of the
+port.
 """
 
 import os
@@ -48,10 +57,14 @@ from dlrover_tpu_torch.checkpoint.saver import (
 )
 from dlrover_tpu_torch.checkpoint.shm_handler import (
     CheckpointConfig,
+    SHARD_SEP,
+    ShardLeaf,
     SharedMemoryHandler,
     SnapshotLeaf,
     _as_bytes,
+    _flatten_state_dict,
     _walk,
+    flat_from_raw,
     map_leaves,
     paged_enabled,
     state_dict_from_raw,
@@ -364,15 +377,32 @@ class CheckpointEngine:
         :class:`~.shm_handler.SnapshotLeaf` views of the buffer, which
         stays referenced until the writer thread has copied it to the
         host.  Host tensors and numpy leaves are copied here; other
-        leaves (step counters, strings) pass through."""
+        leaves (step counters, strings) pass through.  Of a DTensor only
+        this rank's local tensor is copied, as a
+        :class:`~.shm_handler.ShardLeaf` with its global box when the
+        DTensor is sharded."""
+        from dlrover_tpu_torch.checkpoint.sharded import (
+            is_dtensor,
+            is_sharded_leaf,
+            local_shards,
+        )
+
         cuda: Dict[torch.device, list] = {}
 
+        def copy_tensor(t):
+            if t.is_cuda:
+                cuda.setdefault(t.device, []).append(t)
+                return t
+            return t.detach().clone()
+
         def host_copy(path, leaf):
+            if is_sharded_leaf(leaf):
+                (box, local), = local_shards(leaf)
+                return ShardLeaf(copy_tensor(local), box, leaf.shape)
+            if is_dtensor(leaf):
+                return copy_tensor(leaf.to_local())
             if isinstance(leaf, torch.Tensor):
-                if leaf.is_cuda:
-                    cuda.setdefault(leaf.device, []).append(leaf)
-                    return leaf
-                return leaf.detach().clone()
+                return copy_tensor(leaf)
             if isinstance(leaf, np.ndarray):
                 return leaf.copy()
             return leaf
@@ -406,8 +436,13 @@ class CheckpointEngine:
                 copies[id(t)] = SnapshotLeaf(flat, offset, t.shape, t.dtype)
                 offset += p.numel()
             nbytes += offset
-        snap = map_leaves(
-            lambda path, leaf: copies.get(id(leaf), leaf), snap)
+        def swap(path, leaf):
+            if isinstance(leaf, ShardLeaf):
+                return ShardLeaf(copies.get(id(leaf.data), leaf.data),
+                                 leaf.index, leaf.global_shape)
+            return copies.get(id(leaf), leaf)
+
+        snap = map_leaves(swap, snap)
         self._snapshot_timing = timing
         self.last_snapshot_phases = {"bytes": nbytes}
         return snap, events
@@ -637,11 +672,271 @@ class CheckpointEngine:
         )
         return step, state
 
-    def load_sharded(self, target_state, orbax_dir: str = ""):
-        raise NotImplementedError(
-            "the target-sharded restore (load_sharded) comes with "
-            "slice 4.2 of the port (scale-out)"
+    def load_sharded(
+        self, target_state, orbax_dir: str = "",
+    ) -> Tuple[Optional[int], Any]:
+        """Restore onto ``target_state``'s own tensors, resharded as
+        needed (reference: ``load_sharded``, ``engine.py:1017``;
+        capability of ``fsdp_engine.py``'s reshard on load).
+
+        ``target_state`` is a tree of DTensors (each restored into its
+        ``to_local()``), plain tensors (restored in place), numpy arrays
+        and other leaves (returned as saved).  Tier order: (1) this
+        rank's shm snapshot, skipped when it was taken at another world
+        size (each survivor's segment may hold another step; a resized
+        world restores from committed storage), (2) every rank file of
+        the last committed storage step, (3) the orbax tier at
+        ``orbax_dir``.  Under a process group the ranks take the shm
+        tier only when every rank's snapshot holds the same step (a kill
+        that lands mid-write leaves one rank's segment torn or older), so
+        all restore one step.  Every target box is copied out of the
+        overlapping saved boxes; a tier whose boxes do not cover the
+        target is skipped.  Returns ``(step, tree)``, the tree in the
+        target's structure holding the target's own tensors, or
+        ``(None, {})`` when no tier holds a checkpoint; raises when a
+        checkpoint exists but no tier covers the target."""
+        from dlrover_tpu_torch.checkpoint.restore import RestoreStats
+        from dlrover_tpu_torch.telemetry.tracing import span as _span
+
+        failures: List[str] = []
+        with _span("ckpt.restore") as sp:
+            sp.set_attribute("sharded", True)
+            stats = RestoreStats()
+            t0 = time.perf_counter()
+            config, flat, metas = self._shm_handler.load_flat(
+                stats=stats, detach=False)
+            if config is not None and int(
+                getattr(config, "world_size", 0) or 0
+            ) != self._world_size:
+                logger.warning(
+                    "shm snapshot is from world size %s but this world "
+                    "is %s; skipping the shm tier (cross-world restores "
+                    "reshard from committed storage)",
+                    config.world_size, self._world_size,
+                )
+                config, flat = None, {}
+            step = _agreed_shm_step(config.step if config is not None
+                                    and flat else None)
+            if config is not None and step is None:
+                logger.warning(
+                    "the ranks' shm snapshots hold different steps (a "
+                    "kill landed mid-write); skipping the shm tier")
+                config, flat = None, {}
+            if config is not None and flat:
+                state = self._assemble_to_target(
+                    target_state, flat, metas, stats, failures)
+                flat = None
+                if state is not None:
+                    self._record_restore(
+                        "shm", config.step, time.perf_counter() - t0,
+                        {**stats.to_phases(), "sharded": True}, sp,
+                    )
+                    logger.info(
+                        "restored sharded step %s from shared memory "
+                        "(read %.3fs, assemble %.3fs, h2d %.3fs)",
+                        config.step, stats.read_s, stats.assemble_s,
+                        stats.h2d_s,
+                    )
+                    return config.step, state
+            stats = RestoreStats()
+            t0 = time.perf_counter()
+            step, shards = read_last_checkpoint(
+                self.checkpoint_dir, self._storage, stats=stats)
+            if step is not None and shards:
+                flat_all: Dict[str, Any] = {}
+                metas_all: Dict[str, Any] = {}
+                for rank, (meta, raw) in sorted(shards.items()):
+                    f, m = flat_from_raw(meta, raw, stats=stats,
+                                         detach=False)
+                    for key, val in f.items():
+                        # shard keys collide across ranks; namespace
+                        # them (the ranks in order, so a replicated box
+                        # keeps the lowest rank's copy)
+                        nk = f"{key}~r{rank}" if SHARD_SEP in key else key
+                        flat_all[nk] = val
+                        if key in m:
+                            metas_all[nk] = m[key]
+                state = self._assemble_to_target(
+                    target_state, flat_all, metas_all, stats, failures)
+                flat_all = shards = None
+                if state is not None:
+                    self._record_restore(
+                        "storage", step, time.perf_counter() - t0,
+                        {**stats.to_phases(), "sharded": True}, sp,
+                    )
+                    logger.info(
+                        "restored sharded step %s from storage (read "
+                        "%.3fs, assemble %.3fs, h2d %.3fs)", step,
+                        stats.read_s, stats.assemble_s, stats.h2d_s,
+                    )
+                    return step, state
+            if orbax_dir:
+                from dlrover_tpu_torch.checkpoint.orbax_compat import (
+                    GlobalCheckpointer,
+                )
+
+                t0 = time.perf_counter()
+                ckptr = GlobalCheckpointer(orbax_dir)
+                try:
+                    step, state = ckptr.restore(target_state)
+                finally:
+                    ckptr.close()
+                if step is not None:
+                    # the orbax tier is opaque: total only
+                    self._record_restore(
+                        "orbax", step, time.perf_counter() - t0,
+                        {"sharded": True}, sp,
+                    )
+                    return step, state
+            sp.set_attribute("tier", "none")
+            if failures:
+                raise RuntimeError(
+                    "no checkpoint tier covers the target state: "
+                    + "; ".join(failures))
+            return None, {}
+
+    def _assemble_to_target(self, target_state, flat, metas, stats=None,
+                            failures: Optional[List[str]] = None):
+        """Restore every leaf of ``target_state`` from saved entries
+        (views of the shm segment or of the storage mmaps); None when
+        coverage is incomplete (the caller tries the next tier, the
+        reason appended to ``failures``).
+
+        Staged as the reference's (``engine.py:1209-1417``): the host
+        assembly of leaf k+1 (copies of the overlapping boxes into a new
+        CPU tensor, GIL released) runs on the restore pool while this
+        thread commits leaf k into its target, in a bounded window of
+        leaves, so page-in, memcpy and the copies to the card overlap.
+        A target box that one saved box matches exactly (a same-world
+        restore) is copied straight from the view into the target.  The
+        card is synchronised before returning, so the views outlive
+        every copy that reads them."""
+        from dlrover_tpu_torch.checkpoint.restore import (
+            RestoreStats,
+            StagedRestore,
         )
+        from dlrover_tpu_torch.checkpoint.sharded import (
+            assemble_shard,
+            assemble_target_pieces,
+            commit_target_pieces,
+            group_shard_entries,
+        )
+        from dlrover_tpu_torch.checkpoint.shm_handler import (
+            dtype_name,
+            torch_dtype,
+        )
+
+        if stats is None:
+            stats = RestoreStats()
+        grouped, plain = group_shard_entries(flat, metas)
+        shard_meta: Dict[str, Any] = {}
+        for k, m in metas.items():
+            if SHARD_SEP in k and m.index is not None:
+                shard_meta.setdefault(k.split(SHARD_SEP, 1)[0], m)
+        target_flat = _flatten_state_dict(target_state)
+
+        def host_job(key, target):
+            """Host half of one leaf (pool thread, CPU copies only):
+            ('pieces', [(device, piece)]) for a tensor target,
+            ('value', v) for any other leaf, ('missing', why)."""
+            if not isinstance(target, (torch.Tensor, np.ndarray)):
+                if key in plain:
+                    return "value", plain[key]
+                return "missing", f"missing leaf '{key}' in checkpoint"
+            if key in grouped:
+                m = shard_meta[key]
+                gshape, saved = tuple(m.global_shape), m.dtype
+                entries = grouped[key]
+            elif key in plain and isinstance(plain[key], torch.Tensor):
+                val = plain[key]
+                gshape, saved = tuple(val.shape), dtype_name(val.dtype)
+                entries = [(tuple((0, d) for d in gshape), val)]
+            else:
+                return "missing", f"missing leaf '{key}' in checkpoint"
+            if isinstance(target, np.ndarray):
+                want = np.dtype(target.dtype).name
+                shape = tuple(target.shape)
+            else:
+                want, shape = dtype_name(target.dtype), tuple(target.shape)
+            if saved != want or gshape != shape:
+                return "missing", (
+                    f"leaf '{key}': checkpoint has {saved}{list(gshape)}, "
+                    f"the target {want}{list(shape)}")
+            if isinstance(target, np.ndarray):
+                full = assemble_shard(tuple((0, d) for d in gshape),
+                                      torch_dtype(saved), entries)
+                if full is None:
+                    return "missing", f"saved shards do not cover '{key}'"
+                return "value", full.numpy().copy()
+            pieces = assemble_target_pieces(
+                gshape, torch_dtype(saved), target, entries)
+            if pieces is None:
+                return "missing", f"saved shards do not cover '{key}'"
+            return "pieces", pieces
+
+        out: Dict[str, Any] = {}
+        failed: Optional[str] = None
+        devices = set()
+        with StagedRestore() as staged:
+            # a bounded window: submitting every leaf at once would let
+            # the pool hold a private copy of the whole state
+            window = max(2, staged.workers + 2)
+            leaf_iter = iter(target_flat.items())
+            jobs: list = []
+            depth = 0
+
+            def refill():
+                nonlocal depth
+                while depth < window:
+                    nxt = next(leaf_iter, None)
+                    if nxt is None:
+                        return
+                    key, leaf = nxt
+                    jobs.append((key, leaf, staged.submit(host_job, key,
+                                                          leaf)))
+                    depth += 1
+
+            refill()
+            i = 0
+            while i < len(jobs):
+                key, target, fut = jobs[i]
+                jobs[i] = None
+                i += 1
+                t0 = time.perf_counter()
+                try:
+                    kind, payload = fut.result()
+                except Exception as e:  # noqa: BLE001 - next tier
+                    kind, payload = "missing", f"'{key}': {e}"
+                del fut
+                stats.assemble_s += time.perf_counter() - t0
+                depth -= 1
+                if failed is None:
+                    refill()
+                if failed is not None:
+                    continue  # drain the futures in flight
+                if kind == "missing":
+                    failed = payload
+                    continue
+                if kind == "pieces":
+                    t0 = time.perf_counter()
+                    with torch.no_grad():
+                        out[key] = commit_target_pieces(target, payload)
+                    if target.is_cuda:
+                        devices.add(target.device)
+                    stats.h2d_s += time.perf_counter() - t0
+                    continue
+                out[key] = payload
+        if failed is not None:
+            logger.warning("tier skipped: %s", failed)
+            if failures is not None:
+                failures.append(failed)
+            return None
+        t0 = time.perf_counter()
+        for device in devices:
+            torch.cuda.synchronize(device)
+        stats.h2d_s += time.perf_counter() - t0
+        return map_leaves(lambda path, leaf: out["/".join(path)],
+                          target_state)
 
     def close(self):
         self.wait_async(timeout=60.0)
@@ -658,6 +953,24 @@ class CheckpointEngine:
             self._prefault_thread.join(timeout=30.0)
         self._prefault_thread = None
         self._shm_handler.close()
+
+
+def _agreed_shm_step(step: Optional[int]) -> Optional[int]:
+    """``step`` when every rank of the default process group holds an
+    shm snapshot of that same step (``None`` for none), else None; with
+    no process group, ``step`` itself."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or (
+            dist.get_world_size() == 1):
+        return step
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    mine = -1 if step is None else int(step)
+    both = torch.tensor([mine, -mine], dtype=torch.int64, device=device)
+    dist.all_reduce(both, op=dist.ReduceOp.MIN)
+    low, high = int(both[0]), -int(both[1])
+    return step if low == high and low >= 0 else None
 
 
 # bytes a torch.cat of the snapshot copies at once: a few large launches,

@@ -16,6 +16,13 @@ running them one leaf after another:
 - **h2d**: the caller copies the private tensors to its devices
   (:func:`dlrover_tpu_torch.checkpoint.checkpointer.restore_to_template`).
 
+The target-state restore (``CheckpointEngine.load_sharded``) runs the
+same stages over views of the segment or the mmaps: the pool assembles
+each target box that no saved box matches exactly (the ``assemble``
+stage, a bounded window of leaves ahead), and the caller's thread copies
+each box into its target's own tensor (``h2d``; a box that one saved box
+matches goes there straight from the view).
+
 ``DLROVER_RESTORE_WORKERS`` sizes the pool; ``1`` bypasses the pool
 and runs the copies inline in order.  Stage wall times land in
 :class:`RestoreStats` (``read_s``/``assemble_s``/``h2d_s``), which the

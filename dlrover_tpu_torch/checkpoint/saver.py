@@ -92,6 +92,10 @@ class SaverConfig:
     extra: Dict = field(default_factory=dict)
 
 
+# seconds the persist of a step waits for a local peer's snapshot of it
+_LOCAL_PEER_WAIT_S = 10.0
+
+
 def shard_file(rank: int) -> str:
     return f"rank_{rank}.ckpt"
 
@@ -398,6 +402,19 @@ class AsyncCheckpointSaver:
                     )[::4096].sum()
         except Exception:  # noqa: BLE001 - best-effort warmup
             pass
+        # several processes a node write their snapshots at their own
+        # pace, and the local lead's SAVE event may arrive before a
+        # peer's snapshot of the step is in shm: wait for it (bounded)
+        # instead of failing the step's commit.  One process a node has
+        # no peer to wait for, as in the reference.
+        catch_up = time.time() + (
+            _LOCAL_PEER_WAIT_S if len(self._shm_handlers) > 1 else 0.0)
+        while True:
+            cfg = handler.get_checkpoint_config()
+            if (cfg is not None and not cfg.writing
+                    and cfg.step >= step) or time.time() >= catch_up:
+                break
+            time.sleep(0.02)
         acquired = lock.acquire(timeout=60.0)
         if not acquired:
             # reading shm unlocked races the trainer's next save; a torn

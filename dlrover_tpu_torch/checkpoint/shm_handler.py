@@ -20,13 +20,17 @@ stream fills two pinned staging buffers in turn with
 ``copy_(non_blocking=True)`` while the host copies the other buffer
 into the segment (a CPU ``copy_``, which runs with the GIL released).
 
-A snapshot the JAX package took of global sharded arrays holds one
-entry per shard (``key@shardN``, with the shard's index ranges in its
-``TensorMeta``); the reads here assemble them into full tensors, as the
-reference's ``_assemble_flat`` does.  Writing shards (DTensor) and
-restoring onto a sharded template come with slice 4.2 of the port; the
-paged base+delta tier (``DLROVER_SHM_PAGED``, reference ``:425-1058``)
-with the sparse state in slice 6.  A save fires the reference's
+A sharded leaf (a DTensor whose placements are not all ``Replicate``,
+like the JAX package's global sharded arrays) is written as this rank's
+local tensor under ``key@shardN``, with the shard's global index ranges
+and the leaf's global shape in its ``TensorMeta`` (reference ``:42``,
+``:115-140``), so a sharded layout written by either package reads the
+same.  The untargeted reads assemble those entries into full tensors,
+as the reference's ``_assemble_flat`` does; the target-state restore
+(``CheckpointEngine.load_sharded``) reads them as views (``load_flat``
+/ ``flat_from_raw`` with ``detach=False``) and copies each target box
+straight out of them.  The paged base+delta tier (``DLROVER_SHM_PAGED``,
+reference ``:425-1058``) comes with the sparse state in slice 6.  A save fires the reference's
 ``ckpt.shm_save`` chaos hook once its snapshot is published.
 
 torch is imported where a tensor is made or read, not with the module:
@@ -50,6 +54,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from dlrover_tpu_torch.checkpoint.sharded import SHARD_SEP
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.common.multi_process import (
     PersistentSharedMemory,
@@ -63,8 +68,8 @@ from dlrover_tpu_torch.common.multi_process import (
 class TensorMeta:
     """Placement of one array leaf inside the flat buffer
     (reference: ckpt_saver.py:65).  ``global_shape`` and ``index`` carry
-    the reassembly metadata of a shard of a global sharded array (slice
-    4 of the port); they stay None here."""
+    the reassembly metadata of a shard of a sharded tensor (key suffixed
+    ``@shardN``); they stay None for a whole leaf."""
 
     shape: Tuple[int, ...] = ()
     dtype: str = "float32"
@@ -206,37 +211,29 @@ def _unflatten_to_nested(flat: Dict[str, Any]) -> Dict[str, Any]:
     return root
 
 
-SHARD_SEP = "@shard"
-
-
 def _assemble_flat(flat: Dict[str, Any], metas: Dict[str, Any]):
     """Assemble ``@shardN`` entries into full tensors (raises if the
-    visible shards do not cover a leaf — the topology changed across
-    hosts; that restore comes with slice 4.2 of the port)."""
-    import torch
-    grouped: Dict[str, list] = {}
-    plain: Dict[str, Any] = {}
-    for key, value in flat.items():
-        if SHARD_SEP not in key:
-            plain[key] = value
-            continue
-        meta = metas.get(key)
-        if meta is not None and meta.index is not None:
-            grouped.setdefault(key.split(SHARD_SEP, 1)[0], []).append(
-                (meta, value))
+    visible shards do not cover a leaf: the topology changed across
+    hosts; restore with a target state, ``load_sharded``, or from the
+    orbax tier)."""
+    from dlrover_tpu_torch.checkpoint.sharded import (
+        assemble_shard,
+        group_shard_entries,
+    )
+
+    grouped, plain = group_shard_entries(flat, metas)
     for base, entries in grouped.items():
-        gshape = tuple(entries[0][0].global_shape)
-        full = torch.empty(gshape, dtype=torch_dtype(entries[0][0].dtype))
-        covered = torch.zeros(gshape, dtype=torch.bool)
-        for meta, value in entries:
-            box = tuple(slice(lo, hi) for lo, hi in meta.index)
-            full[box] = value
-            covered[box] = True
-        if not bool(covered.all()):
+        meta = next(m for k, m in metas.items()
+                    if k.split(SHARD_SEP, 1)[0] == base
+                    and m.index is not None)
+        gshape = tuple(meta.global_shape)
+        full = assemble_shard(tuple((0, d) for d in gshape),
+                              torch_dtype(meta.dtype), entries)
+        if full is None:
             raise ValueError(
                 f"shards of '{base}' do not cover its global shape "
-                f"{gshape}: a restore across hosts comes with slice 4.2 of "
-                "the port"
+                f"{gshape}: restore with a target state (load_sharded) "
+                "or from the orbax tier"
             )
         plain[base] = full
     return plain
@@ -256,22 +253,59 @@ class SnapshotLeaf:
         self.dtype = dtype
 
 
+class ShardLeaf:
+    """A sharded leaf's local part in a snapshot: ``data`` (a tensor or
+    a :class:`SnapshotLeaf`) covering ``index`` of a tensor of
+    ``global_shape``."""
+
+    __slots__ = ("data", "index", "global_shape")
+
+    def __init__(self, data, index, global_shape):
+        self.data = data
+        self.index = tuple(tuple(r) for r in index)
+        self.global_shape = tuple(int(d) for d in global_shape)
+
+
 def _extract_entries(state_dict):
-    """Split a state dict into shm-layout entries: ``(entries,
-    scalars)``, entries ``[(key, leaf)]`` in layout order (tensors and
-    snapshot leaves as they are, numpy leaves as contiguous arrays),
-    scalars the non-array leaves."""
+    """Split a state dict into shm-layout entries: ``(entries, scalars,
+    shard_info)``, entries ``[(key, leaf)]`` in layout order (tensors
+    and snapshot leaves as they are, numpy leaves as contiguous
+    arrays), scalars the non-array leaves, shard_info the reassembly
+    metadata ``{key@shardN: (global_shape, index)}`` of the local parts
+    of sharded leaves (DTensors, :class:`ShardLeaf`).  A DTensor whose
+    placements are all ``Replicate`` is a whole leaf (its local
+    tensor)."""
     import torch
+
+    from dlrover_tpu_torch.checkpoint.sharded import (
+        is_dtensor,
+        is_sharded_leaf,
+        local_shards,
+    )
+
     entries = []
     scalars: Dict[str, Any] = {}
+    shard_info: Dict[str, Tuple[Tuple[int, ...], Tuple]] = {}
     for key, leaf in _flatten_state_dict(state_dict).items():
-        if isinstance(leaf, (torch.Tensor, SnapshotLeaf)):
+        if isinstance(leaf, ShardLeaf):
+            skey = f"{key}{SHARD_SEP}0"
+            entries.append((skey, leaf.data))
+            shard_info[skey] = (leaf.global_shape, leaf.index)
+        elif is_sharded_leaf(leaf):
+            gshape = tuple(int(d) for d in leaf.shape)
+            for i, (ranges, data) in enumerate(local_shards(leaf)):
+                skey = f"{key}{SHARD_SEP}{i}"
+                entries.append((skey, data))
+                shard_info[skey] = (gshape, ranges)
+        elif is_dtensor(leaf):
+            entries.append((key, leaf.to_local()))
+        elif isinstance(leaf, (torch.Tensor, SnapshotLeaf)):
             entries.append((key, leaf))
         elif isinstance(leaf, (np.ndarray, np.generic)):
             entries.append((key, np.ascontiguousarray(leaf)))
         else:
             scalars[key] = leaf
-    return entries, scalars
+    return entries, scalars, shard_info
 
 
 def _leaf_meta(leaf) -> Tuple[Tuple[int, ...], str, int]:
@@ -512,14 +546,16 @@ class SharedMemoryHandler:
         host waiting on device->host copies, ``d2h_device_s`` the
         card's time in them, ``memcpy_s`` the copies into shm.
         """
-        entries, scalars = _extract_entries(state_dict)
+        entries, scalars, shard_info = _extract_entries(state_dict)
         scalar_blob = pickle.dumps(scalars)
         metas: Dict[str, TensorMeta] = {}
         offset = 0
         for key, leaf in entries:
             shape, name, nbytes = _leaf_meta(leaf)
+            gshape, index = shard_info.get(key, (None, None))
             metas[key] = TensorMeta(shape=shape, dtype=name, offset=offset,
-                                    nbytes=nbytes)
+                                    nbytes=nbytes, global_shape=gshape,
+                                    index=index)
             offset += nbytes
         total = offset + len(scalar_blob)
 
@@ -636,14 +672,16 @@ class SharedMemoryHandler:
         return self._shm
 
     def load_flat(
-        self, stats=None,
+        self, stats=None, detach: bool = True,
     ) -> Tuple[Optional[CheckpointConfig], Dict[str, Any], Dict[str, Any]]:
         """Read the shm snapshot as (config, flat {key: tensor or
-        scalar}, {key: TensorMeta}).  Every leaf is copied out of the
-        segment through the staged restore pipeline (chunked, parallel,
-        GIL released), so the result stays valid when the next save
-        overwrites the segment.  ``stats`` is a
-        :class:`~.restore.RestoreStats` accumulator."""
+        scalar}, {key: TensorMeta}), ``@shardN`` keys kept.  Every leaf
+        is copied out of the segment through the staged restore
+        pipeline (chunked, parallel, GIL released), so the result stays
+        valid when the next save overwrites the segment; with
+        ``detach=False`` the tensors are views of the segment instead
+        (the target-state restore copies each box out of them once).
+        ``stats`` is a :class:`~.restore.RestoreStats` accumulator."""
         from dlrover_tpu_torch.checkpoint.restore import detach_flat
 
         t0 = time.perf_counter()
@@ -667,7 +705,10 @@ class SharedMemoryHandler:
         )
         if stats is not None:
             stats.read_s += time.perf_counter() - t0
-        flat = detach_flat(meta["tensors"], shm.buf, stats=stats)
+        if detach:
+            flat = detach_flat(meta["tensors"], shm.buf, stats=stats)
+        else:
+            flat = tensor_views(meta["tensors"], shm.buf, stats=stats)
         flat.update(pickle.loads(blob))
         return config, flat, meta["tensors"]
 
@@ -767,13 +808,34 @@ def prefault_workers() -> int:
     return min(4, max(1, (os.cpu_count() or 2) // 2))
 
 
-def flat_from_raw(meta: Dict, raw, stats=None) -> Tuple[Dict, Dict]:
+def tensor_views(metas: Dict[str, TensorMeta], buf,
+                 stats=None) -> Dict[str, torch.Tensor]:
+    """{key: tensor} viewing ``buf`` (a shm segment, raw bytes or an
+    mmap) without a copy: free to build, the page-in and copy cost is
+    paid by whichever stage reads the view.  The caller keeps ``buf``
+    alive while the views are in use."""
+    views = {}
+    for key, m in metas.items():
+        dtype = torch_dtype(m.dtype)
+        views[key] = _buffer_bytes(buf, m.offset, m.nbytes).view(
+            dtype).reshape(tuple(m.shape))
+        if stats is not None:
+            stats.bytes += m.nbytes
+    return views
+
+
+def flat_from_raw(meta: Dict, raw, stats=None,
+                  detach: bool = True) -> Tuple[Dict, Dict]:
     """(flat {key: tensor/scalar}, {key: TensorMeta}) from raw shm
-    bytes — or an mmap view from ``storage.read_view`` — every tensor a
-    private copy."""
+    bytes — or an mmap view from ``storage.read_view`` — shard keys
+    kept, every tensor a private copy (views of ``raw`` with
+    ``detach=False``)."""
     from dlrover_tpu_torch.checkpoint.restore import detach_flat
 
-    flat = detach_flat(meta["tensors"], raw, stats=stats)
+    if detach:
+        flat = detach_flat(meta["tensors"], raw, stats=stats)
+    else:
+        flat = tensor_views(meta["tensors"], raw, stats=stats)
     blob = raw[
         meta["scalar_offset"]:meta["scalar_offset"] + meta["scalar_nbytes"]
     ]

@@ -158,6 +158,17 @@ class LocalSocketComm:
                     pass
 
 
+def _holder_gone(owner: Optional[str]) -> bool:
+    """Whether the process of a lock owner (``pid-<pid>``, a process of
+    this host) has exited: no ``/proc`` entry, or a zombie."""
+    from dlrover_tpu_torch.common.env_utils import proc_stat_fields
+
+    if not owner or not owner.startswith("pid-"):
+        return False
+    fields = proc_stat_fields(int(owner[len("pid-"):]))
+    return fields is None or fields[0] in (b"Z", b"X")
+
+
 class SharedLock(LocalSocketComm):
     """Cross-process lock (reference multi_process.py:225 SharedLock).
 
@@ -165,6 +176,11 @@ class SharedLock(LocalSocketComm):
     semantics are a client-side poll loop.  A server thread therefore
     never blocks on behalf of a client, so a client that times out or
     dies mid-acquire cannot orphan the lock in an un-releasable state.
+    A client that dies while HOLDING it (a trainer SIGKILLed while its
+    snapshot writer holds the shm lock) does not orphan it either: the
+    next try-acquire takes over a lock whose holder's process is gone
+    (the reference's lock stays held, and the next incarnation's saves
+    wait on it until they time out).
     """
 
     _POLL_INTERVAL = 0.05
@@ -179,9 +195,10 @@ class SharedLock(LocalSocketComm):
         if verb == "try_acquire":
             (_, owner) = request
             ok = self._lock.acquire(blocking=False)
-            if ok:
+            if ok or _holder_gone(self._owner):
                 self._owner = owner
-            return ok
+                return True
+            return False
         if verb == "release":
             (_, owner) = request
             # only the holder (or a force-release, e.g. agent cleanup

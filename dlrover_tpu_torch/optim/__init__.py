@@ -3,7 +3,7 @@ low-bit family, whose moments live as blockwise int8 or int4 codes
 through the CUDA kernels of :mod:`dlrover_tpu_torch.ops.quantization`,
 the factored CAME / Adafactor family, AGD, WSAM, bf16 params over fp32
 masters and host-offloaded states.  ``local_sgd`` (DiLoCo) comes with
-slice 4.2 of the port.
+slice 4.3 of the port.
 """
 
 from dlrover_tpu_torch.optim.agd import AGD, agd

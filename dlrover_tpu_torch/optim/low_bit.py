@@ -42,7 +42,7 @@ shard boundary splits is gathered whole on every rank that shares it
 and each of those ranks steps the whole block in the same launch, from
 the same state, so that block's codes and scale are the reference's
 and alike on those ranks; each keeps its own elements of the new
-parameter.  Other placements (tensor parallel) come with slice 4.2 of
+parameter.  Other placements (tensor parallel) come with slice 4.3 of
 the port.
 """
 
@@ -110,7 +110,7 @@ def shard_grid(p, block: int) -> Optional[ShardGrid]:
         raise NotImplementedError(
             f"low-bit state of a parameter placed {p.placements}: only "
             "Shard(0) over one mesh dim (FSDP2) keeps the global block grid; "
-            "the rest comes with slice 4.2 of the port")
+            "the rest comes with slice 4.3 of the port")
     mesh_dim = dims[0]
     n = p.device_mesh.size(mesh_dim)
     r = p.device_mesh.get_local_rank(mesh_dim)
@@ -204,7 +204,7 @@ class _LowBitOptimizer(torch.optim.Optimizer):
         grid = shard_grid(p, self.block_size)
         if grid is not None and self.bits != 8:
             raise NotImplementedError(
-                "4-bit state of sharded parameters comes with slice 4.2 of "
+                "4-bit state of sharded parameters comes with slice 4.3 of "
                 "the port")
         shape = (grid.rows * self.block_size,) if grid else p.shape
         device = p.to_local().device if grid else p.device

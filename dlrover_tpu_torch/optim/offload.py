@@ -19,7 +19,7 @@ the card, at init or later (the reference's promise).  Scalars (step
 counts) stay where the inner optimizer keeps them.  On the CPU the
 host is the device: the chunks step with no copies.  Parameters that
 are DTensors (FSDP2, tensor parallel) are not offloaded yet: sharded
-states come with slice 4.2 of the port.
+states come with slice 4.3 of the port.
 """
 
 from typing import Dict, List
@@ -39,7 +39,7 @@ class Offload(torch.optim.Optimizer):
         if any(is_dtensor(p) for p in params):
             raise NotImplementedError(
                 "offloading the state of sharded (DTensor) parameters comes "
-                "with slice 4.2 of the port (sharded checkpoint and state)")
+                "with slice 4.3 of the port")
         super().__init__(params, {})
         self.inner = inner
         self.chunk_bytes = DEFAULT_CHUNK_BYTES

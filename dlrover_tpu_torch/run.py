@@ -10,15 +10,19 @@ the process group's coordinates (for ``torch.distributed``) and
 spawns/monitors the training script.
 
 Copy of ``dlrover_tpu/run.py`` (``tpurun``).  The launcher, the agent
-and the master never touch CUDA; only the training processes do.
-``--auto-config`` keeps one training process a node, as the
-reference does; several GPUs a node come with slice 4.2 of the port.
+and the master never touch CUDA; only the training processes do, one
+per GPU (``cuda:LOCAL_RANK``).  ``--nproc_per_node=auto`` (or
+``--auto-config``) starts one training process for each of the node's
+NVIDIA cards, counted without loading torch; where the reference's
+JAX process drives every chip of its host, a torch process drives
+one.
 
 Usage::
 
     python -m dlrover_tpu_torch.run --nproc_per_node=1 --max_restarts=2 \
         train.py ...
     python -m dlrover_tpu_torch.run --warm-restart train.py ...
+    python -m dlrover_tpu_torch.run --nproc_per_node=auto train.py ...
 """
 
 import argparse
@@ -57,6 +61,30 @@ def parse_nnodes(value: str) -> Tuple[int, int]:
     return n, n
 
 
+def _nproc(value: str) -> int:
+    return 0 if value == "auto" else int(value)
+
+
+def count_local_gpus() -> int:
+    """The node's NVIDIA cards, without loading torch (whose CUDA build
+    maps libcuda at import): the entries of
+    ``/proc/driver/nvidia/gpus``, or ``nvidia-smi -L`` where that
+    directory is absent; 0 when neither sees a card."""
+    proc = "/proc/driver/nvidia/gpus"
+    try:
+        return len(os.listdir(proc))
+    except OSError:
+        pass
+    try:
+        out = subprocess.run(  # noqa: S603, S607 - fixed argv
+            ["nvidia-smi", "-L"], capture_output=True, text=True,
+            timeout=30, check=False,
+        ).stdout
+    except (OSError, subprocess.SubprocessError):
+        return 0
+    return sum(1 for line in out.splitlines() if line.startswith("GPU "))
+
+
 def parse_args(argv: Optional[List[str]] = None):
     parser = argparse.ArgumentParser(
         prog="python -m dlrover_tpu_torch.run",
@@ -67,8 +95,8 @@ def parse_args(argv: Optional[List[str]] = None):
         help="number of nodes, or MIN:MAX for elastic jobs",
     )
     parser.add_argument(
-        "--nproc_per_node", type=int, default=1,
-        help="training processes per node (0 = auto: one per node)",
+        "--nproc_per_node", type=_nproc, default=1,
+        help="training processes per node ('auto' or 0: one per GPU)",
     )
     parser.add_argument(
         "--auto-config", action="store_true", dest="auto_config",
@@ -238,13 +266,12 @@ class _MasterSupervisor:
 
 def apply_auto_config(args):
     """Fill nproc_per_node from the machine (reference:
-    ``dlrover-run --auto-config``, elastic_run.py:125).  As in the
-    reference, one training process a node: the several-GPUs-a-node
-    layout (one process per GPU over ``torch.distributed``) comes with
-    slice 4.2 of the port."""
+    ``dlrover-run --auto-config``, elastic_run.py:125): one training
+    process for each NVIDIA card of the node (:func:`count_local_gpus`),
+    one when the node has none (a CPU run)."""
     if not (args.auto_config or args.nproc_per_node <= 0):
         return args
-    args.nproc_per_node = 1
+    args.nproc_per_node = max(1, count_local_gpus())
     logger.info(
         "auto-config: nproc_per_node=%s", args.nproc_per_node
     )

@@ -416,11 +416,15 @@ def init_torch_distributed(
     the master's rendezvous handed out, this process's id and the
     number of processes.  ``False`` for one process (no group is
     formed), ``True`` once the group is up: ``nccl`` on the card,
-    ``gloo`` when the caller names the CPU."""
+    ``gloo`` when the caller names the CPU.  On the card each process
+    takes ``cuda:LOCAL_RANK`` first (one process a GPU), so the port's
+    entry points, which run on the current device, use it."""
     coordinator = env_utils.get_coordinator_addr()
     num_processes = int(os.getenv("DLROVER_NUM_PROCESSES", "1"))
     if not coordinator or num_processes <= 1:
         return False
+    if device is None and torch.cuda.is_available():
+        torch.cuda.set_device(env_utils.get_local_rank())
     device = resolve_device(device)
     process_id = int(os.getenv("DLROVER_PROCESS_ID", "0"))
     backend = "nccl" if device.type == "cuda" else "gloo"

@@ -17,10 +17,12 @@ round.  As in the reference, the model is built through
 parallelism in the model's own compute dtype (``parallel_mode`` and
 ``amp_native`` at the config's ``dtype``), which leaves the model as it
 is (the reference would take the search's first candidate, whose
-``amp_native`` recasts an fp32 model to bf16).  A plan that shards the
-params (DTensors on a process group) trains, but its checkpoint (the
-sharded state) comes with slice 4.2 of the port and raises at the first
-save.
+``amp_native`` recasts an fp32 model to bf16).  As in the reference,
+the plan is built first and the checkpoint restored onto it: the params
+come back through ``load_checkpoint(target_state=...)`` onto the built
+model's own tensors, so a plan that shards them (DTensors under FSDP2
+or tensor parallelism) saves through the sharded checkpoint (each rank
+its own shard file) and resumes resharded, at any world size.
 """
 
 import time
@@ -35,9 +37,7 @@ from dlrover_tpu_torch.accel.accelerate import auto_accelerate
 from dlrover_tpu_torch.checkpoint.checkpointer import (
     Checkpointer,
     StorageType,
-    restore_to_template,
 )
-from dlrover_tpu_torch.checkpoint.restore import RestoreStats
 from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.telemetry.events import emit_event, set_event_source
@@ -161,8 +161,8 @@ class Trainer:
         strategy = args.strategy
         if strategy is None and not args.dry_run_candidates:
             strategy = self.default_strategy(self.model)
-        # after a resume the optimizer is built fresh over the restored
-        # params, as the reference's _try_resume builds it
+        # the checkpoint is restored onto the built model afterwards; the
+        # optimizer stays fresh, as the reference's _try_resume builds it
         self._accel = auto_accelerate(
             self.model, self.optim_factory, self.loss_fn, sample_batch,
             strategy=strategy, dry_run_candidates=args.dry_run_candidates,
@@ -186,37 +186,25 @@ class Trainer:
     # -- checkpoint --------------------------------------------------------
 
     def _try_resume(self) -> int:
-        """Copy the last checkpoint's params into the model (shm, then
-        storage); the step it was taken at, or 0."""
+        """Restore the last checkpoint's params onto the built model's
+        own tensors (shm, then storage; resharded onto DTensors); the
+        step it was taken at, or 0.  The optimizer stays as built, fresh,
+        as the reference's ``_try_resume`` builds it."""
         if not self.args.resume_from_checkpoint:
             return 0
-        step, restored = self._checkpointer.load_checkpoint()
+        step, _ = self._checkpointer.load_checkpoint(
+            target_state={"params": params_tree(self.model)})
         if step is None:
             return 0
-        stats = RestoreStats()
-        restore_to_template(params_tree(self.model), restored["params"],
-                            stats=stats)
-        self.last_restore_phases = {
-            **self._checkpointer.last_restore_phases,
-            "h2d_s": round(stats.h2d_s, 6),
-        }
+        self.last_restore_phases = self._checkpointer.last_restore_phases
         logger.info("resumed training from step %s", step)
         return int(step)
-
-    def _params_tree(self):
-        """The params to save; a plan whose params are DTensors (FSDP2,
-        TP) saves through the sharded checkpoint of slice 4.2."""
-        if any(is_dtensor(p) for p in self.model.parameters()):
-            raise NotImplementedError(
-                "saving DTensor params (a sharded plan on a process group) "
-                "comes with slice 4.2 of the port (the sharded checkpoint)")
-        return params_tree(self.model)
 
     def _save(self, step: int, to_storage: bool):
         self._checkpointer.save_checkpoint(
             step,
             {
-                "params": self._params_tree(),
+                "params": params_tree(self.model),
                 "trainer": self._elastic.state_dict(),
             },
             storage_type=(
@@ -256,9 +244,13 @@ class Trainer:
         set_event_source("trainer")
         data_iter = iter(self.train_data)
         batch = next(data_iter)
-        self._checkpointer = Checkpointer(self.args.output_dir)
+        self._build(0, batch)
+        # a plan whose params are DTensors persists every rank's shard
+        sharded = any(is_dtensor(p) for p in self.model.parameters())
+        self._checkpointer = Checkpointer(self.args.output_dir,
+                                          replicated=not sharded)
         start_step = self._try_resume()
-        self._build(start_step, batch)
+        self.state.step = start_step
         self._elastic.global_step = start_step
 
         step = start_step

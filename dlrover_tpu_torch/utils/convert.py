@@ -20,9 +20,14 @@ imports it).
 
 Because every leaf flattens in the same order on both sides, the
 blockwise moments of q-AdamW (int8 codes ``[rows, block]`` and fp32
-scales ``[rows, 1]`` per leaf) carry over code for code.
+scales ``[rows, 1]`` per leaf) carry over code for code, and so does a
+``torch.optim.AdamW``'s state laid out as optax ``adamw``'s
+(:func:`adamw_state_tree`, :func:`adamw_state_from_tree`): a
+``{"params", "opt_state"}`` checkpoint of the JAX package's elastic
+example resumes the port's, sharded or not, and the other way round.
 """
 
+from collections import namedtuple
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -294,3 +299,127 @@ def optimizer_state_from_jax(opt_state, optimizer, model: torch.nn.Module
                 state[i] = {"step": torch.tensor(float(count)),
                             "exp_avg": mu[n], "exp_avg_sq": nu[n]}
     return {"state": state, "param_groups": groups}
+
+
+# -- AdamW state under optax adamw's paths ------------------------------------
+
+# optax.adamw's state: chain(scale_by_adam, add_decayed_weights,
+# scale_by_learning_rate), ``(ScaleByAdamState(count, mu, nu), EmptyState(),
+# EmptyState())``, flattened to ``0/count``, ``0/mu/<flax path>`` and
+# ``0/nu/<flax path>``
+ScaleByAdamState = namedtuple("ScaleByAdamState", ["count", "mu", "nu"])
+EmptyState = namedtuple("EmptyState", [])
+
+
+def init_adamw_state(optimizer: torch.optim.Optimizer):
+    """Create the state of every parameter of a ``torch.optim.AdamW``
+    (or ``Adam``) that has none yet, as its first step would: ``step``
+    0, zero moments like the parameter (a DTensor parameter gets
+    DTensor moments with its placements).  The state then exists before
+    the first step, as optax's ``init`` makes it, so a checkpoint can
+    be restored into it."""
+    with torch.no_grad():
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                st = optimizer.state[p]
+                if st:
+                    continue
+                if group.get("capturable") or group.get("fused"):
+                    st["step"] = torch.zeros((), dtype=torch.float32,
+                                             device=p.device)
+                else:
+                    st["step"] = torch.tensor(0.0, dtype=torch.float32)
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                if group.get("amsgrad"):
+                    st["max_exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+
+
+def adamw_state_tree(optimizer: torch.optim.Optimizer,
+                     model: torch.nn.Module):
+    """A ``torch.optim.AdamW``'s state laid out as optax ``adamw``'s:
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``
+    with ``mu``/``nu`` nested like the flax params and holding the
+    optimizer's own ``exp_avg``/``exp_avg_sq`` tensors (no copies;
+    DTensors under FSDP2) and ``count`` a 0-d int32 tensor.  The state
+    is created first where it is missing (:func:`init_adamw_state`), so
+    the tree is a restore target before the first step too."""
+    init_adamw_state(optimizer)
+    mu: Dict[str, Any] = {}
+    nu: Dict[str, Any] = {}
+    steps = set()
+    for name, p in model.named_parameters():
+        st = optimizer.state[p]
+        steps.add(int(st["step"]))
+        _set(mu, flax_path(name), st["exp_avg"])
+        _set(nu, flax_path(name), st["exp_avg_sq"])
+    if len(steps) != 1:
+        raise ValueError(f"parameters at different step counts: {steps}")
+    count = torch.tensor(steps.pop(), dtype=torch.int32)
+    return (ScaleByAdamState(count=count, mu=mu, nu=nu), EmptyState(),
+            EmptyState())
+
+
+def _adam_node(tree):
+    """The ``count``/``mu``/``nu`` node of an optax adamw state: a
+    namedtuple, a tuple of them, or the nested dict an untargeted
+    restore gives (``{"0": {"count", "mu", "nu"}}``)."""
+    if isinstance(tree, Mapping):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree
+        if "0" in tree:
+            return _adam_node(tree["0"])
+    node = _moment_state(tree)
+    if node is None:
+        raise KeyError("no count/mu/nu node in the optimizer state")
+    return node
+
+
+def _copy_into(dst: torch.Tensor, value):
+    """``dst`` (a moment, a DTensor under FSDP2) takes ``value``: the
+    same tensor is left alone, a DTensor's local part copies from a
+    DTensor's or from its box of a full tensor."""
+    from dlrover_tpu_torch.checkpoint.sharded import is_dtensor, local_box
+
+    if value is dst:
+        return
+    if not isinstance(value, torch.Tensor):
+        value = _tensor(value)
+    if tuple(value.shape) != tuple(dst.shape):
+        raise ValueError(f"moment {tuple(value.shape)} does not fit "
+                         f"{tuple(dst.shape)}")
+    if is_dtensor(dst):
+        local = dst.to_local()
+        if is_dtensor(value):
+            value = value.to_local()
+        else:
+            value = value[tuple(slice(lo, hi) for lo, hi in local_box(dst))]
+        dst = local
+    dst.copy_(value.to(dst.dtype))
+
+
+def adamw_state_from_tree(tree, optimizer: torch.optim.Optimizer,
+                          model: torch.nn.Module):
+    """Inverse of :func:`adamw_state_tree`: an optax adamw state (the
+    port's tree restored in place, the JAX package's ``opt_state`` of
+    numpy leaves, or an untargeted restore's nested dict) into a
+    ``torch.optim.AdamW``'s state over ``model.parameters()``.  Each
+    parameter's ``step`` becomes ``count``; a moment that is not
+    already the optimizer's own tensor is copied in (DTensor-aware: a
+    moment of a DTensor parameter keeps its placements and takes its
+    own box)."""
+    node = _adam_node(tree)
+    count = int(np.asarray(_field(node, "count")))
+    init_adamw_state(optimizer)
+    mu = dict(_flat(_field(node, "mu")))
+    nu = dict(_flat(_field(node, "nu")))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            path = flax_path(name)
+            st = optimizer.state[p]
+            _copy_into(st["exp_avg"], mu[path])
+            _copy_into(st["exp_avg_sq"], nu[path])
+            st["step"].fill_(float(count))

@@ -14,10 +14,18 @@ another order; measured max 4.1e-4).  The kill twin also holds every
 reported loss to an uninterrupted torch control of the same loop
 (``LossTrajectoryMatches``, the reference's rtol 1e-3 / atol 1e-5).
 
-The multi-node, resize, sparse, serving, RL, master-recovery and
-compile-cache scenarios of the reference's file come with slices 4, 6,
-7, 8 and 9 of the port.  The long scenarios are ``slow``, as in the
-reference.
+The elastic world resize (slice 4.2) runs as the reference's
+``test_elastic_resize_churn``: two launcher agents on this box against
+one master, the tiny GPT under FSDP2 on gloo, node 1 lost, the world
+shrunk to 1 and grown back to 2, every restore resharded from
+committed storage.  A second case SIGKILLs and respawns the master
+between the shrink and the grow (ROADMAP §C 3): the grown world forms
+its group on the coordinator the respawned master hands out.
+
+The multi-node hang and partition, sparse, serving, RL,
+master-recovery and compile-cache scenarios of the reference's file
+come with slices 4.3, 6, 7, 8 and 9 of the port.  The long scenarios
+are ``slow``, as in the reference.
 """
 
 import os
@@ -289,3 +297,86 @@ def test_warm_restart_template_chaos(root, factory):
         t[1].startswith("forkserver.") and t[3] == "kill"
         for t in report.timeline
     ), report.timeline
+
+
+# -- the elastic world resize (slice 4.2) -------------------------------------
+
+
+def _resize(root, name, **kwargs):
+    workdir = os.path.join(root, name)
+    try:
+        return harness.run_elastic_resize_scenario(
+            scenarios.elastic_resize_churn(seed=53), workdir=workdir,
+            nnodes=2, **kwargs)
+    finally:
+        for sock in ("sock0", "sock1", "sock1b"):
+            with harness._patched_env(
+                    {"DLROVER_SHARED_DIR": os.path.join(workdir, sock)}):
+                SharedMemoryHandler(0).unlink()
+
+
+def _assert_resize_arc(report):
+    assert report.ok, report.summary()
+    # the node loss really happened, on rank 1, exactly once
+    kills = [t for t in report.timeline if t[3] == "kill_node"]
+    assert len(kills) == 1, report.timeline
+    # both resize directions were decided by the coordinator
+    decisions = [e for e in report.events
+                 if e.get("type") == "resize_decision"]
+    targets = [e["target"] for e in decisions]
+    assert 1 in targets and 2 in targets, decisions
+    # the drain rode the heartbeat-action channel: resize-reason
+    # restarts on the surviving node
+    resize_restarts = [e for e in report.events
+                       if e.get("type") == "worker_restart"
+                       and e.get("reason") == "resize"]
+    assert resize_restarts, "no resize-driven worker restart"
+    # cross-world restores resharded from storage, never from a stale
+    # per-node shm snapshot
+    restores = [e for e in report.events
+                if e.get("type") == "checkpoint_restore"]
+    assert restores and all(
+        e.get("tier") == "storage" for e in restores), restores
+
+
+def test_elastic_resize_churn(root):
+    """Kill one of two agents mid-run (the whole supervision tree: a
+    vanished node, no failure report).  The master's resize coordinator
+    must detect the silence, decide world 2 -> 1, drain the survivor
+    over the heartbeat-action channel, and the re-formed world must
+    restore the checkpoint RESHARDED from the committed storage tier
+    (node 1's shards redistributed onto node 0) and keep stepping.  When
+    the harness respawns the lost agent (a replacement host), the world
+    grows back to 2 the same way.  Verified from telemetry alone:
+    completed-world sizes 2 -> 1 -> 2, every reported loss equal to the
+    uninterrupted-control trajectory, per-restart step loss bounded,
+    final step committed, resize phase breakdown on the assembled
+    timeline, goodput loss booked under the resize cause."""
+    _assert_resize_arc(_resize(root, "resize"))
+
+
+def test_grown_world_forms_its_group_on_the_respawned_master(root):
+    """ROADMAP §C 3: the master is SIGKILLed between the shrink and the
+    grow and respawned on its port and journal, and picks a new
+    coordinator port.  The grown world's ranks take the rendezvous
+    address from the respawned master's reply for the round they join,
+    so both form their gloo group on it and train on (the whole resize
+    arc holds as without the respawn)."""
+    report = _resize(root, "resize_respawn", respawn_master=True)
+    _assert_resize_arc(report)
+    killed_at = report.master_respawned_at
+    assert killed_at is not None
+    groups = [e for e in report.events
+              if e.get("type") == "process_group"
+              and e.get("world_size") == 2]
+    before = {e["coordinator"] for e in groups if e["ts"] < killed_at}
+    after = [e for e in groups if e["ts"] > killed_at]
+    assert len(before) == 1 and len(after) == 2, groups
+    assert {e["node_rank"] for e in after} == {0, 1}
+    assert len({e["coordinator"] for e in after}) == 1
+    assert {e["coordinator"] for e in after} != before
+    # and the grown world stepped together on it
+    steps = [e for e in report.events
+             if e.get("type") == "train_step" and e["ts"] > max(
+                 e2["ts"] for e2 in after)]
+    assert {e["node_rank"] for e in steps} == {0, 1}

@@ -597,18 +597,63 @@ def test_meta_reader_maps_the_jax_classes_and_refuses_the_rest():
         load_meta(pickle.dumps({"x": os.system}))
 
 
+def test_a_lock_whose_holder_died_is_taken_over(tmp_path):
+    """A trainer SIGKILLed while its snapshot writer holds the shm lock
+    leaves no lock behind: the next acquire (the respawned trainer's
+    writer, the agent's persist) takes it over at once."""
+    import signal
+    import subprocess
+    import sys
+
+    server = SharedLock(f"deadholder_{uuid.uuid4().hex[:8]}", create=True)
+    child = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, time\n"
+         "from dlrover_tpu_torch.common.multi_process import SharedLock\n"
+         "lock = SharedLock(sys.argv[1], create=False)\n"
+         "assert lock.acquire(blocking=False)\n"
+         "print('held', flush=True)\n"
+         "time.sleep(60)\n", server._name],
+        stdout=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__)))})
+    try:
+        assert child.stdout.readline().strip() == "held"
+        assert server.locked() and not server.acquire(blocking=False)
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=30)
+        assert server.acquire(blocking=True, timeout=5.0)
+        assert server.release()
+    finally:
+        if child.poll() is None:
+            child.kill()
+        server.close()
+
+
 # -- what later slices bring ---------------------------------------------------
 
 
 @pytest.mark.parametrize("make,match", [
     (lambda d: _engine(d).register_sparse(object()), "slice 6"),
-    (lambda d: _engine(d).load_sharded({}), "slice 4"),
-    (lambda d: Checkpointer(str(d), orbax_dir=str(d)), "slice 8"),
     (lambda d: Checkpointer("gs://bucket/run"), "slice 8"),
 ])
 def test_options_of_later_slices_raise(saver, tmp_path, make, match):
+    """The target-state restore (``load_sharded``) and the orbax tier
+    (``orbax_dir``), once on this list, came with slice 4.2: their cases
+    moved to ``test_options_of_slice_4_2_no_longer_raise``."""
     with pytest.raises(NotImplementedError, match=match):
         make(tmp_path)
+
+
+@pytest.mark.parametrize("make", [
+    lambda d: _engine(d).load_sharded({}),
+    lambda d: Checkpointer(str(d), orbax_dir=str(d / "orbax")).close(),
+], ids=["load_sharded", "orbax_dir"])
+def test_options_of_slice_4_2_no_longer_raise(saver, tmp_path, make):
+    """An empty target restores nothing; a Checkpointer takes an orbax
+    directory."""
+    out = make(tmp_path)
+    assert out in (None, (None, {}))
 
 
 def test_paged_tier_raises(saver, tmp_path, monkeypatch):

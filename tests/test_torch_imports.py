@@ -96,6 +96,38 @@ def test_the_modules_of_slice_4_1_are_checked_and_mirror_a_reference(module):
     assert f"dlrover_tpu/{rel}" in doc
 
 
+SLICE_4_2 = [
+    "dlrover_tpu_torch.checkpoint.backup",
+    "dlrover_tpu_torch.checkpoint.orbax_compat",
+    "dlrover_tpu_torch.checkpoint.sharded",
+]
+
+
+@pytest.mark.parametrize("module", SLICE_4_2)
+def test_the_modules_of_slice_4_2_are_checked_and_mirror_a_reference(
+        module):
+    """The sharded checkpoint, the orbax tier and the peer backup of
+    slice 4.2 are among the modules the tests above import and scan,
+    each at the path of the reference file it names."""
+    assert module in MODULES
+    rel = module.split(".", 1)[1].replace(".", "/") + ".py"
+    assert (ROOT / "dlrover_tpu" / rel).exists()
+    doc = ast.get_docstring(ast.parse(
+        (ROOT / module.replace(".", os.sep)).with_suffix(".py").read_text()))
+    assert f"dlrover_tpu/{rel}" in doc
+
+
+def test_the_elastic_example_is_checked_and_names_its_reference():
+    """The twin of ``examples/train_gpt_elastic.py`` is among the
+    scanned modules and names the reference example."""
+    module = "dlrover_tpu_torch.examples.train_gpt_elastic"
+    assert module in MODULES
+    assert (ROOT / "examples" / "train_gpt_elastic.py").exists()
+    doc = ast.get_docstring(ast.parse(
+        (ROOT / module.replace(".", os.sep)).with_suffix(".py").read_text()))
+    assert "examples/train_gpt_elastic.py" in doc
+
+
 def test_the_master_loads_no_torch():
     """The master has no device work: its import closure, and its
     client's, loads no torch, so it cannot make a CUDA context that

@@ -262,3 +262,19 @@ def test_the_launcher_worker_of_chip_smoke_needs_the_card(tmp_path, sock):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not (tmp_path / "incarnation_0.json").exists()
+
+
+def test_auto_config_starts_one_process_a_gpu(monkeypatch):
+    """``--nproc_per_node=auto`` (or ``--auto-config``) counts the node's
+    NVIDIA cards without loading torch; a node with none runs one."""
+    from dlrover_tpu_torch import run as launcher
+
+    args = launcher.parse_args(["--nproc_per_node=auto", "train.py"])
+    assert args.nproc_per_node == 0
+    monkeypatch.setattr(launcher, "count_local_gpus", lambda: 4)
+    assert launcher.apply_auto_config(args).nproc_per_node == 4
+    args = launcher.parse_args(["--auto-config", "train.py"])
+    monkeypatch.setattr(launcher, "count_local_gpus", lambda: 0)
+    assert launcher.apply_auto_config(args).nproc_per_node == 1
+    args = launcher.parse_args(["--nproc_per_node=2", "train.py"])
+    assert launcher.apply_auto_config(args).nproc_per_node == 2

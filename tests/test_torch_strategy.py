@@ -505,6 +505,10 @@ def test_trainer_with_a_strategy_gives_the_jax_trainers_losses(
         **common), [batch], jloss)
     want = _recording(jt)
     jt.train()
+    # the JAX package's train() leaves its snapshot writer thread running
+    # (its engine is not closed); stop it here, so no thread of this test
+    # outlives it into another test of this process
+    jt._checkpointer.close()
     params = jax.tree.map(np.asarray, jmodel.init_params(
         jax.random.PRNGKey(0)))
     model = port_gpt.GPT(port_gpt.GPTConfig.tiny(dtype=torch.float32),
@@ -539,8 +543,10 @@ def test_trainer_searches_a_plan_when_asked(job, tmp_path):
 def test_trainer_refuses_to_save_dtensor_params_naming_slice_4_2(
         job, tmp_path):
     """On a one-rank gloo group the fsdp plan makes the params DTensors
-    (FSDP2); the plan trains, and its first save raises naming the
-    sharded checkpoint's slice instead of writing the local shards."""
+    (FSDP2).  Before the sharded checkpoint the first save raised naming
+    its slice; now the plan trains, saves the local shards, and a second
+    Trainer resumes onto its own DTensors at the saved step with the
+    saved params, bit for bit."""
     import torch.distributed as dist
 
     from dlrover_tpu_torch.common.device import is_dtensor
@@ -549,20 +555,32 @@ def test_trainer_refuses_to_save_dtensor_params_naming_slice_4_2(
     dist.init_process_group(
         "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
         world_size=1)
-    try:
+
+    def trainer(max_steps, resume):
         model = port_gpt.GPT(port_gpt.GPTConfig.tiny(dtype=torch.float32),
                              device="cpu")
-        trainer = Trainer(model, TrainingArguments(
-            output_dir=str(tmp_path / "out"), max_steps=2,
+        return Trainer(model, TrainingArguments(
+            output_dir=str(tmp_path / "out"), max_steps=max_steps,
             global_batch_size=8, micro_batch_size=8, logging_steps=100,
-            save_steps=2, resume_from_checkpoint=False,
+            save_steps=2, resume_from_checkpoint=resume,
             strategy=Strategy(opts=[("fsdp", {}), ("amp_native",
                                                    {"dtype": "float32"})])),
             [_batch()], _port_loss, device="cpu")
-        losses = _recording(trainer)
-        with pytest.raises(NotImplementedError, match="slice 4.2"):
-            trainer.train()
-        assert all(is_dtensor(p) for p in trainer.model.parameters())
+
+    try:
+        first = trainer(2, False)
+        losses = _recording(first)
+        first.train()
+        assert all(is_dtensor(p) for p in first.model.parameters())
         assert len(losses) == 2 and all(np.isfinite(losses))
+        saved = {n: p.full_tensor().clone()
+                 for n, p in first.model.named_parameters()}
+        second = trainer(2, True)
+        result = second.train()
+        assert result["steps"] == 2 and result["losses"] == []
+        assert second.last_restore_phases["tier"] == "shm"
+        for n, p in second.model.named_parameters():
+            assert is_dtensor(p)
+            assert torch.equal(p.full_tensor(), saved[n]), n
     finally:
         dist.destroy_process_group()
