@@ -11,16 +11,20 @@ Phases, each fatal on failure:
    (UTMALDG, UBLKCP) instructions in the SASS of the wgmma kernels;
 2. hold each flash-attention kernel (fwd, bwd_dq, bwd_dkv) against its
    plain PyTorch version on the card, at the training shapes of GPT-2
-   small (b=8, s=1024, h=12, d=64, bf16, causal) and GPT-2 XL (b=4,
-   h=25) and at small non-causal, GQA, ragged, head_dim-128, fp16 and
-   fp32 cases, and hold the bf16 and fp16 dK/dV kernels to fp32 p and
-   dS and the dQ kernels to dS rounded to the input type (each closer
+   small (b=8, s=1024, h=12, d=64, bf16, causal), GPT-2 XL (b=4, h=25)
+   and Llama-3-8B (b=1, s=8192, 32 q heads over 8 kv heads, d=128) and
+   at small non-causal, GQA, ragged, head_dim-128, fp16 and fp32
+   cases (bf16 and fp16 also by the norm of the error relative to the
+   plain version's, which a V fault planted in two kv tiles past key
+   4096 at Llama's shape must fail), and hold the bf16 and fp16 dK/dV
+   kernels to fp32 p and dS and the dQ kernels to dS rounded to the
+   input type (each closer
    to the plain version at the TPU kernel's rounding point than to one
-   at the other); time each at both training shapes, on the device
+   at the other); time each at the three training shapes, on the device
    alone and per call with the host's launch path inside, beside its
-   bound, its plain version and scaled_dot_product_attention (a
-   yardstick that the port never calls), and the backward pair beside
-   SDPA's backward;
+   bound, its plain version and scaled_dot_product_attention (with
+   ``enable_gqa`` at Llama's; a yardstick that the port never calls),
+   and the backward pair beside SDPA's backward;
    then the wrapper's repairs: head_dim 16, 32, 80, 96 (padded to 64
    or 128), 256, and 320 and 512 (the wide kernels, head_dim walked in
    chunks of 64), bf16 and fp16, causal and not, at a ragged GQA
@@ -175,10 +179,45 @@ Phases, each fatal on failure:
       h2d by tier and its rate, and the example's tokens/s beside
       phase 9b's FSDP2 step.
 
+11. the Llama family and the chunked loss (slice 5.1):
+   a. a narrow Llama (4 q heads over 1 kv head, head_dim 128, seq 256),
+      the flash model against the plain-attention one from the same
+      weights in fp32 (logits and gradients within 1e-4) and bf16
+      (logits within 5e-2 absolute and relative, the reference's own
+      Llama tolerance; gradients within 3e-2), one launch of each kernel
+      a layer;
+   b. Llama-3-8B at full width and depth (32 layers, d 4096, 32 heads
+      over 8 kv heads, intermediate 14336, vocab 128256, rope theta
+      5e5, 8,030,261,248 params in 291 tensors), seq 8192, batch 1, bf16
+      params built on the card, through ``Trainer(strategy=[half,
+      checkpoint, module_replace(flash), low_bit_opt(int8)])`` (the plan
+      rebuilds the model with remat and flash) and
+      ``chunked_loss_fn(num_chunks=8)``, q-AdamW lr 3e-4 and weight
+      decay 0.1, 6 steps on one fixed batch with no checkpoint (the
+      Trainer's saves write nothing here: the final one would copy 16 GB
+      of params to shm and disk):
+      finite falling losses; exactly 64 B1, 32 B2, 32 B3 and 1 B6 a
+      step, B4 582 times at the optimizer's init only, B5 never; peak
+      memory and the moments' share, tokens/s and MFU (``lm_head``
+      counted, the ``wte`` lookup not), a profiled step by kernel
+      family, the chunked loss against the full logits -> cross entropy
+      loss on the same params, each a later micro-batch's forward and
+      backward over allocated gradients (the full one must peak higher,
+      the losses agree within 1e-3), and B6 alone (host, wall, device)
+      beside its bound;
+   c. the count tier (``meta``, no profiling) over the Llama-3-8B
+      candidates for this card with the int8-optimizer opt-in: the
+      memory model's verdict on every precision level (every fp32-AdamW
+      plan pruned), each kept candidate's estimate, and the chosen
+      plan's state within the card's memory.
+
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, "device": {...}}`` line.  ``--only 9b,10`` runs the build
-and the named phases alone (9b and 10 so far) and prints no result
-lines.  Exits non-zero with no result
+``{"ok": true, "device": {...}}`` line.  ``--only 2,11`` runs the build
+and the named phases alone (2, 9b, 10 and 11 so far, and 11d, which
+the full run leaves out: 11b's Llama-3-8B for 12 steps with its int8
+q-AdamW and with torch's AdamW, each step's loss and gradient norm, and
+six q-AdamW steps followed by B6's six timing steps on one gradient)
+and prints no result lines.  Exits non-zero with no result
 when there is no CUDA device or no package beside the script.
 """
 
@@ -220,10 +259,12 @@ KERNELS = {
 }
 
 # (b, s, h, kv_heads, d, dtype, causal): the training shapes first, GPT-2
-# small's (the one in the kernels line) and GPT-2 XL's
+# small's (the one in the kernels line), GPT-2 XL's and Llama-3-8B's
+# (seq 8192, 32 q heads over 8 kv heads: GQA group 4, head_dim 128)
 CASES = [
     (8, 1024, 12, 12, 64, "bfloat16", True),
     (4, 1024, 25, 25, 64, "bfloat16", True),
+    (1, 8192, 32, 8, 128, "bfloat16", True),
     (2, 200, 4, 4, 64, "bfloat16", False),    # ragged last tile
     (2, 328, 8, 4, 64, "bfloat16", True),     # GQA group 2, ragged
     (2, 384, 4, 4, 128, "bfloat16", True),
@@ -235,13 +276,25 @@ CASES = [
     (2, 320, 8, 2, 128, "float32", False),
     (1, 100, 2, 2, 64, "float32", True),
 ]
-TIMED_CASES = 2
+TIMED_CASES = 3
+# the plain version's tile at the Llama shape (fewer Python iterations;
+# the kernels use their own tiles)
+PLAIN_BLOCK = {8192: 512}
 # dtype -> tolerance on (out, dq, dk, dv), lse, delta: bf16 and fp16
 # outputs are rounded once more than the fp32 math inside, fp16 keeping
 # 3 more bits than bf16; fp32 differs only by the order of the sums
 TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2, lse=1e-3, delta=1e-3),
        "float16": dict(atol=4e-3, rtol=4e-3, lse=1e-3, delta=1e-3),
        "float32": dict(atol=1e-4, rtol=0.0, lse=1e-4, delta=1e-4)}
+# bf16 and fp16 (out, dq, dk, dv): the largest ||got - want|| / ||want||
+# against the plain version, a few of the type's unit roundoff (2^-8,
+# 2^-11).  TOL's atol alone stops failing a wrong output as the keys grow:
+# at s 8192 a typical |out| (and |dv| of most keys) is ~sqrt(e / s) ~
+# 0.02, TOL's bf16 atol; the norm is held to the values' own size
+REL_NORM = {"bfloat16": 1e-2, "float16": 3e-3}
+# the fault planted at the long case to show the norm check fails it:
+# two kv tiles of 128 keys past the first 1024 swapped on the V path
+PLANTED_TILES = (4096, 4224, 4352)
 # bf16 and fp16 dK/dV and dQ: the largest ratio of mean errors to the
 # plain version at the TPU kernel's rounding point and to the one at the
 # other point (_check_dkv_rounding, _check_dq_rounding)
@@ -506,6 +559,54 @@ def _check(name, got, want, atol, rtol, failures, case):
     return err.max().item()
 
 
+def _rel_norm(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _check_norm(name, got, want, rel, failures, case):
+    err = _rel_norm(got, want)
+    if not err <= rel:
+        failures.append(f"{case} {name}: ||got - want|| / ||want|| "
+                        f"{err:.3e} > {rel}")
+    return err
+
+
+def _check_planted_fault(q, k, v, dout, lse, delta, scale, causal, want,
+                         tol, rel, failures, case):
+    """The checks against a fault on the V path past the first 1024
+    keys, planted through the kernels' inputs and outputs: the kv tiles
+    ``PLANTED_TILES`` swapped in V (a kernel reading the wrong V tile
+    coordinates: the forward's out and the backward's dK), and in dV's
+    rows (a kernel writing dV to the wrong tile).  The norm check must
+    fail each of out, dk and dv; logs whether TOL's elementwise check
+    alone would (``want``: the plain out, dk, dv)."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    lo, mid, hi = PLANTED_TILES
+    perm = torch.arange(q.shape[1], device=q.device)
+    perm[lo:hi] = torch.cat([perm[mid:hi], perm[lo:mid]])
+    v_bad = v[:, perm]
+    out_bad, _ = fa.fwd_cuda(q, k, v_bad, scale, causal)
+    dk_bad, dv = fa.bwd_dkv_cuda(q, k, v_bad, dout, lse, delta, scale,
+                                 causal)
+    report = []
+    for name, got, w in zip(("out", "dk", "dv"),
+                            (out_bad, dk_bad, dv[:, perm]), want):
+        err = _rel_norm(got, w)
+        elementwise = []
+        _check(name, got, w, tol["atol"], tol["rtol"], elementwise, case)
+        report.append(f"{name} norm {err:.3e} "
+                      f"({'fails' if err > rel else 'PASSES'}), TOL "
+                      f"{'fails' if elementwise else 'passes'}")
+        if not err > rel:
+            failures.append(f"{case} planted V fault in keys {lo}-{hi - 1}: "
+                            f"{name} passes the norm check ({err:.3e})")
+    log(f"planted V fault {case}, kv tiles {lo}-{mid - 1} and {mid}-"
+        f"{hi - 1} swapped: " + "; ".join(report))
+
+
 def _check_dkv_rounding(q, k, v, dout, lse, delta, scale, causal, blocks,
                         dk, dv, failures, case):
     """The bf16 and fp16 dK/dV kernels keep p and dS at fp32 precision
@@ -577,7 +678,8 @@ def phase_kernels(card: str):
                                dtype=torch.float32).to(dtype)
 
         q, k, v, dout = rnd(h), rnd(kvh), rnd(kvh), rnd(h)
-        blocks = (fa._fit_block(s, 128), fa._fit_block(s, 128))
+        tile = PLAIN_BLOCK.get(s, 128)
+        blocks = (fa._fit_block(s, tile), fa._fit_block(s, tile))
         out_p, lse_p = fa.fwd_plain(q, k, v, scale, causal, *blocks)
         delta_p = fa.delta_plain(out_p, dout)
         dq_p = fa.bwd_dq_plain(q, k, v, dout, lse_p, delta_p, scale,
@@ -607,6 +709,19 @@ def phase_kernels(card: str):
             f"{n} max_abs_err {e:.3e}" for n, e in errs.items())
             + f" (tolerance {tol})")
         if dtype is not torch.float32:
+            rel = REL_NORM[dtype_name]
+            norms = [_check_norm(n, got, want, rel, failures, case)
+                     for n, got, want in (("out", out_c, out_p),
+                                          ("dq", dq_c, dq_p),
+                                          ("dk", dk_c, dk_p),
+                                          ("dv", dv_c, dv_p))]
+            log(f"kernel norm check {case}: ||got - want|| / ||want|| out "
+                f"{norms[0]:.3e}, dq {norms[1]:.3e}, dk {norms[2]:.3e}, dv "
+                f"{norms[3]:.3e} (must be <= {rel})")
+            if s >= PLANTED_TILES[-1]:
+                _check_planted_fault(q, k, v, dout, lse_p, delta_p, scale,
+                                     causal, (out_p, dk_p, dv_p), tol, rel,
+                                     failures, case)
             ratios = _check_dkv_rounding(q, k, v, dout, lse_p, delta_p, scale,
                                          causal, blocks, dk_c, dv_c,
                                          failures, case)
@@ -659,7 +774,8 @@ def _time_main_case(case, q, k, v, dout, out, lse, delta, blocks, errs,
     dt = dout.transpose(1, 2)
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=kvh != h)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(), (qt, kt, vt), dt)
@@ -1145,28 +1261,39 @@ def checkpoint_scope(label: str):
 
 
 def run_training(label, cfg, global_batch, micro, steps, expected, card,
-                 optim_factory=None, strategy=None):
-    """Train ``cfg`` from seed 0 on one fixed batch of random tokens
-    through ``Trainer.train()``, with every launch count set to 0 just
-    before and read just after; check the losses, the exact launch
-    counts (``expected``), the train_step events and the metrics file.
-    The Trainer's final checkpoint goes to a directory of the run,
-    which is removed once the save is committed.
+                 optim_factory=None, strategy=None, loss_fn=_loss_fn,
+                 save_final=True):
+    """Train ``cfg`` (a GPT or a Llama config) from seed 0 on one fixed
+    batch of random tokens through ``Trainer.train()``, with every
+    launch count set to 0 just before and read just after; check the
+    losses, the exact launch counts (``expected``), the train_step
+    events and the metrics file.  The Trainer's final checkpoint goes to
+    a directory of the run, which is removed once the save is committed
+    (with ``save_final`` off, this Trainer's saves write nothing: a run
+    that keeps no state).  The model is
+    built on the card and handed to the Trainer, which holds the only
+    reference to it, so a plan that rebuilds it frees it.
     Returns ``(trainer, result, counts)``."""
     import numpy as np
     import torch
 
     from dlrover_tpu_torch.models.gpt import GPT, count_params
+    from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
     from dlrover_tpu_torch.telemetry.events import read_events
     from dlrover_tpu_torch.trainer.trainer import Trainer, TrainingArguments
 
     t0 = time.perf_counter()
-    model = GPT(cfg, seed=0)
+    model = (Llama if isinstance(cfg, LlamaConfig) else GPT)(cfg, seed=0)
     torch.cuda.synchronize()
-    log(f"{label}: {count_params(model)} params, {cfg.num_layers} layers, "
+    n_params = count_params(model)
+    # the table that is only looked up: GPT's positions (its tied wte is
+    # the head too), Llama's wte (its head is lm_head)
+    lookup = (model.wpe if hasattr(model, "wpe") else model.wte)
+    lookup = lookup.weight.numel()
+    log(f"{label}: {n_params} params, {cfg.num_layers} layers, "
         f"d {cfg.hidden_dim}, dtype {cfg.dtype}, params {cfg.param_dtype}, "
-        f"remat {cfg.remat}, built on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"remat {cfg.remat}, attention {cfg.attention_impl}, built on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
     seq = cfg.max_seq_len
     # one global batch of random tokens from a seed, cycled: the loss
     # falls as the model fits it
@@ -1178,8 +1305,11 @@ def run_training(label, cfg, global_batch, micro, steps, expected, card,
             output_dir=out, resume_from_checkpoint=False, max_steps=steps,
             global_batch_size=global_batch, micro_batch_size=micro,
             logging_steps=1, strategy=strategy)
-        trainer = Trainer(model, args, train_data, _loss_fn,
+        trainer = Trainer(model, args, train_data, loss_fn,
                           optim_factory=optim_factory)
+        if not save_final:
+            trainer._save = lambda step, to_storage: None
+        del model
         if os.path.exists(os.environ["DLROVER_EVENT_LOG"]):
             os.unlink(os.environ["DLROVER_EVENT_LOG"])
         torch.cuda.synchronize()
@@ -1187,13 +1317,15 @@ def run_training(label, cfg, global_batch, micro, steps, expected, card,
         reset_launch_counts()
         result = trainer.train()
         counts = launch_counts()
-        # train() reads its training peak before the final save, whose
-        # snapshot copies the state on the card
-        peak_ckpt = torch.cuda.max_memory_allocated()
-        commit_s = _wait_committed(out, steps)
-    log(f"{label}: final checkpoint committed {commit_s:.3f} s after "
-        f"train() returned; peak memory with its snapshot "
-        f"{peak_ckpt / 2**30:.2f} GiB [{card}]")
+        if save_final:
+            # train() reads its training peak before the final save,
+            # whose snapshot copies the state on the card
+            peak_ckpt = torch.cuda.max_memory_allocated()
+            commit_s = _wait_committed(out, steps)
+    if save_final:
+        log(f"{label}: final checkpoint committed {commit_s:.3f} s after "
+            f"train() returned; peak memory with its snapshot "
+            f"{peak_ckpt / 2**30:.2f} GiB [{card}]")
 
     losses = result["losses"]
     log(f"{label}: losses {losses}")
@@ -1215,16 +1347,17 @@ def run_training(label, cfg, global_batch, micro, steps, expected, card,
                                  "the last step")
     step_s = statistics.median(result["step_seconds"][2:])
     tokens = global_batch * seq
-    # model FLOPs: 6 per weight per token (the tied head included, the
-    # position table not) plus causal attention, 6 L s d per token; the
-    # remat recompute is not counted
-    weights = count_params(model) - model.wpe.weight.numel()
-    flops = 6 * tokens * (weights + cfg.num_layers * seq * cfg.hidden_dim)
+    # model FLOPs: 6 per weight per token (a head included, a table that
+    # is only looked up not) plus causal attention, 6 L s d per token;
+    # the remat recompute is not counted
+    flops = 6 * tokens * (n_params - lookup
+                          + cfg.num_layers * seq * cfg.hidden_dim)
     log(f"{label}: median step {step_s * 1e3:.3f} ms over steps 3..{steps}, "
         f"{tokens / step_s:.1f} tokens/s, model FLOPs utilisation "
-        f"{flops / step_s / PEAK_FLOPS['bfloat16']:.4f} of 989 TFLOP/s, "
-        f"step times {[round(t * 1e3, 3) for t in result['step_seconds']]} "
-        f"ms, peak memory {result['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+        f"{flops / step_s / PEAK_FLOPS['bfloat16']:.4f} of 989 TFLOP/s "
+        f"({flops:.4e} FLOPs a step), step times "
+        f"{[round(t * 1e3, 3) for t in result['step_seconds']]} ms, peak "
+        f"memory {result['peak_bytes'] / 2**30:.2f} GiB [{card}]")
     return trainer, result, counts
 
 
@@ -1282,6 +1415,24 @@ def phase_train_xl(card):
         expected, card,
         optim_factory=lambda ps: q_adamw(ps, lr=3e-4, weight_decay=0.1))
     opt = trainer.state.optimizer
+    _check_multi_against_per_leaf(opt, card)
+    _report_qadam(trainer, result, n_params, "train GPT-2 XL int8 q-AdamW",
+                  card)
+    profile_step(trainer, trainer.train_data[0], card, "GPT-2 XL int8 q-AdamW")
+    return counts
+
+
+def _report_qadam(trainer, result, n_params, label, card):
+    """The int8 q-AdamW run's peak memory and the moments' share of it;
+    then the optimizer alone, on the gradients of the last step: the
+    host's time to queue it, the wall to its end (synchronised), and
+    its time on the device with the card held until the host has queued
+    it, beside the fused step's summed bound."""
+    import torch
+
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    opt = trainer.state.optimizer
     params = [p for g in opt.param_groups for p in g["params"]]
     if len(params) != n_params:
         raise AssertionError(f"{len(params)} parameters, not {n_params}")
@@ -1290,18 +1441,12 @@ def phase_train_xl(card):
                        for st in opt.state.values() for t in st.values()
                        if torch.is_tensor(t))
     param_bytes = sum(p.numel() * p.element_size() for p in params)
-    log(f"train GPT-2 XL int8 q-AdamW: peak memory {peak / 2**30:.2f} GiB, "
-        f"moment state (int8 codes + fp32 scales) {moment_bytes / 2**30:.3f} "
-        f"GiB = {moment_bytes / peak:.4f} of the peak, params "
+    log(f"{label}: peak memory {peak / 2**30:.2f} GiB, moment state (int8 "
+        f"codes + fp32 scales) {moment_bytes / 2**30:.3f} GiB = "
+        f"{moment_bytes / peak:.4f} of the peak, params "
         f"{param_bytes / 2**30:.3f} GiB [{card}]")
     bound = sum(qadam_bytes(p.numel(), opt.block_size, p.element_size())
                 for p in params)
-    _check_multi_against_per_leaf(opt, card)
-    from dlrover_tpu_torch.ops import quantization as qz
-
-    # the optimizer alone, on the gradients of the last step: the host's
-    # time to queue it, the wall to its end (synchronised), and its time
-    # on the device with the card held until the host has queued it
     hosts, walls = [], []
     launches = qz.LAUNCHES["qadam"]
     for _ in range(3):
@@ -1313,15 +1458,15 @@ def phase_train_xl(card):
         walls.append((time.perf_counter() - t0) * 1e3)
     launches = (qz.LAUNCHES["qadam"] - launches) // len(walls)
     device = median_ms(opt.step, 3, warmup=0, sleep_cycles=OPT_SLEEP_CYCLES)
-    log(f"train GPT-2 XL int8 q-AdamW: optimizer step host "
-        f"{statistics.median(hosts):.3f} ms to queue, wall "
-        f"{statistics.median(walls):.3f} ms to its end, device "
-        f"{device:.3f} ms ({launches} fused launch(es) a step over "
-        f"{n_params} parameters), summed bound of the fused step "
-        f"{bound / 1e9:.3f} GB / 3.35 TB/s = "
+    elements = sum(p.numel() for p in params)
+    log(f"{label}: optimizer step host {statistics.median(hosts):.3f} ms "
+        f"to queue, wall {statistics.median(walls):.3f} ms to its end, "
+        f"device {device:.3f} ms ({launches} fused launch(es) a step over "
+        f"{n_params} parameters, {elements} elements), summed bound of the "
+        f"fused step {bound / 1e9:.3f} GB / 3.35 TB/s = "
         f"{bound / PEAK_BYTES_S * 1e3:.3f} ms [{card}]")
-    profile_step(trainer, trainer.train_data[0], card, "GPT-2 XL int8 q-AdamW")
-    return counts
+    return {"peak": peak, "moment_bytes": moment_bytes, "device_ms": device,
+            "bound_ms": bound / PEAK_BYTES_S * 1e3}
 
 
 def _check_multi_against_per_leaf(opt, card):
@@ -3538,6 +3683,337 @@ def phase_example(card) -> dict:
     return counts
 
 
+# -- phase 11: the Llama family and the chunked loss (slice 5.1) ---------------
+
+LLAMA_STEPS = 6
+LLAMA_CHUNKS = 8
+# 11a: a narrow Llama at Llama-3-8B's head_dim (128) and GQA group (4)
+LLAMA_SMALL = dict(vocab_size=512, max_seq_len=256, num_layers=2,
+                   num_heads=4, num_kv_heads=1, hidden_dim=512,
+                   intermediate_dim=1024)
+
+
+def phase_llama_check():
+    """11a: a narrow Llama on the card, 4 q heads over 1 kv head at
+    head_dim 128: the flash model (k and v straight into the kernels)
+    against the plain-attention model (k and v repeated) from the same
+    weights, logits and gradients, within phase 4's tolerances."""
+    import torch
+
+    from dlrover_tpu_torch.models.gpt import cross_entropy_loss
+    from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
+
+    tokens = torch.randint(0, 512, (2, 257), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    # (atol, rtol) of the logits: phase 4's in fp32; in bf16 those the
+    # reference holds its own Llama's flash logits to against xla
+    # (tests/test_llama.py, 5e-2 both: the residual stream stays bf16 and
+    # the two attentions round p at other points); the gradients within
+    # phase 4's atol
+    for dtype, atol, rtol, gtol in ((torch.float32, 1e-4, 0.0, 1e-4),
+                                    (torch.bfloat16, 5e-2, 5e-2, 3e-2)):
+        results = {}
+        for impl in ("xla", "flash"):
+            reset_launch_counts()
+            model = Llama(LlamaConfig(attention_impl=impl, dtype=dtype,
+                                      **LLAMA_SMALL), device="cuda", seed=3)
+            logits = model(x)
+            cross_entropy_loss(logits, y).backward()
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            results[impl] = (logits, grads, launch_counts())
+        (lx, gx, cx), (lf, gf, cf) = results["xla"], results["flash"]
+        if lf.shape != (2, 256, 512) or not bool(torch.isfinite(lf).all()):
+            raise AssertionError(f"flash Llama logits {lf.shape} not finite")
+        want = _zero_counts(**{f"flash_attention.{k}": 2 for k in (
+            "fwd", "bwd_dq", "bwd_dkv")})
+        if cf != want or cx != _zero_counts():
+            raise AssertionError(f"11a launches {cf} / {cx}")
+        diff = (lx - lf).abs()
+        err = diff.max().item()
+        over = (diff > atol + rtol * lx.abs()).sum().item()
+        gerr = max((gx[n] - gf[n]).abs().max().item() for n in gx)
+        log(f"11a Llama check {dtype} (GQA 4:1, head_dim 128, seq 256): "
+            f"logits max_abs_err {err:.3e} ({over} beyond atol {atol} + "
+            f"rtol {rtol}), grads max_abs_err {gerr:.3e} (tolerance {gtol})")
+        if over or gerr > gtol:
+            raise AssertionError(f"flash Llama disagrees with plain Llama "
+                                 f"in {dtype}: {err:.3e} / {gerr:.3e}")
+
+
+def _loss_peaks(trainer, card) -> dict:
+    """The chunked loss against the full ``logits -> cross entropy``
+    loss on the same params, each as a later micro-batch of a gradient
+    accumulation: its forward and backward with the gradients of a first
+    micro-batch already allocated (one micro-batch's step peaks where
+    the gradients and the grad norm's fp32 copies live, past any loss).
+    Prints each one's peak and its rise above what was allocated before
+    it, and both losses, which must agree to bf16's rounding of the
+    logits.  A full loss that runs out of memory peaks past the card."""
+    import torch
+
+    model, loss_fn = trainer.model, trainer.loss_fn
+    placed = trainer.place_batch(trainer.train_data[0])
+    model.zero_grad(set_to_none=True)
+    loss_fn(model, placed).backward()  # the first micro-batch
+    peaks, rises, losses = {}, {}, {}
+    for name, fn in (("chunked", loss_fn), ("full", _loss_fn)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = None
+        try:
+            loss = fn(model, placed)
+            loss.backward()
+            losses[name] = float(loss.detach())
+        except torch.OutOfMemoryError:
+            losses[name] = float("nan")
+        del loss
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        rises[name] = peaks[name] - base
+    log(f"11b loss peaks, a micro-batch's forward and backward on top of "
+        f"allocated gradients: chunked ({LLAMA_CHUNKS} chunks) "
+        f"{peaks['chunked'] / 2**30:.2f} GiB (+{rises['chunked'] / 2**30:.2f}"
+        f" GiB, loss {losses['chunked']:.6f}), full logits -> cross entropy "
+        f"{peaks['full'] / 2**30:.2f} GiB (+{rises['full'] / 2**30:.2f} GiB, "
+        f"loss {losses['full']:.6f}) [{card}]")
+    model.zero_grad(set_to_none=True)
+    if not peaks["full"] > peaks["chunked"]:
+        raise AssertionError(f"the chunked loss did not peak lower: {peaks}")
+    if not abs(losses["full"] - losses["chunked"]) <= 1e-3 * abs(
+            losses["chunked"]):
+        raise AssertionError(f"the chunked and full losses differ: {losses}")
+    return peaks
+
+
+def phase_train_llama(card) -> dict:
+    """11b: Llama-3-8B at full width and depth (32 layers, d 4096, 32
+    heads over 8 kv heads, intermediate 14336, vocab 128256, rope theta
+    5e5), seq 8192, batch 1, bf16 params built on the card, through
+    ``Trainer(strategy=[half, checkpoint, module_replace(flash),
+    low_bit_opt(int8)])`` (the plan rebuilds the model with remat and
+    flash) and ``chunked_loss_fn(num_chunks=8)``, q-AdamW lr 3e-4 and
+    weight decay 0.1, 6 steps on one fixed batch, no checkpoint: finite
+    losses that fall; 64 B1, 32 B2, 32 B3 and 1 B6 a step, B4 only at
+    the optimizer's init, B5 never; peak memory and the moments' share,
+    tokens/s and MFU, a profiled step, the chunked loss's peak against
+    the full loss's, and B6 alone beside its bound."""
+    import torch
+
+    from dlrover_tpu_torch.accel import Strategy
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+    from dlrover_tpu_torch.models.losses import chunked_loss_fn
+
+    label = "11b train Llama-3-8B int8 q-AdamW"
+    cfg = LlamaConfig.llama3_8b(param_dtype=torch.bfloat16)
+    # 9 a block (two norms, q/k/v/o, gate/up/down); wte, ln_f, lm_head
+    n_params = 9 * cfg.num_layers + 3
+    strategy = Strategy(opts=[
+        ("parallel_mode", {}), ("half", {}), ("checkpoint", {}),
+        ("module_replace", {"attention": "flash"}),
+        ("low_bit_opt", {"bits": 8, "learning_rate": 3e-4,
+                         "weight_decay": 0.1})])
+    expected = _flash_expected(cfg.num_layers, 1, LLAMA_STEPS, True,
+                               low_bit=8, n_params=n_params)
+    log(f"{label}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"and {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved on the "
+        "card before the build")
+    trainer, result, counts = run_training(
+        label, cfg, 1, 1, LLAMA_STEPS, expected, card, strategy=strategy,
+        loss_fn=chunked_loss_fn(num_chunks=LLAMA_CHUNKS), save_final=False)
+    got = trainer.model.config
+    if not (got.remat and got.attention_impl == "flash"
+            and got.param_dtype == torch.bfloat16):
+        raise AssertionError(f"11b: the plan did not reach the model: {got}")
+    ln = trainer.model.blocks[0].ln_attn.weight
+    if ln.dtype != torch.float32:
+        raise AssertionError(f"11b: an RMSNorm scale is {ln.dtype}")
+    profile_step(trainer, trainer.train_data[0], card,
+                 "Llama-3-8B int8 q-AdamW")
+    _loss_peaks(trainer, card)
+    # one more micro-batch's gradients for the optimizer's timing, which
+    # steps on them again and again
+    trainer.loss_fn(trainer.model,
+                    trainer.place_batch(trainer.train_data[0])).backward()
+    _report_qadam(trainer, result, n_params, label, card)
+    return {"llama3_8b_int8_qadamw": counts}
+
+
+def phase_llama_count(card):
+    """11c: the count tier (the ``meta`` device, no profiling) over the
+    Llama-3-8B candidates for this card, as a user builds the model (fp32
+    params), with the int8-optimizer opt-in: one line a precision level
+    (the memory model's verdict), one a kept candidate (its estimate);
+    every fp32-AdamW plan must be pruned and the chosen plan's state
+    must fit."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.accel import (
+        ModelContext,
+        OptimizationLibrary,
+        analyser,
+        strategy_search,
+    )
+    from dlrover_tpu_torch.accel.dry_runner import estimate_plan
+    from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
+    from dlrover_tpu_torch.models.losses import chunked_loss_fn
+
+    model = Llama(LlamaConfig.llama3_8b(), device="meta")
+    data = np.random.default_rng(0).integers(
+        0, model.config.vocab_size, (1, model.config.max_seq_len + 1),
+        dtype=np.int32)
+    context = ModelContext(
+        model=model, optim_factory=_adamw_factory(3e-4, 0.1),
+        loss_fn=chunked_loss_fn(num_chunks=LLAMA_CHUNKS),
+        sample_batch={"x": data[:, :-1], "y": data[:, 1:]},
+        extra={"search_optimizer": True}, device=torch.device("cuda"))
+    analysis = analyser.analyse(context)
+    hbm = analysis.per_device_hbm
+    failures = []
+    for half, low_bit in ((False, False), (True, False), (False, True),
+                          (True, True)):
+        for remat in (False, True):
+            fits = analyser.fits_in_hbm(analysis, 1, 1, remat, half=half,
+                                        low_bit_opt=low_bit)
+            log(f"11c level params {'bf16' if half else 'fp32'}, moments "
+                f"{'int8' if low_bit else 'fp32'}, remat {remat}: "
+                f"{'kept' if fits else 'pruned'} (memory model at "
+                f"{hbm / 2**30:.2f} GiB)")
+            if fits and not low_bit:
+                failures.append(f"an fp32-AdamW plan was kept (half {half})")
+    t0 = time.perf_counter()
+    search = strategy_search.search_strategy(context, 1,
+                                             rank_mode="cost_model")
+    seconds = time.perf_counter() - t0
+    for cand in search.evaluated:
+        log(f"11c candidate {cand.describe()}: kept, estimate "
+            f"{cand.est_step_time_s * 1e3:.3f} ms")
+    best = search.best
+    plan = OptimizationLibrary().apply_strategy(best.strategy, context)
+    est = estimate_plan(plan, context)
+    log(f"11c chosen {best.describe()} in {seconds:.1f} s: estimate "
+        f"{est.est_step_time_s * 1e3:.3f} ms ({est.flops:.4e} FLOPs, "
+        f"{est.bytes_accessed:.4e} bytes), state "
+        f"{est.device_peak_bytes / 2**30:.2f} GiB of {hbm / 2**30:.2f} GiB "
+        f"[{card}]")
+    if not (best.half and best.low_bit_opt):
+        failures.append(f"chose {best.describe()}")
+    if not est.device_peak_bytes < hbm:
+        failures.append(f"the chosen plan's state "
+                        f"{est.device_peak_bytes} B does not fit {hbm} B")
+    if failures:
+        raise AssertionError("11c: " + "; ".join(failures))
+
+
+# 11d: steps past 11b's six, on request alone; and B6's timing steps
+# (_report_qadam: 3 on the host's clock, 3 on the device's) on one
+# gradient, then real steps
+LLAMA_LOSS_STEPS = 12
+STALE_STEPS, AFTER_STALE = 6, 3
+
+
+def phase_llama_losses(card):
+    """11d, run on request alone (``--only 11d``): 11b's Llama-3-8B,
+    plan and batch for ``LLAMA_LOSS_STEPS`` steps, once with 11b's int8
+    q-AdamW and once with torch's AdamW in its place (lr 3e-4, weight
+    decay 0.1, fused, its state in the params' bf16), each step's loss
+    and gradient norm printed: whether a loss that climbs after 11b's
+    six steps comes from the port's q-AdamW or from the setting (that lr
+    with no warmup, on one batch).  Then q-AdamW's six steps followed by
+    ``STALE_STEPS`` optimizer steps on the sixth step's gradients (what
+    B6's timing in 11b does) and ``AFTER_STALE`` real steps, their
+    losses printed.  Checks nothing but that each run ends; its Trainer
+    saves nothing."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.accel import Strategy
+    from dlrover_tpu_torch.common.log import default_logger
+    from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
+    from dlrover_tpu_torch.models.losses import chunked_loss_fn
+    from dlrover_tpu_torch.trainer.trainer import Trainer, TrainingArguments
+
+    class StepLines(logging.Handler):
+        """The Trainer's ``step %s loss %.4f grad_norm %.3f`` lines."""
+
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def emit(self, record):
+            if str(record.msg).startswith("step %s loss"):
+                self.rows.append(record.args)
+
+    cfg = LlamaConfig.llama3_8b(param_dtype=torch.bfloat16)
+    data = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, cfg.max_seq_len + 1), dtype=np.int32)
+    plan = [("parallel_mode", {}), ("half", {}), ("checkpoint", {}),
+            ("module_replace", {"attention": "flash"})]
+    qadamw = plan + [("low_bit_opt", {
+        "bits": 8, "learning_rate": 3e-4, "weight_decay": 0.1})]
+    runs = (
+        ("int8 q-AdamW", qadamw, None, LLAMA_LOSS_STEPS),
+        ("torch AdamW", plan, lambda ps: torch.optim.AdamW(
+            ps, lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1,
+            fused=True), LLAMA_LOSS_STEPS),
+        ("int8 q-AdamW, then B6's timing steps", qadamw, None, LLAMA_STEPS),
+    )
+    for name, opts, factory, steps in runs:
+        lines = StepLines()
+        default_logger.addHandler(lines)
+        try:
+            with checkpoint_scope("11d") as out:
+                args = TrainingArguments(
+                    output_dir=out, resume_from_checkpoint=False,
+                    max_steps=steps, global_batch_size=1,
+                    micro_batch_size=1, logging_steps=1, save_steps=0,
+                    strategy=Strategy(opts=opts))
+                trainer = Trainer(Llama(cfg, seed=0), args,
+                                  [{"x": data[:, :-1], "y": data[:, 1:]}],
+                                  chunked_loss_fn(num_chunks=LLAMA_CHUNKS),
+                                  optim_factory=factory)
+                trainer._save = lambda step, to_storage: None
+                torch.cuda.reset_peak_memory_stats()
+                result = trainer.train()
+                after = []
+                if steps == LLAMA_STEPS:
+                    for _ in range(STALE_STEPS):
+                        trainer.state.optimizer.step()
+                    placed = trainer.place_batch(trainer.train_data[0])
+                    for _ in range(AFTER_STALE):
+                        trainer.state, m = trainer.train_step(trainer.state,
+                                                              placed)
+                        after.append(float(m["loss"]))
+                del trainer
+        finally:
+            default_logger.removeHandler(lines)
+        _free_cuda()
+        log(f"11d Llama-3-8B {name}, lr 3e-4, weight decay 0.1, "
+            f"{steps} steps on 11b's batch: losses {result['losses']}, grad "
+            f"norms {[round(float(r[2]), 3) for r in lines.rows]}, peak "
+            f"{result['peak_bytes'] / 2**30:.2f} GiB"
+            + (f"; then {STALE_STEPS} optimizer steps on step {steps}'s "
+               f"gradients and {AFTER_STALE} steps: losses {after}"
+               if after else "") + f" [{card}]")
+
+
+def phase_llama(card) -> dict:
+    """Phase 11: 11a, 11b and 11c, each timed."""
+    out = {}
+    for name, fn, args in (("11a", phase_llama_check, ()),
+                           ("11b", phase_train_llama, (card,)),
+                           ("11c", phase_llama_count, (card,))):
+        t0 = time.perf_counter()
+        out.update(fn(*args) or {})
+        _free_cuda()
+        log(f"chip_smoke: phase {name} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _free_cuda():
     import gc
 
@@ -3571,6 +4047,10 @@ def main(argv) -> int:
     sockets = tempfile.mkdtemp(prefix="dlrover-smoke-")
     os.environ["DLROVER_SHARED_DIR"] = sockets
     os.environ["DLROVER_JOB_NAME"] = f"chipsmoke{os.getpid()}"
+    os.environ["DLROVER_EVENT_LOG"] = os.path.join(OUT_DIR,
+                                                   "chip_smoke_events.jsonl")
+    os.environ["DLROVER_METRICS_FILE"] = os.path.join(
+        OUT_DIR, "chip_smoke_metrics.json")
     try:
         if argv[:1] == ["--only"]:
             return run_only(torch, argv[1].split(","))
@@ -3587,11 +4067,12 @@ def main(argv) -> int:
             log(f"chip_smoke: unlinked leftover shm segments {left}")
 
 
-ONLY = {"9b": phase_fsdp_one_rank, "10": phase_example}
+ONLY = {"2": phase_kernels, "9b": phase_fsdp_one_rank, "10": phase_example,
+        "11": phase_llama, "11d": phase_llama_losses}
 
 
 def run_only(torch, names) -> int:
-    """``--only 9b,10``: the build, then the named phases alone (a quick
+    """``--only 2,11``: the build, then the named phases alone (a quick
     check of one path; the full run, with no arguments, is the card's
     check and prints the result lines)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3608,10 +4089,6 @@ def run_only(torch, names) -> int:
 
 
 def run_phases(torch) -> int:
-    os.environ["DLROVER_EVENT_LOG"] = os.path.join(OUT_DIR,
-                                                   "chip_smoke_events.jsonl")
-    os.environ["DLROVER_METRICS_FILE"] = os.path.join(
-        OUT_DIR, "chip_smoke_metrics.json")
     # the plain versions' fp32 products must be full fp32 for the 1e-4
     # comparison (these are PyTorch's defaults, stated here)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3647,7 +4124,7 @@ def run_phases(torch) -> int:
     for name, phase in (("9a", phase_search_xl), ("9b", phase_fsdp_one_rank),
                         ("9c", phase_offload_xl),
                         ("9d", phase_trainer_strategy),
-                        ("10", phase_example)):
+                        ("10", phase_example), ("11", phase_llama)):
         by_path.update(timed(name, phase, card))
     leaked = [n for n in os.listdir("/dev/shm")
               if n.startswith(f"dlrover_tpu_ckpt_shm_"

@@ -183,13 +183,15 @@ _ACTIVE: Dict[str, Any] = {}
 
 class _AttentionCost(torch.autograd.Function):
     """Stands in for the flash kernels on ``meta`` tensors and counts
-    them by formula."""
+    them by formula; k and v (and dK, dV) at their own size, the kv
+    heads' under GQA."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
         b, s, h, d = q.shape
         flops = 4 * b * h * s * s * d * (0.5 if causal else 1.0)
         ctx.flops = flops
+        ctx.kv_shape = tuple(k.shape)
         counter = _ACTIVE["count"]
         counter.flops += flops
         counter.bytes += 2 * _nbytes(q) + _nbytes(k) + _nbytes(v) \
@@ -200,16 +202,21 @@ class _AttentionCost(torch.autograd.Function):
     def backward(ctx, dout):
         counter = _ACTIVE["count"]
         counter.flops += 2.5 * ctx.flops
-        # q, k, v, o, dO read, dQ, dK, dV written; lse and Delta
-        counter.bytes += 8 * _nbytes(dout) + 8 * dout.shape[0] \
-            * dout.shape[1] * dout.shape[2]
-        return (torch.empty_like(dout), torch.empty_like(dout),
-                torch.empty_like(dout), None)
+        dk = dout.new_empty(ctx.kv_shape)
+        # q, o and dO read, dQ written; k and v read, dK and dV written;
+        # lse and Delta read
+        counter.bytes += 4 * _nbytes(dout) + 4 * _nbytes(dk) \
+            + 8 * dout.shape[0] * dout.shape[1] * dout.shape[2]
+        return (torch.empty_like(dout), dk, torch.empty_like(dk), None)
 
 
 def _attention_cost(q, k, v, causal=True, dtype=None, **_):
     out = _AttentionCost.apply(q, k, v, causal)
     return out.to(dtype) if dtype is not None else out
+
+
+# as the flash kernels: k and v may carry fewer heads than q
+_attention_cost.gqa_aware = True
 
 
 def _meta_batch(batch, rows: int):

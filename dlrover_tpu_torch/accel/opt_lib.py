@@ -5,8 +5,9 @@ name and edits the plan as the reference's does; the plan is then
 materialised on ``torch.distributed`` by
 :mod:`dlrover_tpu_torch.accel.accelerate`.  ``sequence_parallel``,
 ``expert_parallel``, ``pipeline_parallel`` and ``fp8`` raise
-``NotImplementedError`` when applied: they come with slice 5 of the
-port.  ``module_replace`` selects the CUDA flash kernels, which the
+``NotImplementedError`` when applied, naming the part of slice 5 of
+the port that brings them (5.2 sequence and expert parallelism, 5.3 the
+pipeline, 5.4 fp8).  ``module_replace`` selects the CUDA flash kernels, which the
 strategy search adds when the job runs on the card.
 Reference of that file: ``OptimizationLibrary`` with 15 registered methods
 (``atorch/auto/opt_lib/optimization_library.py:18``; zero1/zero2/fsdp/
@@ -20,9 +21,8 @@ from typing import Any, Dict
 
 from dlrover_tpu_torch.accel.strategy import AccelPlan
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.common.slices import SLICE_5_2, SLICE_5_3, SLICE_5_4
 from dlrover_tpu_torch.parallel.sharding import fsdp_rules
-
-_SLICE_5 = "slice 5 of the port (model zoo and long context)"
 
 
 class Optimization:
@@ -112,7 +112,7 @@ class TensorParallelOpt(Optimization):
 
 class SequenceParallelOpt(Optimization):
     """Ulysses SP / ring CP over the 'sequence' axis (reference:
-    sequence_parallel_optimization.py); comes with slice 5 of the
+    sequence_parallel_optimization.py); comes with slice 5.2 of the
     port."""
 
     name = "sequence_parallel"
@@ -120,19 +120,19 @@ class SequenceParallelOpt(Optimization):
 
     def apply(self, plan, config, context=None):
         raise NotImplementedError(
-            f"optimization {self.name!r} comes with {_SLICE_5}")
+            f"optimization {self.name!r} comes with {SLICE_5_2}")
 
 
 class ExpertParallelOpt(Optimization):
     """MoE expert parallelism (reference: moe_layer.py); comes with
-    slice 5 of the port."""
+    slice 5.2 of the port."""
 
     name = "expert_parallel"
     semiauto = True
 
     def apply(self, plan, config, context=None):
         raise NotImplementedError(
-            f"optimization {self.name!r} comes with {_SLICE_5}")
+            f"optimization {self.name!r} comes with {SLICE_5_2}")
 
 
 class MixedParallelOpt(Optimization):
@@ -227,13 +227,13 @@ class LowBitOptimizerOpt(Optimization):
 class Fp8Opt(Optimization):
     """FP8 (e4m3, dynamic scaling) matmuls where the model supports it
     (reference: Fp8Optimization + TransformerEngine patching); the
-    port's ``ops/fp8.py`` comes with slice 5."""
+    port's ``ops/fp8.py`` comes with slice 5.4."""
 
     name = "fp8"
 
     def apply(self, plan, config, context=None):
         raise NotImplementedError(
-            f"optimization {self.name!r} comes with {_SLICE_5}")
+            f"optimization {self.name!r} comes with {SLICE_5_4}")
 
 
 class CheckpointOpt(Optimization):
@@ -285,14 +285,14 @@ class ModuleReplaceOpt(Optimization):
 class PipelineParallelOpt(Optimization):
     """Pipeline stages over the 'pipeline' axis (reference:
     pipeline_parallel_optimization.py:56); GPipe and 1F1B come with
-    slice 5 of the port."""
+    slice 5.3 of the port."""
 
     name = "pipeline_parallel"
     semiauto = True
 
     def apply(self, plan, config, context=None):
         raise NotImplementedError(
-            f"optimization {self.name!r} comes with {_SLICE_5}")
+            f"optimization {self.name!r} comes with {SLICE_5_3}")
 
 
 class OffloadOptStateOpt(Optimization):

@@ -1,4 +1,5 @@
-"""Model zoo of the port (``dlrover_tpu/models``): GPT in this slice."""
+"""Model zoo of the port (``dlrover_tpu/models``): GPT, the Llama
+family and the chunked loss so far."""
 
 from dlrover_tpu_torch.models.gpt import (
     GPT,
@@ -6,5 +7,19 @@ from dlrover_tpu_torch.models.gpt import (
     count_params,
     cross_entropy_loss,
 )
+from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
+from dlrover_tpu_torch.models.losses import (
+    chunked_cross_entropy,
+    chunked_loss_fn,
+)
 
-__all__ = ["GPT", "GPTConfig", "count_params", "cross_entropy_loss"]
+__all__ = [
+    "GPT",
+    "GPTConfig",
+    "Llama",
+    "LlamaConfig",
+    "chunked_cross_entropy",
+    "chunked_loss_fn",
+    "count_params",
+    "cross_entropy_loss",
+]

@@ -47,8 +47,7 @@ from torch.autograd.graph import save_on_cpu
 from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
-
-_MODEL_ZOO_SLICE = "slice 5 of the port (model zoo and long context)"
+from dlrover_tpu_torch.common.slices import SLICE_5_2, SLICE_5_4
 
 
 @dataclass(frozen=True)
@@ -114,15 +113,15 @@ class GPTConfig:
 def _check_supported(cfg: GPTConfig):
     """Options of the reference that later slices of the port bring."""
     unsupported = [
-        (cfg.decode, "decode (KV-cache attention)", _MODEL_ZOO_SLICE),
+        (cfg.decode, "decode (KV-cache attention)", SLICE_5_4),
         (cfg.head != "lm", f"head={cfg.head!r}",
          "slice 7 of the port (RL)"),
-        (cfg.moe_experts > 0, "moe_experts > 0", _MODEL_ZOO_SLICE),
-        (cfg.fp8, "fp8 matmuls", _MODEL_ZOO_SLICE),
+        (cfg.moe_experts > 0, "moe_experts > 0", SLICE_5_2),
+        (cfg.fp8, "fp8 matmuls", SLICE_5_4),
         (cfg.remat_policy == "save_attn",
-         f"remat_policy={cfg.remat_policy!r}", _MODEL_ZOO_SLICE),
+         f"remat_policy={cfg.remat_policy!r}", SLICE_5_4),
         (cfg.attention_impl not in ("xla", "flash"),
-         f"attention_impl={cfg.attention_impl!r}", _MODEL_ZOO_SLICE),
+         f"attention_impl={cfg.attention_impl!r}", SLICE_5_2),
     ]
     for bad, what, where in unsupported:
         if bad:
@@ -258,16 +257,58 @@ class Block(nn.Module):
         return x + self.mlp(self.ln_mlp(x.float()).to(dtype))
 
 
+@torch.no_grad()
+def init_flax_weights(model: nn.Module, gen: torch.Generator,
+                      embeddings_as_dense: bool = False):
+    """Draw ``model``'s weights from ``gen`` as flax's default
+    initializers draw them: lecun-normal Dense kernels (a normal
+    truncated at two standard deviations and widened so that the
+    truncated std is 1/sqrt(fan_in)), zero biases, ``nn.Embed``'s plain
+    normal of std 1/sqrt(features), unit layernorm scales (a module
+    that builds its own scales, as ``RMSNorm``, keeps them).  Drawn in
+    fp32 on the weights' device and rounded once to their dtype.
+    ``embeddings_as_dense`` draws an embedding as a Dense kernel of
+    fan-in ``num_embeddings`` instead: GPT's draw since slice 1, which
+    ROADMAP §C 5 records against the reference."""
+
+    def draw(w, fan_in, truncated):
+        std = math.sqrt(1.0 / fan_in)
+        out = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+        if truncated:
+            std = std / 0.87962566103423978
+            nn.init.trunc_normal_(out, std=std, a=-2 * std, b=2 * std,
+                                  generator=gen)
+        else:
+            out.normal_(0.0, std, generator=gen)
+        w.copy_(out)
+
+    for module in model.modules():
+        if isinstance(module, Dense):
+            draw(module.weight, module.in_features, True)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, nn.Embedding):
+            if embeddings_as_dense:
+                draw(module.weight, module.num_embeddings, True)
+            else:
+                draw(module.weight, module.embedding_dim, False)
+        elif isinstance(module, nn.LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+
+
 class GPT(nn.Module):
     """GPT over ``[batch, seq]`` int tokens -> fp32 logits.
 
     Built on ``device`` (the GPU unless ``"cpu"`` is passed), with
     weights drawn from ``seed`` as the reference's initializers draw
-    them: lecun-normal Dense kernels, zero biases, fan-in-normal
-    embeddings, unit layernorm scales.  The weights are drawn on
-    ``device`` by a generator there, so a GPT-2 XL needs no host pass
-    over its 1.56B params; one seed therefore gives other weights on
-    the card than on the CPU (nothing compares the two).
+    them (:func:`init_flax_weights`): lecun-normal Dense kernels, zero
+    biases, unit layernorm scales; the embeddings as Dense kernels of
+    fan-in ``num_embeddings`` (not flax's ``nn.Embed`` draw, ROADMAP
+    §C 5).  The weights are drawn on ``device`` by a generator there,
+    so a GPT-2 XL needs no host pass over its 1.56B params; one seed
+    therefore gives other weights on the card than on the CPU (nothing
+    compares the two).
     """
 
     def __init__(
@@ -292,33 +333,15 @@ class GPT(nn.Module):
             self.lm_head = Dense(d, config.vocab_size, bias=False, dtype=pd,
                                  device=device)
         if device.type != "meta":  # shapes only (the strategy analyser)
-            self._init_weights(
-                torch.Generator(device=device).manual_seed(seed))
+            init_flax_weights(
+                self, torch.Generator(device=device).manual_seed(seed),
+                embeddings_as_dense=True)
 
-    @torch.no_grad()
-    def _init_weights(self, gen: torch.Generator):
-        # flax truncates its normals at two standard deviations and
-        # widens them so the truncated std is the nominal one; drawn in
-        # fp32 and rounded once to the param dtype
-        def trunc_normal(w, fan_in):
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            draw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
-            nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std,
-                                  generator=gen)
-            w.copy_(draw)
-
-        for module in self.modules():
-            if isinstance(module, Dense):
-                trunc_normal(module.weight, module.in_features)
-                if module.bias is not None:
-                    module.bias.zero_()
-            elif isinstance(module, nn.Embedding):
-                trunc_normal(module.weight, module.num_embeddings)
-            elif isinstance(module, nn.LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
-
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                return_hidden: bool = False) -> torch.Tensor:
+        """fp32 logits; with ``return_hidden`` the final layernorm's
+        output in the compute dtype instead, for losses that apply the
+        head themselves (:mod:`dlrover_tpu_torch.models.losses`)."""
         cfg = self.config
         b, s = tokens.shape
         pos = torch.arange(s, device=tokens.device)
@@ -341,6 +364,8 @@ class GPT(nn.Module):
             else:
                 x = block(x)
         x = self.ln_f(x.float()).to(cfg.dtype)
+        if return_hidden:
+            return x
         if cfg.tie_embeddings:
             logits = x @ self.wte.weight.to(cfg.dtype).t()
         else:

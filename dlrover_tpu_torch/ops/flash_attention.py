@@ -493,3 +493,8 @@ def flash_attention(
     if dtype is not None:
         out = out.to(dtype)
     return out
+
+
+# the kernels read each kv head once per group (no repeated kv tensor):
+# a model with fewer kv heads than q heads passes k and v as they are
+flash_attention.gqa_aware = True

@@ -1,7 +1,7 @@
 """Parallelism layer (reference: ``dlrover_tpu/parallel/``): the mesh
 and the partition rules, which become FSDP2 and DTensor placements on
-``torch.distributed``.  ``moe``, ``pipeline`` and ``sequence`` come
-with slice 5 of the port."""
+``torch.distributed``.  ``moe`` and ``sequence`` come with slice 5.2
+of the port, ``pipeline`` with 5.3."""
 
 from dlrover_tpu_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
 from dlrover_tpu_torch.parallel.sharding import (

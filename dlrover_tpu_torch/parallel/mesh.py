@@ -9,7 +9,8 @@ axes the port runs: ``data`` (batch split, params replicated), ``fsdp``
 (Megatron-style tensor parallelism, DTensor).  One device is one rank.
 ``sequence``, ``expert`` and ``pipeline`` keep their names and sizes
 in :class:`MeshConfig`; a mesh that needs any of them above 1 raises,
-naming slice 5 of the port.
+naming the part of slice 5 of the port that brings it (5.2 sequence and
+expert, 5.3 pipeline).
 
 The reference's ICI/DCN split becomes intra-node/inter-node (NVLink
 against the network): ``num_slices`` is the node count, and only the
@@ -29,6 +30,7 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 from dlrover_tpu_torch.common import env_utils
+from dlrover_tpu_torch.common.slices import SLICE_5_2, SLICE_5_3
 
 AXES = ("data", "fsdp", "tensor", "sequence", "expert", "pipeline")
 
@@ -40,7 +42,8 @@ ICI_AXES = ("fsdp", "tensor", "sequence", "expert")
 # the axes a DeviceMesh of the port carries
 TORCH_AXES = ("data", "fsdp", "tensor")
 
-_SLICE_5 = "slice 5 of the port (model zoo and long context)"
+_AXIS_SLICES = {"sequence": SLICE_5_2, "expert": SLICE_5_2,
+                "pipeline": SLICE_5_3}
 
 
 @dataclass
@@ -196,8 +199,8 @@ def build_mesh(
     for axis in ("sequence", "expert", "pipeline"):
         if sizes[axis] > 1:
             raise NotImplementedError(
-                f"mesh axis {axis!r} of size {sizes[axis]}: sequence, "
-                f"expert and pipeline parallelism come with {_SLICE_5}")
+                f"mesh axis {axis!r} of size {sizes[axis]}: {axis} "
+                f"parallelism comes with {_AXIS_SLICES[axis]}")
     if num_slices is None:
         num_slices = config.num_slices or detect_num_slices()
     if num_slices > 1:

@@ -18,7 +18,8 @@ dim the axis sizes do not divide.  FSDP2's ``fully_shard`` applies the
 (:mod:`dlrover_tpu_torch.accel.accelerate`).
 
 ``pipeline_rules`` and ``moe_rules`` are copied as data; the
-optimizations that apply them raise until slice 5 of the port.
+optimizations that apply them raise until slices 5.3 and 5.2 of the
+port.
 """
 
 import re
@@ -155,7 +156,7 @@ def replicated_rules() -> PartitionRules:
 
 def pipeline_rules() -> PartitionRules:
     """Stage-stacked block params shard dim 0 over the pipeline axis;
-    embed/head replicate.  Data only until slice 5 of the port."""
+    embed/head replicate.  Data only until slice 5.3 of the port."""
     return PartitionRules(
         rules=[(r"(^|/)blocks/", ("pipeline",))], default=()
     )
@@ -201,7 +202,7 @@ def gpt_tp_rules() -> PartitionRules:
 def moe_rules() -> PartitionRules:
     """Expert-parallel MoE: expert weights carry a leading expert dim
     sharded over ``expert``; the rest follows the TP rules.  Data only
-    until slice 5 of the port."""
+    until slice 5.2 of the port."""
     base = gpt_tp_rules()
     return base.extended(
         [

@@ -1,19 +1,27 @@
-"""Flax GPT params and q-AdamW state <-> the port's GPT and optimizer.
+"""Flax GPT and Llama params and q-AdamW state <-> the port's models
+and optimizers.
 
 Reference: ``dlrover_tpu/utils/torch_compat.py`` (``gpt2_params_to_torch``
 maps the same flax tree onto HF GPT-2 names) and the ``QAdamWState``
-of ``dlrover_tpu/optim/low_bit.py``.  Here the target is
-:class:`dlrover_tpu_torch.models.gpt.GPT`, whose module names follow
+of ``dlrover_tpu/optim/low_bit.py``.  Here the targets are
+:class:`dlrover_tpu_torch.models.gpt.GPT` and
+:class:`dlrover_tpu_torch.models.llama.Llama`, whose module names follow
 the flax tree and whose Dense weights keep flax's ``[in, out]``
 layout, so the map is by rule:
 
 - ``block_i`` is ``blocks.i``;
-- ``Dense.kernel`` is ``Dense.weight``, same layout;
-- ``LayerNorm.scale`` and ``Embed.embedding`` are ``weight``;
+- ``Dense.kernel`` is ``Dense.weight``, same layout (GPT's fused
+  ``qkv``; Llama's ``q_proj``/``k_proj``/``v_proj``/``o_proj`` and
+  ``gate``/``up``/``down``; the untied ``lm_head``);
+- ``LayerNorm.scale``, Llama's ``RMSNorm.scale`` (any ``ln_*``) and
+  ``Embed.embedding`` are ``weight``;
 - ``bias`` is ``bias``.
 
-Both directions copy values exactly (bf16 leaves too), so a round trip
-is bit-exact.  The flax side is a nested dict of numpy arrays
+Both directions copy values exactly (bf16 leaves too, and the fp32
+norm scales a bf16 model keeps), so a round trip is bit-exact.  The
+trees are matched by name, never by position: JAX flattens a dict with
+its keys sorted (``block_10`` before ``block_2``, ``k_proj`` before
+``q_proj``), the port's modules in their own order.  The flax side is a nested dict of numpy arrays
 (``np.asarray`` of each leaf).  A bf16 leaf going to the flax side
 needs numpy's ``bfloat16`` dtype, which ``ml_dtypes`` registers (JAX
 imports it).
