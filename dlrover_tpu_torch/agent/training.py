@@ -40,7 +40,7 @@ from dlrover_tpu_torch.agent.monitor import (
     ResourceMonitor,
     TrainingMonitor,
 )
-from dlrover_tpu_torch.agent.node_check import run_node_check
+from dlrover_tpu_torch.agent.node_check import run_node_check_in_child
 from dlrover_tpu_torch.common import env_utils
 from dlrover_tpu_torch.common.constants import (
     MasterAction,
@@ -551,7 +551,8 @@ class ElasticTrainingAgent:
             outcome = handler.next_rendezvous()
             normal, elapsed = True, 0.0
             try:
-                elapsed = run_node_check(
+                # in a child process: the agent never holds the card
+                elapsed = run_node_check_in_child(
                     client=self._client,
                     world_size=outcome.num_nodes,
                     round_id=outcome.round,

@@ -26,6 +26,10 @@ and the invariants its scenarios need:
 - :class:`RestoredFromTier` — the first post-fault restore's tier.
 - :class:`HangDiagnosed` / :class:`OnlyCulpritRestarted` — the hang
   diagnosis trail.
+- :class:`MasterRecovered` / :class:`MasterRecoveredFromMirror` /
+  :class:`HealthyWorkersNotRestarted` — the master-recovery trail.
+- :class:`NoDuplicateShards` — every sample index of the sharded
+  dataset acked exactly once across the fault.
 - :class:`GoodputConservation` / :class:`GoodputLossAttributed` — the
   goodput ledger closes and names its losses.
 - :class:`DeterministicTimeline` — the ``chaos_inject`` sequence
@@ -40,10 +44,9 @@ launcher processes against one journal-backed master subprocess, and
 checkpoint directory on one box stands in for the shared filesystem),
 with :class:`WorldSizeTrajectory`, :class:`BoundedStepLossPerRestart`,
 :class:`ResizePhasesOnTimeline`, :class:`NodeCompletedSteps`,
-:class:`NoRestartForNode` and :class:`InjectionsOnlyOnNode`.  The
-reference's resize set also holds ``NoDuplicateShards`` over the loop's
-sharded dataset, whose sharding client comes with slice 8 of the port.
-The serving runners come with slice 9, the sparse, RL and
+:class:`NoRestartForNode` and :class:`InjectionsOnlyOnNode`; the resize
+set also holds ``NoDuplicateShards`` over the lead rank's sharded
+dataset.  The serving runners come with slice 9, the sparse, RL and
 compile-cache invariants with slices 6, 7 and 8.
 """
 
@@ -63,6 +66,7 @@ from dlrover_tpu_torch.chaos.scenarios import (
     DISK_EVERY_ENV,
     RESIZE_TRAIN_SCRIPT,
     RUN_OPTIONS,
+    SHARD_DATASET_ENV,
     STEP_SLEEP_ENV,
     TOTAL_STEPS_ENV,
     resize_reference_losses,
@@ -807,6 +811,150 @@ class EventRecorded(Invariant):
 
 
 
+class MasterRecoveredFromMirror(Invariant):
+    """The respawned master's recovery was seeded from the
+    storage-tier journal mirror (``master_recovered.from_mirror``) —
+    the witness that a FRESH local journal dir (a different host)
+    still recovers the job."""
+
+    name = "master_recovered_from_mirror"
+
+    def check(self, events, run):
+        recovered = [
+            e for e in events if e.get("type") == "master_recovered"
+        ]
+        if not recovered:
+            return InvariantResult(
+                self.name, False, "no master_recovered event"
+            )
+        from_mirror = [e for e in recovered if e.get("from_mirror")]
+        if not from_mirror:
+            return InvariantResult(
+                self.name, False,
+                f"{len(recovered)} recovery(ies), none seeded from "
+                "the mirror (the fresh-journal respawn found local "
+                "state?)",
+            )
+        e = from_mirror[0]
+        return InvariantResult(
+            self.name, True,
+            f"recovery #{e.get('recoveries')} seeded from the "
+            f"mirror: {e.get('entries')} entries replayed",
+        )
+
+
+class MasterRecovered(Invariant):
+    """A respawned master replayed the journal after the fault
+    (``master_recovered``) AND at least one client replayed the
+    session-resync handshake against it (``master_resync`` or
+    ``agent_resync``)."""
+
+    name = "master_recovered"
+
+    def check(self, events, run):
+        fault_ts = _first_fault_ts(events)
+        if fault_ts is None:
+            return InvariantResult(
+                self.name, False, "no chaos_inject event recorded"
+            )
+        recovered = [
+            e for e in events
+            if e.get("type") == "master_recovered"
+            and e["ts"] >= fault_ts
+        ]
+        if not recovered:
+            return InvariantResult(
+                self.name, False,
+                "no master_recovered event after the fault (journal "
+                "replay never ran)",
+            )
+        resyncs = [
+            e for e in events
+            if e.get("type") in ("master_resync", "agent_resync")
+            and e["ts"] >= fault_ts
+        ]
+        if not resyncs:
+            return InvariantResult(
+                self.name, False,
+                "master recovered but no client session-resync "
+                "handshake followed",
+            )
+        rec = recovered[0]
+        return InvariantResult(
+            self.name, True,
+            f"recovery #{rec.get('recoveries')} replayed "
+            f"{rec.get('entries')} entries (re-queued "
+            f"{rec.get('requeued')} lease(s)); "
+            f"{len(resyncs)} client resync(s)",
+        )
+
+
+class HealthyWorkersNotRestarted(Invariant):
+    """A master crash must NOT cascade into worker restarts: healthy
+    trainers ride out the outage on the parked RPC path."""
+
+    name = "healthy_workers_not_restarted"
+
+    def check(self, events, run):
+        restarts = [
+            e for e in events if e.get("type") == "worker_restart"
+        ]
+        if restarts:
+            return InvariantResult(
+                self.name, False,
+                f"{len(restarts)} worker restart(s): a master crash "
+                "cascaded into the data plane",
+            )
+        return InvariantResult(self.name, True, "no worker restarts")
+
+
+class NoDuplicateShards(Invariant):
+    """Dataset-shard exactly-once accounting across the fault, from
+    ``shard_ack`` events alone: every sample index acked exactly once
+    (none lost, none completed twice)."""
+
+    name = "no_duplicate_shards"
+
+    def __init__(self, dataset_size: int, dataset: str = "chaos-ds"):
+        self.dataset_size = dataset_size
+        self.dataset = dataset
+
+    def check(self, events, run):
+        acks = [
+            e for e in events
+            if e.get("type") == "shard_ack"
+            and e.get("dataset") == self.dataset
+            and e.get("success")
+        ]
+        if not acks:
+            return InvariantResult(
+                self.name, False, "no successful shard_ack events"
+            )
+        ranges = [(e.get("start"), e.get("end")) for e in acks]
+        dupes = {r for r in ranges if ranges.count(r) > 1}
+        if dupes:
+            return InvariantResult(
+                self.name, False,
+                f"shard range(s) acked more than once: "
+                f"{sorted(dupes)}",
+            )
+        covered = set()
+        for start, end in ranges:
+            covered.update(range(int(start), int(end)))
+        missing = set(range(self.dataset_size)) - covered
+        if missing:
+            return InvariantResult(
+                self.name, False,
+                f"{len(missing)} sample(s) never acked (lost "
+                f"shards): {sorted(missing)[:10]}",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"{len(acks)} shard(s) acked exactly once, full "
+            f"coverage of {self.dataset_size} samples",
+        )
+
+
 class FinalStepCommitted(Invariant):
     """The job's last reached step ended up durably committed (the
     shard-driven loops derive their budget from the dataset, so the
@@ -1191,6 +1339,41 @@ def invariants_for_scenario(
     disk_every: Optional[int] = None,
 ) -> List[Invariant]:
     """The reference's selection, for the scenarios the port has."""
+    if name == "master-kill-restart-midround":
+        # the control-plane recovery trail: journal replay, client
+        # resyncs, exactly-once sharding, NO data-plane restarts —
+        # and the flight recorder must attribute the outage to
+        # master recovery
+        return [
+            MasterRecovered(),
+            HealthyWorkersNotRestarted(),
+            NoDuplicateShards(dataset_size=total_steps),
+            FinalStepCommitted(),
+            GoodputLossAttributed(
+                min_attributed_frac=0.5,
+                expect_cause=flight.CAUSE_MASTER_RECOVERY,
+            ),
+            # the ledger's per-incarnation accounting must still
+            # close across the control-plane outage (the silent gap
+            # lands in idle_unattributed, never breaks conservation)
+            GoodputConservation(),
+            NoOrphanProcesses(marker=workdir),
+        ]
+    if name == "master-respawn-other-host":
+        # the master-kill trail with the host-portability twist: the
+        # respawn has a FRESH journal dir, so recovery must be seeded
+        # from the storage-tier mirror — and exactly-once sharding
+        # must still hold (resync ack-reconciliation covers the
+        # mirror's group-commit lag)
+        return [
+            MasterRecovered(),
+            MasterRecoveredFromMirror(),
+            EventRecorded("journal_mirror_flush"),
+            HealthyWorkersNotRestarted(),
+            NoDuplicateShards(dataset_size=total_steps),
+            FinalStepCommitted(),
+            NoOrphanProcesses(marker=workdir),
+        ]
     if name in ("warm-template-import-kill",
                 "warm-template-midspawn-kill"):
         return [
@@ -1289,6 +1472,15 @@ def scenario_env(
     }
     if disk_every:
         env[DISK_EVERY_ENV] = str(disk_every)
+    if opts.get("shard_dataset"):
+        # shard-driven loop: one sample per shard, one shard per step
+        env[SHARD_DATASET_ENV] = str(total_steps)
+    if opts.get("journal_mirror"):
+        # storage-tier journal mirror under the run's workdir; the
+        # master (and its respawns) read this env at construction
+        env["DLROVER_MASTER_JOURNAL_MIRROR_DIR"] = os.path.join(
+            workdir, "journal_mirror"
+        )
     env.update(opts.get("extra_env", {}))
     if extra_env:
         env.update(extra_env)
@@ -1298,13 +1490,14 @@ def scenario_env(
 def launch(
     scenario, env: Dict[str, str], script_argv: List[str],
     max_restarts: int = 2, monitor_interval: float = 0.3,
-    warm_restart: bool = False,
+    warm_restart: bool = False, launcher_args: Sequence[str] = (),
 ) -> int:
     """Run ``script_argv`` (the script and its arguments) under the
     launcher in this process with ``env`` exported and ``scenario``
     armed here too (the agent, its saver and monitors run in this
     process, and their hook points must see the scenario; ``None``
-    arms nothing here); returns the launcher's exit code."""
+    arms nothing here); returns the launcher's exit code.
+    ``launcher_args`` are further launcher options (``--network-check``)."""
     argv = [
         "--nproc_per_node=1",
         f"--max_restarts={max_restarts}",
@@ -1312,7 +1505,7 @@ def launch(
     ]
     if warm_restart:
         argv.append("--warm-restart")
-    argv += list(script_argv)
+    argv += list(launcher_args) + list(script_argv)
 
     from dlrover_tpu_torch import run as launcher
 
@@ -1582,15 +1775,15 @@ def elastic_resize_invariants(
     uninterrupted control, per-restart step loss is bounded by the
     durable interval, the final step commits, the resize phase
     breakdown is on the timeline, and the goodput loss is booked under
-    the resize cause.  (The reference also holds the loop's sharded
-    dataset to exactly-once; its sharding client comes with slice 8 of
-    the port.)"""
+    the resize cause, and the lead rank's sharded dataset stays
+    exactly-once."""
     return [
         WorldSizeTrajectory([nnodes, nnodes - 1, nnodes]),
         EventRecorded("resize_decision", min_count=2),
         RestoredFromTier("storage"),
         LossTrajectoryMatches(resize_reference_losses(total_steps)),
         BoundedStepLossPerRestart(interval=disk_every),
+        NoDuplicateShards(dataset_size=total_steps),
         FinalStepCommitted(),
         ResizePhasesOnTimeline(min_resizes=2),
         GoodputLossAttributed(
@@ -1666,6 +1859,9 @@ def run_elastic_resize_scenario(
     ))
     if step_sleep:
         base_env[STEP_SLEEP_ENV] = str(step_sleep)
+    if opts.get("shard_dataset"):
+        # the lead rank feeds one sample per shard, one shard per step
+        base_env[SHARD_DATASET_ENV] = str(total_steps)
     shrunk_sleep = float(opts.get("shrunk_step_sleep", 0.0))
     if shrunk_sleep:
         base_env["DLROVER_CHAOS_NNODES"] = str(nnodes)

@@ -8,10 +8,12 @@ the point of the subsystem is that new failure modes are a dict away,
 not a new test file away.
 
 Copy of ``dlrover_tpu/chaos/scenarios.py``, cut to the scenarios of
-the port's slices 3b.2 and 4.2: the worker kill (SIGKILL and SIGTERM),
-the torn shm snapshot with its storage-tier fallback, the trainer hang,
-the two warm-template kills and the elastic world resize
-(``elastic_resize_churn``).  The train loops are the torch twins of the
+the port's slices 3b.2, 4.2 and 8.1: the worker kill (SIGKILL and
+SIGTERM), the torn shm snapshot with its storage-tier fallback, the
+trainer hang, the two warm-template kills, the elastic world resize
+(``elastic_resize_churn``) and the two master kills mid-dispatch
+(``master_kill_restart_midround``, ``master_respawn_other_host``) over
+the loop's sharded dataset.  The train loops are the torch twins of the
 reference's ``CHAOS_TRAIN_SCRIPT`` and ``RESIZE_TRAIN_SCRIPT`` (the
 latter a tiny GPT under FSDP2 on gloo).  The other scripts and
 scenarios come with the slices that bring what they drive: the other
@@ -20,9 +22,7 @@ single-node scenarios (``rpc_partition``, ``storage_brownout``,
 ``shm_corruption``, ``ckpt_brownout_during_preemption``,
 ``goodput_under_scheduled_churn``) and the multi-node hang and
 partition ones with slice 4.3, the sparse and serving ones with slices
-6 and 9, the RL one with slice 7, the master-recovery ones and the
-resize loop's sharded dataset (they need the sharding client) and the
-compile-cache one with slice 8.
+6 and 9, the RL one with slice 7, and the compile-cache one with slice 8.2.
 """
 
 from typing import Callable, Dict, Optional
@@ -37,6 +37,9 @@ STEP_SLEEP_ENV = "DLROVER_CHAOS_STEP_SLEEP"
 # to disk) — the tier-fallback scenarios restore from these when the
 # shm snapshot is refused
 DISK_EVERY_ENV = "DLROVER_CHAOS_DISK_EVERY"
+# shard-driven loops: one sample per shard task, one step per task,
+# the dataset sized to the run's step budget
+SHARD_DATASET_ENV = "DLROVER_CHAOS_SHARD_DATASET"
 
 # Toy GPT elastic train loop, the torch twin of the reference's: the
 # tiny GPT on the CPU (asked for explicitly, as the reference pins
@@ -64,12 +67,9 @@ ckpt_dir = sys.argv[1]
 TOTAL_STEPS = int(os.environ.get("DLROVER_CHAOS_TOTAL_STEPS", "10"))
 CKPT_EVERY = int(os.environ.get("DLROVER_CHAOS_CKPT_EVERY", "2"))
 DISK_EVERY = int(os.environ.get("DLROVER_CHAOS_DISK_EVERY", "0"))
-# the reference's master-recovery scenarios drive the master's dynamic
-# data sharding through this knob; they come with slice 8 of the port
-if int(os.environ.get("DLROVER_CHAOS_SHARD_DATASET", "0")):
-    raise NotImplementedError(
-        "the sharded-dataset loop needs agent/sharding_client.py, which "
-        "comes with slice 8 of the port")
+# the master-recovery scenarios drive the master's dynamic data
+# sharding: one sample per shard task, one step per task
+SHARD_DATASET = int(os.environ.get("DLROVER_CHAOS_SHARD_DATASET", "0"))
 
 # measured death->first-step budget: books the spawn/import phases
 # now, restore/retrace/first_step below — every incarnation emits
@@ -160,18 +160,49 @@ def after_step():
             trainer.global_step, sd, storage_type=StorageType.MEMORY,
         )
 
-for i in range(start_step, TOTAL_STEPS):
-    with trainer.profile("h2d"):
-        batch = place_batch()
-    with trainer.profile("compute") as p:
-        state, metrics = run_step(state, batch)
-        p.block(metrics)
-    # report_step emits the train_step event and fires the
-    # trainer.step chaos hook — a kill rule ends the process HERE
-    trainer.report_step(metrics)
-    with trainer.profile("checkpoint"):
-        after_step()
-FINAL_STEP = TOTAL_STEPS
+if SHARD_DATASET:
+    # master-driven dynamic sharding: one step per shard task.  The
+    # master journals every dispatch/ack, so a master crash mid-run
+    # (the master-recovery scenarios SIGKILL it between dispatches)
+    # must lose no shard and complete none twice — decided later
+    # from the shard_ack events
+    from dlrover_tpu_torch.agent.sharding_client import ShardingClient
+
+    sc = ShardingClient(
+        dataset_name="chaos-ds", batch_size=1, num_epochs=1,
+        dataset_size=SHARD_DATASET, shuffle=False,
+        num_minibatches_per_shard=1, storage_type="table",
+    )
+    while True:
+        with trainer.profile("data_wait"):
+            task = sc.fetch_task()
+        if task is None:
+            break
+        with trainer.profile("h2d"):
+            batch = place_batch()
+        with trainer.profile("compute") as p:
+            state, metrics = run_step(state, batch)
+            p.block(metrics)
+        trainer.report_step(metrics)
+        sc.report_task_done(task.task_id)
+        # books into the NEXT step's breakdown (the step is closed by
+        # report_step), which is where a save's stall is felt anyway
+        with trainer.profile("checkpoint"):
+            after_step()
+    FINAL_STEP = trainer.global_step
+else:
+    for i in range(start_step, TOTAL_STEPS):
+        with trainer.profile("h2d"):
+            batch = place_batch()
+        with trainer.profile("compute") as p:
+            state, metrics = run_step(state, batch)
+            p.block(metrics)
+        # report_step emits the train_step event and fires the
+        # trainer.step chaos hook — a kill rule ends the process HERE
+        trainer.report_step(metrics)
+        with trainer.profile("checkpoint"):
+            after_step()
+    FINAL_STEP = TOTAL_STEPS
 
 # final durable save, retried until the commit lands (a transient
 # brownout may eat one persist round); only node rank 0 waits on the
@@ -296,7 +327,27 @@ trainer = ElasticTrainer(global_batch_size=8, micro_batch_size=8,
                          dp_size=1)
 trainer.global_step = start_step
 
+# dynamic data sharding rides along on the lead rank only: the
+# lockstep collective loop cannot let members consume different task
+# counts, so global rank 0 is the data feeder — exactly-once shard
+# accounting across all three world incarnations is still decided
+# from shard_ack events alone
+SHARD_DATASET = int(os.environ.get("DLROVER_CHAOS_SHARD_DATASET", "0"))
+sc = None
+if SHARD_DATASET and RANK == 0:
+    from dlrover_tpu_torch.agent.sharding_client import ShardingClient
+
+    sc = ShardingClient(
+        dataset_name="chaos-ds", batch_size=1, num_epochs=1,
+        dataset_size=SHARD_DATASET, shuffle=False,
+        num_minibatches_per_shard=1, storage_type="table",
+    )
+
 for k in range(start_step, TOTAL_STEPS):
+    task = None
+    if sc is not None:
+        with trainer.profile("data_wait"):
+            task = sc.fetch_task()
     try:
         with trainer.profile("compute") as p:
             state, metrics = step_fn(state, place(k + 1))
@@ -314,6 +365,8 @@ for k in range(start_step, TOTAL_STEPS):
         while True:
             time.sleep(1.0)
     trainer.report_step({"loss": float(loss) / WORLD})
+    if task is not None:
+        sc.report_task_done(task.task_id)
     if NNODES and WORLD < NNODES and SHRUNK_SLEEP:
         time.sleep(SHRUNK_SLEEP)
     elif STEP_SLEEP:
@@ -604,6 +657,53 @@ def elastic_resize_churn(seed: int = 53) -> Scenario:
     })
 
 
+def master_kill_restart_midround(seed: int = 31) -> Scenario:
+    """Master crash recovery acceptance: SIGKILL the MASTER on its 3rd
+    shard dispatch — mid-rendezvous-round, with one shard
+    journaled-but-undelivered and acks in flight.  The launcher's
+    watchdog respawns it on the same port; the new incarnation replays
+    the state journal (re-entering rendezvous round 1, re-queueing only
+    the un-acked shard), parked agents/trainers session-resync, and
+    training completes with no shard lost, none acked twice, and NO
+    healthy-worker restart — all decided from telemetry events."""
+    return Scenario.from_dict({
+        "name": "master-kill-restart-midround",
+        "seed": seed,
+        "rules": [{
+            "name": "kill-master-middispatch",
+            "point": "master.task_dispatch",
+            "action": "kill",
+            "after_calls": 3,
+            # the respawned master (DLROVER_RESTART_COUNT=1) must
+            # survive replaying the very dispatch that killed its
+            # predecessor
+            "only_first_incarnation": True,
+        }],
+    })
+
+
+def master_respawn_other_host(seed: int = 79) -> Scenario:
+    """Host-portable control plane: SIGKILL the master mid-dispatch
+    like ``master_kill_restart_midround`` — but the respawn gets a
+    FRESH, EMPTY journal dir (what a replacement host has), so recovery
+    must come entirely from the async-group-commit journal mirror on
+    the checkpoint storage tier.  Exactly-once sharding and the final
+    commit are still asserted from events;
+    ``master_recovered.from_mirror`` is the witness that the mirror,
+    not the local disk, carried the state."""
+    return Scenario.from_dict({
+        "name": "master-respawn-other-host",
+        "seed": seed,
+        "rules": [{
+            "name": "kill-master-middispatch",
+            "point": "master.task_dispatch",
+            "action": "kill",
+            "after_calls": 3,
+            "only_first_incarnation": True,
+        }],
+    })
+
+
 SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
     "kill_worker_midstep": kill_worker_midstep,
     "sigterm_worker_midstep": sigterm_worker_midstep,
@@ -612,6 +712,8 @@ SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
     "warm_template_midspawn_kill": warm_template_midspawn_kill,
     "trainer_hang_detected": trainer_hang_detected,
     "elastic_resize_churn": elastic_resize_churn,
+    "master_kill_restart_midround": master_kill_restart_midround,
+    "master_respawn_other_host": master_respawn_other_host,
 }
 
 
@@ -622,10 +724,28 @@ SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
 # thresholds
 RUN_OPTIONS: Dict[str, Dict] = {
     "shm-corrupt-storage-fallback": {"disk_every": 4},
+    # the master-recovery acceptance drives the sharding path (one
+    # shard per step) so shard-loss/duplication is decidable from
+    # telemetry; shard_dataset=True sizes the dataset to total_steps
+    "master-kill-restart-midround": {"shard_dataset": True},
+    # host-portable master: the respawn is forced onto a FRESH
+    # journal dir (a replacement host's view) and must seed from the
+    # storage-tier mirror (the harness materializes the mirror dir
+    # via the journal_mirror knob); shard traffic armed so
+    # exactly-once sharding is decidable from events
+    "master-respawn-other-host": {
+        "shard_dataset": True,
+        "journal_mirror": True,
+        "extra_env": {
+            "DLROVER_MASTER_RESPAWN_FRESH_JOURNAL": "1",
+            # tight group-commit window: the kill must not outrun the
+            # mirror by more than one shard dispatch
+            "DLROVER_JOURNAL_MIRROR_INTERVAL_S": "0.05",
+        },
+    },
     # the loop is stretched so the kill lands mid-run and disk commits
-    # every 3 steps bound the cross-world restore's step loss.  The
-    # reference's sharded dataset rides along on rank 0; its sharding
-    # client comes with slice 8 of the port, so this loop has none.
+    # every 3 steps bound the cross-world restore's step loss; rank 0
+    # feeds the sharded dataset
     "elastic-resize-churn": {
         "total_steps": 24,
         "disk_every": 3,
@@ -634,6 +754,7 @@ RUN_OPTIONS: Dict[str, Dict] = {
         # takes seconds to boot, and at 0.3 s/step the survivor would
         # otherwise finish before the grow-back decision fires
         "shrunk_step_sleep": 1.0,
+        "shard_dataset": True,
         "train_script": "resize",
         "extra_env": {
             "DLROVER_MONITOR_REPORT_INTERVAL": "0.5",

@@ -258,18 +258,14 @@ class Block(nn.Module):
 
 
 @torch.no_grad()
-def init_flax_weights(model: nn.Module, gen: torch.Generator,
-                      embeddings_as_dense: bool = False):
+def init_flax_weights(model: nn.Module, gen: torch.Generator):
     """Draw ``model``'s weights from ``gen`` as flax's default
     initializers draw them: lecun-normal Dense kernels (a normal
     truncated at two standard deviations and widened so that the
     truncated std is 1/sqrt(fan_in)), zero biases, ``nn.Embed``'s plain
     normal of std 1/sqrt(features), unit layernorm scales (a module
     that builds its own scales, as ``RMSNorm``, keeps them).  Drawn in
-    fp32 on the weights' device and rounded once to their dtype.
-    ``embeddings_as_dense`` draws an embedding as a Dense kernel of
-    fan-in ``num_embeddings`` instead: GPT's draw since slice 1, which
-    ROADMAP §C 5 records against the reference."""
+    fp32 on the weights' device and rounded once to their dtype."""
 
     def draw(w, fan_in, truncated):
         std = math.sqrt(1.0 / fan_in)
@@ -288,10 +284,7 @@ def init_flax_weights(model: nn.Module, gen: torch.Generator,
             if module.bias is not None:
                 module.bias.zero_()
         elif isinstance(module, nn.Embedding):
-            if embeddings_as_dense:
-                draw(module.weight, module.num_embeddings, True)
-            else:
-                draw(module.weight, module.embedding_dim, False)
+            draw(module.weight, module.embedding_dim, False)
         elif isinstance(module, nn.LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
@@ -303,9 +296,9 @@ class GPT(nn.Module):
     Built on ``device`` (the GPU unless ``"cpu"`` is passed), with
     weights drawn from ``seed`` as the reference's initializers draw
     them (:func:`init_flax_weights`): lecun-normal Dense kernels, zero
-    biases, unit layernorm scales; the embeddings as Dense kernels of
-    fan-in ``num_embeddings`` (not flax's ``nn.Embed`` draw, ROADMAP
-    §C 5).  The weights are drawn on ``device`` by a generator there,
+    biases, unit layernorm scales, and ``wte`` and ``wpe`` as flax's
+    ``nn.Embed`` draws them: a plain normal of std 1/sqrt(hidden_dim)
+    (``dlrover_tpu/models/gpt.py:356-363``).  The weights are drawn on ``device`` by a generator there,
     so a GPT-2 XL needs no host pass over its 1.56B params; one seed
     therefore gives other weights on the card than on the CPU (nothing
     compares the two).
@@ -334,8 +327,7 @@ class GPT(nn.Module):
                                  device=device)
         if device.type != "meta":  # shapes only (the strategy analyser)
             init_flax_weights(
-                self, torch.Generator(device=device).manual_seed(seed),
-                embeddings_as_dense=True)
+                self, torch.Generator(device=device).manual_seed(seed))
 
     def forward(self, tokens: torch.Tensor,
                 return_hidden: bool = False) -> torch.Tensor:

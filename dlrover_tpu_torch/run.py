@@ -27,6 +27,7 @@ Usage::
 
 import argparse
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -46,10 +47,10 @@ from dlrover_tpu_torch.telemetry.events import emit_event
 # (each respawn replays the state journal and resumes the job)
 MASTER_MAX_RESTARTS_ENV = "DLROVER_MASTER_MAX_RESTARTS"
 
-# The reference's fresh-journal respawn drill
-# (DLROVER_MASTER_RESPAWN_FRESH_JOURNAL, for its chaos scenario
-# ``master_respawn_other_host``) comes with that scenario, in slice 8
-# of the port; until then setting it raises.
+# host-portability drill (the chaos scenario
+# ``master_respawn_other_host``): each respawn of the local master gets a
+# fresh, empty journal dir, as a replacement host would, so it recovers
+# from the storage-tier journal mirror alone
 MASTER_FRESH_JOURNAL_ENV = "DLROVER_MASTER_RESPAWN_FRESH_JOURNAL"
 
 
@@ -111,8 +112,8 @@ def parse_args(argv: Optional[List[str]] = None):
     )
     parser.add_argument(
         "--network-check", action="store_true", dest="network_check",
-        help="run chip/fabric health checks before training (the "
-        "probes come with slice 8 of the port and raise until then)",
+        help="run chip/fabric health checks before training: a bf16 "
+        "GEMM chain on each local GPU and an all-reduce probe",
     )
     parser.add_argument(
         "--master_addr", type=str, default="",
@@ -197,6 +198,7 @@ class _MasterSupervisor:
         self._min_nodes = min_nodes
         self._node_unit = node_unit
         self._journal_dir = journal_dir
+        self._fresh_journal_dirs: List[str] = []
         self._max_restarts = int(
             os.environ.get(MASTER_MAX_RESTARTS_ENV, "3") or 3
         )
@@ -236,11 +238,28 @@ class _MasterSupervisor:
                 # the job is shutting down: a respawn now would leak
                 # a master nobody will ever terminate
                 return
+            journal_dir = self._journal_dir
+            if os.environ.get(
+                MASTER_FRESH_JOURNAL_ENV, ""
+            ).strip().lower() in ("1", "true", "yes", "on"):
+                # host-portability drill: the respawn gets an EMPTY
+                # journal dir (as a replacement host would), so the
+                # only path back to the job's state is seeding from
+                # the storage-tier mirror
+                journal_dir = tempfile.mkdtemp(
+                    prefix="dlrover_mjournal_fresh_"
+                )
+                self._fresh_journal_dirs.append(journal_dir)
+                logger.warning(
+                    "respawning master with a FRESH journal dir %s "
+                    "(recovery must seed from the mirror)",
+                    journal_dir,
+                )
             try:
                 self.proc, _ = _launch_local_master(
                     self._max_nodes,
                     port=self._port,
-                    journal_dir=self._journal_dir,
+                    journal_dir=journal_dir,
                     restart_count=self.restarts,
                     min_nodes=self._min_nodes,
                     node_unit=self._node_unit,
@@ -262,6 +281,8 @@ class _MasterSupervisor:
             self.proc.wait(timeout=10)
         except subprocess.TimeoutExpired:
             self.proc.kill()
+        for d in self._fresh_journal_dirs:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def apply_auto_config(args):
@@ -279,13 +300,6 @@ def apply_auto_config(args):
 
 
 def run(args) -> int:
-    if os.environ.get(MASTER_FRESH_JOURNAL_ENV, "").strip().lower() in (
-        "1", "true", "yes", "on"
-    ):
-        raise NotImplementedError(
-            "the fresh-journal master respawn drill comes with the "
-            "master_respawn_other_host scenario, in slice 8 of the port"
-        )
     args = apply_auto_config(args)
     min_nodes, max_nodes = parse_nnodes(args.nnodes)
     node_rank = (

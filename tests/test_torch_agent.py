@@ -4,13 +4,11 @@ rendezvous handler, worker supervision and restart, the preemption
 monitor, the launcher's auto-config and the node check's fault
 injection.
 
-Two modules of the reference's file come with slice 8 of the port:
-the sharding client and the platform starter.  Their twins drive the
-REFERENCE's ``ShardingClient`` over the port's ``MasterClient``
-against the port's master (the master's dataset RPCs are the port's
-since slice 3b.1), and feed the reference starter's argv to the port's
-launcher; the chip matmul probe raises ``NotImplementedError`` naming
-slice 8.  Nothing here is numeric: every check is exact.
+The sharding client is the port's own since slice 8.1.  The platform
+starter comes with slice 8.3: its twin feeds the reference starter's
+argv to the port's launcher.  The chip matmul probe runs its bf16 GEMM
+chain on the CPU here (on every GPU by default) and refuses to fall
+back to the CPU unasked.  Every check is exact.
 """
 
 import os
@@ -73,7 +71,7 @@ def test_heartbeat_and_metrics(client):
 
 
 def test_sharding_client_consumes_dataset(client):
-    from dlrover_tpu.agent.sharding_client import ShardingClient
+    from dlrover_tpu_torch.agent.sharding_client import ShardingClient
 
     sc = ShardingClient(
         dataset_name="ds1", batch_size=4, num_epochs=1, dataset_size=32,
@@ -90,7 +88,7 @@ def test_sharding_client_consumes_dataset(client):
 
 
 def test_index_sharding_client_stream(client):
-    from dlrover_tpu.agent.sharding_client import IndexShardingClient
+    from dlrover_tpu_torch.agent.sharding_client import IndexShardingClient
 
     isc = IndexShardingClient(
         dataset_name="ds2", batch_size=4, num_epochs=1, dataset_size=16,
@@ -109,7 +107,7 @@ def test_index_sharding_client_stream(client):
 
 
 def test_dataset_checkpoint_roundtrip(client):
-    from dlrover_tpu.agent.sharding_client import ShardingClient
+    from dlrover_tpu_torch.agent.sharding_client import ShardingClient
 
     sc = ShardingClient(
         dataset_name="ds3", batch_size=2, num_epochs=1, dataset_size=8,
@@ -130,8 +128,16 @@ def test_mock_error_fault_injection(monkeypatch):
     mock_error()  # other ranks pass
 
 
-def test_chip_matmul_benchmark_comes_with_slice_8():
-    with pytest.raises(NotImplementedError, match="slice 8"):
+def test_chip_matmul_benchmark_comes_with_slice_8(monkeypatch):
+    """The chip probe (a deferral until slice 8.1): the bf16 GEMM chain
+    runs on the device it is given and takes real time; with no GPU
+    and no device named it raises instead of probing the CPU."""
+    import torch
+
+    elapsed = bm_chip_matmul(size=64, rounds=2, device="cpu")
+    assert elapsed > 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         bm_chip_matmul(size=64, rounds=2)
 
 

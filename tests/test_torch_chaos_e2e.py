@@ -22,10 +22,13 @@ committed storage.  A second case SIGKILLs and respawns the master
 between the shrink and the grow (ROADMAP §C 3): the grown world forms
 its group on the coordinator the respawned master hands out.
 
-The multi-node hang and partition, sparse, serving, RL,
-master-recovery and compile-cache scenarios of the reference's file
-come with slices 4.3, 6, 7, 8 and 9 of the port.  The long scenarios
-are ``slow``, as in the reference.
+The resize loop's rank 0 feeds one sample per step from the master's
+sharded dataset, held exactly-once (``NoDuplicateShards``) across both
+resizes.  The master-recovery twins are in
+``tests/test_torch_chaos_master.py``.  The multi-node hang and
+partition, sparse, serving, RL and compile-cache scenarios of the
+reference's file come with slices 4.3, 6, 7, 8.2 and 9 of the port.
+The long scenarios are ``slow``, as in the reference.
 """
 
 import os

@@ -309,6 +309,25 @@ def test_init_is_seeded_and_follows_flax_scales():
     assert torch.equal(a["ln_f.weight"], torch.ones(64))
 
 
+@pytest.mark.parametrize("vocab,seq,hidden", [(4096, 512, 256),
+                                              (8192, 1024, 512)])
+def test_embeddings_are_drawn_as_flax_embed(vocab, seq, hidden):
+    """ROADMAP §C 5: ``wte`` and ``wpe`` are drawn as flax's ``nn.Embed``
+    draws them (``dlrover_tpu/models/gpt.py:356-363``), a plain normal of
+    std 1/sqrt(hidden_dim), not as Dense kernels of fan-in vocab or
+    max_seq_len.  The two frameworks' generators differ, so the draw is
+    held by its statistics, not value for value."""
+    cfg = port_gpt.GPTConfig.tiny(vocab_size=vocab, max_seq_len=seq,
+                                  hidden_dim=hidden)
+    params = port_gpt.GPT(cfg, device="cpu", seed=0).state_dict()
+    want = hidden ** -0.5
+    for name in ("wte.weight", "wpe.weight"):
+        w = params[name].float()
+        assert abs(w.std().item() - want) < 0.03 * want, name
+        # a normal truncated at two std has none beyond it
+        assert (w.abs() > 2 * want).float().mean().item() > 0.03, name
+
+
 def test_gpt_runs_on_the_gpu_unless_told_otherwise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -10,6 +10,8 @@
   the round and world from its journal and picks a new coordinator
   port.  The agent's client reads the same round and world after the
   launcher's master watchdog respawned its master.
+- the fresh-journal drill: a respawned master on an empty journal dir
+  recovers from the storage-tier mirror.
 - ``python -m dlrover_tpu_torch.run`` runs a script to completion, and
   its agent persists a worker's checkpoint without loading torch.
 - ``chip_smoke.py`` phase 8's worker, which names no device, raises on
@@ -115,14 +117,51 @@ def test_group_needs_the_card_unless_the_cpu_is_named(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-def test_fresh_journal_drill_raises_naming_its_slice(monkeypatch):
-    """The reference's fresh-journal master respawn drill is deferred
-    with its scenario: asking for it raises before any master starts."""
+def test_fresh_journal_drill_raises_naming_its_slice(tmp_path, monkeypatch,
+                                                    sock):
+    """The fresh-journal master respawn drill (the deferral this test
+    pinned until slice 8.1 ported it): with the drill armed, the
+    watchdog respawns a SIGKILLed local master on an EMPTY journal dir
+    of its own, which recovers the round and world from the
+    storage-tier journal mirror alone; shutdown removes that dir."""
     from dlrover_tpu_torch import run as launcher
+    from dlrover_tpu_torch.telemetry.events import read_events
 
+    events = str(tmp_path / "events.jsonl")
+    monkeypatch.setenv("DLROVER_SHARED_DIR", sock)
+    monkeypatch.setenv("DLROVER_EVENT_LOG", events)
+    monkeypatch.setenv("DLROVER_MASTER_JOURNAL_MIRROR_DIR",
+                       str(tmp_path / "mirror"))
+    monkeypatch.setenv("DLROVER_JOURNAL_MIRROR_INTERVAL_S", "0.05")
     monkeypatch.setenv(launcher.MASTER_FRESH_JOURNAL_ENV, "1")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        launcher.main(["--nproc_per_node=1", "train.py"])
+    journal = str(tmp_path / "journal")
+    proc, addr = launcher._launch_local_master(1, journal_dir=journal)
+    supervisor = launcher._MasterSupervisor(proc, addr, 1, journal)
+    client = MasterClient(addr, node_id=0, node_type="worker",
+                          node_rank=0, local_world_size=1)
+    try:
+        client.join_rendezvous(0, 1, RendezvousName.ELASTIC_TRAINING)
+        before = client.get_comm_world(RendezvousName.ELASTIC_TRAINING, 0)
+        assert before[0] == 1 and before[2] == {0: 1}
+        time.sleep(0.5)  # several mirror group commits
+        first = supervisor.proc
+        os.kill(first.pid, signal.SIGKILL)
+        first.wait(timeout=30)
+        deadline = time.time() + 60
+        while supervisor.restarts < 1 and time.time() < deadline:
+            time.sleep(0.1)
+        assert supervisor.restarts == 1
+        after = client.get_comm_world(RendezvousName.ELASTIC_TRAINING, 0)
+        assert after[:3] == before[:3]
+        fresh = list(supervisor._fresh_journal_dirs)
+        assert len(fresh) == 1 and fresh[0] != journal
+    finally:
+        client.close()
+        supervisor.shutdown()
+    assert not os.path.exists(fresh[0])
+    recovered = [e for e in read_events(events)
+                 if e.get("type") == "master_recovered"]
+    assert recovered and recovered[-1]["from_mirror"] is True, recovered
 
 
 def test_respawned_master_keeps_round_and_world(tmp_path, monkeypatch,
