@@ -44,7 +44,8 @@ Phases, each fatal on failure:
    scales)`` (a yardstick the port never calls), and the long blocks
    beside their bounds; then quantize (checked, zero mismatches) and
    dequantize at Llama-3-8B's ``lm_head`` ([128256, 4096] in rows of
-   2048, fp32 zeros: q-AdamW's init input) beside their bounds;
+   2048, fp32 zeros: q-AdamW's init input) beside their bounds and plain
+   versions, and dequantize's ``torch.mul(q, scales)`` there;
 4. check a small GPT on the card: the flash model against the plain
    attention model, logits and gradients, elementwise (fp32 atol 1e-4;
    bf16 atol 3e-2, for the bf16 logits reported only) and by the norm
@@ -242,16 +243,39 @@ Phases, each fatal on failure:
    The agent loads no torch, the shm workers open no ``/dev/nvidia*``
    file, and no process or shm segment of a run is left.
 
+13. sequence and expert parallelism (slice 5.2), each check fatal:
+   a. the ring's blocks at Llama-3-8B's attention (b 1, s 8192, 32 q
+      heads over 8 kv heads, d 128, bf16) cut into 4 shards driven in one
+      process (``ring_forward_shards``, ``ring_backward_shards``), causal
+      and not: O, lse, dQ, dK and dV by ||got - want|| / ||want|| against
+      the whole sequence through B1-B3 and against the plain ring in fp32
+      (``RING_REL_NORM``), a planted fault (one block merged without its
+      lse correction) that must fail, exactly 10 launches of each of B1-B3
+      causal (4 diagonal blocks, 6 full, 6 skipped) and 16 not; the ring's
+      forward and backward timed against the whole sequence's;
+   b. the twin of ``examples/train_mixtral.py``
+      (``dlrover_tpu_torch/examples/train_mixtral.py``) at
+      ``mixtral_8x7b``'s full width cut to 2 layers, batch 8 x 1024, the
+      reference's strategy at expert 1 plus ``module_replace(flash)``,
+      AdamW 3e-4, 6 steps: a finite falling loss, the aux loss, the
+      median step, tokens/s, MFU over the active weights, the peak,
+      exactly 4 B1, 2 B2 and 2 B3 a step, a profiled step; then the
+      twin's ``--smoke`` on the card.
+
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  ``--only 2,11`` runs the build
-and the named phases alone (2, 3, 4, 9b, 10, 11 and 12 so far; 5lr,
+and the named phases alone (2, 3, 4, 9b, 10, 11, 12, 13, 13a and 13b
+so far; 5lr,
 which the full run leaves out: phase 5a's model at lr 1e-3 with the
 flash kernels and with the plain attention math, and at SMALL_LR; and
 11d, which the full run leaves out too: 11b's Llama-3-8B for 12 steps
 with its int8 q-AdamW and with torch's AdamW, each step's loss and
-gradient norm, and six q-AdamW steps followed by B6's six timing steps
-on one gradient) and prints no result lines.  Exits non-zero with no result
-when there is no CUDA device or no package beside the script.
+gradient norm, the four B6 rows with the largest update at each of
+q-AdamW's steps 8 and 9 written to ``chip_smoke_out/qadam_rows_11d.json``
+for ``tests/test_torch_qadam_rows.py``, and six q-AdamW steps followed
+by B6's six timing steps on one gradient) and prints no result lines.
+Exits non-zero with no result when there is no CUDA device or no
+package beside the script.
 """
 
 import json
@@ -263,6 +287,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -293,11 +318,13 @@ KERNELS = {
 
 # (b, s, h, kv_heads, d, dtype, causal): the training shapes first, GPT-2
 # small's (the one in the kernels line), GPT-2 XL's and Llama-3-8B's
-# (seq 8192, 32 q heads over 8 kv heads: GQA group 4, head_dim 128)
+# (seq 8192, 32 q heads over 8 kv heads: GQA group 4, head_dim 128),
+# then Mixtral's in phase 13b (batch 8 x 1024, the same heads)
 CASES = [
     (8, 1024, 12, 12, 64, "bfloat16", True),
     (4, 1024, 25, 25, 64, "bfloat16", True),
     (1, 8192, 32, 8, 128, "bfloat16", True),
+    (8, 1024, 32, 8, 128, "bfloat16", True),
     (2, 200, 4, 4, 64, "bfloat16", False),    # ragged last tile
     (2, 328, 8, 4, 64, "bfloat16", True),     # GQA group 2, ragged
     (2, 384, 4, 4, 128, "bfloat16", True),
@@ -1161,7 +1188,8 @@ LM_HEAD_8B = 128256 * 4096
 def _time_quant_8b(card: str):
     """B4 on fp32 zeros of the 8B ``lm_head`` (the init's input, checked
     against the plain version with zero mismatches), then B5 on its
-    codes, each beside its bound."""
+    codes, each beside its bound and its plain version; B5's yardstick
+    ``torch.mul(q, scales)`` on the same codes."""
     import torch
 
     from dlrover_tpu_torch.ops import quantization as qz
@@ -1178,19 +1206,30 @@ def _time_quant_8b(card: str):
         raise AssertionError("; ".join(failures))
     rows = codes.shape[0]
     bounds = quant_bounds_ms(LM_HEAD_8B, rows, block, "float32")
-    for name, fn in (
+    tiles = qz.to_block_tiles(x, block)
+    for name, fn, plain in (
             ("quantization.quantize",
-             lambda: qz.quantize_cuda(x, block, 127.0)),
+             lambda: qz.quantize_cuda(x, block, 127.0),
+             lambda: qz.quantize_plain(tiles, 127.0)),
             ("quantization.dequantize",
-             lambda: qz.dequantize_cuda(codes, scales, (LM_HEAD_8B,)))):
+             lambda: qz.dequantize_cuda(codes, scales, (LM_HEAD_8B,)),
+             lambda: qz.dequantize_plain(codes, scales))):
         ms_k = median_ms(fn, 10)
         call = median_ms(fn, 10, device_only=False)
+        plain_ms = median_ms(plain, 5)
         bound, bound_by = bounds[name]
         log(f"kernel {name} Llama-3-8B lm_head [{rows}, {block}] fp32 "
             f"(the optimizer's init input): {ms_k:.4f} ms on the device, "
-            f"{call:.4f} ms per call, bound {bound:.4f} ms ({bound_by}) "
-            f"[{card}]")
-    del x, codes, scales
+            f"{call:.4f} ms per call, bound {bound:.4f} ms ({bound_by}), "
+            f"plain {plain_ms:.4f} ms [{card}]")
+    # B5's yardstick, a PyTorch call the port never makes
+    lib = median_ms(lambda: torch.mul(codes, scales), 10)
+    lib_call = median_ms(lambda: torch.mul(codes, scales), 10,
+                         device_only=False)
+    log(f"library quantization.dequantize torch.mul(q, scales) Llama-3-8B "
+        f"lm_head [{rows}, {block}]: {lib:.4f} ms on the device, "
+        f"{lib_call:.4f} ms per call [{card}]")
+    del x, codes, scales, tiles
 
 
 def _time_quant_case(case, x, codes, scales, g, p, qm, ms, qn, ns, bc1, bc2,
@@ -3016,8 +3055,8 @@ def _cuda_device_files(pid) -> list:
 class _ProcSampler:
     """Samples, every 0.2 s, the live processes of the run (those
     ``harness.scan_processes`` finds by ``marker``, which leaves out this
-    process): their command line, parent, the CUDA libraries they map
-    and the ``/dev/nvidia*`` files they hold (unions over the
+    process): their latest command line and parent, the CUDA libraries
+    they map and the ``/dev/nvidia*`` files they hold (unions over the
     samples)."""
 
     def __init__(self, marker: str):
@@ -3041,9 +3080,13 @@ class _ProcSampler:
                 devices = _cuda_device_files(pid)
             except (OSError, ValueError, IndexError):
                 continue
-            rec = self.seen.setdefault(pid, {
-                "cmdline": cmdline, "ppid": ppid, "maps": [],
-                "devices": []})
+            rec = self.seen.setdefault(pid, {"maps": [], "devices": []})
+            # the latest command line and parent: a child caught between
+            # its fork and its exec still shows its parent's command line
+            if cmdline:
+                rec["cmdline"], rec["ppid"] = cmdline, ppid
+            rec.setdefault("cmdline", cmdline)
+            rec.setdefault("ppid", ppid)
             rec["maps"] = sorted(set(rec["maps"]) | set(libs))
             rec["devices"] = sorted(set(rec["devices"]) | set(devices))
 
@@ -4099,6 +4142,131 @@ def phase_llama_count(card):
 # gradient, then real steps
 LLAMA_LOSS_STEPS = 12
 STALE_STEPS, AFTER_STALE = 6, 3
+# 11d's q-AdamW run: the optimizer steps whose B6 rows are written out
+# (the rows with the largest update, before and after the launch) for
+# the CPU replay through the reference (tests/test_torch_qadam_rows.py)
+QADAM_ROW_STEPS, QADAM_ROWS = (8, 9), 4
+QADAM_ROWS_FILE = "qadam_rows_11d.json"
+
+
+def _b64(t) -> str:
+    """A tensor's bytes as base64 text (bf16 as its 16-bit patterns)."""
+    import base64
+
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return base64.b64encode(t.numpy().tobytes()).decode()
+
+
+class QAdamRows:
+    """Wraps ``QAdamW.step``: at the optimizer steps of
+    ``QADAM_ROW_STEPS`` it finds, by B6's plain version on the card leaf
+    by leaf, the ``QADAM_ROWS`` rows of ``block`` elements with the
+    largest update, keeps their inputs (p, g, the codes and scales of mu
+    and sqrt(nu)), lets the real step (one B6 launch) run, and keeps the
+    same rows after it."""
+
+    def __init__(self, names):
+        self.names, self.rows = names, []
+
+    def __enter__(self):
+        from dlrover_tpu_torch.optim import low_bit
+
+        self.cls, self.orig = low_bit.QAdamW, low_bit.QAdamW.step
+        rows = self
+
+        def step(opt, closure=None):
+            return rows.step(opt, closure)
+
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.orig
+
+    def _pick(self, opt):
+        import torch
+
+        from dlrover_tpu_torch.ops.quantization import (
+            bias_corrections,
+            fused_qadam_step_plain,
+        )
+
+        group = opt.param_groups[0]
+        hyper = dict(b1=group["b1"], b2=group["b2"], eps=group["eps"],
+                     lr=group["lr"], wd=group["weight_decay"])
+        block = opt.block_size
+        best = []  # (max |upd| of the row, param, row)
+        for p in group["params"]:
+            if p.grad is None or p.numel() % block:
+                continue
+            st = opt.state[p]
+            bc1, bc2 = bias_corrections(hyper["b1"], hyper["b2"],
+                                        st["step"] + 1)
+            g2, p2 = p.grad.reshape(-1, block), p.detach().reshape(-1, block)
+            for lo in range(0, g2.shape[0], 65536):
+                sl = slice(lo, lo + 65536)
+                upd = fused_qadam_step_plain(
+                    g2[sl], p2[sl], st["mu_values"][sl], st["mu_scales"][sl],
+                    st["nu_values"][sl], st["nu_scales"][sl], bc1, bc2,
+                    **hyper)[0].float().abs().amax(dim=1)
+                top = torch.topk(upd, min(QADAM_ROWS, upd.numel()))
+                best += [(float(v), p, lo + int(i))
+                         for v, i in zip(top.values, top.indices)]
+        best.sort(key=lambda r: -r[0])
+        return best[:QADAM_ROWS], hyper, block
+
+    def step(self, opt, closure=None):
+        first = next(p for p in opt.param_groups[0]["params"]
+                     if p.grad is not None)
+        count = opt.state[first]["step"] + 1
+        if count not in QADAM_ROW_STEPS:
+            return self.orig(opt, closure)
+        picked, hyper, block = self._pick(opt)
+        keep = []
+        for size, p, row in picked:
+            st = opt.state[p]
+            r = slice(row, row + 1)
+            keep.append((p, row, {
+                "step": count, "leaf": self.names[id(p)], "row": row,
+                "max_abs_update": size,
+                "p": _b64(p.detach().reshape(-1, block)[r]),
+                "g": _b64(p.grad.reshape(-1, block)[r]),
+                "mu": _b64(st["mu_values"][r]),
+                "mu_scale": float(st["mu_scales"][row, 0]),
+                "nu": _b64(st["nu_values"][r]),
+                "nu_scale": float(st["nu_scales"][row, 0])}))
+        out = self.orig(opt, closure)
+        for p, row, rec in keep:
+            st = opt.state[p]
+            r = slice(row, row + 1)
+            rec.update({
+                "p_new": _b64(p.detach().reshape(-1, block)[r]),
+                "mu_new": _b64(st["mu_values"][r]),
+                "mu_scale_new": float(st["mu_scales"][row, 0]),
+                "nu_new": _b64(st["nu_values"][r]),
+                "nu_scale_new": float(st["nu_scales"][row, 0])})
+            self.rows.append(rec)
+        self.hyper, self.block = hyper, block
+        return out
+
+    def write(self, card):
+        path = os.path.join(OUT_DIR, QADAM_ROWS_FILE)
+        with open(path, "w") as f:
+            json.dump({"card": card, "hyper": self.hyper,
+                       "block": self.block, "param_dtype": "bfloat16",
+                       "rows": self.rows}, f)
+        for rec in self.rows:
+            log(f"11d B6 row: step {rec['step']}, {rec['leaf']} row "
+                f"{rec['row']}, max |update| {rec['max_abs_update']:.6e}, "
+                f"mu scale {rec['mu_scale']:.6e} -> "
+                f"{rec['mu_scale_new']:.6e}, sqrt(nu) scale "
+                f"{rec['nu_scale']:.6e} -> {rec['nu_scale_new']:.6e}")
+        log(f"11d: {len(self.rows)} B6 rows of steps {QADAM_ROW_STEPS} "
+            f"written to {path} [{card}]")
 
 
 def phase_llama_losses(card):
@@ -4165,7 +4333,16 @@ def phase_llama_losses(card):
                                   optim_factory=factory)
                 trainer._save = lambda step, to_storage: None
                 torch.cuda.reset_peak_memory_stats()
-                result = trainer.train()
+                if name == "int8 q-AdamW":
+                    # the plan may rebuild the model: names by shape and
+                    # order are the same, so map them at the first step
+                    rows = QAdamRows(_ParamNames(trainer))
+                    with rows:
+                        result = trainer.train()
+                    rows.write(card)
+                    del rows
+                else:
+                    result = trainer.train()
                 after = []
                 if steps == LLAMA_STEPS:
                     for _ in range(STALE_STEPS):
@@ -4186,6 +4363,23 @@ def phase_llama_losses(card):
             + (f"; then {STALE_STEPS} optimizer steps on step {steps}'s "
                f"gradients and {AFTER_STALE} steps: losses {after}"
                if after else "") + f" [{card}]")
+
+
+class _ParamNames(dict):
+    """``id(param) -> name`` of the trainer's model, read when first
+    asked (after the plan has built the model it trains)."""
+
+    def __init__(self, trainer):
+        super().__init__()
+        self.trainer = trainer
+
+    def __missing__(self, key):
+        # read once, and let the trainer go (the next run needs its memory)
+        if self.trainer is not None:
+            self.update({id(p): n for n, p in
+                         self.trainer.model.named_parameters()})
+            self.trainer = None
+        return dict.__getitem__(self, key)
 
 
 def phase_llama(card) -> dict:
@@ -4530,6 +4724,302 @@ def phase_data(card) -> dict:
     return counts
 
 
+# -- phase 13: sequence and expert parallelism (slice 5.2) -------------------
+
+# 13a: the ring's blocks at Llama-3-8B's attention shape (b, s, q heads,
+# kv heads, d), bf16, cut into RING_SP shards of one process
+RING_SHAPE = (1, 8192, 32, 8, 128)
+RING_SP = 4
+# ||ring - reference|| / ||reference|| of O, dQ, dK and dV (bf16) against
+# the whole-sequence B1-B3 and against the plain ring in fp32: phase 4's
+# bf16 limit, 8 bf16 unit roundoffs (the ring rounds each block's O and
+# partial gradients to bf16 once more before its fp32 sums); of the
+# merged lse (fp32 sums in another order): 1e-5.  Written in PERF.md
+# before the first run.
+RING_REL_NORM = {"out": 8 * 2.0 ** -8, "lse": 1e-5, "dq": 8 * 2.0 ** -8,
+                 "dk": 8 * 2.0 ** -8, "dv": 8 * 2.0 ** -8}
+RING_TIMING_REPS = 5
+# 13b: the Mixtral twin, 32 layers cut to 2 and 20 steps to 6
+MIXTRAL_LAYERS, MIXTRAL_STEPS = 2, 6
+
+
+def _ring_counts(causal: bool) -> dict:
+    n = RING_SP * (RING_SP + 1) // 2 if causal else RING_SP * RING_SP
+    return _zero_counts(**{f"flash_attention.{k}": n
+                           for k in ("fwd", "bwd_dq", "bwd_dkv")})
+
+
+def _plain_block_fwd(q, k, v, scale, causal):
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    return fa.fwd_plain(q, k, v, scale, causal, 512, 512)
+
+
+def _plain_block_bwd(q, k, v, out, dout, lse, scale, causal):
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    delta = fa.delta_plain(out, dout)
+    dq = fa.bwd_dq_plain(q, k, v, dout, lse, delta, scale, causal, 512, 512)
+    dk, dv = fa.bwd_dkv_plain(q, k, v, dout, lse, delta, scale, causal, 512,
+                              512)
+    return dq, dk, dv
+
+
+def _ring(qs, ks, vs, douts, scale, causal, merge=None, block_fwd=None,
+          block_bwd=None):
+    """The ring over the shards in one process: ``{"out", "lse", "dq",
+    "dk", "dv"}`` whole, O and the gradients in the inputs' dtype (what
+    the rank loop returns), lse fp32."""
+    import torch
+
+    from dlrover_tpu_torch.parallel import sequence as sq
+
+    kw = {k: v for k, v in (("merge", merge), ("block_fwd", block_fwd))
+          if v is not None}
+    outs, lses = sq.ring_forward_shards(qs, ks, vs, scale, causal, **kw)
+    outs = [o.to(qs[0].dtype) for o in outs]
+    dqs, dks, dvs = sq.ring_backward_shards(
+        qs, ks, vs, outs, douts, lses, scale, causal,
+        **({"block_bwd": block_bwd} if block_bwd else {}))
+    dt = qs[0].dtype
+    return {"out": torch.cat(outs, 1), "lse": torch.cat(lses, 2),
+            "dq": torch.cat(dqs, 1).to(dt), "dk": torch.cat(dks, 1).to(dt),
+            "dv": torch.cat(dvs, 1).to(dt)}
+
+
+def _ring_norms(got, want) -> dict:
+    return {k: _rel_norm(got[k], want[k]) for k in RING_REL_NORM}
+
+
+def _faulty_merge():
+    """``ring_merge`` with one block (rank 1's second, src 0: the first
+    merge past a rank's first block) folded in with weight 1 instead of
+    ``exp(lse_blk - lse)``."""
+    from dlrover_tpu_torch.parallel.sequence import ring_merge
+
+    planted = []
+
+    def merge(acc, lse, o, l):
+        if acc is not None and not planted:
+            import torch
+
+            planted.append(True)
+            new = torch.logaddexp(lse, l)
+            w_old = torch.exp(lse - new).transpose(1, 2)[..., None]
+            return acc * w_old + o.float(), new
+        return ring_merge(acc, lse, o, l)
+
+    return merge
+
+
+def phase_ring_blocks(card) -> dict:
+    """13a: the ring's per-block steps (B1 per visible block, merged by
+    lse in fp32; B2 and B3 per block with the merged lse and O) over
+    ``RING_SP`` shards of Llama-3-8B's attention in one process, causal
+    and not: O, lse, dQ, dK and dV against the whole-sequence B1-B3 and
+    against the plain ring in fp32 (``RING_REL_NORM``); a planted fault
+    (one block merged without its lse correction) must fail; exact
+    launches (causal 10 of each kernel: 4 diagonal blocks and 6 full
+    ones, 6 skipped; non-causal 16); the ring's forward and backward
+    timed against the whole-sequence kernels'."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, kvh, d = RING_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def rand(heads):
+        return torch.randn(b, s, heads, d, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    out = {}
+    failures = []
+    for causal in (True, False):
+        label = f"13a ring {'causal' if causal else 'non-causal'}"
+        q, k, v, dout = rand(h), rand(kvh), rand(kvh), rand(h)
+        shards = [list(x.chunk(RING_SP, dim=1)) for x in (q, k, v, dout)]
+        # the whole sequence through B1-B3 (not counted)
+        o_w, lse_w = fa.fwd_cuda(q, k, v, scale, causal)
+        dq_w, delta_w = fa.bwd_dq_cuda(q, k, v, o_w, dout, lse_w, scale,
+                                       causal)
+        dk_w, dv_w = fa.bwd_dkv_cuda(q, k, v, dout, lse_w, delta_w, scale,
+                                     causal)
+        whole = {"out": o_w, "lse": lse_w, "dq": dq_w, "dk": dk_w,
+                 "dv": dv_w}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = _ring(*shards, scale, causal)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out[f"ring_blocks_llama3_8b_{'causal' if causal else 'full'}"] = \
+            counts
+        # the plain ring in fp32 on the same inputs
+        plain = _ring(*[[x.float() for x in xs] for xs in shards], scale,
+                      causal, block_fwd=_plain_block_fwd,
+                      block_bwd=_plain_block_bwd)
+        vs_whole, vs_plain = _ring_norms(got, whole), _ring_norms(got, plain)
+        whole_vs_plain = _ring_norms(whole, plain)
+        fault = _ring_norms(_ring(*shards, scale, causal,
+                                  merge=_faulty_merge()), whole)
+        log(f"{label} (b {b}, s {s} in {RING_SP} shards of {s // RING_SP}, "
+            f"{h} q heads over {kvh} kv heads, d {d}, bf16): "
+            f"||ring - whole B1-B3|| / ||whole|| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in vs_whole.items())
+            + "; against the plain ring in fp32 "
+            + ", ".join(f"{k} {v:.3e}" for k, v in vs_plain.items())
+            + " (the whole-sequence kernels' own: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in whole_vs_plain.items())
+            + f"); limits {RING_REL_NORM}")
+        log(f"{label}: planted fault (one block merged without its lse "
+            f"correction): " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in fault.items()))
+        log(f"{label}: launches {counts}, expected {_ring_counts(causal)}")
+        for name, norms in (("whole", vs_whole), ("plain", vs_plain)):
+            for key, value in norms.items():
+                if not value <= RING_REL_NORM[key]:
+                    failures.append(f"{label} {key} against {name} "
+                                    f"{value:.3e}")
+        if fault["out"] <= RING_REL_NORM["out"]:
+            failures.append(f"{label}: the planted fault passed "
+                            f"({fault['out']:.3e})")
+        if counts != _ring_counts(causal):
+            failures.append(f"{label}: launches {counts}")
+        # time the ring (every shard, one process) against the whole
+        cyc = 20 * SLEEP_CYCLES
+
+        def ring_fwd():
+            from dlrover_tpu_torch.parallel import sequence as sq
+
+            return sq.ring_forward_shards(*shards[:3], scale, causal)
+
+        fwd_out = ring_fwd()
+        outs = [o.to(torch.bfloat16) for o in fwd_out[0]]
+
+        def ring_bwd():
+            from dlrover_tpu_torch.parallel import sequence as sq
+
+            return sq.ring_backward_shards(*shards[:3], outs, shards[3],
+                                           fwd_out[1], scale, causal)
+
+        def whole_bwd():
+            dq, delta = fa.bwd_dq_cuda(q, k, v, o_w, dout, lse_w, scale,
+                                       causal)
+            return fa.bwd_dkv_cuda(q, k, v, dout, lse_w, delta, scale, causal)
+
+        ms = {
+            "ring_fwd": median_ms(ring_fwd, RING_TIMING_REPS,
+                                  sleep_cycles=cyc),
+            "whole_fwd": median_ms(lambda: fa.fwd_cuda(q, k, v, scale,
+                                                       causal),
+                                   RING_TIMING_REPS, sleep_cycles=cyc),
+            "ring_bwd": median_ms(ring_bwd, RING_TIMING_REPS,
+                                  sleep_cycles=cyc),
+            "whole_bwd": median_ms(whole_bwd, RING_TIMING_REPS,
+                                   sleep_cycles=cyc),
+        }
+        log(f"{label}: ring forward {ms['ring_fwd']:.4f} ms against the "
+            f"whole-sequence B1 {ms['whole_fwd']:.4f} ms "
+            f"({ms['ring_fwd'] / ms['whole_fwd']:.3f}x); ring backward "
+            f"{ms['ring_bwd']:.4f} ms against B2 + B3 "
+            f"{ms['whole_bwd']:.4f} ms "
+            f"({ms['ring_bwd'] / ms['whole_bwd']:.3f}x), medians of "
+            f"{RING_TIMING_REPS} on the device [{card}]")
+        del q, k, v, dout, shards, whole, got, plain, outs, fwd_out
+        _free_cuda()
+    if failures:
+        raise AssertionError("13a: " + "; ".join(failures))
+    return out
+
+
+def phase_mixtral(card) -> dict:
+    """13b: the twin of ``examples/train_mixtral.py`` at full width
+    (``mixtral_8x7b``: d 4096, mlp 14336, 8 experts top-2, 32 q heads over
+    8 kv heads, vocab 32000) cut to 2 layers, batch 8 x 1024, the
+    reference's strategy at expert 1 plus ``module_replace(flash)``,
+    AdamW 3e-4, 6 steps on one fixed batch: a finite loss that falls,
+    the aux loss, the median step, tokens/s, MFU (6 FLOPs per active
+    weight per token: attention, the router, 2 of the 8 experts, the
+    head; plus causal attention's 6 L s d; the dispatch einsums not
+    counted), the peak, and exactly 2 B1 (remat), 1 B2 and 1 B3 a layer
+    a step.  Then the twin's ``--smoke`` on the card."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.examples import train_mixtral as tm
+    from dlrover_tpu_torch.models.gpt import count_params
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+    from dlrover_tpu_torch.parallel.moe import collect_moe_aux_loss
+
+    label = "13b Mixtral-8x7B, 2 layers"
+    cfg = LlamaConfig.mixtral_8x7b(num_layers=MIXTRAL_LAYERS)
+    batch, seq = tm.batch_shape(False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    flash = [("module_replace", {"attention": "flash"})]
+    run = tm.train(cfg, batch, seq, MIXTRAL_STEPS,
+                   plan=tm.strategy(cfg.moe_experts, 1, flash), log_every=0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    model = run["result"].model
+    got = model.config
+    aux = float(collect_moe_aux_loss(model).detach())
+    n_params = count_params(model)
+    e, k, layers = cfg.moe_experts, cfg.moe_top_k, cfg.num_layers
+    expert_w = sum(p.numel() for n, p in model.named_parameters()
+                   if "experts_w" in n)
+    active = n_params - model.wte.weight.numel() - expert_w * (e - k) // e
+    tokens = batch * seq
+    flops = 6 * tokens * (active + layers * seq * cfg.hidden_dim)
+    step_s = statistics.median(run["seconds"][2:])
+    losses = run["losses"]
+    expected = _flash_expected(layers, 1, MIXTRAL_STEPS, True)
+    log(f"{label}: {n_params} params ({active} active a token), mesh "
+        f"{run['mesh']}, attention {got.attention_impl}, remat {got.remat}; "
+        f"losses {losses}, aux loss (last forward) {aux:.6f}")
+    log(f"{label}: median step {step_s * 1e3:.3f} ms over steps "
+        f"3..{MIXTRAL_STEPS} ({[round(t * 1e3, 3) for t in run['seconds']]}"
+        f" ms), {tokens / step_s:.1f} tokens/s, MFU "
+        f"{flops / step_s / PEAK_FLOPS['bfloat16']:.4f} of 989 TFLOP/s "
+        f"({flops:.4e} FLOPs a step), peak {peak / 2**30:.2f} GiB; launches "
+        f"{counts}, expected {expected} [{card}]")
+    failures = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"losses {losses}")
+    if counts != expected:
+        failures.append(f"launches {counts} != {expected}")
+    if not (got.attention_impl == "flash" and got.remat):
+        failures.append(f"the plan did not reach the model: {got}")
+    # one more step under the profiler, after the counts were read
+    res = run["result"]
+    profile_step(types.SimpleNamespace(
+        place_batch=res.place_batch, train_step=res.train_step,
+        state=run["state"]), run["batch"], card, "Mixtral-8x7B 2 layers")
+    del run, model, res
+    _free_cuda()
+    t0 = time.perf_counter()
+    tm.main(["--smoke", "--steps", str(MIXTRAL_STEPS)])
+    log(f"13b the twin's --smoke on the card: {time.perf_counter() - t0:.1f}"
+        " s")
+    if failures:
+        raise AssertionError("13b: " + "; ".join(failures))
+    return {"mixtral_8x7b_2_layers": counts}
+
+
+def phase_parallel(card) -> dict:
+    """Phase 13: 13a and 13b, each timed."""
+    out = {}
+    for name, fn in (("13a", phase_ring_blocks), ("13b", phase_mixtral)):
+        t0 = time.perf_counter()
+        out.update(fn(card))
+        _free_cuda()
+        log(f"chip_smoke: phase {name} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _free_cuda():
     import gc
 
@@ -4589,9 +5079,10 @@ def main(argv) -> int:
 
 ONLY = {"2": phase_kernels, "3": phase_quant_kernels,
         "4": lambda card: phase_model_check(), "5lr": phase_small_lr,
-        "9b": phase_fsdp_one_rank,
+        "6a": phase_ckpt_small, "9b": phase_fsdp_one_rank,
         "10": phase_example, "11": phase_llama, "11d": phase_llama_losses,
-        "12": phase_data}
+        "12": phase_data, "13": phase_parallel, "13a": phase_ring_blocks,
+        "13b": phase_mixtral}
 
 
 def run_only(torch, names) -> int:
@@ -4648,7 +5139,7 @@ def run_phases(torch) -> int:
                         ("9c", phase_offload_xl),
                         ("9d", phase_trainer_strategy),
                         ("10", phase_example), ("11", phase_llama),
-                        ("12", phase_data)):
+                        ("12", phase_data), ("13", phase_parallel)):
         by_path.update(timed(name, phase, card))
     leaked = [n for n in os.listdir("/dev/shm")
               if n.startswith(f"dlrover_tpu_ckpt_shm_"

@@ -14,7 +14,14 @@ becomes:
   shards nothing);
 - the model rebuilt with the plan's config knobs (remat and its policy,
   attention impl, compute and param dtypes) when any differs, its
-  weights copied, else the model itself;
+  weights copied, else the model itself; with sequence parallelism the
+  attention is the ring or Ulysses over the mesh's ``sequence`` axis
+  (the reference's ``accelerate.py:90-96``), and the batch's sequence
+  dim is split over it;
+- MoE layers gate over the global batch and, with an ``expert`` axis,
+  keep their rank's experts
+  (:func:`~dlrover_tpu_torch.parallel.moe.attach_mesh`); expert
+  parallelism with tensor parallelism raises;
 - each parameter's placements from the plan's rules
   (:func:`~dlrover_tpu_torch.parallel.sharding.param_placements`):
   DTensor applies the tensor axis to the blocks' Dense layers, FSDP2's
@@ -27,14 +34,17 @@ becomes:
   wrapped by :func:`dlrover_tpu_torch.optim.offload` for
   ``offload_opt`` (on the CPU it is a no-op, as the reference notes);
 - the step: :func:`~dlrover_tpu_torch.trainer.elastic_trainer.make_train_step`
-  with the plan's gradient accumulation, its loss averaged over the
-  data-parallel ranks.
+  with the plan's gradient accumulation, its loss and gradients averaged
+  over the ranks that hold distinct tokens (data x fsdp x sequence:
+  each rank's loss is the mean over its own tokens, and the parameters
+  are replicated over the sequence group).
 
 Every entry point runs on the card unless ``device="cpu"`` is passed.
 """
 
 import copy
 import dataclasses
+import math
 import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
@@ -47,7 +57,9 @@ from dlrover_tpu_torch.accel.strategy import AccelPlan, Strategy
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.parallel.mesh import Mesh, build_mesh, set_global_mesh
+from dlrover_tpu_torch.parallel.moe import attach_mesh
 from dlrover_tpu_torch.parallel.sharding import (
+    TOKEN_AXES,
     apply_fsdp,
     apply_tensor_parallel,
     batch_shard,
@@ -117,9 +129,15 @@ def _apply_plan_to_model(plan: AccelPlan, context: ModelContext,
         updates["remat"] = plan.remat
     if hasattr(cfg, "remat_policy") and plan.remat_policy != cfg.remat_policy:
         updates["remat_policy"] = plan.remat_policy
+    attention_impl = plan.attention_impl
+    if plan.sequence_parallel == "ring":
+        attention_impl = "ring"
+    elif plan.sequence_parallel == "ulysses":
+        attention_impl = ("ulysses_flash" if plan.attention_impl == "flash"
+                          else "ulysses")
     if (hasattr(cfg, "attention_impl")
-            and plan.attention_impl != cfg.attention_impl):
-        updates["attention_impl"] = plan.attention_impl
+            and attention_impl != cfg.attention_impl):
+        updates["attention_impl"] = attention_impl
     if hasattr(cfg, "dtype") and plan.compute_dtype in _DTYPES:
         if cfg.dtype != _DTYPES[plan.compute_dtype]:
             updates["dtype"] = _DTYPES[plan.compute_dtype]
@@ -140,16 +158,25 @@ def _apply_plan_to_model(plan: AccelPlan, context: ModelContext,
     return new
 
 
-def _grad_allreduce(mesh: Mesh):
-    """The data-parallel gradient all-reduce (sum over data x fsdp; the
-    step divides by the ranks' count with the accumulation): one
-    flattened buffer a dtype, for plain and tensor-parallel (local)
-    gradients alike."""
+def _token_axes(mesh: Mesh, fsdp: bool):
+    """The axes whose ranks hold distinct tokens and whose gradients the
+    step averages itself: data x fsdp x sequence, less data and fsdp
+    when FSDP2 reduces over them."""
+    axes = ("sequence",) if fsdp else TOKEN_AXES
+    return [a for a in axes if mesh.shape[a] > 1]
+
+
+def _grad_allreduce(mesh: Mesh, axes):
+    """The gradient average over ``axes`` (a sum over each axis's group,
+    divided by their ranks' count): one flattened buffer a dtype, for
+    plain, tensor-parallel and FSDP2-sharded (local) gradients alike.
+    An expert's gradient is reduced with the rest: the ranks of these
+    axes hold the same experts."""
     import torch.distributed as dist
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-    groups = [g for g in (mesh.group("data"), mesh.group("fsdp")) if g]
-    n = mesh.shape["data"] * mesh.shape["fsdp"]
+    groups = [mesh.group(a) for a in axes]
+    n = math.prod(mesh.shape[a] for a in axes)
 
     def hook(module):
         by_dtype: Dict[torch.dtype, list] = {}
@@ -227,7 +254,12 @@ def build_from_plan(plan: AccelPlan, context: ModelContext,
                        "degrading to plain remat on cpu")
         _note(plan, "offload_activation degraded to plain remat on cpu")
         model_plan = dataclasses.replace(plan, remat_policy="full")
+    if mesh.shape["expert"] > 1 and mesh.shape["tensor"] > 1:
+        raise NotImplementedError(
+            "expert parallelism with tensor parallelism is not ported "
+            "(the expert kernels would need their tensor placement)")
     model = _apply_plan_to_model(model_plan, context, fresh=fresh)
+    attach_mesh(model, mesh)
     placements = param_placements(model, mesh.shape, plan.param_rules)
     opt_placements = param_placements(model, mesh.shape,
                                       plan.effective_opt_rules())
@@ -240,22 +272,22 @@ def build_from_plan(plan: AccelPlan, context: ModelContext,
             and shards_over(opt_placements, "fsdp"))
     optimizer = _make_optimizer(plan, context, list(model.parameters()),
                                 mesh, zero, device)
-    dp = mesh.shape["data"] * mesh.shape["fsdp"]
-    hook = (_grad_allreduce(mesh)
-            if mesh.distributed and not fsdp and dp > 1 else None)
+    reduce_axes = _token_axes(mesh, fsdp) if mesh.distributed else []
+    hook = _grad_allreduce(mesh, reduce_axes) if reduce_axes else None
     step_fn = make_train_step(context.loss_fn, optimizer, plan.grad_accum,
                               device=device, grad_hook=hook)
+    loss_axes = _token_axes(mesh, False) if mesh.distributed else []
 
     def train_step(state, batch):
         state, metrics = step_fn(state, batch)
-        if mesh.distributed and dp > 1:
+        if loss_axes:
             import torch.distributed as dist
 
             loss = metrics["loss"].clone()
-            for axis in ("data", "fsdp"):
-                if mesh.group(axis) is not None:
-                    dist.all_reduce(loss, group=mesh.group(axis))
-            metrics["loss"] = loss / dp
+            for axis in loss_axes:
+                dist.all_reduce(loss, group=mesh.group(axis))
+            metrics["loss"] = loss / math.prod(mesh.shape[a]
+                                               for a in loss_axes)
         return state, metrics
 
     return BuiltPlan(mesh=mesh, train_step=train_step,

@@ -248,6 +248,11 @@ def count_step(plan, context) -> Dict[str, float]:
     from dlrover_tpu_torch.accel.accelerate import _apply_plan_to_model
 
     meta_plan = dataclasses.replace(plan, remat_policy="full")
+    if plan.sequence_parallel != "none":
+        # the whole sequence on one device set: the ring's and Ulysses'
+        # attention is the flash kernels' work, counted by formula
+        meta_plan = dataclasses.replace(meta_plan, sequence_parallel="none",
+                                        attention_impl="flash")
     model = _apply_plan_to_model(meta_plan, context, device="meta")
     for module in model.modules():
         if getattr(module, "_attn", None) is not None and getattr(
@@ -266,7 +271,8 @@ def count_step(plan, context) -> Dict[str, float]:
             loss.backward()
     finally:
         _ACTIVE.pop("count", None)
-    params = list(model.parameters())
+    params = [p for n, p in model.named_parameters() if "experts_w" not in n]
+    experts = [p for n, p in model.named_parameters() if "experts_w" in n]
     host = 0.0
     if plan.remat and plan.remat_policy == "offload":
         # each block's input to the host and back
@@ -274,36 +280,44 @@ def count_step(plan, context) -> Dict[str, float]:
         host += 2 * cfg.num_layers * micro * next(iter(
             batch.values())).shape[1] * cfg.hidden_dim * torch.tensor(
                 [], dtype=cfg.dtype).element_size()
-    opt_bytes = _optimizer_bytes(plan, params)
     if plan.offload_opt_state:
-        host += 2 * sum(2 * 4 * p.numel() for p in params)
-    state = sum(p.numel() * p.element_size() * 2 for p in params) + (
-        sum(2 * (p.numel() + 4 * p.numel() / 2048) for p in params)
-        if plan.low_bit_opt else sum(8 * p.numel() for p in params))
+        host += 2 * sum(2 * 4 * p.numel() for p in params + experts)
+
+    def state(ps):
+        return sum(p.numel() * p.element_size() * 2 for p in ps) + (
+            sum(2 * (p.numel() + 4 * p.numel() / 2048) for p in ps)
+            if plan.low_bit_opt else sum(8 * p.numel() for p in ps))
+
     ga = max(1, plan.grad_accum)
     return {"flops": counter.flops * ga, "bytes": counter.bytes * ga,
-            "optimizer_bytes": opt_bytes, "host_bytes": host * ga,
-            "state_bytes": state}
+            "optimizer_bytes": _optimizer_bytes(plan, params),
+            "expert_optimizer_bytes": _optimizer_bytes(plan, experts),
+            "host_bytes": host * ga, "state_bytes": state(params),
+            "expert_state_bytes": state(experts)}
 
 
 def estimate_plan(plan, context, num_devices: int = 1) -> DryRunResult:
     """Count the plan's step (nothing runs on the card) and rank it by
     a roofline on ``context.device``'s peaks: per device, the FLOPs and
     the activation bytes split over all devices, the optimizer's bytes
-    over the ``fsdp`` x ``tensor`` shards, and the offload tiers' host
-    copies over the host link."""
+    over the ``fsdp`` x ``tensor`` shards (the MoE experts' over
+    ``fsdp`` x ``expert``), and the offload tiers' host copies over the
+    host link."""
     t0 = time.perf_counter()
     cost = count_step(plan, context)
     sizes = plan.mesh_config.axis_sizes(num_devices)
     shard = sizes["fsdp"] * sizes["tensor"]
+    expert_shard = sizes["fsdp"] * sizes["expert"]
     peak_flops, mem_bw = _chip_spec(context.device)
     flops = cost["flops"] / num_devices
-    nbytes = cost["bytes"] / num_devices + cost["optimizer_bytes"] / shard
+    nbytes = (cost["bytes"] / num_devices + cost["optimizer_bytes"] / shard
+              + cost["expert_optimizer_bytes"] / expert_shard)
     est = max(flops / peak_flops.get(plan.compute_dtype,
                                      peak_flops["float32"]),
               nbytes / mem_bw) + cost["host_bytes"] / shard / HOST_LINK_BW
     return DryRunResult(
         ok=True, compile_time_s=time.perf_counter() - t0, flops=flops,
         bytes_accessed=nbytes, est_step_time_s=est,
-        device_peak_bytes=int(cost["state_bytes"] / shard),
+        device_peak_bytes=int(cost["state_bytes"] / shard
+                              + cost["expert_state_bytes"] / expert_shard),
     )

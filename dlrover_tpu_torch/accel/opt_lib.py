@@ -3,11 +3,9 @@
 Copy of ``dlrover_tpu/accel/opt_lib.py``: every optimization keeps its
 name and edits the plan as the reference's does; the plan is then
 materialised on ``torch.distributed`` by
-:mod:`dlrover_tpu_torch.accel.accelerate`.  ``sequence_parallel``,
-``expert_parallel``, ``pipeline_parallel`` and ``fp8`` raise
-``NotImplementedError`` when applied, naming the part of slice 5 of
-the port that brings them (5.2 sequence and expert parallelism, 5.3 the
-pipeline, 5.4 fp8).  ``module_replace`` selects the CUDA flash kernels, which the
+:mod:`dlrover_tpu_torch.accel.accelerate`.  ``pipeline_parallel`` and
+``fp8`` raise ``NotImplementedError`` when applied, naming the part of
+slice 5 of the port that brings them (5.3 the pipeline, 5.4 fp8).  ``module_replace`` selects the CUDA flash kernels, which the
 strategy search adds when the job runs on the card.
 Reference of that file: ``OptimizationLibrary`` with 15 registered methods
 (``atorch/auto/opt_lib/optimization_library.py:18``; zero1/zero2/fsdp/
@@ -21,7 +19,7 @@ from typing import Any, Dict
 
 from dlrover_tpu_torch.accel.strategy import AccelPlan
 from dlrover_tpu_torch.common.log import default_logger as logger
-from dlrover_tpu_torch.common.slices import SLICE_5_2, SLICE_5_3, SLICE_5_4
+from dlrover_tpu_torch.common.slices import SLICE_5_3, SLICE_5_4
 from dlrover_tpu_torch.parallel.sharding import fsdp_rules
 
 
@@ -112,27 +110,40 @@ class TensorParallelOpt(Optimization):
 
 class SequenceParallelOpt(Optimization):
     """Ulysses SP / ring CP over the 'sequence' axis (reference:
-    sequence_parallel_optimization.py); comes with slice 5.2 of the
-    port."""
+    sequence_parallel_optimization.py; ring is the TPU package's
+    extension).  ``build_from_plan`` rebuilds the model with the ring or
+    Ulysses attention and splits the batch's sequence dim."""
 
     name = "sequence_parallel"
     semiauto = True
 
     def apply(self, plan, config, context=None):
-        raise NotImplementedError(
-            f"optimization {self.name!r} comes with {SLICE_5_2}")
+        plan.mesh_config.sequence = int(config.get("size", 2))
+        plan.sequence_parallel = config.get("mode", "ulysses")
+        plan.notes.append(
+            f"sequence parallel ({plan.sequence_parallel}) "
+            f"x{plan.mesh_config.sequence}"
+        )
+        return plan
 
 
 class ExpertParallelOpt(Optimization):
-    """MoE expert parallelism (reference: moe_layer.py); comes with
-    slice 5.2 of the port."""
+    """MoE expert parallelism (reference: moe_layer.py)."""
 
     name = "expert_parallel"
     semiauto = True
 
     def apply(self, plan, config, context=None):
-        raise NotImplementedError(
-            f"optimization {self.name!r} comes with {SLICE_5_2}")
+        from dlrover_tpu_torch.parallel.registry import rules_for_model
+
+        plan.mesh_config.expert = int(config.get("size", 2))
+        plan.param_rules = rules_for_model(
+            getattr(context, "model", None), use_moe=True
+        )
+        plan.notes.append(
+            f"expert parallel x{plan.mesh_config.expert}"
+        )
+        return plan
 
 
 class MixedParallelOpt(Optimization):

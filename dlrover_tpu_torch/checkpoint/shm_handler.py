@@ -518,6 +518,7 @@ class SharedMemoryHandler:
         )
         self._shm: Optional[PersistentSharedMemory] = None
         self._write_lock = threading.Lock()
+        self._attach_lock = threading.Lock()
         self._stagers: Dict[torch.device, _DeviceStager] = {}
         # phase timings of the last save (seconds): the engine logs
         # them and the chip smoke reports them
@@ -649,27 +650,33 @@ class SharedMemoryHandler:
         """Attach (cached) to the segment; when the trainer grew and
         recreated it, a cached mapping points at the old unlinked
         inode — re-attach rather than silently slicing a truncated,
-        stale snapshot (``min_size`` = bytes the caller needs)."""
-        if self._shm is None:
-            try:
-                self._shm = PersistentSharedMemory(name=self._shm_name)
-            except FileNotFoundError:
-                return None
-        if min_size and self._shm.size < min_size:
-            self._shm.close()
-            self._shm = None
-            try:
-                self._shm = PersistentSharedMemory(name=self._shm_name)
-            except FileNotFoundError:
-                return None
-            if self._shm.size < min_size:
-                logger.error(
-                    "shm segment %s is %d bytes but the snapshot "
-                    "metadata claims %d; refusing a truncated read",
-                    self._shm_name, self._shm.size, min_size,
-                )
-                return None
-        return self._shm
+        stale snapshot (``min_size`` = bytes the caller needs).
+
+        Under a lock: the restore's pre-fault thread and the restore
+        attach at once, and a second mapping, dropped by the thread
+        whose assignment lost, would unmap under the other's
+        ``torch.frombuffer`` views (they hold no buffer export)."""
+        with self._attach_lock:
+            if self._shm is None:
+                try:
+                    self._shm = PersistentSharedMemory(name=self._shm_name)
+                except FileNotFoundError:
+                    return None
+            if min_size and self._shm.size < min_size:
+                self._shm.close()
+                self._shm = None
+                try:
+                    self._shm = PersistentSharedMemory(name=self._shm_name)
+                except FileNotFoundError:
+                    return None
+                if self._shm.size < min_size:
+                    logger.error(
+                        "shm segment %s is %d bytes but the snapshot "
+                        "metadata claims %d; refusing a truncated read",
+                        self._shm_name, self._shm.size, min_size,
+                    )
+                    return None
+            return self._shm
 
     def load_flat(
         self, stats=None, detach: bool = True,

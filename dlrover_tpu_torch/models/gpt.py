@@ -31,9 +31,18 @@ the same numerics policy:
 
 Parameter names follow the flax tree (``block_i/attn/qkv`` is
 ``blocks.i.attn.qkv``), so :mod:`dlrover_tpu_torch.utils.convert`
-maps one onto the other.  Decode with a KV cache, the value head, MoE,
-fp8, the save_attn remat policy and pipeline parallelism are later
-slices of the port and raise ``NotImplementedError``.
+maps one onto the other.
+
+Sequence and expert parallelism: ``attention_impl`` ``"ring"``,
+``"ulysses"`` and ``"ulysses_flash"`` run over the global mesh's
+``sequence`` axis (:mod:`dlrover_tpu_torch.parallel.sequence`; the
+ring's blocks and Ulysses' inner ``"ulysses_flash"`` on the flash
+kernels), each rank's positions offset by its place in the sequence;
+``moe_experts > 0`` replaces the MLP of every ``moe_every``-th block
+with a :class:`~dlrover_tpu_torch.parallel.moe.MoEMLP` named ``moe``.
+Decode with a KV cache, the value head, fp8, the save_attn remat policy
+and pipeline parallelism are later slices of the port and raise
+``NotImplementedError``.
 """
 
 import math
@@ -47,7 +56,8 @@ from torch.autograd.graph import save_on_cpu
 from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
-from dlrover_tpu_torch.common.slices import SLICE_5_2, SLICE_5_4
+from dlrover_tpu_torch.common.slices import SLICE_5_4
+from dlrover_tpu_torch.parallel.sequence import sequence_offset
 
 
 @dataclass(frozen=True)
@@ -64,13 +74,19 @@ class GPTConfig:
     param_dtype: torch.dtype = torch.float32  # master params
     remat: bool = False
     remat_policy: str = "full"
-    # "xla" = plain attention math; "flash" = the CUDA flash kernels
+    # "xla" = plain attention math; "flash" = the CUDA flash kernels;
+    # "ring" | "ulysses" | "ulysses_flash" over the sequence axis
     attention_impl: str = "xla"
     tie_embeddings: bool = True
     decode: bool = False
     head: str = "lm"
     fp8: bool = False
+    # MoE: 0 = dense; >0 replaces the MLP of every ``moe_every``-th
+    # block with an expert-parallel MoEMLP
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.25
 
     @property
     def head_dim(self) -> int:
@@ -116,12 +132,9 @@ def _check_supported(cfg: GPTConfig):
         (cfg.decode, "decode (KV-cache attention)", SLICE_5_4),
         (cfg.head != "lm", f"head={cfg.head!r}",
          "slice 7 of the port (RL)"),
-        (cfg.moe_experts > 0, "moe_experts > 0", SLICE_5_2),
         (cfg.fp8, "fp8 matmuls", SLICE_5_4),
         (cfg.remat_policy == "save_attn",
          f"remat_policy={cfg.remat_policy!r}", SLICE_5_4),
-        (cfg.attention_impl not in ("xla", "flash"),
-         f"attention_impl={cfg.attention_impl!r}", SLICE_5_2),
     ]
     for bad, what, where in unsupported:
         if bad:
@@ -158,11 +171,39 @@ def _local_heads(t):
 
 
 def get_attention_fn(impl: str):
-    """xla | flash (sequence-parallel impls come with a later slice)."""
+    """xla | flash | ring | ulysses | ulysses_flash.
+
+    ring and ulysses run over the global mesh's ``sequence`` axis
+    (registered by ``auto_accelerate``); activations are this rank's
+    sequence shard.  The ring is GQA-aware (its blocks are the flash
+    kernels); Ulysses is not, as in the reference, so the model repeats
+    k and v before it."""
     if impl == "flash":
         from dlrover_tpu_torch.ops.flash_attention import flash_attention
 
         return flash_attention
+    if impl == "ring":
+        from dlrover_tpu_torch.parallel.mesh import get_global_mesh
+        from dlrover_tpu_torch.parallel.sequence import ring_attention
+
+        def ring(q, k, v, dtype=torch.bfloat16):
+            return ring_attention(q, k, v, get_global_mesh(),
+                                  causal=True).to(dtype)
+
+        ring.gqa_aware = True
+        return ring
+    if impl in ("ulysses", "ulysses_flash"):
+        from dlrover_tpu_torch.parallel.mesh import get_global_mesh
+        from dlrover_tpu_torch.parallel.sequence import ulysses_attention
+
+        inner = (get_attention_fn("flash") if impl == "ulysses_flash"
+                 else xla_causal_attention)
+
+        def ulysses(q, k, v, dtype=torch.bfloat16):
+            return ulysses_attention(inner, q, k, v, get_global_mesh(),
+                                     dtype=dtype)
+
+        return ulysses
     return xla_causal_attention
 
 
@@ -242,19 +283,43 @@ def _layer_norm(config: GPTConfig, device) -> nn.LayerNorm:
                         dtype=torch.float32, device=device)
 
 
+def moe_layer(config, mlp_dim: int, gated: bool, device):
+    """The MoE block of the GPT and Llama families (``moe``)."""
+    from dlrover_tpu_torch.parallel.moe import MoEMLP
+
+    return MoEMLP(
+        num_experts=config.moe_experts, hidden_dim=config.hidden_dim,
+        mlp_dim=mlp_dim, top_k=config.moe_top_k,
+        capacity_factor=config.moe_capacity_factor, gated=gated,
+        no_drop=config.decode, dtype=config.dtype,
+        param_dtype=config.param_dtype, device=device)
+
+
+def uses_moe(config, i: int) -> bool:
+    """Block ``i`` is an MoE block: every ``moe_every``-th, counting
+    from the end of the first stride (shared by GPT and Llama)."""
+    return config.moe_experts > 0 and (i + 1) % config.moe_every == 0
+
+
 class Block(nn.Module):
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, device=None,
+                 use_moe: bool = False):
         super().__init__()
         self.config = config
         self.ln_attn = _layer_norm(config, device)
         self.attn = Attention(config, device)
         self.ln_mlp = _layer_norm(config, device)
-        self.mlp = MLP(config, device)
+        if use_moe:
+            self.moe = moe_layer(config, config.mlp_ratio * config.hidden_dim,
+                                 False, device)
+        else:
+            self.mlp = MLP(config, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.config.dtype
         x = x + self.attn(self.ln_attn(x.float()).to(dtype))
-        return x + self.mlp(self.ln_mlp(x.float()).to(dtype))
+        mlp = self.moe if hasattr(self, "moe") else self.mlp
+        return x + mlp(self.ln_mlp(x.float()).to(dtype))
 
 
 @torch.no_grad()
@@ -264,8 +329,10 @@ def init_flax_weights(model: nn.Module, gen: torch.Generator):
     truncated at two standard deviations and widened so that the
     truncated std is 1/sqrt(fan_in)), zero biases, ``nn.Embed``'s plain
     normal of std 1/sqrt(features), unit layernorm scales (a module
-    that builds its own scales, as ``RMSNorm``, keeps them).  Drawn in
-    fp32 on the weights' device and rounded once to their dtype."""
+    that builds its own scales, as ``RMSNorm``, keeps them), and each
+    MoE expert kernel ``[e, in, out]`` as ``e`` Dense kernels of fan-in
+    ``in``.  Drawn in fp32 on the weights' device and rounded once to
+    their dtype."""
 
     def draw(w, fan_in, truncated):
         std = math.sqrt(1.0 / fan_in)
@@ -278,11 +345,20 @@ def init_flax_weights(model: nn.Module, gen: torch.Generator):
             out.normal_(0.0, std, generator=gen)
         w.copy_(out)
 
+    from dlrover_tpu_torch.parallel.moe import MoEMLP
+
     for module in model.modules():
         if isinstance(module, Dense):
             draw(module.weight, module.in_features, True)
             if module.bias is not None:
                 module.bias.zero_()
+        elif isinstance(module, MoEMLP):
+            # variance_scaling(1.0, "fan_in", "truncated_normal",
+            # in_axis=-2, out_axis=-1, batch_axis=0): the leading expert
+            # dim is a batch axis, not receptive field
+            for name in module.expert_kernels():
+                w = getattr(module, name)
+                draw(w, w.shape[-2], True)
         elif isinstance(module, nn.Embedding):
             draw(module.weight, module.embedding_dim, False)
         elif isinstance(module, nn.LayerNorm):
@@ -319,7 +395,8 @@ class GPT(nn.Module):
         self.wpe = nn.Embedding(config.max_seq_len, d, dtype=pd,
                                 device=device)
         self.blocks = nn.ModuleList(
-            Block(config, device) for _ in range(config.num_layers)
+            Block(config, device, uses_moe(config, i))
+            for i in range(config.num_layers)
         )
         self.ln_f = _layer_norm(config, device)
         if not config.tie_embeddings:
@@ -336,7 +413,9 @@ class GPT(nn.Module):
         head themselves (:mod:`dlrover_tpu_torch.models.losses`)."""
         cfg = self.config
         b, s = tokens.shape
-        pos = torch.arange(s, device=tokens.device)
+        # under sequence parallelism this rank's shard starts later
+        pos = torch.arange(s, device=tokens.device) + sequence_offset(
+            cfg.attention_impl, s)
         # flax Embed(dtype=...) casts the table; casting the gathered
         # rows is the same values without touching the whole table
         x = (

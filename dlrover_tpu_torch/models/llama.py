@@ -35,9 +35,16 @@ Parameter names follow the flax tree (``wte``,
 ``blocks.i.{ln_attn,attn.{q,k,v,o}_proj,ln_mlp,mlp.{gate,up,down}}``,
 ``ln_f``, ``lm_head``), so :mod:`dlrover_tpu_torch.utils.convert` maps
 one onto the other and the partition rules of
-:func:`~dlrover_tpu_torch.parallel.sharding.gpt_tp_rules` apply.  MoE
-(Mixtral) comes with slice 5.2 of the port, the pipelined Llama with
-5.3 and decode with a KV cache with 5.4; each raises
+:func:`~dlrover_tpu_torch.parallel.sharding.gpt_tp_rules` apply.
+
+Mixtral: ``moe_experts > 0`` replaces the SwiGLU MLP of every
+``moe_every``-th block with gated experts (``moe/router``,
+``moe/experts_w_{in,gate,out}``, as the reference names them;
+:mod:`dlrover_tpu_torch.parallel.moe`).  Sequence parallelism:
+``attention_impl`` ``"ring"`` (GQA-aware, over the flash kernels),
+``"ulysses"`` and ``"ulysses_flash"`` (k and v repeated first), RoPE at
+each rank's global positions.  The pipelined Llama comes with slice 5.3
+and decode with a KV cache with 5.4; each raises
 ``NotImplementedError`` naming its slice.
 """
 
@@ -51,12 +58,15 @@ from torch.autograd.graph import save_on_cpu
 from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
-from dlrover_tpu_torch.common.slices import SLICE_5_2, SLICE_5_3, SLICE_5_4
+from dlrover_tpu_torch.common.slices import SLICE_5_3, SLICE_5_4
 from dlrover_tpu_torch.models.gpt import (
     Dense,
     get_attention_fn,
     init_flax_weights,
+    moe_layer,
+    uses_moe,
 )
+from dlrover_tpu_torch.parallel.sequence import sequence_offset
 
 
 @dataclass(frozen=True)
@@ -74,10 +84,12 @@ class LlamaConfig:
     param_dtype: torch.dtype = torch.float32  # master params
     remat: bool = False
     remat_policy: str = "full"  # "full" | "offload" (see gpt.py)
-    # "xla" = plain attention math; "flash" = the CUDA flash kernels
+    # "xla" = plain attention math; "flash" = the CUDA flash kernels;
+    # "ring" | "ulysses" | "ulysses_flash" over the sequence axis
     attention_impl: str = "xla"
     decode: bool = False
-    # Mixtral-style sparse MoE (slice 5.2 of the port)
+    # Mixtral-style sparse MoE: >0 replaces the SwiGLU MLP of every
+    # ``moe_every``-th block with gated experts
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_every: int = 1
@@ -120,8 +132,7 @@ class LlamaConfig:
 
     @classmethod
     def mixtral_8x7b(cls, **kw) -> "LlamaConfig":
-        """Mixtral-class sparse MoE (8 experts, top-2, GQA): the config
-        only, its model comes with slice 5.2 of the port."""
+        """Mixtral-class sparse MoE (8 experts, top-2, GQA)."""
         return cls(**{**dict(
             vocab_size=32000, max_seq_len=4096, num_layers=32,
             num_heads=32, num_kv_heads=8, hidden_dim=4096,
@@ -131,17 +142,10 @@ class LlamaConfig:
 
 def _check_supported(cfg: LlamaConfig):
     """Options of the reference that later slices of the port bring."""
-    unsupported = [
-        (cfg.moe_experts > 0, "moe_experts > 0 (Mixtral)", SLICE_5_2),
-        (cfg.decode, "decode (KV-cache attention)", SLICE_5_4),
-        (cfg.attention_impl not in ("xla", "flash"),
-         f"attention_impl={cfg.attention_impl!r}", SLICE_5_2),
-    ]
-    for bad, what, where in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"Llama {what} is not ported yet: it comes with {where}"
-            )
+    if cfg.decode:
+        raise NotImplementedError(
+            f"Llama decode (KV-cache attention) is not ported yet: it comes "
+            f"with {SLICE_5_4}")
     if cfg.num_heads % cfg.num_kv_heads:
         raise ValueError(f"num_heads {cfg.num_heads} is not a multiple of "
                          f"num_kv_heads {cfg.num_kv_heads}")
@@ -241,12 +245,14 @@ class LlamaAttention(nn.Module):
             q, k, v = _tensor_parallel_heads(q, k, v, cfg, b, s)
         else:
             q, k, v = (t.reshape(b, s, -1, cfg.head_dim) for t in (q, k, v))
-        positions = torch.arange(s, device=x.device)
+        # under sequence parallelism this rank's shard starts later
+        positions = torch.arange(s, device=x.device) + sequence_offset(
+            cfg.attention_impl, s)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         group = q.shape[2] // k.shape[2]
         if group > 1 and not getattr(self._attn, "gqa_aware", False):
-            # the plain math needs the materialized repeat
+            # the plain math and Ulysses need the materialized repeat
             k = k.repeat_interleave(group, dim=2)
             v = v.repeat_interleave(group, dim=2)
         out = self._attn(q, k, v, dtype=cfg.dtype)
@@ -272,17 +278,24 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None,
+                 use_moe: bool = False):
         super().__init__()
         self.config = config
         self.ln_attn = RMSNorm(config.hidden_dim, config.rms_eps, device)
         self.attn = LlamaAttention(config, device)
         self.ln_mlp = RMSNorm(config.hidden_dim, config.rms_eps, device)
-        self.mlp = LlamaMLP(config, device)
+        if use_moe:
+            # SwiGLU experts (Mixtral)
+            self.moe = moe_layer(config, config.intermediate_dim, True,
+                                 device)
+        else:
+            self.mlp = LlamaMLP(config, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_attn(x))
-        return x + self.mlp(self.ln_mlp(x))
+        mlp = self.moe if hasattr(self, "moe") else self.mlp
+        return x + mlp(self.ln_mlp(x))
 
 
 class Llama(nn.Module):
@@ -307,7 +320,8 @@ class Llama(nn.Module):
         d, pd = config.hidden_dim, config.param_dtype
         self.wte = nn.Embedding(config.vocab_size, d, dtype=pd, device=device)
         self.blocks = nn.ModuleList(
-            LlamaBlock(config, device) for _ in range(config.num_layers)
+            LlamaBlock(config, device, uses_moe(config, i))
+            for i in range(config.num_layers)
         )
         self.ln_f = RMSNorm(d, config.rms_eps, device)
         self.lm_head = Dense(d, config.vocab_size, bias=False, dtype=pd,

@@ -1,7 +1,8 @@
 """Parallelism layer (reference: ``dlrover_tpu/parallel/``): the mesh
 and the partition rules, which become FSDP2 and DTensor placements on
-``torch.distributed``.  ``moe`` and ``sequence`` come with slice 5.2
-of the port, ``pipeline`` with 5.3."""
+``torch.distributed``; ``sequence`` (ring and Ulysses attention) and
+``moe`` (the expert-parallel MoE layer).  ``pipeline`` comes with slice
+5.3 of the port."""
 
 from dlrover_tpu_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
 from dlrover_tpu_torch.parallel.sharding import (

@@ -5,19 +5,21 @@ whose named axes carry every parallelism flavour).  Here a
 :class:`Mesh` is the logical shape over the same axis names and, when a
 process group exists, a ``torch.distributed`` ``DeviceMesh`` over the
 axes the port runs: ``data`` (batch split, params replicated), ``fsdp``
-(batch split, params and optimizer state sharded, FSDP2) and ``tensor``
-(Megatron-style tensor parallelism, DTensor).  One device is one rank.
-``sequence``, ``expert`` and ``pipeline`` keep their names and sizes
-in :class:`MeshConfig`; a mesh that needs any of them above 1 raises,
-naming the part of slice 5 of the port that brings it (5.2 sequence and
-expert, 5.3 pipeline).
+(batch split, params and optimizer state sharded, FSDP2), ``sequence``
+(the sequence split: ring or Ulysses attention,
+:mod:`dlrover_tpu_torch.parallel.sequence`), ``expert`` (MoE expert
+kernels split, the batch replicated: :mod:`dlrover_tpu_torch.parallel.moe`)
+and ``tensor`` (Megatron-style tensor parallelism, DTensor).  One
+device is one rank.  ``pipeline`` keeps its name and size in
+:class:`MeshConfig`; a mesh that needs it above 1 raises, naming slice
+5.3 of the port, which brings it.
 
 The reference's ICI/DCN split becomes intra-node/inter-node (NVLink
 against the network): ``num_slices`` is the node count, and only the
 bandwidth-light axes (``data``, ``pipeline``) may span nodes.  Ranks
-are laid out row-major over (data, fsdp, tensor), so with one node's
-ranks consecutive, ``tensor`` and ``fsdp`` stay inside a node whenever
-their product divides the node's rank count.
+are laid out row-major over (data, fsdp, sequence, expert, tensor), so
+with one node's ranks consecutive, the inner axes stay inside a node
+whenever their product divides the node's rank count.
 
 A world of one with no process group builds a mesh with no
 ``DeviceMesh``: it shards nothing, as the reference's one-device mesh
@@ -30,7 +32,7 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 from dlrover_tpu_torch.common import env_utils
-from dlrover_tpu_torch.common.slices import SLICE_5_2, SLICE_5_3
+from dlrover_tpu_torch.common.slices import SLICE_5_3
 
 AXES = ("data", "fsdp", "tensor", "sequence", "expert", "pipeline")
 
@@ -39,11 +41,8 @@ AXES = ("data", "fsdp", "tensor", "sequence", "expert", "pipeline")
 # sequence/expert all-to-alls stay inside a node (its ICI_AXES)
 DCN_AXES = ("data", "pipeline")
 ICI_AXES = ("fsdp", "tensor", "sequence", "expert")
-# the axes a DeviceMesh of the port carries
-TORCH_AXES = ("data", "fsdp", "tensor")
-
-_AXIS_SLICES = {"sequence": SLICE_5_2, "expert": SLICE_5_2,
-                "pipeline": SLICE_5_3}
+# the axes a DeviceMesh of the port carries, outermost first
+TORCH_AXES = ("data", "fsdp", "sequence", "expert", "tensor")
 
 
 @dataclass
@@ -196,11 +195,10 @@ def build_mesh(
     if world_size is None:
         world_size = dist.get_world_size() if initialized else 1
     sizes = config.axis_sizes(world_size)
-    for axis in ("sequence", "expert", "pipeline"):
-        if sizes[axis] > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis!r} of size {sizes[axis]}: {axis} "
-                f"parallelism comes with {_AXIS_SLICES[axis]}")
+    if sizes["pipeline"] > 1:
+        raise NotImplementedError(
+            f"mesh axis 'pipeline' of size {sizes['pipeline']}: pipeline "
+            f"parallelism comes with {SLICE_5_3}")
     if num_slices is None:
         num_slices = config.num_slices or detect_num_slices()
     if num_slices > 1:
@@ -244,7 +242,8 @@ def get_global_mesh() -> Mesh:
 
 
 def batch_axes() -> Tuple[str, ...]:
-    """Mesh axes the global batch is split over."""
+    """Mesh axes the global batch's rows are split over (its sequence
+    dim goes over ``sequence``)."""
     return ("data", "fsdp")
 
 

@@ -17,9 +17,10 @@ dim the axis sizes do not divide.  FSDP2's ``fully_shard`` applies the
 ``fsdp`` axis and DTensor the ``tensor`` axis
 (:mod:`dlrover_tpu_torch.accel.accelerate`).
 
-``pipeline_rules`` and ``moe_rules`` are copied as data; the
-optimizations that apply them raise until slices 5.3 and 5.2 of the
-port.
+``moe_rules`` places the expert kernels' leading dim on ``expert``,
+which :func:`dlrover_tpu_torch.parallel.moe.attach_mesh` applies (each
+rank keeps its slice of the experts as plain parameters);
+``pipeline_rules`` is copied as data until slice 5.3 of the port.
 """
 
 import re
@@ -201,8 +202,7 @@ def gpt_tp_rules() -> PartitionRules:
 
 def moe_rules() -> PartitionRules:
     """Expert-parallel MoE: expert weights carry a leading expert dim
-    sharded over ``expert``; the rest follows the TP rules.  Data only
-    until slice 5.2 of the port."""
+    sharded over ``expert``; the rest follows the TP rules."""
     base = gpt_tp_rules()
     return base.extended(
         [
@@ -221,13 +221,41 @@ def batch_spec(extra_seq_axis: bool = False) -> Tuple[SpecLike, ...]:
     return (("data", "fsdp"),)
 
 
+# the axes whose ranks hold distinct tokens of a global batch under
+# :func:`batch_shard`, innermost first: the order the global token index
+# nests (the sequence, then the rows over data x fsdp, data outer)
+TOKEN_AXES = ("sequence", "fsdp", "data")
+
+
+def token_shard(mesh) -> Tuple[int, int, int, int]:
+    """``(row, rows, col, cols)``: this rank's part of a global batch
+    under :func:`batch_shard`, the ``row``-th of ``rows`` equal blocks
+    of the batch dim and the ``col``-th of ``cols`` of the sequence."""
+    shape, coord = mesh.shape, mesh.coordinate()
+    return (coord["data"] * shape["fsdp"] + coord["fsdp"],
+            shape["data"] * shape["fsdp"],
+            coord.get("sequence", 0), shape.get("sequence", 1))
+
+
+def token_indices(mesh, b_local: int, s_local: int):
+    """The global token index (row-major over the global ``[batch,
+    seq]``) of each of this rank's ``b_local * s_local`` tokens, in its
+    own row-major order (a ``torch`` int64 tensor)."""
+    import torch
+
+    row, _, col, cols = token_shard(mesh)
+    rows = torch.arange(b_local) + row * b_local
+    seq = torch.arange(s_local) + col * s_local
+    return (rows[:, None] * (cols * s_local) + seq[None, :]).reshape(-1)
+
+
 def batch_shard(batch: Mapping[str, Any], mesh) -> Dict[str, Any]:
-    """This rank's rows of a global batch under :func:`batch_spec`: the
-    batch dim split over data x fsdp in that order (data outer), the
-    same on every tensor-parallel rank."""
-    coord = mesh.coordinate()
-    n = mesh.shape["data"] * mesh.shape["fsdp"]
-    i = coord["data"] * mesh.shape["fsdp"] + coord["fsdp"]
+    """This rank's part of a global batch under :func:`batch_spec`: the
+    batch dim split over data x fsdp in that order (data outer) and,
+    with sequence parallelism, the sequence dim (dim 1) over
+    ``sequence`` (``batch_spec(extra_seq_axis=True)``); the same on
+    every tensor- and expert-parallel rank (:func:`token_shard`)."""
+    i, n, j, sp = token_shard(mesh)
     out = {}
     for k, v in batch.items():
         rows = v.shape[0]
@@ -235,7 +263,14 @@ def batch_shard(batch: Mapping[str, Any], mesh) -> Dict[str, Any]:
             raise ValueError(f"batch of {rows} rows not divisible over "
                              f"{n} data x fsdp ranks")
         per = rows // n
-        out[k] = v[i * per:(i + 1) * per]
+        v = v[i * per:(i + 1) * per]
+        if sp > 1:
+            seq = v.shape[1]
+            if seq % sp:
+                raise ValueError(f"sequence of {seq} not divisible over "
+                                 f"{sp} sequence ranks")
+            v = v[:, j * (seq // sp):(j + 1) * (seq // sp)]
+        out[k] = v
     return out
 
 

@@ -15,7 +15,10 @@ layout, so the map is by rule:
   ``gate``/``up``/``down``; the untied ``lm_head``);
 - ``LayerNorm.scale``, Llama's ``RMSNorm.scale`` (any ``ln_*``) and
   ``Embed.embedding`` are ``weight``;
-- ``bias`` is ``bias``.
+- ``bias`` is ``bias``;
+- an MoE block's ``moe/router/kernel`` is ``moe.router.weight`` and its
+  expert kernels ``moe/experts_w_{in,gate,out}`` (``[e, in, out]``) are
+  parameters of the same names on ``moe``.
 
 Both directions copy values exactly (bf16 leaves too, and the fp32
 norm scales a bf16 model keeps), so a round trip is bit-exact.  The
@@ -42,6 +45,8 @@ import numpy as np
 import torch
 
 _EMBEDDINGS = ("wte", "wpe")
+# the MoE expert kernels: flax params of their own name, not a kernel
+_EXPERTS = "experts_w_"
 
 
 def _flat(tree: Mapping[str, Any], prefix=()):
@@ -55,7 +60,8 @@ def _flat(tree: Mapping[str, Any], prefix=()):
 def _torch_name(path) -> str:
     """flax leaf path -> the port's parameter name."""
     *module, leaf = path
-    if leaf not in ("kernel", "scale", "embedding", "bias"):
+    expert = leaf.startswith(_EXPERTS)
+    if leaf not in ("kernel", "scale", "embedding", "bias") and not expert:
         raise KeyError(f"unknown flax leaf {'/'.join(path)}")
     parts = []
     for p in module:
@@ -63,6 +69,8 @@ def _torch_name(path) -> str:
             parts += ["blocks", p[len("block_"):]]
         else:
             parts.append(p)
+    if expert:
+        return ".".join(parts + [leaf])
     return ".".join(parts + ["bias" if leaf == "bias" else "weight"])
 
 
@@ -80,6 +88,8 @@ def flax_path(name: str) -> Tuple[str, ...]:
         else:
             path.append(module[i])
             i += 1
+    if last.startswith(_EXPERTS):
+        return tuple(path) + (last,)
     parent = path[-1]
     if last == "bias":
         leaf = "bias"

@@ -208,6 +208,37 @@ def test_shm_roundtrip(saver, dtype):
     handler.close()
 
 
+def test_concurrent_attach_maps_the_segment_once(saver, monkeypatch):
+    """The restore's pre-fault thread and the restore attach to the
+    segment at once: both get the one cached mapping.  A second mapping,
+    dropped by the thread whose assignment lost, would close (unmap)
+    under the other's ``torch.frombuffer`` views; on the card a resumed
+    child of ``chip_smoke.py`` phase 6a died of SIGSEGV so."""
+    from dlrover_tpu_torch.checkpoint import shm_handler
+
+    writer = SharedMemoryHandler(0, host=False)
+    writer.save_state_dict(_port_state(_state(DTYPES[0])),
+                           CheckpointConfig(step=3))
+    writer.close()
+
+    class SlowAttach(shm_handler.PersistentSharedMemory):
+        def __init__(self, *args, **kwargs):
+            time.sleep(0.2)  # both threads inside the attach at once
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(shm_handler, "PersistentSharedMemory", SlowAttach)
+    reader = SharedMemoryHandler(0, host=False)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(reader._attach()))
+               for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert got[0] is not None and got[0] is got[1]
+    reader.close()
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_storage_roundtrip(saver, tmp_path, dtype):
     engine = _engine(tmp_path)

@@ -225,26 +225,27 @@ def test_llama_tp_rules_cover_params():
     assert spec["lm_head/kernel"] == ("fsdp", "tensor")
     # fsdp 2 x tensor 2: q holds heads/2, k and v kv_heads/2 (the GQA
     # group kept); the norms replicated
+    # (placements over data, fsdp, sequence, expert, tensor)
     shape = {"data": 1, "fsdp": 2, "tensor": 2}
     pl = param_placements(model, shape, rules)
-    assert pl["blocks.0.attn.q_proj.weight"] == (Replicate(), Shard(0),
+    r = Replicate()
+    assert pl["blocks.0.attn.q_proj.weight"] == (r, Shard(0), r, r,
                                                  Shard(1))
-    assert pl["blocks.0.attn.k_proj.weight"] == (Replicate(), Shard(0),
+    assert pl["blocks.0.attn.k_proj.weight"] == (r, Shard(0), r, r,
                                                  Shard(1))
-    assert pl["blocks.0.attn.o_proj.weight"] == (Replicate(), Shard(1),
+    assert pl["blocks.0.attn.o_proj.weight"] == (r, Shard(1), r, r,
                                                  Shard(0))
-    assert pl["blocks.0.mlp.down.weight"] == (Replicate(), Shard(1),
-                                              Shard(0))
-    assert pl["blocks.0.ln_mlp.weight"] == (Replicate(),) * 3
+    assert pl["blocks.0.mlp.down.weight"] == (r, Shard(1), r, r, Shard(0))
+    assert pl["blocks.0.ln_mlp.weight"] == (r,) * 5
     # a dim the tensor axis does not divide stays replicated over it:
     # k_proj of one kv head of 24 columns over 16 ranks
     odd = port_llama.Llama(port_llama.LlamaConfig.tiny(
         num_heads=2, num_kv_heads=1, hidden_dim=48), device="meta")
     pl = param_placements(odd, {"data": 1, "fsdp": 1, "tensor": 16}, rules)
-    assert pl["blocks.0.attn.k_proj.weight"][2] == Replicate()
-    assert pl["blocks.0.attn.q_proj.weight"][2] == Shard(1)  # 48 % 16 == 0
+    assert pl["blocks.0.attn.k_proj.weight"][-1] == Replicate()
+    assert pl["blocks.0.attn.q_proj.weight"][-1] == Shard(1)  # 48 % 16 == 0
     pl = param_placements(odd, {"data": 1, "fsdp": 1, "tensor": 8}, rules)
-    assert pl["blocks.0.attn.k_proj.weight"][2] == Shard(1)  # 24 % 8 == 0
+    assert pl["blocks.0.attn.k_proj.weight"][-1] == Shard(1)  # 24 % 8 == 0
 
 
 @pytest.mark.parametrize("impl", ["xla", "flash"])
@@ -375,6 +376,14 @@ def test_remat_gives_the_same_gradients(impl):
     (dict(attention_impl="ulysses"), "slice 5.2"),
 ])
 def test_later_slices_raise_not_implemented(kw, slice_):
+    """Options of later slices raise naming their slice; those of slice
+    5.2 build since it landed (tests/test_torch_moe.py and
+    test_torch_sp_e2e.py drive them)."""
+    if slice_ == "slice 5.2":
+        model = port_llama.Llama(port_llama.LlamaConfig.tiny(**kw),
+                                 device="cpu")
+        assert model.config == port_llama.LlamaConfig.tiny(**kw)
+        return
     with pytest.raises(NotImplementedError, match=slice_):
         port_llama.Llama(port_llama.LlamaConfig.tiny(**kw), device="cpu")
 
@@ -394,8 +403,15 @@ def test_pipelined_llama_raises_naming_its_slice():
     ([("fp8", {})], "slice 5.4"),
 ])
 def test_deferred_parallelism_raises_naming_its_slice(opts, slice_):
+    """Slice 5.2's optimizations apply since it landed: they size their
+    mesh axis as the reference's do."""
     from dlrover_tpu_torch.accel import OptimizationLibrary, Strategy
 
+    if slice_ == "slice 5.2":
+        plan = OptimizationLibrary().apply_strategy(Strategy(opts=opts))
+        axis = "sequence" if opts[0][0] == "sequence_parallel" else "expert"
+        assert getattr(plan.mesh_config, axis) == 2
+        return
     with pytest.raises(NotImplementedError, match=slice_):
         OptimizationLibrary().apply_strategy(Strategy(opts=opts))
 
@@ -405,8 +421,14 @@ def test_deferred_parallelism_raises_naming_its_slice(opts, slice_):
     ("pipeline", "slice 5.3"),
 ])
 def test_deferred_mesh_axes_raise_naming_their_slice(axis, slice_):
+    """The sequence and expert axes build since slice 5.2 landed (two
+    ranks need a process group); the pipeline axis still raises."""
     from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
+    if slice_ == "slice 5.2":
+        with pytest.raises(ValueError, match="process group"):
+            build_mesh(MeshConfig(**{"data": 1, axis: 2}), world_size=2)
+        return
     with pytest.raises(NotImplementedError, match=slice_):
         build_mesh(MeshConfig(**{"data": 1, axis: 2}), world_size=2)
 
@@ -628,6 +650,141 @@ def test_memory_model_prunes_fp32_adamw_for_llama3_8b_on_one_h100():
     assert {c.remat for c in cands} == {False, True}
 
 
+def test_mixtral_moe_llama_forward_and_params():
+    """Twin of the reference's Mixtral-class Llama test: gated (SwiGLU)
+    experts replace the MLP of every block (``moe_every`` 1), the expert
+    kernels carry the leading expert dim the expert rules place, and
+    from the JAX package's init the port's fp32 logits (atol 1e-4, as
+    the dense Llama's) and aux loss (rtol 1e-5) are the reference's."""
+    from dlrover_tpu.parallel.moe import collect_moe_aux_loss as jax_aux
+    from dlrover_tpu_torch.parallel.moe import collect_moe_aux_loss
+    from dlrover_tpu_torch.parallel.sharding import moe_rules
+
+    kw = dict(moe_experts=4, moe_top_k=2)
+    jax_model = jax_llama.Llama(jax_llama.LlamaConfig.tiny(
+        dtype=jnp.float32, **kw))
+    params = _np_tree(jax_model.init_params(jax.random.PRNGKey(0),
+                                            seq_len=16))
+    model = port_llama.Llama(port_llama.LlamaConfig.tiny(
+        dtype=torch.float32, **kw), device="cpu")
+    model.load_state_dict(params_from_jax(params))
+    paths = ["/".join(flax_path(n)) for n, _ in model.named_parameters()]
+    assert set(paths) == {p for p, _ in _flat(params)}
+    gate_paths = [p for p in paths if "experts_w_gate" in p]
+    assert gate_paths, sorted(paths)[:12]
+    assert tuple(moe_rules().spec_for(gate_paths[0])) == (
+        "expert", "fsdp", "tensor")
+    assert not any("/mlp/" in p for p in paths)
+    x, _ = _tokens()
+    logits = model(torch.from_numpy(x))
+    aux = collect_moe_aux_loss(model)
+    assert logits.shape == (2, SEQ, 256) and float(aux.detach()) > 0.0
+    ref, st = jax.jit(lambda p, x: jax_model.apply(
+        {"params": p}, x, mutable=["intermediates"]))(params, x)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref),
+                               atol=1e-4)
+    np.testing.assert_allclose(float(aux.detach()),
+                               float(jax_aux(st["intermediates"])), rtol=1e-5)
+
+
+MIXTRAL_STEPS = 4
+
+
+def _mixtral_worker(rank, world, port, in_path, out_path):
+    """One gloo rank of the expert-mesh twin: ``auto_accelerate`` with
+    ``mixed_parallel(expert 2, data -1)`` over four ranks."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel import Strategy, auto_accelerate
+    from dlrover_tpu_torch.parallel.moe import collect_moe_aux_loss
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    with open(in_path, "rb") as f:
+        job = pickle.load(f)
+    model = port_llama.Llama(port_llama.LlamaConfig.tiny(
+        moe_experts=2, moe_every=2), device="cpu")
+    model.load_state_dict(params_from_jax(job["params"]))
+
+    def loss_fn(module, batch):
+        ce = port_gpt.cross_entropy_loss(module(batch["x"]), batch["y"])
+        return ce + 0.01 * collect_moe_aux_loss(module)
+
+    res = auto_accelerate(
+        model, lambda ps: torch.optim.AdamW(ps, lr=1e-3, weight_decay=1e-4),
+        loss_fn, job["batch"], strategy=Strategy(opts=[
+            ("mixed_parallel", {"expert": 2, "data": -1}),
+            ("amp_native", {"dtype": "float32"})]), device="cpu")
+    state, losses = res.state, []
+    placed = res.place_batch(job["batch"])
+    for _ in range(MIXTRAL_STEPS):
+        state, metrics = res.train_step(state, placed)
+        losses.append(float(metrics["loss"]))
+    experts = [tuple(p.shape) for n, p in res.model.named_parameters()
+               if "experts_w" in n]
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump({"losses": losses, "experts": experts,
+                         "mesh": dict(res.mesh.shape)}, f)
+
+
+def test_mixtral_trains_via_auto_accelerate_on_expert_mesh():
+    """Twin of the reference's expert-mesh test on gloo (world 4:
+    expert 2 x data 2), both packages in fp32 from the JAX package's
+    init with AdamW (1e-3, optax's weight decay 1e-4), ``moe_every`` 2:
+    each rank holds one of the two experts of each MoE block, and every
+    step's loss is the JAX package's on ``jax.devices()[:4]`` at rtol
+    1e-4 and falls."""
+    import optax
+    from torch_gloo import spawn
+
+    from dlrover_tpu.accel import Strategy, auto_accelerate
+    from dlrover_tpu.parallel.moe import collect_moe_aux_loss as jax_aux
+
+    cfg = jax_llama.LlamaConfig.tiny(moe_experts=2, moe_every=2,
+                                     dtype=jnp.float32)
+    model = jax_llama.Llama(cfg)
+    params = _np_tree(model.init_params(jax.random.PRNGKey(0)))
+    data = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 17),
+                                             dtype=np.int32)
+    batch = {"x": data[:, :-1], "y": data[:, 1:]}
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    got = spawn({"params": params, "batch": batch},
+                os.path.abspath(__file__))
+
+    def loss_fn(p, batch, model=model):
+        logits, st = model.apply({"params": p}, batch["x"],
+                                 mutable=["intermediates"])
+        return jax_gpt.cross_entropy_loss(logits, batch["y"]) + \
+            0.01 * jax_aux(st["intermediates"])
+
+    jbatch = jax.tree.map(jnp.asarray, batch)
+    res = auto_accelerate(
+        model, lambda: optax.adamw(1e-3), loss_fn, jbatch,
+        strategy=Strategy(opts=[
+            ("mixed_parallel", {"expert": 2, "data": -1}),
+            ("amp_native", {"dtype": "float32"})]),
+        devices=jax.devices()[:4])
+    state, want = res.state, []
+    placed = res.place_batch(jbatch)
+    for _ in range(MIXTRAL_STEPS):
+        state, m = res.train_step(state, placed)
+        want.append(float(m["loss"]))
+    assert got["mesh"]["expert"] == 2 and got["mesh"]["data"] == 2
+    # one of the two experts a rank, in block 1 (moe_every 2)
+    assert got["experts"] == [(1, 64, 128), (1, 64, 128), (1, 128, 64)]
+    np.testing.assert_allclose(got["losses"], want, rtol=1e-4)
+    assert got["losses"][-1] < got["losses"][0], got["losses"]
+
+
 def parity_report():
     """Max-abs errors of the port's Llama against the JAX package."""
     params = flax_params()
@@ -643,5 +800,10 @@ def parity_report():
 
 
 if __name__ == "__main__":
-    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_llama.py
-    parity_report()
+    import sys
+
+    if sys.argv[1:2] == ["--worker"]:
+        _mixtral_worker(*(int(a) for a in sys.argv[2:5]), *sys.argv[5:7])
+    else:
+        # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_llama.py
+        parity_report()

@@ -317,3 +317,33 @@ def test_auto_config_starts_one_process_a_gpu(monkeypatch):
     assert launcher.apply_auto_config(args).nproc_per_node == 1
     args = launcher.parse_args(["--nproc_per_node=2", "train.py"])
     assert launcher.apply_auto_config(args).nproc_per_node == 2
+
+
+def test_the_process_sampler_of_chip_smoke_reads_a_child_after_its_exec(
+        tmp_path):
+    """``chip_smoke.py``'s process sampler keeps each process's latest
+    command line: a child sampled between its fork and its exec shows
+    its parent's, and phases 8 and 12 find the master, the templates
+    and the probes by the command line they exec'd."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    marker = str(tmp_path / "sampled")
+    forker = (
+        "import os, sys, time\n"
+        "pid = os.fork()\n"
+        "if pid == 0:\n"
+        "    time.sleep(0.8)\n"
+        "    os.execv(sys.executable, [sys.executable, '-c',\n"
+        "             'import time; time.sleep(1.6)', sys.argv[1] + '-exec'])\n"
+        "print(pid, flush=True)\n"
+        "os.waitpid(pid, 0)\n"
+    )
+    with chip_smoke._ProcSampler(marker) as sampler:
+        proc = subprocess.Popen([sys.executable, "-c", forker, marker],
+                                stdout=subprocess.PIPE, text=True)
+        child = int(proc.stdout.readline())
+        assert proc.wait(timeout=30) == 0
+    rec = sampler.seen[child]
+    assert rec["cmdline"].endswith(marker + "-exec"), rec
+    assert rec["ppid"] == proc.pid
