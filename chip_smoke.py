@@ -262,10 +262,34 @@ Phases, each fatal on failure:
       exactly 4 B1, 2 B2 and 2 B3 a step, a profiled step; then the
       twin's ``--smoke`` on the card.
 
+14. the rest of scale-out (slice 4.3), each check fatal:
+   a. Llama-3-8B at full width and depth (11b's model and batch) with
+      4-bit q-AdamW under FSDP2 on a one-rank NCCL group (the split-block
+      B4/B5 launches), 6 steps, against the same plan without ``fsdp``
+      over 3: losses within rtol 1e-3, exact launches, the median step,
+      tokens/s, MFU and peak;
+   b. ``mixtral_8x7b`` at full width cut to 1 layer under FSDP2 (its
+      experts DTensors): a snapshot of params and AdamW moments to shm at
+      step 2, 2 control steps, then a fresh plan restored from shm
+      replays them: losses within rtol 1e-3 / atol 1e-5, exact launches,
+      the save's and the restore's seconds;
+   c. GPT-2 XL ``offload_opt`` under FSDP2 (DTensor states by shard in
+      pinned host memory) against the same without it: losses, launches,
+      peaks and steps;
+   d. DiLoCo's outer step over GPT-2 small's tree stacked 4 times on the
+      card, each reduce method against the CPU;
+   e. GPT-2 small as a one-rank tensor plan (the vocab-parallel table,
+      column-parallel weights ``Shard(1)``) with int8 q-AdamW against the
+      same model unwrapped: the split-block B6 launches, losses within
+      rtol 1e-3.
+   Phase 3 also holds the split-block mode of B4, B5 and B6 against its
+   plain versions at one tensor-4 rank's shard of Llama-3-8B's leaves
+   and times it at ``lm_head``'s.
+
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  ``--only 2,11`` runs the build
-and the named phases alone (2, 3, 4, 9b, 10, 11, 12, 13, 13a and 13b
-so far; 5lr,
+and the named phases alone (2, 3, 4, 9b, 10, 11, 12, 13, 13a, 13b, 14
+and 14a-14e so far; 5lr,
 which the full run leaves out: phase 5a's model at lr 1e-3 with the
 flash kernels and with the plain attention math, and at SMALL_LR; and
 11d, which the full run leaves out too: 11b's Llama-3-8B for 12 steps
@@ -314,7 +338,22 @@ KERNELS = {
         _QUANT, "dlrover_tpu/ops/quantization.py:48 (_dequant_kernel, via _dequantize_tiles :166)"),
     "quantization.qadam": (
         _QUANT, "dlrover_tpu/ops/quantization.py:195 (_qadam_kernel, via fused_qadam_step :245)"),
+    # the split-block mode (a shard whose global blocks other ranks
+    # share): B4 and B6 in two launches around a max all-reduce, B5 in one
+    "quantization.absmax_pieces": (
+        _QUANT, "dlrover_tpu/ops/quantization.py:39 (_quant_kernel's absmax, via _quantize_tiles :61), split-block pass 1"),
+    "quantization.quantize_pieces": (
+        _QUANT, "dlrover_tpu/ops/quantization.py:39 (_quant_kernel's codes, via _quantize_tiles :61), split-block pass 2"),
+    "quantization.dequantize_pieces": (
+        _QUANT, "dlrover_tpu/ops/quantization.py:48 (_dequant_kernel, via _dequantize_tiles :166), split-block"),
+    "quantization.qadam_split_absmax": (
+        _QUANT, "dlrover_tpu/ops/quantization.py:195 (_qadam_kernel's moment maxima, via fused_qadam_step :245), split-block pass 1"),
+    "quantization.qadam_split_apply": (
+        _QUANT, "dlrover_tpu/ops/quantization.py:195 (_qadam_kernel's codes and update, via fused_qadam_step :245), split-block pass 2"),
 }
+# the split-block kernels, checked and timed by _check_split_kernels
+SPLIT_KERNELS = tuple(k for k in KERNELS if k.endswith(
+    ("_pieces", "_split_absmax", "_split_apply")))
 
 # (b, s, h, kv_heads, d, dtype, causal): the training shapes first, GPT-2
 # small's (the one in the kernels line), GPT-2 XL's and Llama-3-8B's
@@ -470,7 +509,9 @@ def launch_counts() -> dict:
     from dlrover_tpu_torch.ops import quantization as qz
 
     return {**{f"flash_attention.{k}": v for k, v in fa.LAUNCHES.items()},
-            **{f"quantization.{k}": v for k, v in qz.LAUNCHES.items()}}
+            **{f"quantization.{k}": v for k, v in qz.LAUNCHES.items()},
+            **{f"quantization.{k}": v
+               for k, v in qz.SPLIT_LAUNCHES.items()}}
 
 
 # the kernels that must issue wgmma and TMA copies
@@ -1175,6 +1216,7 @@ def phase_quant_kernels(card: str):
         raise AssertionError("quantization kernel check failed:\n"
                              + "\n".join(failures))
     _time_quant_8b(card)
+    results.update(_check_split_kernels(card))
     return results
 
 
@@ -1230,6 +1272,172 @@ def _time_quant_8b(card: str):
         f"lm_head [{rows}, {block}]: {lib:.4f} ms on the device, "
         f"{lib_call:.4f} ms per call [{card}]")
     del x, codes, scales, tiles
+
+
+# the split-block mode: (case, global shape, the rank's box, dtype of p
+# and g, block); Llama-3-8B's leaves under tensor 4 first (a column-
+# parallel rank's columns of each row are a run of pieces, 1024 of 4096
+# columns a half block, lm_head's 32064 of 128256 ~16 blocks), the timed
+# case its lm_head; an fsdp 2 x tensor 2 box at a ragged shape; 14a's
+# case, a one-rank FSDP2 shard (the whole tensor, pieces = blocks)
+SPLIT_CASES = [
+    ("8B lm_head, tensor 4, rank 1", (4096, 128256), ((0, 4096),
+                                                     (32064, 64128)),
+     "bfloat16", 2048),
+    ("8B q_proj, tensor 4, rank 1", (4096, 4096), ((0, 4096), (1024, 2048)),
+     "bfloat16", 2048),
+    ("ragged, fsdp 2 x tensor 2, rank 3", (1000, 777),
+     ((500, 1000), (389, 777)), "float32", 64),
+    ("8B down, FSDP2 on one rank", (14336, 4096), ((0, 14336), (0, 4096)),
+     "bfloat16", 2048),
+]
+# fp32 operations per element of each split-block launch
+SPLIT_OPS = {"quantization.absmax_pieces": 2,
+             "quantization.quantize_pieces": 6,
+             "quantization.dequantize_pieces": 1,
+             "quantization.qadam_split_absmax": 25,
+             "quantization.qadam_split_apply": 31}
+
+
+def split_bounds_ms(numel, rows, esz):
+    """Least time of each split-block launch on a shard of ``numel``
+    elements touching ``rows`` global blocks: every input read once and
+    every output written once (x, p and g in ``esz`` bytes, the 4-bit
+    path's moments in fp32; int8 codes; fp32 scales and maxima)."""
+    work = {
+        "quantization.absmax_pieces": numel * 4 + rows * 4,
+        "quantization.quantize_pieces": numel * 4 + rows * 4 + numel
+        + rows * 4,
+        "quantization.dequantize_pieces": numel + rows * 4 + numel * 4,
+        "quantization.qadam_split_absmax": numel * (2 * esz + 2)
+        + rows * 8 + rows * 8,
+        "quantization.qadam_split_apply": numel * (3 * esz + 4) + rows * 24,
+    }
+    return {name: _bound(nbytes, SPLIT_OPS[name] * numel, "float32")
+            for name, nbytes in work.items()}
+
+
+def _check_split_kernels(card: str) -> dict:
+    """The split-block mode of B4, B5 and B6 against its plain versions
+    on one rank's shard of each ``SPLIT_CASES`` leaf (the rank's partial
+    maxima, as a rank computes them before the max all-reduce): codes,
+    scales, maxima, dequantized values and the new parameter, zero
+    mismatches; each launch timed at the first case beside its bound
+    and its plain version (no library call computes them)."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.ops import quantization as qz
+    from dlrover_tpu_torch.optim.low_bit import box_pieces
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bc1, bc2 = qz.bias_corrections(QADAM_HYPER["b1"], QADAM_HYPER["b2"], 3)
+    failures, results = [], {}
+    for case in SPLIT_CASES:
+        label, shape, box, dtype_name, block = case
+        dtype = getattr(torch, dtype_name)
+        table, blocks, starts = box_pieces(shape, box, block)
+        numel = int(np.prod([b - a for a, b in box]))
+        layout = qz.PieceLayout(table, numel, len(blocks))
+        rows = layout.elem_rows().cuda()
+        n_rows = layout.rows
+        p = (torch.randn(numel, generator=gen, device="cuda")
+             * 0.02).to(dtype)
+        g = (torch.randn(numel, generator=gen, device="cuda")
+             * 1e-3).to(dtype)
+        m = torch.randn(numel, generator=gen, device="cuda") * 1e-4
+        v = torch.randn(numel, generator=gen, device="cuda").abs() * 1e-3
+        errs = {}
+        # B4 split: the partial absmax, then codes and scales from it
+        amax = qz.absmax_pieces(m, layout)
+        want_amax = qz.piece_absmax_plain(m, rows, n_rows)
+        errs["quantization.absmax_pieces"] = _mismatch(
+            "absmax", amax, want_amax, failures, label)
+        q_mu, s_mu = qz.quantize_pieces(m, layout, amax)
+        want = qz.piece_quantize_plain(m, rows, want_amax)
+        n1, e1 = _mismatch("codes", q_mu, want[0], failures, label)
+        n2, e2 = _mismatch("scales", s_mu, want[1], failures, label)
+        errs["quantization.quantize_pieces"] = (n1 + n2, max(e1, e2))
+        nu_amax = qz.absmax_pieces(v, layout)
+        q_nu, s_nu = qz.quantize_pieces(v, layout, nu_amax)
+        # B5 split
+        errs["quantization.dequantize_pieces"] = _mismatch(
+            "dequantized", qz.dequantize_pieces(q_mu, s_mu, layout),
+            qz.piece_dequantize_plain(q_mu, s_mu, rows), failures, label)
+        # B6 split: both launches against the plain arithmetic
+        state = [q_mu.clone(), s_mu.clone(), q_nu.clone(), s_nu.clone()]
+        moments = qz.qadam_split_absmax(p, g, *state, layout, bc1, bc2,
+                                        **QADAM_HYPER)
+        mu, nsq, upd = qz.qadam_split_plain(p, g, q_mu, s_mu, q_nu, s_nu,
+                                            rows, bc1, bc2, **QADAM_HYPER)
+        want_m = torch.stack([qz.piece_absmax_plain(mu, rows, n_rows),
+                              qz.piece_absmax_plain(nsq, rows, n_rows)], 1)
+        errs["quantization.qadam_split_absmax"] = _mismatch(
+            "moment maxima", moments, want_m, failures, label)
+        got_p = p.clone()
+        new_mu, new_nu = qz.qadam_split_apply(got_p, g, *state, layout,
+                                              moments, bc1, bc2,
+                                              **QADAM_HYPER)
+        want_qm, want_sm = qz.piece_quantize_plain(mu, rows, want_m[:, 0])
+        want_qn, want_sn = qz.piece_quantize_plain(nsq, rows, want_m[:, 1])
+        outs = [_mismatch(n, a, b, failures, label) for n, a, b in (
+            ("p", got_p, p + upd), ("mu codes", state[0], want_qm),
+            ("mu scales", new_mu, want_sm), ("nu codes", state[2], want_qn),
+            ("nu scales", new_nu, want_sn))]
+        errs["quantization.qadam_split_apply"] = (
+            sum(o[0] for o in outs), max(o[1] for o in outs))
+        torch.cuda.synchronize()
+        log(f"split-block kernel check {label} {shape} box {box} "
+            f"{dtype_name} block {block} ({len(table)} pieces, {n_rows} "
+            "rows): " + ", ".join(f"{n} {k} mismatches (largest {e:.3e})"
+                                  for n, (k, e) in errs.items())
+            + f" (tolerance {QUANT_TOL} mismatches)")
+        if case is not SPLIT_CASES[0]:
+            continue
+        esz = 2 if dtype_name == "bfloat16" else 4
+        bounds = split_bounds_ms(numel, n_rows, esz)
+        st2 = [t.clone() for t in state]
+        pc = p.clone()
+        fns = {
+            "quantization.absmax_pieces": (
+                lambda: qz.absmax_pieces(m, layout),
+                lambda: qz.piece_absmax_plain(m, rows, n_rows)),
+            "quantization.quantize_pieces": (
+                lambda: qz.quantize_pieces(m, layout, amax),
+                lambda: qz.piece_quantize_plain(m, rows, amax)),
+            "quantization.dequantize_pieces": (
+                lambda: qz.dequantize_pieces(q_mu, s_mu, layout),
+                lambda: qz.piece_dequantize_plain(q_mu, s_mu, rows)),
+            "quantization.qadam_split_absmax": (
+                lambda: qz.qadam_split_absmax(pc, g, *st2, layout, bc1, bc2,
+                                              **QADAM_HYPER),
+                lambda: qz.qadam_split_plain(pc, g, *st2, rows, bc1, bc2,
+                                             **QADAM_HYPER)),
+            # the codes it rewrites change the next call's input, not
+            # its work
+            "quantization.qadam_split_apply": (
+                lambda: qz.qadam_split_apply(pc, g, *st2, layout, moments,
+                                             bc1, bc2, **QADAM_HYPER),
+                lambda: qz.qadam_split_plain(pc, g, *st2, rows, bc1, bc2,
+                                             **QADAM_HYPER)),
+        }
+        for name, (fn, plain) in fns.items():
+            ms_k = median_ms(fn, 20)
+            call = median_ms(fn, 20, device_only=False)
+            plain_ms = median_ms(plain, 5, warmup=1)
+            bound, bound_by = bounds[name]
+            results[name] = dict(
+                max_abs_err=errs[name][1], ms=ms_k, call_ms=call,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=None, library_call_ms=None)
+            log(f"kernel {name} {label} {shape} box {box} {dtype_name}: "
+                f"{ms_k:.4f} ms on the device, {call:.4f} ms per call, "
+                f"bound {bound:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms"
+                f" [{card}]")
+    if failures:
+        raise AssertionError("split-block kernel check failed:\n"
+                             + "\n".join(failures))
+    return results
 
 
 def _time_quant_case(case, x, codes, scales, g, p, qm, ms, qn, ns, bc1, bc2,
@@ -5020,6 +5228,535 @@ def phase_parallel(card) -> dict:
     return out
 
 
+# -- phase 14: the rest of scale-out (slice 4.3) -------------------------------
+
+SCALE_STEPS = 6
+# 14a: the unwrapped run's steps, against the FSDP2 run's first ones
+SCALE_COMPARE_STEPS = 3
+# 14b: steps before the save, and replayed after the restore; layers:
+# FSDP2 on one rank holds a gathered copy of each layer (and its
+# gradient) beside the shard, and at 2 layers fp32 params, gradients,
+# moments and those copies run out of an 80 GB card in the restored
+# plan's first step (PERF.md §4), so 1
+MOE_CKPT_STEPS, MOE_REPLAY_STEPS = 2, 2
+MOE_CKPT_LAYERS = 1
+# 14b: the shm segment and its headroom for a snapshot of fp32 params
+# and AdamW moments (12 bytes a parameter)
+MOE_SHM_HEADROOM = 1.25
+OFFLOAD_STEPS = 3
+# 14d: GPT-2 small's tree, this many replicas stacked; the outer step's
+# reduce methods, each on the card against the same step on the CPU
+DILOCO_REPLICAS = 4
+DILOCO_METHODS = (
+    ("linear", dict(reduce_method="linear")),
+    ("gta_sum", dict(reduce_method="gta", consensus="sum")),
+    ("gta_count", dict(reduce_method="gta", consensus="count")),
+    ("sparsify_magnitude", dict(reduce_method="sparsify", density=0.1)),
+    ("gta_magnitude", dict(reduce_method="gta", sparsification="magnitude",
+                           density=0.5)),
+)
+# the leaves the CPU steps too (its time grows with the tree): GPT-2
+# small's tables and its first block
+DILOCO_CPU_LEAVES = ("wte.", "wpe.", "blocks.0.")
+# an element whose reduction the card and the CPU sum in another order
+# may flip a gta sign vote that sits within rounding of 0: at most this
+# share of a leaf's elements may differ beyond rtol 1e-5
+DILOCO_FLIP_SHARE = 1e-6
+
+
+def _piece_expected(n_params, steps):
+    """Launches of 4-bit q-AdamW over DTensor leaves in ``steps`` steps:
+    each leaf's two moments dequantized (B5), their block maxima (B4
+    pass 1) and their codes (B4 pass 2), once each a step."""
+    return {"quantization.dequantize_pieces": 2 * n_params * steps,
+            "quantization.absmax_pieces": 2 * n_params * steps,
+            "quantization.quantize_pieces": 2 * n_params * steps}
+
+
+def phase_llama_4bit_fsdp(card) -> dict:
+    """14a: Llama-3-8B at full width and depth (11b's model and batch,
+    seq 8192, bf16 params) through ``Trainer(strategy=[fsdp, half,
+    checkpoint, module_replace(flash), low_bit_opt(4)])`` on a one-rank
+    NCCL group: 4-bit q-AdamW state over FSDP2's DTensors (the split-
+    block launches), B1-B3, ``chunked_loss_fn(8)``, 6 steps; finite
+    falling losses, within rtol 1e-3 of the same plan without ``fsdp``
+    (plain tensors, the whole-block 4-bit path) over its 3 steps; exact
+    launches of every kernel; the median step, tokens/s, MFU and peak."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel import Strategy
+    from dlrover_tpu_torch.common.device import is_dtensor
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+    from dlrover_tpu_torch.models.losses import chunked_loss_fn
+
+    cfg = LlamaConfig.llama3_8b(param_dtype=torch.bfloat16)
+    n_params = 9 * cfg.num_layers + 3
+    opts = [("half", {}), ("checkpoint", {}),
+            ("module_replace", {"attention": "flash"}),
+            ("low_bit_opt", {"bits": 4, "learning_rate": 3e-4,
+                             "weight_decay": 0.1})]
+    steps, compare = SCALE_STEPS, SCALE_COMPARE_STEPS
+    # the plain 4-bit path: B4 (mu's codes) at init and a step, B5 (mu's
+    # values) a step; nu's sqrt-domain codec is plain tensor ops
+    plain_expected = _flash_expected(cfg.num_layers, 1, compare, True)
+    plain_expected.update({"quantization.quantize": n_params * (compare + 1),
+                           "quantization.dequantize": n_params * compare})
+    _, plain, _ = run_training(
+        "14a Llama-3-8B 4-bit q-AdamW, plain tensors", cfg, 1, 1, compare,
+        plain_expected, card, strategy=Strategy(opts=[
+            ("parallel_mode", {})] + opts),
+        loss_fn=chunked_loss_fn(num_chunks=LLAMA_CHUNKS), save_final=False)
+    _free_cuda()
+    expected = _flash_expected(cfg.num_layers, 1, steps, True)
+    expected.update(_piece_expected(n_params, steps))
+    tmp = tempfile.mkdtemp(prefix="scale14a_", dir=OUT_DIR)
+    _one_rank_group(tmp)
+    try:
+        trainer, result, counts = run_training(
+            "14a Llama-3-8B 4-bit q-AdamW under FSDP2", cfg, 1, 1, steps,
+            expected, card, strategy=Strategy(opts=[("fsdp", {})] + opts),
+            loss_fn=chunked_loss_fn(num_chunks=LLAMA_CHUNKS),
+            save_final=False)
+        model = trainer.model
+        dtensors = all(is_dtensor(p) for p in model.parameters())
+        del trainer, model
+        _free_cuda()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses, want = result["losses"], plain["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    log(f"14a: FSDP2 losses {losses} against plain {want} (relative "
+        f"{[f'{r:.3e}' for r in rel]}, rtol 1e-3); parameters DTensors "
+        f"{dtensors}; peaks {result['peak_bytes'] / 2**30:.2f} GiB (FSDP2) "
+        f"and {plain['peak_bytes'] / 2**30:.2f} GiB (plain) [{card}]")
+    if not dtensors:
+        raise AssertionError("14a: the FSDP2 plan left plain parameters")
+    if not np.allclose(losses[:compare], want, rtol=1e-3, atol=1e-5):
+        raise AssertionError(f"14a: losses {losses} vs plain {want}")
+    return {"llama3_8b_4bit_fsdp": counts}
+
+
+def _moe_plan_opts():
+    return [("fsdp", {}), ("amp_native", {}), ("checkpoint", {}),
+            ("module_replace", {"attention": "flash"})]
+
+
+def _moe_tree(result):
+    from dlrover_tpu_torch.utils.convert import adamw_state_tree, params_tree
+
+    return {"params": params_tree(result.model),
+            "opt_state": adamw_state_tree(result.state.optimizer,
+                                          result.model)}
+
+
+def phase_mixtral_ckpt(card) -> dict:
+    """14b: Mixtral-8x7B at full width cut to ``MOE_CKPT_LAYERS`` layer
+    (13b's model at 1 layer, its batch) under FSDP2 on a one-rank NCCL
+    group, its expert kernels DTensors like every parameter, AdamW: 2
+    steps, a flash checkpoint of the params and AdamW moments (fp32, ~19
+    GB) to shm, 2 more steps (the control); then a fresh plan (weights
+    from another seed) restores from shm through
+    ``load_checkpoint(target_state=...)`` and replays the two steps:
+    losses within rtol 1e-3 / atol 1e-5 of the control's (bit equality
+    reported), exact launches.  The Trainer's own resume restores params
+    only, as the reference's, so the moments ride the checkpoint here
+    directly."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel import Strategy
+    from dlrover_tpu_torch.checkpoint.checkpointer import (
+        Checkpointer,
+        StorageType,
+    )
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.common.device import is_dtensor
+    from dlrover_tpu_torch.examples import train_mixtral as tm
+    from dlrover_tpu_torch.models.gpt import count_params
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+    from dlrover_tpu_torch.utils.convert import adamw_state_from_tree
+
+    layers = MOE_CKPT_LAYERS
+    need = MOE_SHM_HEADROOM * 12 * count_params_meta(
+        LlamaConfig.mixtral_8x7b(num_layers=layers))
+    free = shutil.disk_usage("/dev/shm").free
+    log(f"14b: /dev/shm has {free / 1e9:.1f} GB free, the snapshot needs "
+        f"{need / 1e9:.1f} GB with headroom")
+    if free < need:
+        raise AssertionError("14b: /dev/shm is too small for the snapshot")
+    cfg = LlamaConfig.mixtral_8x7b(num_layers=layers)
+    b, s = tm.batch_shape(False)
+    plan = Strategy(opts=_moe_plan_opts())
+    tmp = tempfile.mkdtemp(prefix="scale14b_", dir=OUT_DIR)
+    _one_rank_group(tmp)
+    out = {}
+    try:
+        with checkpoint_scope("14b_mixtral") as ckdir:
+            reset_launch_counts()
+            run = tm.train(cfg, b, s, MOE_CKPT_STEPS, plan=plan, log_every=0)
+            res, state, batch = run["result"], run["state"], run["batch"]
+            n_params = count_params(res.model)
+            AsyncCheckpointSaver.reset()
+            ckpt = Checkpointer(ckdir, replicated=False,
+                                async_snapshot=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not ckpt.save_checkpoint(MOE_CKPT_STEPS, _moe_tree(res),
+                                        storage_type=StorageType.MEMORY):
+                raise AssertionError("14b: the shm save was skipped")
+            save_s = time.perf_counter() - t0
+            phases = dict(ckpt._engine.last_save_phases)
+            placed = res.place_batch(batch)
+            reset_launch_counts()
+            control, control_s = [], []
+            for _ in range(MOE_REPLAY_STEPS):
+                t0 = time.perf_counter()
+                state, metrics = res.train_step(state, placed)
+                control.append(float(metrics["loss"]))
+                control_s.append(round((time.perf_counter() - t0) * 1e3, 3))
+            control_counts = launch_counts()
+            first, first_s = run["losses"], run["seconds"]
+            del run, res, state, placed
+            _free_cuda()
+            # the fresh plan restores through the same engine, whose
+            # in-process saver holds the segment's metadata (an agent's
+            # saver would, across a restart)
+            fresh = tm.train(cfg, b, s, 0, plan=plan, seed=1, log_every=0)
+            res = fresh["result"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step, restored = ckpt.load_checkpoint(target_state=_moe_tree(res))
+            adamw_state_from_tree(restored["opt_state"], res.state.optimizer,
+                                  res.model)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            tier = ckpt.last_restore_phases.get("tier")
+            ckpt.close()
+            del restored
+            state, placed = res.state, res.place_batch(batch)
+            reset_launch_counts()
+            replay = []
+            for _ in range(MOE_REPLAY_STEPS):
+                state, metrics = res.train_step(state, placed)
+                replay.append(float(metrics["loss"]))
+            counts = launch_counts()
+            dtensor = is_dtensor(res.model.blocks[0].moe.experts_w_in)
+            del fresh, res, state, placed
+            _free_cuda()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    nbytes = 12 * n_params
+    expected = _flash_expected(layers, 1, MOE_REPLAY_STEPS, True)
+    log(f"14b Mixtral-8x7B {layers} layers under FSDP2 ({n_params} params, "
+        f"experts DTensors {dtensor}): losses {first} (steps "
+        f"{[round(t * 1e3, 3) for t in first_s]} ms), then control "
+        f"{control} ({control_s} ms) and replay from {tier} at step {step} {replay} (bit "
+        f"equal {control == replay}); shm save of {nbytes / 1e9:.2f} GB "
+        f"{save_s:.2f} s ({phases}), restore {restore_s:.2f} s; launches "
+        f"{counts}, expected {expected} [{card}]")
+    failures = []
+    if step != MOE_CKPT_STEPS or tier != "shm":
+        failures.append(f"restored step {step} from {tier}")
+    if not dtensor:
+        failures.append("the expert kernels are not DTensors")
+    if not (all(np.isfinite(first + control)) and control[-1] < first[0]):
+        failures.append(f"losses {first} {control}")
+    if not np.allclose(replay, control, rtol=1e-3, atol=1e-5):
+        failures.append(f"replay {replay} vs control {control}")
+    if counts != expected or control_counts != expected:
+        failures.append(f"launches {counts} / {control_counts} != "
+                        f"{expected}")
+    if failures:
+        raise AssertionError("14b: " + "; ".join(failures))
+    out["mixtral_fsdp_ckpt_replay"] = counts
+    return out
+
+
+def count_params_meta(cfg) -> int:
+    """The parameter count of a Llama config, built on ``meta``."""
+    from dlrover_tpu_torch.models.gpt import count_params
+    from dlrover_tpu_torch.models.llama import Llama
+
+    return count_params(Llama(cfg, device="meta"))
+
+
+def _pinned_state_bytes(optimizer) -> int:
+    import torch
+
+    from dlrover_tpu_torch.optim.offload import HostShard
+
+    total = 0
+    for st in optimizer.state.values():
+        for v in st.values():
+            t = v.local if isinstance(v, HostShard) else v
+            if torch.is_tensor(t) and t.dim() and t.is_pinned():
+                total += t.numel() * t.element_size()
+    return total
+
+
+def phase_offload_fsdp(card) -> dict:
+    """14c: ``offload_opt`` at GPT-2 XL (9c's model, batch and remat)
+    under FSDP2 on a one-rank NCCL group, AdamW's moments held by shard
+    in pinned host memory, against the same plan without ``fsdp`` (9c's
+    offload run): losses within rtol 1e-3, exact launches, the state on
+    the host, both peaks and step times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel import Strategy, auto_accelerate
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.optim.offload import HostShard
+
+    cfg = GPTConfig.gpt2_xl(attention_impl="flash", remat=True)
+    batch = _xl_batch(cfg.vocab_size)
+    base = [("amp_native", {}), ("module_replace", {"attention": "flash"}),
+            ("checkpoint", {}), ("offload_opt", {})]
+    runs = {}
+    tmp = tempfile.mkdtemp(prefix="scale14c_", dir=OUT_DIR)
+    _one_rank_group(tmp)
+    try:
+        for label, first in (("plain", ("parallel_mode", {})),
+                             ("fsdp", ("fsdp", {}))):
+            model = GPT(cfg, seed=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            result = auto_accelerate(model, _adamw_factory(3e-4, 0.1),
+                                     _loss_fn, batch,
+                                     strategy=Strategy(opts=[first] + base))
+            del model
+            losses, secs = _train(result, batch, OFFLOAD_STEPS)
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            opt = result.state.optimizer
+            shards = sum(isinstance(v, HostShard) for st in opt.state.values()
+                         for v in st.values())
+            host = _pinned_state_bytes(opt)
+            runs[label] = (losses, peak, statistics.median(secs[1:]),
+                           counts, shards, host)
+            log(f"14c {label} offload_opt: losses {losses}, peak "
+                f"{peak / 2**30:.2f} GiB, state in pinned host memory "
+                f"{host / 1e9:.2f} GB ({shards} DTensor states by shard), "
+                f"median step {runs[label][2] * 1e3:.3f} ms over steps "
+                f"2..{OFFLOAD_STEPS} [{card}]")
+            del result, opt
+            _free_cuda()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    (l0, p0, t0, c0, _, h0), (l1, p1, t1, c1, n1, h1) = (runs["plain"],
+                                                         runs["fsdp"])
+    want = _flash_expected(cfg.num_layers, 1, OFFLOAD_STEPS, True)
+    failures = []
+    if not np.allclose(l1, l0, rtol=1e-3):
+        failures.append(f"losses {l1} vs {l0}")
+    if c0 != want or c1 != want:
+        failures.append(f"launches {c0} / {c1}, expected {want}")
+    if not n1 or h1 < 0.9 * h0:
+        failures.append(f"FSDP2's state on the host: {n1} shards, "
+                        f"{h1 / 1e9:.2f} GB against {h0 / 1e9:.2f} GB")
+    log(f"14c offload_opt under FSDP2: peak {p1 / 2**30:.2f} GiB against "
+        f"{p0 / 2**30:.2f} GiB without it, step {t1 * 1e3:.3f} ms against "
+        f"{t0 * 1e3:.3f} ms [{card}]")
+    if failures:
+        raise AssertionError("14c: " + "; ".join(failures))
+    return {"gpt2_xl_fsdp_offload": c1}
+
+
+def phase_diloco(card) -> dict:
+    """14d: DiLoCo's outer step (``optim/local_sgd.py``) on the card over
+    GPT-2 small's tree stacked 4 times (the replicas drifted from the
+    anchor by seeded noise), each reduce method of ``DILOCO_METHODS``
+    against the same step on the CPU (over ``DILOCO_CPU_LEAVES``, each
+    leaf's step independent of the others): anchors and momenta within rtol
+    1e-5 / atol 1e-7 but for at most ``DILOCO_FLIP_SHARE`` of a leaf's
+    elements (a gta sign vote at a tie); ``rescaled_random`` draws on
+    the card's generator and keeps the expectation; each method's time
+    on the card beside its bytes bound."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.optim.local_sgd import (
+        diloco_outer_step,
+        init_diloco,
+    )
+
+    shapes = {n: tuple(p.shape) for n, p in GPT(
+        GPTConfig.gpt2_small(), device="meta").named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    anchor = {n: torch.randn(sh, generator=gen, device="cuda") * 0.02
+              for n, sh in shapes.items()}
+    local = {n: a[None] + torch.randn((DILOCO_REPLICAS, *a.shape),
+                                      generator=gen, device="cuda") * 1e-3
+             for n, a in anchor.items()}
+    numel = sum(a.numel() for a in anchor.values())
+    checked = [n for n in shapes if n.startswith(DILOCO_CPU_LEAVES)]
+    cpu_anchor = {n: anchor[n].cpu() for n in checked}
+    cpu_local = {n: local[n].cpu() for n in checked}
+    # bytes the step must move: the stacked replicas read and written,
+    # the anchor and momentum read and written
+    bound = _bound((2 * DILOCO_REPLICAS + 4) * numel * 4,
+                   10 * DILOCO_REPLICAS * numel, "float32")
+    failures = []
+    for label, kw in DILOCO_METHODS:
+        state = init_diloco(anchor)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_local, new_state = diloco_outer_step(local, state, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        _, want = diloco_outer_step(cpu_local, init_diloco(cpu_anchor), **kw)
+        worst, flips = 0.0, 0
+        for which in ("anchor_params", "momentum"):
+            got_t, want_t = getattr(new_state, which), getattr(want, which)
+            for n in checked:
+                got, ref = got_t[n].cpu(), want_t[n]
+                bad = ~torch.isclose(got, ref, rtol=1e-5, atol=1e-7)
+                flips = max(flips, int(bad.sum()))
+                if bad.float().mean() > DILOCO_FLIP_SHARE:
+                    failures.append(f"{label} {which} {n}: {int(bad.sum())}"
+                                    f" of {ref.numel()} beyond rtol 1e-5")
+                worst = max(worst, float((got - ref).abs().max()))
+        synced = all(torch.equal(new_local[n][r], new_state.anchor_params[n])
+                     for n in shapes for r in range(DILOCO_REPLICAS))
+        if not synced:
+            failures.append(f"{label}: the replicas did not take the anchor")
+        log(f"14d DiLoCo {label} over {DILOCO_REPLICAS} replicas of GPT-2 "
+            f"small ({numel} params each): {ms:.3f} ms on the card (host "
+            f"clock, synchronised), bound {bound[0]:.3f} ms ({bound[1]}); "
+            f"against the CPU largest difference {worst:.3e}, at most "
+            f"{flips} elements of a leaf beyond rtol 1e-5 [{card}]")
+        del new_local, new_state, want
+    gen_r = torch.Generator(device="cuda").manual_seed(3)
+    ones = {n: torch.ones(DILOCO_REPLICAS, *sh, device="cuda")
+            for n, sh in list(shapes.items())[:4]}
+    zero = {n: torch.zeros(sh, device="cuda") for n, sh in
+            list(shapes.items())[:4]}
+    _, st = diloco_outer_step(
+        ones, init_diloco(zero), outer_lr=1.0, outer_momentum=0.0,
+        nesterov=False, reduce_method="sparsify",
+        sparsification="rescaled_random", density=0.5, generator=gen_r)
+    mean = float(torch.cat([v.reshape(-1) for v in
+                            st.anchor_params.values()]).mean())
+    log(f"14d rescaled_random on the card: anchor mean {mean:.4f} "
+        "(expectation 1)")
+    if not 0.9 < mean < 1.1:
+        failures.append(f"rescaled_random's mean {mean}")
+    if failures:
+        raise AssertionError("14d: " + "; ".join(failures))
+    return {}
+
+
+def phase_tensor_one_rank(card) -> dict:
+    """14e: GPT-2 small (phase 5a's config, seed and batch) as a one-rank
+    tensor plan on a one-rank NCCL group (``apply_tensor_parallel`` over
+    the mesh: the column-parallel weights ``Shard(1)``, the vocab-parallel
+    ``wte`` ``Shard(0)``, so the lookup, the tied head and the loss run
+    their tensor-group paths) with int8 q-AdamW, 4 steps against the same
+    model unwrapped: the column-parallel weights take the split-block B6
+    (two launches a leaf a step), the rest the fused B6 (one launch a
+    step); losses within rtol 1e-3 (bit equality reported), exact
+    launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.optim import q_adamw
+    from dlrover_tpu_torch.optim.low_bit import PieceGrid
+    from dlrover_tpu_torch.parallel import sharding
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        TrainState,
+        make_train_step,
+    )
+
+    steps, batch_size = 4, 8
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash")
+    data = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch_size, SMALL_SEQ + 1), dtype=np.int32)
+    batch = {"x": data[:, :-1], "y": data[:, 1:]}
+    runs = {}
+    tmp = tempfile.mkdtemp(prefix="scale14e_", dir=OUT_DIR)
+    _one_rank_group(tmp)
+    try:
+        for label in ("plain", "tensor"):
+            model = GPT(cfg, seed=0)
+            if label == "tensor":
+                mesh = build_mesh(MeshConfig(tensor=1), device_type="cuda")
+                sharding.apply_tensor_parallel(
+                    model, mesh, sharding.param_placements(
+                        model, mesh.shape, sharding.gpt_tp_rules()))
+            reset_launch_counts()
+            opt = q_adamw(model.parameters(), lr=SMALL_LR, weight_decay=0.1)
+            init = launch_counts()
+            pieces = sum(isinstance(opt._layout(p), PieceGrid)
+                         for p in model.parameters())
+            step_fn = make_train_step(_loss_fn, opt)
+            state = TrainState.create(model, opt)
+            reset_launch_counts()
+            losses = []
+            for _ in range(steps):
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            runs[label] = (losses, init, launch_counts(), pieces,
+                           type(model.wte.weight).__name__)
+            del model, opt, state, step_fn
+            _free_cuda()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    (l0, i0, c0, _, _), (l1, i1, c1, n_pieces, wte) = (runs["plain"],
+                                                       runs["tensor"])
+    leaves = 12 * cfg.num_layers + 4
+    want = _flash_expected(cfg.num_layers, 1, steps, False)
+    want0 = dict(want, **{"quantization.qadam": steps})
+    want1 = dict(want, **{"quantization.qadam": steps,
+                          "quantization.qadam_split_absmax": n_pieces * steps,
+                          "quantization.qadam_split_apply": n_pieces * steps})
+    init_want = {0: 2 * leaves, 1: 2 * (leaves - n_pieces)}
+    log(f"14e GPT-2 small one-rank tensor plan, int8 q-AdamW: losses {l1} "
+        f"against unwrapped {l0} (bit equal {l1 == l0}); {n_pieces} split-"
+        f"block leaves, wte a {wte}; launches {c1} (unwrapped {c0}); init "
+        f"B4 {i1['quantization.quantize']} and "
+        f"{i0['quantization.quantize']} [{card}]")
+    failures = []
+    if not np.allclose(l1, l0, rtol=1e-3, atol=1e-5) or not l1[-1] < l1[0]:
+        failures.append(f"losses {l1} vs {l0}")
+    if n_pieces != 2 * cfg.num_layers or wte != "DTensor":
+        failures.append(f"{n_pieces} split-block leaves, wte a {wte}")
+    if c0 != want0 or c1 != want1:
+        failures.append(f"launches {c0} / {c1}, expected {want0} / {want1}")
+    if (i0["quantization.quantize"], i1["quantization.quantize"]) != (
+            init_want[0], init_want[1]):
+        failures.append(f"init launches {i0} / {i1}")
+    if failures:
+        raise AssertionError("14e: " + "; ".join(failures))
+    return {"gpt2_small_tensor_one_rank_int8": c1}
+
+
+def phase_scale_out(card) -> dict:
+    """Phase 14: 14a-14e, each timed."""
+    out = {}
+    for name, fn in (("14a", phase_llama_4bit_fsdp),
+                     ("14b", phase_mixtral_ckpt),
+                     ("14c", phase_offload_fsdp), ("14d", phase_diloco),
+                     ("14e", phase_tensor_one_rank)):
+        t0 = time.perf_counter()
+        out.update(fn(card))
+        _free_cuda()
+        log(f"chip_smoke: phase {name} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _free_cuda():
     import gc
 
@@ -5082,7 +5819,10 @@ ONLY = {"2": phase_kernels, "3": phase_quant_kernels,
         "6a": phase_ckpt_small, "9b": phase_fsdp_one_rank,
         "10": phase_example, "11": phase_llama, "11d": phase_llama_losses,
         "12": phase_data, "13": phase_parallel, "13a": phase_ring_blocks,
-        "13b": phase_mixtral}
+        "13b": phase_mixtral, "14": phase_scale_out,
+        "14a": phase_llama_4bit_fsdp, "14b": phase_mixtral_ckpt,
+        "14c": phase_offload_fsdp, "14d": phase_diloco,
+        "14e": phase_tensor_one_rank}
 
 
 def run_only(torch, names) -> int:
@@ -5139,7 +5879,8 @@ def run_phases(torch) -> int:
                         ("9c", phase_offload_xl),
                         ("9d", phase_trainer_strategy),
                         ("10", phase_example), ("11", phase_llama),
-                        ("12", phase_data), ("13", phase_parallel)):
+                        ("12", phase_data), ("13", phase_parallel),
+                        ("14", phase_scale_out)):
         by_path.update(timed(name, phase, card))
     leaked = [n for n in os.listdir("/dev/shm")
               if n.startswith(f"dlrover_tpu_ckpt_shm_"

@@ -18,14 +18,15 @@ becomes:
   attention is the ring or Ulysses over the mesh's ``sequence`` axis
   (the reference's ``accelerate.py:90-96``), and the batch's sequence
   dim is split over it;
-- MoE layers gate over the global batch and, with an ``expert`` axis,
-  keep their rank's experts
-  (:func:`~dlrover_tpu_torch.parallel.moe.attach_mesh`); expert
-  parallelism with tensor parallelism raises;
+- MoE layers gate over the global batch, and their expert kernels
+  become DTensors over the ``expert`` and ``tensor`` axes as the plan's
+  rules place them (:func:`~dlrover_tpu_torch.parallel.moe.attach_mesh`;
+  ``moe_rules``: ``("expert", "fsdp", "tensor")``);
 - each parameter's placements from the plan's rules
   (:func:`~dlrover_tpu_torch.parallel.sharding.param_placements`):
-  DTensor applies the tensor axis to the blocks' Dense layers, FSDP2's
-  ``fully_shard`` applies the fsdp axis (HSDP with data);
+  DTensor applies the tensor axis to the Dense layers and splits
+  ``wte`` and ``lm_head`` by vocab, FSDP2's ``fully_shard`` applies the
+  fsdp axis (HSDP with data);
 - ZeRO-1/2 plans (params replicated, optimizer state over fsdp) run
   ``ZeroRedundancyOptimizer``; pure data parallelism all-reduces the
   gradients in the step;
@@ -254,13 +255,9 @@ def build_from_plan(plan: AccelPlan, context: ModelContext,
                        "degrading to plain remat on cpu")
         _note(plan, "offload_activation degraded to plain remat on cpu")
         model_plan = dataclasses.replace(plan, remat_policy="full")
-    if mesh.shape["expert"] > 1 and mesh.shape["tensor"] > 1:
-        raise NotImplementedError(
-            "expert parallelism with tensor parallelism is not ported "
-            "(the expert kernels would need their tensor placement)")
     model = _apply_plan_to_model(model_plan, context, fresh=fresh)
-    attach_mesh(model, mesh)
     placements = param_placements(model, mesh.shape, plan.param_rules)
+    attach_mesh(model, mesh, placements)
     opt_placements = param_placements(model, mesh.shape,
                                       plan.effective_opt_rules())
     fsdp = mesh.distributed and shards_over(placements, "fsdp")

@@ -21,7 +21,7 @@ single-node scenarios (``rpc_partition``, ``storage_brownout``,
 ``storage_stall``, ``straggler``, ``preemption_notice``,
 ``shm_corruption``, ``ckpt_brownout_during_preemption``,
 ``goodput_under_scheduled_churn``) and the multi-node hang and
-partition ones with slice 4.3, the sparse and serving ones with slices
+partition ones with slice 4.4, the sparse and serving ones with slices
 6 and 9, the RL one with slice 7, and the compile-cache one with slice 8.2.
 """
 

@@ -60,6 +60,21 @@
 //    the host, each a double rounded once.
 //  * Nothing is allocated here and nothing synchronises: each entry
 //    launches on the caller's stream and returns cudaGetLastError().
+//
+// Split-block mode (a shard of a tensor whose global blocks other ranks
+// share, e.g. a column-parallel weight under tensor parallelism): the
+// shard's flat storage is cut into pieces, each a run of elements that
+// lies in one global block, whose scale is row `row` of the shard's
+// state.  Codes sit at the element's own flat position.  A row's scale
+// needs the absmax over every rank's part of its block, so each kernel
+// takes two launches with a max all-reduce between them (made by the
+// caller): piece_absmax / qadam_piece_absmax add each piece's absmax
+// into amax[row] (atomicMax over the bits of a non-negative float), and
+// piece_quantize / qadam_piece_apply encode from the reduced absmax.
+// qadam_piece_apply recomputes the moments from the unchanged inputs,
+// as qadam_long_kernel's second pass does, and writes the new scales to
+// a separate buffer, since other pieces of a row still read the old
+// scale.  One CTA a piece, its threads strided over the piece.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,6 +106,34 @@ struct QAdamParams {
   int block;
   int pad;
   float b1, b2, one_minus_b1, one_minus_b2, neg_lr, eps, wd;
+};
+
+// One piece of a split-block launch: `len` elements of a shard's flat
+// storage from `start` on, all in the global block whose scale is row
+// `row` of the shard's state.  Mirrored by PIECE_DTYPE.
+struct Piece {
+  long long start;
+  int len;
+  int row;
+};
+
+// One leaf of a split-block q-AdamW launch.  Mirrored by ctypes in
+// ops/quantization.py.
+struct QAdamSplit {
+  void* p;
+  const void* g;
+  void* q_mu;
+  const void* mu_scales;  // old scales, read
+  void* q_nu;
+  const void* nu_scales;
+  const void* pieces;  // Piece[n_pieces] on the device
+  long long n_pieces;
+  void* amax;  // [rows][2]: |mu| and sqrt(nu) maxima
+  void* new_mu_scales;
+  void* new_nu_scales;
+  float bc1, bc2;
+  int dtype;  // of p and g: 0 float32, 1 bfloat16
+  int pad;
 };
 
 namespace {
@@ -595,6 +638,139 @@ int quantize_dispatch(const void* x, long long numel, long long rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// Split-block mode (see the header): one CTA a piece.
+// ---------------------------------------------------------------------------
+
+// amax[i] = max(amax[i], v) for v >= 0: the order of non-negative floats
+// is the order of their bits as ints
+__device__ __forceinline__ void atomic_max_nonneg(float* a, float v) {
+  atomicMax(reinterpret_cast<int*>(a), __float_as_int(v));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    piece_absmax_kernel(const T* __restrict__ x,
+                        const Piece* __restrict__ pieces,
+                        float* __restrict__ amax) {
+  const Piece pc = pieces[blockIdx.x];
+  float m = 0.0f;
+  for (int i = threadIdx.x; i < pc.len; i += kThreads)
+    m = fmaxf(m, fabsf(to_float(x[pc.start + i])));
+  float unused = 0.0f;
+  block_max2(m, unused);
+  if (threadIdx.x == 0) atomic_max_nonneg(&amax[pc.row], m);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    piece_quantize_kernel(const T* __restrict__ x,
+                          const Piece* __restrict__ pieces,
+                          const float* __restrict__ amax, float qmax,
+                          float inv_qmax, int8_t* __restrict__ q,
+                          float* __restrict__ scales) {
+  const Piece pc = pieces[blockIdx.x];
+  const float scale = fmaxf(__fmul_rn(amax[pc.row], inv_qmax), kScaleFloor);
+  for (int i = threadIdx.x; i < pc.len; i += kThreads)
+    q[pc.start + i] = encode(to_float(x[pc.start + i]), scale, -qmax, qmax);
+  // every piece of the row writes the same value
+  if (threadIdx.x == 0) scales[pc.row] = scale;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    piece_dequantize_kernel(const int8_t* __restrict__ q,
+                            const float* __restrict__ scales,
+                            const Piece* __restrict__ pieces,
+                            float* __restrict__ out) {
+  const Piece pc = pieces[blockIdx.x];
+  const float scale = scales[pc.row];
+  for (int i = threadIdx.x; i < pc.len; i += kThreads)
+    out[pc.start + i] = __fmul_rn(static_cast<float>(q[pc.start + i]), scale);
+}
+
+// element e's new mu and sqrt(nu), and its update, from the old codes and
+// the old scales of its row
+template <typename T>
+__device__ __forceinline__ void split_elem(const QAdamParams& h,
+                                           const QAdamLeaf& L,
+                                           const QAdamSplit& S, long long e,
+                                           float mu_s, float nu_s, float& m,
+                                           float& nsq, float& upd,
+                                           float& pv) {
+  const float gv = to_float(static_cast<const T*>(S.g)[e]);
+  pv = to_float(static_cast<const T*>(S.p)[e]);
+  const float m0 =
+      __fmul_rn(static_cast<float>(static_cast<const int8_t*>(S.q_mu)[e]),
+                mu_s);
+  const float s0 =
+      __fmul_rn(static_cast<float>(static_cast<const int8_t*>(S.q_nu)[e]),
+                nu_s);
+  adam_elem(h, L, gv, pv, m0, s0, m, nsq, upd);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    qadam_piece_absmax_kernel(const QAdamParams h, const QAdamSplit S) {
+  const Piece pc = static_cast<const Piece*>(S.pieces)[blockIdx.x];
+  QAdamLeaf L{};
+  L.bc1 = S.bc1;
+  L.bc2 = S.bc2;
+  const float mu_s = static_cast<const float*>(S.mu_scales)[pc.row];
+  const float nu_s = static_cast<const float*>(S.nu_scales)[pc.row];
+  float mu_max = 0.0f, nu_max = 0.0f;
+  for (int i = threadIdx.x; i < pc.len; i += kThreads) {
+    float m, nsq, upd, pv;
+    split_elem<T>(h, L, S, pc.start + i, mu_s, nu_s, m, nsq, upd, pv);
+    mu_max = fmaxf(mu_max, fabsf(m));
+    nu_max = fmaxf(nu_max, nsq);
+  }
+  block_max2(mu_max, nu_max);
+  if (threadIdx.x == 0) {
+    float* amax = static_cast<float*>(S.amax);
+    atomic_max_nonneg(&amax[2 * pc.row], mu_max);
+    atomic_max_nonneg(&amax[2 * pc.row + 1], nu_max);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    qadam_piece_apply_kernel(const QAdamParams h, const QAdamSplit S) {
+  const Piece pc = static_cast<const Piece*>(S.pieces)[blockIdx.x];
+  QAdamLeaf L{};
+  L.bc1 = S.bc1;
+  L.bc2 = S.bc2;
+  const float mu_s = static_cast<const float*>(S.mu_scales)[pc.row];
+  const float nu_s = static_cast<const float*>(S.nu_scales)[pc.row];
+  const float* amax = static_cast<const float*>(S.amax);
+  const float mu_scale = fmaxf(__fmul_rn(amax[2 * pc.row], kInv127),
+                               kScaleFloor);
+  const float nu_scale = fmaxf(__fmul_rn(amax[2 * pc.row + 1], kInv127),
+                               kScaleFloor);
+  const float mu_inv = __frcp_rn(mu_scale), nu_inv = __frcp_rn(nu_scale);
+  T* p = static_cast<T*>(S.p);
+  int8_t* q_mu = static_cast<int8_t*>(S.q_mu);
+  int8_t* q_nu = static_cast<int8_t*>(S.q_nu);
+  for (int i = threadIdx.x; i < pc.len; i += kThreads) {
+    const long long e = pc.start + i;
+    float m, nsq, upd, pv;
+    split_elem<T>(h, L, S, e, mu_s, nu_s, m, nsq, upd, pv);
+    p[e] = from_float<T>(__fadd_rn(pv, to_float(from_float<T>(upd))));
+    q_mu[e] = encode_fast(m, mu_scale, mu_inv, -127.0f, 127.0f);
+    q_nu[e] = encode_fast(nsq, nu_scale, nu_inv, 0.0f, 127.0f);
+  }
+  if (threadIdx.x == 0) {
+    static_cast<float*>(S.new_mu_scales)[pc.row] = mu_scale;
+    static_cast<float*>(S.new_nu_scales)[pc.row] = nu_scale;
+  }
+}
+
+int check_pieces(long long n_pieces) {
+  return (n_pieces <= 0 || n_pieces > 0x7fffffffLL)
+             ? static_cast<int>(cudaErrorInvalidValue)
+             : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -641,6 +817,77 @@ int dlr_qadam_step(const QAdamParams* p, void* stream) {
   if (p->block <= kMaxRegBlock) return launch_qadam<kQThreads, 4>(p, s);
   if (p->rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   qadam_long_kernel<<<static_cast<unsigned>(p->rows), kQThreads, 0, s>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dlr_piece_absmax(const void* x, int dtype, const void* pieces,
+                     long long n_pieces, void* amax, void* stream) {
+  if (int err = check_pieces(n_pieces)) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(n_pieces);
+  const Piece* pc = static_cast<const Piece*>(pieces);
+  if (dtype == 1) {
+    piece_absmax_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), pc, static_cast<float*>(amax));
+  } else {
+    piece_absmax_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), pc, static_cast<float*>(amax));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dlr_piece_quantize(const void* x, int dtype, const void* pieces,
+                       long long n_pieces, const void* amax, float qmax,
+                       float inv_qmax, void* q, void* scales, void* stream) {
+  if (int err = check_pieces(n_pieces)) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(n_pieces);
+  const Piece* pc = static_cast<const Piece*>(pieces);
+  const float* a = static_cast<const float*>(amax);
+  int8_t* qq = static_cast<int8_t*>(q);
+  float* sc = static_cast<float*>(scales);
+  if (dtype == 1) {
+    piece_quantize_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), pc, a, qmax, inv_qmax, qq, sc);
+  } else {
+    piece_quantize_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), pc, a, qmax, inv_qmax, qq, sc);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dlr_piece_dequantize(const void* q, const void* scales,
+                         const void* pieces, long long n_pieces, void* out,
+                         void* stream) {
+  if (int err = check_pieces(n_pieces)) return err;
+  piece_dequantize_kernel<<<static_cast<unsigned>(n_pieces), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
+      static_cast<const Piece*>(pieces), static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pass 0: the moments' maxima into S->amax; pass 1: the codes, the new
+// scales and the parameter
+int dlr_qadam_split(const QAdamParams* h, const QAdamSplit* S, int pass,
+                    void* stream) {
+  if (int err = check_pieces(S->n_pieces)) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(S->n_pieces);
+  const bool bf16 = S->dtype == 1;
+  if (pass == 0) {
+    if (bf16) {
+      qadam_piece_absmax_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+          *h, *S);
+    } else {
+      qadam_piece_absmax_kernel<float><<<grid, kThreads, 0, s>>>(*h, *S);
+    }
+  } else if (bf16) {
+    qadam_piece_apply_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(*h,
+                                                                      *S);
+  } else {
+    qadam_piece_apply_kernel<float><<<grid, kThreads, 0, s>>>(*h, *S);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,7 +13,9 @@ the same numerics policy:
   optimizer state over it is the reference's, code for code;
 - one fused qkv projection, split q|k|v;
 - tied ``wte`` head (``wte.attend``: logits = x @ wte^T in the
-  compute dtype, returned as fp32);
+  compute dtype, returned as fp32); under tensor parallelism ``wte``
+  is split by vocab (the lookup summed over the tensor group, the
+  logits a DTensor sharded on vocab);
 - attention is pluggable: ``"flash"`` runs the CUDA flash kernels of
   :mod:`dlrover_tpu_torch.ops.flash_attention`; ``"xla"`` keeps its
   name for config parity and is the plain PyTorch math of
@@ -57,7 +59,12 @@ from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
 from dlrover_tpu_torch.common.slices import SLICE_5_4
+from dlrover_tpu_torch.models.losses import vocab_parallel_nll
 from dlrover_tpu_torch.parallel.sequence import sequence_offset
+from dlrover_tpu_torch.parallel.sharding import (
+    vocab_logits,
+    vocab_parallel_embedding,
+)
 
 
 @dataclass(frozen=True)
@@ -419,7 +426,7 @@ class GPT(nn.Module):
         # flax Embed(dtype=...) casts the table; casting the gathered
         # rows is the same values without touching the whole table
         x = (
-            F.embedding(tokens, self.wte.weight).to(cfg.dtype)
+            vocab_parallel_embedding(tokens, self.wte.weight).to(cfg.dtype)
             + F.embedding(pos, self.wpe.weight).to(cfg.dtype)[None]
         )
         for block in self.blocks:
@@ -438,7 +445,8 @@ class GPT(nn.Module):
         if return_hidden:
             return x
         if cfg.tie_embeddings:
-            logits = x @ self.wte.weight.to(cfg.dtype).t()
+            logits = vocab_logits(x, self.wte.weight.to(cfg.dtype),
+                                  transpose=True)
         else:
             logits = self.lm_head(x, cfg.dtype)
         return logits.float()
@@ -447,7 +455,12 @@ class GPT(nn.Module):
 def cross_entropy_loss(
     logits: torch.Tensor, targets: torch.Tensor
 ) -> torch.Tensor:
-    """Mean next-token cross entropy; fp32 for the reduction."""
+    """Mean next-token cross entropy; fp32 for the reduction.  Logits
+    sharded on vocab (tensor parallelism) are reduced over the tensor
+    group, never gathered (:func:`~dlrover_tpu_torch.models.losses.
+    vocab_parallel_nll`)."""
+    if is_dtensor(logits):
+        return vocab_parallel_nll(logits.float(), targets).mean()
     return F.cross_entropy(
         logits.float().flatten(0, -2), targets.long().flatten()
     )

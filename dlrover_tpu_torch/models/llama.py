@@ -21,7 +21,9 @@ the same numerics policy, sharing the conventions of
   does for an attention function that is not GQA-aware;
 - an untied ``lm_head``, logits returned as fp32; ``return_hidden``
   gives the final RMSNorm's output for the chunked loss
-  (:mod:`dlrover_tpu_torch.models.losses`);
+  (:mod:`dlrover_tpu_torch.models.losses`); under tensor parallelism
+  ``wte`` and ``lm_head`` are split by vocab (the logits a DTensor
+  sharded on vocab, which the losses reduce without gathering);
 - ``remat`` recomputes each block in the backward as GPT's does
   (``"full"``: ``torch.utils.checkpoint``; ``"offload"``: the block's
   input in pinned host memory);
@@ -67,6 +69,7 @@ from dlrover_tpu_torch.models.gpt import (
     uses_moe,
 )
 from dlrover_tpu_torch.parallel.sequence import sequence_offset
+from dlrover_tpu_torch.parallel.sharding import vocab_parallel_embedding
 
 
 @dataclass(frozen=True)
@@ -338,7 +341,7 @@ class Llama(nn.Module):
         # flax Embed(dtype=...) casts the table, then gathers: the
         # gradient's scatter-add runs in the compute dtype, as there (a
         # no-op cast when the params are already in it)
-        x = F.embedding(tokens, self.wte.weight.to(cfg.dtype))
+        x = vocab_parallel_embedding(tokens, self.wte.weight.to(cfg.dtype))
         for block in self.blocks:
             if cfg.remat and torch.is_grad_enabled():
                 if cfg.remat_policy == "offload":

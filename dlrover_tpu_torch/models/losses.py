@@ -20,6 +20,14 @@ them to XLA: no hand kernel replaces a TPU kernel here.
 Works with both head layouts of the port: Llama's untied ``lm_head``
 (a flax-layout ``[hid, vocab]`` Dense weight) and GPT's tied ``wte``
 embedding (``[vocab, hid]``, ``transpose=True``).
+
+Under tensor parallelism the head is split by vocab over the tensor
+axis (``gpt_tp_rules``), and so are the logits: :func:`vocab_parallel_nll`
+reduces the max and the sum of exponentials over the tensor group and
+takes each target's logit on the rank that holds it, so the ``[tokens,
+vocab]`` logits are never gathered, and its gradient (softmax minus
+the target's one-hot, on each rank's columns) is the unsharded loss's.
+The chunked loss runs the same per chunk over the rank's head columns.
 """
 
 import inspect
@@ -31,11 +39,66 @@ from torch.utils.checkpoint import checkpoint
 from dlrover_tpu_torch.common.device import is_dtensor
 
 
-def _chunk_nll(h_chunk, t_chunk, head_weight, transpose: bool):
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token NLL of fp32 logits split by vocab over ``group``:
+    ``logits`` ``[n, v_local]`` holds vocab ids ``start ..``."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, group):
+        import torch.distributed as dist
+
+        n, v = logits.shape
+        m = logits.max(dim=-1).values
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        shifted = logits - m[:, None]
+        e = torch.exp(shifted)
+        se = e.sum(dim=-1)
+        dist.all_reduce(se, group=group)
+        ids = targets.long() - start
+        inside = (ids >= 0) & (ids < v)
+        ids = ids.clamp(0, v - 1)
+        target = shifted.gather(-1, ids[:, None])[:, 0] * inside
+        dist.all_reduce(target, group=group)
+        ctx.save_for_backward(e / se[:, None], ids, inside)
+        return torch.log(se) - target
+
+    @staticmethod
+    def backward(ctx, grad):
+        probs, ids, inside = ctx.saved_tensors
+        g = probs.clone()
+        rows = torch.arange(g.shape[0], device=g.device)
+        g[rows, ids] -= inside.to(g.dtype)
+        return g * grad[:, None], None, None, None
+
+
+def vocab_parallel_nll(logits, targets: torch.Tensor) -> torch.Tensor:
+    """The per-token NLL ``[...]`` of fp32 ``logits`` sharded on vocab
+    (a DTensor ``Shard(-1)`` over a one-dim tensor mesh, as the
+    vocab-parallel heads give them) for int ``targets`` ``[...]``."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    mesh = logits.device_mesh
+    _, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    local = logits.to_local()
+    nll = _VocabParallelNLL.apply(local.reshape(-1, local.shape[-1]),
+                                  targets.reshape(-1), int(offset[-1]),
+                                  mesh.get_group(0))
+    return nll.reshape(targets.shape)
+
+
+def _chunk_nll(h_chunk, t_chunk, head_weight, transpose: bool, vocab=None):
     # the head in the activation dtype, as the models' own head paths;
     # only the log_softmax reduction is fp32
     w = head_weight.to(h_chunk.dtype)
     logits = (h_chunk @ (w.t() if transpose else w)).float()
+    if vocab is not None:  # this rank's vocab columns
+        start, group = vocab
+        return _VocabParallelNLL.apply(
+            logits.reshape(-1, logits.shape[-1]), t_chunk.reshape(-1),
+            start, group).sum()
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, t_chunk.long()[..., None]).sum()
 
@@ -53,12 +116,22 @@ def chunked_cross_entropy(
     tied embedding table).  ``seq`` must be divisible by
     ``num_chunks`` (1 degrades to the unchunked loss).  Returns an fp32
     scalar, the summed NLL over ``batch * seq``."""
+    from dlrover_tpu_torch.parallel.sharding import sum_grad_over, vocab_shard
+
     b, s, _ = hidden.shape
     if s % num_chunks:
         raise ValueError(
             f"seq {s} not divisible by num_chunks {num_chunks}"
         )
-    if is_dtensor(head_weight):
+    vocab = None
+    shard = vocab_shard(head_weight, 0 if transpose else 1)
+    if shard is not None:
+        # split by vocab over the tensor axis: this rank's columns, the
+        # hidden state's gradient summed over the tensor group
+        head_weight, group, start = shard
+        vocab = (start, group)
+        hidden = sum_grad_over(hidden, group)
+    elif is_dtensor(head_weight):
         # a sharded head (FSDP2) gathered once, its gradient scattered
         # back by autograd
         head_weight = head_weight.full_tensor()
@@ -67,7 +140,7 @@ def chunked_cross_entropy(
     for i in range(num_chunks):
         total = total + checkpoint(
             _chunk_nll, hidden[:, i * c:(i + 1) * c],
-            targets[:, i * c:(i + 1) * c], head_weight, transpose,
+            targets[:, i * c:(i + 1) * c], head_weight, transpose, vocab,
             use_reentrant=False)
     return total / (b * s)
 

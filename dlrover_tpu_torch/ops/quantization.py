@@ -20,6 +20,18 @@ reference's order); a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches only.  The 4-bit nibble packing
 and the sqrt-domain 4-bit codec are plain tensor ops, as in the
 reference.
+
+Split-block mode (:class:`PieceLayout`): a shard of a tensor whose
+global blocks other ranks share (a column-parallel weight, fsdp x
+tensor) keeps the reference's global block grid by pieces, each a run
+of the shard's flat elements inside one global block, whose scale is
+one row of the shard's state.  A scale needs the absmax over every
+rank's part of its block, so each operation is two launches with the
+caller's max all-reduce between them: B4 is :func:`absmax_pieces` then
+:func:`quantize_pieces`, B6 :func:`qadam_split_absmax` then
+:func:`qadam_split_apply`; B5 is one launch,
+:func:`dequantize_pieces`.  Codes sit at their element's flat position
+in the shard.
 """
 
 import ctypes
@@ -34,11 +46,16 @@ SCALE_FLOOR = 1e-12
 
 # kernel launches, one count per kernel, bumped where it launches
 LAUNCHES = {"quantize": 0, "dequantize": 0, "qadam": 0}
+# the split-block launches (:class:`PieceLayout`), counted alike
+SPLIT_LAUNCHES = {"absmax_pieces": 0, "quantize_pieces": 0,
+                  "dequantize_pieces": 0, "qadam_split_absmax": 0,
+                  "qadam_split_apply": 0}
 
 
 def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SPLIT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def num_rows(numel: int, block_size: int) -> int:
@@ -156,6 +173,20 @@ class _QAdamParams(ctypes.Structure):
     )
 
 
+class _QAdamSplit(ctypes.Structure):
+    """Field for field the ``QAdamSplit`` struct of the CUDA source."""
+
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "p", "g", "q_mu", "mu_scales", "q_nu", "nu_scales", "pieces")]
+        + [("n_pieces", ctypes.c_longlong)]
+        + [(n, ctypes.c_void_p) for n in (
+            "amax", "new_mu_scales", "new_nu_scales")]
+        + [("bc1", ctypes.c_float), ("bc2", ctypes.c_float),
+           ("dtype", ctypes.c_int), ("pad", ctypes.c_int)]
+    )
+
+
 # field for field the ``QAdamLeaf`` struct of the CUDA source: one row of
 # the leaf table of a multi-tensor q-AdamW launch
 LEAF_DTYPE = np.dtype([
@@ -238,7 +269,27 @@ def _lib():
         lib.dlr_qadam_step.argtypes = [
             ctypes.POINTER(_QAdamParams), ctypes.c_void_p,
         ]
-        for fn in (lib.dlr_quantize, lib.dlr_dequantize, lib.dlr_qadam_step):
+        lib.dlr_piece_absmax.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.dlr_piece_quantize.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float,
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+        lib.dlr_piece_dequantize.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.dlr_qadam_split.argtypes = [
+            ctypes.POINTER(_QAdamParams), ctypes.POINTER(_QAdamSplit),
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        for fn in (lib.dlr_quantize, lib.dlr_dequantize, lib.dlr_qadam_step,
+                   lib.dlr_piece_absmax, lib.dlr_piece_quantize,
+                   lib.dlr_piece_dequantize, lib.dlr_qadam_split):
             fn.restype = ctypes.c_int
         lib.dlr_quant_error_string.argtypes = [ctypes.c_int]
         lib.dlr_quant_error_string.restype = ctypes.c_char_p
@@ -584,3 +635,239 @@ def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
     one = np.float32(1.0)
     return (float(one - np.power(np.float32(b1), c)),
             float(one - np.power(np.float32(b2), c)))
+
+
+# -- split-block mode (pieces of a shard on the global block grid) ----------
+
+# field for field the ``Piece`` struct of the CUDA source
+PIECE_DTYPE = np.dtype([("start", np.int64), ("len", np.int32),
+                        ("row", np.int32)])
+
+
+class PieceLayout:
+    """A shard's flat elements cut into pieces, each a run inside one
+    global block: ``table`` (``PIECE_DTYPE``, in flat order, covering
+    ``numel`` elements) and the shard's state ``rows`` (one a global
+    block it touches).  The device copy of the table and, on the CPU,
+    each element's row are made once and kept."""
+
+    def __init__(self, table: np.ndarray, numel: int, rows: int):
+        self.table, self.numel, self.rows = table, numel, rows
+        self._device: dict = {}
+        self._elem_rows = None
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        t = self._device.get(device)
+        if t is None:
+            t = torch.from_numpy(self.table.view(np.uint8).copy()).to(device)
+            self._device[device] = t
+        return t
+
+    def elem_rows(self) -> torch.Tensor:
+        """Each element's state row (the CPU path's scatter index)."""
+        if self._elem_rows is None:
+            self._elem_rows = torch.from_numpy(np.repeat(
+                self.table["row"].astype(np.int64), self.table["len"]))
+        return self._elem_rows
+
+
+def piece_absmax_plain(x: torch.Tensor, rows: torch.Tensor, n_rows: int,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the absmax launch: ``out[r] = max(out[r], |x_e|)``
+    over the elements ``e`` of row ``r`` (fp32 ``[n_rows]``)."""
+    if out is None:
+        out = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+    return out.scatter_reduce_(0, rows, x.float().abs(), "amax")
+
+
+def piece_quantize_plain(x, rows, amax, qmax: float = 127.0):
+    """Plain version of the quantize launch: each row's scale from its
+    (reduced) absmax, ``max(absmax * fp32(1/qmax), 1e-12)``, and each
+    element's code ``clip(round_half_even(x / scale), -qmax, qmax)``."""
+    scales = torch.clamp_min(amax * reciprocal(qmax), SCALE_FLOOR)
+    q = torch.clamp(torch.round(x.float() / scales[rows]), -qmax,
+                    qmax).to(torch.int8)
+    return q, scales[:, None]
+
+
+def piece_dequantize_plain(q, scales, rows):
+    return q.float() * scales[rows, 0]
+
+
+def qadam_split_plain(p, g, q_mu, mu_scales, q_nu, nu_scales, rows,
+                      bc1: float, bc2: float, *, b1, b2, eps, lr, wd):
+    """The element arithmetic of the split q-AdamW launches, in the
+    reference's order (that of :func:`fused_qadam_step_plain`) with
+    each element's row scale: ``(mu, sqrt(nu), upd in p's dtype)``."""
+    g, p32 = g.float(), p.float()
+    bc1, bc2 = device_scalar(bc1, g), device_scalar(bc2, g)
+    mu0 = q_mu.float() * mu_scales[rows, 0]
+    s0 = q_nu.float() * nu_scales[rows, 0]
+    nu = b2 * s0 * s0 + (1.0 - b2) * g * g
+    mu = b1 * mu0 + (1.0 - b1) * g
+    m_hat = mu / bc1
+    v_hat = nu / bc2
+    upd = (-lr * (m_hat / (torch.sqrt(v_hat) + eps) + wd * p32)).to(p.dtype)
+    return mu, torch.sqrt(nu), upd
+
+
+def _flat_cuda(x: torch.Tensor, what: str) -> torch.Tensor:
+    x = _flat_input(x, what)
+    if x.dim() != 1:
+        raise ValueError(f"CUDA {what} takes a flat shard")
+    return x
+
+
+def _check_pieces(layout: PieceLayout, x: torch.Tensor):
+    if x.numel() != layout.numel:
+        raise ValueError(f"{x.numel()} elements, layout of {layout.numel}")
+
+
+def absmax_pieces(x: torch.Tensor, layout: PieceLayout) -> torch.Tensor:
+    """Each state row's absmax over this shard's elements of it: fp32
+    ``[rows]`` (0 where the shard holds none), to be max-reduced over
+    the ranks that share the blocks.  On the card one launch."""
+    _check_pieces(layout, x)
+    if _on_cpu(x):
+        return piece_absmax_plain(x, layout.elem_rows(), layout.rows)
+    x = _flat_cuda(x, "absmax_pieces")
+    out = torch.zeros(layout.rows, dtype=torch.float32, device=x.device)
+    if len(layout.table):
+        with torch.cuda.device(x.device):
+            _check("dlr_piece_absmax", _lib().dlr_piece_absmax(
+                x.data_ptr(), _DTYPES[x.dtype], layout.on(x.device).data_ptr(),
+                len(layout.table), out.data_ptr(), _stream(x.device)))
+        SPLIT_LAUNCHES["absmax_pieces"] += 1
+    return out
+
+
+def quantize_pieces(x: torch.Tensor, layout: PieceLayout,
+                    amax: torch.Tensor, qmax: float = 127.0):
+    """Codes of ``x`` (int8, flat, in its order) and fp32 scales ``[rows,
+    1]`` from each row's reduced ``amax``.  On the card one launch."""
+    _check_pieces(layout, x)
+    if _on_cpu(x):
+        return piece_quantize_plain(x, layout.elem_rows(), amax, qmax)
+    x = _flat_cuda(x, "quantize_pieces")
+    q = torch.empty(layout.numel, dtype=torch.int8, device=x.device)
+    scales = torch.empty((layout.rows, 1), dtype=torch.float32,
+                         device=x.device)
+    amax = amax.contiguous()
+    if len(layout.table):
+        with torch.cuda.device(x.device):
+            _check("dlr_piece_quantize", _lib().dlr_piece_quantize(
+                x.data_ptr(), _DTYPES[x.dtype], layout.on(x.device).data_ptr(),
+                len(layout.table), amax.data_ptr(), qmax,
+                reciprocal(qmax), q.data_ptr(), scales.data_ptr(),
+                _stream(x.device)))
+        SPLIT_LAUNCHES["quantize_pieces"] += 1
+    return q, scales
+
+
+def dequantize_pieces(q: torch.Tensor, scales: torch.Tensor,
+                      layout: PieceLayout) -> torch.Tensor:
+    """fp32 ``q * scale`` of each element's row, flat.  On the card one
+    launch."""
+    _check_pieces(layout, q)
+    if _on_cpu(q):
+        return piece_dequantize_plain(q, scales, layout.elem_rows())
+    if q.dtype != torch.int8 or not q.is_contiguous():
+        raise ValueError("dequantize_pieces takes contiguous int8 codes")
+    out = torch.empty(layout.numel, dtype=torch.float32, device=q.device)
+    scales = scales.contiguous()
+    if len(layout.table):
+        with torch.cuda.device(q.device):
+            _check("dlr_piece_dequantize", _lib().dlr_piece_dequantize(
+                q.data_ptr(), scales.data_ptr(),
+                layout.on(q.device).data_ptr(), len(layout.table),
+                out.data_ptr(), _stream(q.device)))
+        SPLIT_LAUNCHES["dequantize_pieces"] += 1
+    return out
+
+
+def _split_struct(p, g, q_mu, mu_scales, q_nu, nu_scales, layout, amax,
+                  new_mu, new_nu, bc1, bc2) -> _QAdamSplit:
+    for t, what in ((q_mu, "mu codes"), (q_nu, "nu codes")):
+        if t.dtype != torch.int8 or t.numel() != layout.numel:
+            raise ValueError(f"{what} must be int8 [{layout.numel}]")
+    for t in (q_mu, mu_scales, q_nu, nu_scales, g):
+        if t.device != p.device or not t.is_contiguous():
+            raise ValueError("split q-AdamW tensors must be contiguous on "
+                             f"{p.device}")
+    if g.dtype != p.dtype:
+        raise ValueError(f"gradient {g.dtype}, parameter {p.dtype}")
+    return _QAdamSplit(
+        p=p.data_ptr(), g=g.data_ptr(), q_mu=q_mu.data_ptr(),
+        mu_scales=mu_scales.data_ptr(), q_nu=q_nu.data_ptr(),
+        nu_scales=nu_scales.data_ptr(),
+        pieces=layout.on(p.device).data_ptr(), n_pieces=len(layout.table),
+        amax=amax.data_ptr(),
+        new_mu_scales=new_mu.data_ptr() if new_mu is not None else None,
+        new_nu_scales=new_nu.data_ptr() if new_nu is not None else None,
+        bc1=bc1, bc2=bc2, dtype=_DTYPES[p.dtype])
+
+
+def qadam_split_absmax(p, g, q_mu, mu_scales, q_nu, nu_scales,
+                       layout: PieceLayout, bc1: float, bc2: float, *, b1,
+                       b2, eps, lr, wd) -> torch.Tensor:
+    """First half of a split q-AdamW step of a flat shard: each row's
+    maxima of ``|mu|`` and ``sqrt(nu)`` over the shard's elements, fp32
+    ``[rows, 2]``, to be max-reduced over the ranks that share the
+    blocks.  Nothing is written.  On the card one launch."""
+    _check_pieces(layout, p)
+    hyper = dict(b1=b1, b2=b2, eps=eps, lr=lr, wd=wd)
+    if _on_cpu(p):
+        rows = layout.elem_rows()
+        mu, nsq, _ = qadam_split_plain(p, g, q_mu, mu_scales, q_nu,
+                                       nu_scales, rows, bc1, bc2, **hyper)
+        amax = torch.zeros(layout.rows, 2, dtype=torch.float32)
+        piece_absmax_plain(mu, rows, layout.rows, amax[:, 0])
+        piece_absmax_plain(nsq, rows, layout.rows, amax[:, 1])
+        return amax
+    p = _flat_cuda(p, "qadam_split")
+    amax = torch.zeros(layout.rows, 2, dtype=torch.float32, device=p.device)
+    if len(layout.table):
+        split = _split_struct(p, g, q_mu, mu_scales, q_nu, nu_scales, layout,
+                              amax, None, None, bc1, bc2)
+        with torch.cuda.device(p.device):
+            _check("dlr_qadam_split", _lib().dlr_qadam_split(
+                ctypes.byref(_hyper(**hyper)), ctypes.byref(split), 0,
+                _stream(p.device)))
+        SPLIT_LAUNCHES["qadam_split_absmax"] += 1
+    return amax
+
+
+def qadam_split_apply(p, g, q_mu, mu_scales, q_nu, nu_scales,
+                      layout: PieceLayout, amax: torch.Tensor, bc1: float,
+                      bc2: float, *, b1, b2, eps, lr, wd
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Second half: from the reduced ``amax`` the new scales (returned,
+    ``[rows, 1]`` each), the codes (in place) and the parameter (in
+    place, ``p + round_p(upd)``), the moments recomputed from the
+    unchanged inputs.  On the card one launch."""
+    _check_pieces(layout, p)
+    hyper = dict(b1=b1, b2=b2, eps=eps, lr=lr, wd=wd)
+    if _on_cpu(p):
+        rows = layout.elem_rows()
+        mu, nsq, upd = qadam_split_plain(p, g, q_mu, mu_scales, q_nu,
+                                         nu_scales, rows, bc1, bc2, **hyper)
+        qm, new_mu = piece_quantize_plain(mu, rows, amax[:, 0])
+        qn, new_nu = piece_quantize_plain(nsq, rows, amax[:, 1])  # nsq >= 0
+        p.add_(upd)
+        q_mu.copy_(qm)
+        q_nu.copy_(qn)
+        return new_mu, new_nu
+    p = _flat_cuda(p, "qadam_split")
+    new_mu = torch.empty((layout.rows, 1), dtype=torch.float32,
+                         device=p.device)
+    new_nu = torch.empty_like(new_mu)
+    amax = amax.contiguous()
+    if len(layout.table):
+        split = _split_struct(p, g, q_mu, mu_scales, q_nu, nu_scales, layout,
+                              amax, new_mu, new_nu, bc1, bc2)
+        with torch.cuda.device(p.device):
+            _check("dlr_qadam_split", _lib().dlr_qadam_split(
+                ctypes.byref(_hyper(**hyper)), ctypes.byref(split), 1,
+                _stream(p.device)))
+        SPLIT_LAUNCHES["qadam_split_apply"] += 1
+    return new_mu, new_nu

@@ -2,8 +2,7 @@
 low-bit family, whose moments live as blockwise int8 or int4 codes
 through the CUDA kernels of :mod:`dlrover_tpu_torch.ops.quantization`,
 the factored CAME / Adafactor family, AGD, WSAM, bf16 params over fp32
-masters and host-offloaded states.  ``local_sgd`` (DiLoCo) comes with
-slice 4.3 of the port.
+masters and host-offloaded states, and DiLoCo local SGD (``local_sgd``).
 """
 
 from dlrover_tpu_torch.optim.agd import AGD, agd
@@ -21,6 +20,14 @@ from dlrover_tpu_torch.optim.came import (
     q_adafactor,
     q_came,
 )
+from dlrover_tpu_torch.optim.local_sgd import (
+    DilocoState,
+    diloco_outer_step,
+    diloco_outer_step_dist,
+    init_diloco,
+    reduce_deltas,
+    replicate_for_local_training,
+)
 from dlrover_tpu_torch.optim.low_bit import (
     NU_DOMAIN_SQRT_V1,
     QAGD,
@@ -36,6 +43,7 @@ from dlrover_tpu_torch.optim.wsam import WSAM, sam_gradient, wsam
 __all__ = [
     "AGD",
     "CAME",
+    "DilocoState",
     "Fp32Master",
     "Offload",
     "OptaxAdamW",
@@ -43,6 +51,9 @@ __all__ = [
     "adamw_bf16",
     "adamw_offload",
     "agd",
+    "diloco_outer_step",
+    "diloco_outer_step_dist",
+    "init_diloco",
     "offload",
     "sam_gradient",
     "with_fp32_master",
@@ -58,4 +69,6 @@ __all__ = [
     "q_adamw",
     "q_agd",
     "q_came",
+    "reduce_deltas",
+    "replicate_for_local_training",
 ]

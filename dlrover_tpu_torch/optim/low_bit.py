@@ -31,20 +31,37 @@ and dequantize kernels, as the reference leaves those chains to XLA.
 State is built at construction (the reference's ``init``), through
 the quantize kernel.
 
-Sharded parameters (FSDP2's DTensors, ``Shard(0)`` over one mesh dim)
-keep the reference's *global* block grid: the reference quantizes the
-whole tensor flattened in blocks of ``block_size``, so here each rank
-holds the state rows of the blocks its contiguous slice of that
-flattening touches (:class:`ShardGrid`).  The blocks a rank holds whole
-go to the fused kernel as views of its shard and state.  A block that a
-shard boundary splits is gathered whole on every rank that shares it
-(one sum all-reduce a step over every split block of a process group),
-and each of those ranks steps the whole block in the same launch, from
-the same state, so that block's codes and scale are the reference's
-and alike on those ranks; each keeps its own elements of the new
-parameter.  Other placements (tensor parallel) come with slice 4.3 of
-the port.
-"""
+Sharded parameters (DTensors of any ``Shard``/``Replicate`` placement,
+FSDP2's, tensor parallelism's and both at once, the MoE experts') keep
+the reference's *global* block grid: the reference quantizes the whole
+tensor flattened in blocks of ``block_size``, so a block's scale is the
+absmax over every element of it, whichever ranks hold them.  Two
+layouts:
+
+- ``Shard(0)`` over one mesh dim at 8 bits (FSDP2 alone, a row-parallel
+  weight; a replicated DTensor as one slice, the whole;
+  :class:`ShardGrid`): a rank's shard is one contiguous slice of the
+  flattening, and it holds the state rows of the blocks that slice
+  touches.  The blocks it holds whole go to the fused kernel as views
+  of its shard and state; a block that a shard boundary splits is
+  gathered whole on every rank that shares it (one sum all-reduce a
+  step over every split block of a process group), and each of those
+  ranks steps the whole block from the same state, keeping its own
+  elements of the new parameter.
+- every other placement, and 4-bit state (:class:`PieceGrid`): the
+  shard is cut into pieces, each a run of its flat elements inside one
+  global block (a column-parallel shard's rows of ``out / t`` columns
+  split blocks between ranks everywhere, so gathering them would gather
+  whole matrices).  The codes sit at their element's place in the
+  shard and each touched block has one scale row.  A step runs the
+  split-block mode of the kernels in two launches: each rank's partial
+  absmax of the new moments per block, one max all-reduce a step over
+  the mesh dims that shard the parameters (a ``[global blocks, 2]``
+  buffer, 8 bytes a block), then each rank encodes its own elements
+  with the global scale (``ops.quantization.qadam_split_*``; at 4 bits
+  the absmax and quantize launches, with the dequantize launch before
+  them).  Codes and scales are the reference's bit for bit; the 4-bit
+  nibbles pair the shard's own consecutive elements."""
 
 from collections import defaultdict
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -55,8 +72,12 @@ import torch
 from dlrover_tpu_torch.common.device import is_dtensor
 from dlrover_tpu_torch.ops.quantization import (
     DEFAULT_BLOCK,
+    PIECE_DTYPE,
     SCALE_FLOOR,
+    PieceLayout,
+    absmax_pieces,
     bias_corrections,
+    dequantize_pieces,
     dequantize_blockwise,
     dequantize_blockwise_4bit,
     dequantize_blockwise_4bit_sqrt,
@@ -66,6 +87,9 @@ from dlrover_tpu_torch.ops.quantization import (
     quantize_blockwise,
     quantize_blockwise_4bit,
     quantize_blockwise_4bit_sqrt,
+    quantize_pieces,
+    qadam_split_absmax,
+    qadam_split_apply,
     reciprocal,
 )
 
@@ -95,22 +119,38 @@ class ShardGrid(NamedTuple):
     group: Any
 
 
+def _sharded_dims(p) -> List[int]:
+    """The mesh dims over which a DTensor is sharded; raises for a
+    placement that is neither a shard nor a replica (``Partial``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    dims = []
+    for i, pl in enumerate(p.placements):
+        if isinstance(pl, (Shard, _StridedShard)):
+            dims.append(i)
+        elif not isinstance(pl, Replicate):
+            raise ValueError(f"low-bit state of a parameter placed "
+                             f"{p.placements}: {pl} is not a shard")
+    return dims
+
+
 def shard_grid(p, block: int) -> Optional[ShardGrid]:
-    """The :class:`ShardGrid` of a DTensor parameter (None for a plain
-    one).  Shards follow ``torch.chunk`` over dim 0, as DTensor and
-    FSDP2 cut them."""
+    """The :class:`ShardGrid` of a DTensor parameter sharded on dim 0
+    over one mesh dim, or replicated over every one (its local tensor is
+    the whole; None for any other parameter).  Shards follow
+    ``torch.chunk`` over dim 0, as DTensor and FSDP2 cut them."""
     if not is_dtensor(p):
         return None
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Shard
 
-    dims = [i for i, pl in enumerate(p.placements) if isinstance(pl, Shard)]
-    if (len(dims) != 1 or p.placements[dims[0]].dim != 0
-            or any(not isinstance(pl, (Shard, Replicate))
-                   for pl in p.placements)):
-        raise NotImplementedError(
-            f"low-bit state of a parameter placed {p.placements}: only "
-            "Shard(0) over one mesh dim (FSDP2) keeps the global block grid; "
-            "the rest comes with slice 4.3 of the port")
+    dims = _sharded_dims(p)
+    if not dims:
+        total = p.numel()
+        return ShardGrid(0, total, 0, -(-total // block), (), 0, None)
+    if (len(dims) != 1 or type(p.placements[dims[0]]) is not Shard
+            or p.placements[dims[0]].dim != 0):
+        return None
     mesh_dim = dims[0]
     n = p.device_mesh.size(mesh_dim)
     r = p.device_mesh.get_local_rank(mesh_dim)
@@ -141,6 +181,166 @@ def _own_span(grid: ShardGrid, row: int, block: int) -> Tuple[int, int, int]:
     a = max(row * block - off, 0)
     b = min((row + 1) * block - off, grid.numel)
     return a, b, a + off - row * block
+
+
+class PieceGrid:
+    """Where a rank's shard of a DTensor lies on the global block grid,
+    by pieces (runs of its flat elements inside one global block):
+    the kernels' :class:`~dlrover_tpu_torch.ops.quantization.PieceLayout`,
+    the global block of each state row (``blocks``) and each piece's
+    global flat start (``starts``), the tensor's global block count,
+    and the process groups of the mesh dims that shard it."""
+
+    def __init__(self, layout: PieceLayout, blocks: np.ndarray,
+                 starts: np.ndarray, total_rows: int, groups: tuple):
+        self.layout, self.blocks, self.starts = layout, blocks, starts
+        self.total_rows, self.groups = total_rows, groups
+        self._index: Dict[Any, torch.Tensor] = {}
+
+    @property
+    def numel(self) -> int:
+        return self.layout.numel
+
+    @property
+    def rows(self) -> int:
+        return self.layout.rows
+
+    def block_index(self, device) -> torch.Tensor:
+        t = self._index.get(device)
+        if t is None:
+            t = torch.from_numpy(self.blocks).to(device)
+            self._index[device] = t
+        return t
+
+
+def _runs(shape, box) -> Tuple[np.ndarray, int]:
+    """The local box ``box`` of a row-major tensor of ``shape`` as runs
+    contiguous in the global flattening: their global starts, in the
+    box's own flat order, and their common length."""
+    local = [hi - lo for lo, hi in box]
+    strides = [int(np.prod(shape[d + 1:], dtype=np.int64))
+               for d in range(len(shape))]
+    cut = [d for d in range(len(shape)) if local[d] != shape[d]]
+    if not cut:
+        return np.zeros(1, np.int64), int(np.prod(local, dtype=np.int64))
+    k = cut[-1]
+    starts = np.array([box[k][0] * strides[k]], np.int64)
+    for d in range(k - 1, -1, -1):
+        here = (np.arange(local[d], dtype=np.int64) + box[d][0]) * strides[d]
+        starts = np.add.outer(here, starts).reshape(-1)
+    return starts, local[k] * strides[k]
+
+
+def box_pieces(shape, box, block: int):
+    """The pieces of the local ``box`` of a tensor of ``shape`` on the
+    global grid of ``block``: ``(table, blocks, starts)``, the
+    ``PIECE_DTYPE`` table in the box's flat order, the global block of
+    each state row and each piece's global flat start."""
+    if int(np.prod([hi - lo for lo, hi in box], dtype=np.int64)) == 0:
+        return (np.zeros(0, PIECE_DTYPE), np.zeros(0, np.int64),
+                np.zeros(0, np.int64))
+    starts, run = _runs(shape, box)
+    b0 = starts // block
+    count = (starts + run - 1) // block - b0 + 1
+    which = np.repeat(np.arange(len(starts)), count)
+    j = np.arange(len(which)) - np.repeat(np.cumsum(count) - count, count)
+    blk = b0[which] + j
+    g0 = np.maximum(starts[which], blk * block)
+    g1 = np.minimum(starts[which] + run, (blk + 1) * block)
+    blocks, rows = np.unique(blk, return_inverse=True)
+    table = np.zeros(len(blk), PIECE_DTYPE)
+    table["start"] = which * run + (g0 - starts[which])
+    table["len"] = g1 - g0
+    table["row"] = rows
+    return table, blocks, g0
+
+
+def piece_grid(p, block: int) -> PieceGrid:
+    """The :class:`PieceGrid` of a DTensor parameter: its local box (as
+    the sharded checkpoint reads it) cut by the global blocks."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    dims = _sharded_dims(p)
+    shape = tuple(int(d) for d in p.shape)
+    lshape, offset = compute_local_shape_and_global_offset(
+        p.shape, p.device_mesh, p.placements)
+    if tuple(p.to_local().shape) != tuple(int(n) for n in lshape):
+        raise ValueError(f"local tensor {tuple(p.to_local().shape)} is not "
+                         f"the shard {tuple(lshape)} of {p.placements}")
+    box = tuple((int(o), int(o) + int(n)) for o, n in zip(offset, lshape))
+    table, blocks, starts = box_pieces(shape, box, block)
+    numel = int(np.prod(lshape, dtype=np.int64))
+    total = -(-int(np.prod(shape, dtype=np.int64)) // block)
+    return PieceGrid(PieceLayout(table, numel, len(blocks)), blocks, starts,
+                     total, tuple(p.device_mesh.get_group(d) for d in dims))
+
+
+def reduce_rows_max(items: List[Tuple[PieceGrid, torch.Tensor]]):
+    """Max-reduce each grid's per-row maxima (``[rows, k]``, in place)
+    over the ranks that shard its parameter: one all-reduce a mesh dim
+    a group of parameters, over a ``[global blocks, k]`` buffer (0 where
+    a rank holds nothing of a block, below every absmax)."""
+    import torch.distributed as dist
+
+    by_groups: Dict[tuple, list] = {}
+    for grid, amax in items:
+        groups = tuple(g for g in grid.groups
+                       if dist.get_world_size(g) > 1)
+        if groups:
+            by_groups.setdefault(tuple(id(g) for g in groups),
+                                 (groups, []))[1].append((grid, amax))
+    for groups, entries in by_groups.values():
+        amax0 = entries[0][1]
+        buf = torch.zeros(sum(g.total_rows for g, _ in entries),
+                          amax0.shape[1], dtype=torch.float32,
+                          device=amax0.device)
+        index, base = [], 0
+        for grid, amax in entries:
+            idx = grid.block_index(amax.device) + base
+            buf.index_copy_(0, idx, amax)
+            index.append(idx)
+            base += grid.total_rows
+        for group in groups:
+            dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+        for (_, amax), idx in zip(entries, index):
+            amax.copy_(buf.index_select(0, idx))
+
+
+def _pack(q: torch.Tensor) -> torch.Tensor:
+    """Nibbles ``q`` (values 0..15, flat) two a byte, element ``2i`` low."""
+    q = q.to(torch.uint8)
+    if q.numel() % 2:
+        q = torch.cat([q, q.new_zeros(1)])
+    return q[0::2] | (q[1::2] << 4)
+
+
+def _unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
+    out = torch.stack([packed & 0xF, (packed >> 4) & 0xF], dim=-1)
+    return out.reshape(-1)[:n].to(torch.int8)
+
+
+def _local_flat(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor, flat, sharing its storage."""
+    local = t.to_local()
+    if not local.is_contiguous():
+        raise ValueError("low-bit state needs contiguous local shards")
+    return local.view(-1)
+
+
+def _adamw_fp32(p, g, mu0, nu0, bc1: float, bc2: float, *, b1, b2, eps,
+                lr, wd):
+    """The 4-bit step's dequant -> fp32 AdamW, in the reference's order
+    of operations: ``p`` updated in place, the new ``(mu, nu)`` returned
+    for requantization."""
+    g = g.float()
+    bc1, bc2 = device_scalar(bc1, g), device_scalar(bc2, g)
+    mu = b1 * mu0 + (1 - b1) * g
+    nu = b2 * nu0 + (1 - b2) * g * g
+    upd = -lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + eps) + wd * p.float())
+    p.add_(upd.to(p.dtype))
+    return mu, nu
 
 
 # nu-storage domain tag carried in the optimizer state: 1 = sqrt-domain
@@ -200,12 +400,37 @@ class _LowBitOptimizer(torch.optim.Optimizer):
             for p in group["params"]:
                 self._param_state(p)
 
+    # whether Shard(0) parameters take the ShardGrid layout at 8 bits
+    # (QAdamW's fused step reads it)
+    _shard_rows = False
+
+    def _layout(self, p):
+        """None (a plain tensor), a :class:`ShardGrid` or a
+        :class:`PieceGrid`, kept for the parameter's life."""
+        if not is_dtensor(p):
+            return None
+        grids = self.__dict__.setdefault("_grids", {})
+        grid = grids.get(id(p))
+        if grid is None:
+            if self._shard_rows and self.bits == 8:
+                grid = shard_grid(p, self.block_size)
+            if grid is None:
+                grid = piece_grid(p, self.block_size)
+            grids[id(p)] = grid
+        return grid
+
     def _init_state(self, p: torch.Tensor) -> Dict[str, Any]:
-        grid = shard_grid(p, self.block_size)
-        if grid is not None and self.bits != 8:
-            raise NotImplementedError(
-                "4-bit state of sharded parameters comes with slice 4.3 of "
-                "the port")
+        grid = self._layout(p)
+        if isinstance(grid, PieceGrid):
+            # the codes of zero moments at every row's floor scale
+            device = p.to_local().device
+            shapes = self._init_state_shapes(p)
+            st = {"step": 0}
+            for k, (shape, dtype) in shapes.items():
+                fill = SCALE_FLOOR if "scales" in k else (
+                    0x77 if (self.bits == 4 and k == "mu_values") else 0)
+                st[k] = torch.full(shape, fill, dtype=dtype, device=device)
+            return st
         shape = (grid.rows * self.block_size,) if grid else p.shape
         device = p.to_local().device if grid else p.device
         zeros = torch.zeros(shape, dtype=torch.float32, device=device)
@@ -276,18 +501,52 @@ class _LowBitOptimizer(torch.optim.Optimizer):
                 )
 
     def _init_state_shapes(self, p):
-        grid = shard_grid(p, self.block_size)
-        rows = grid.rows if grid else -(-p.numel() // self.block_size)
-        width = self.block_size if self.bits == 8 else self.block_size // 2
+        grid = self._layout(p)
         codes = torch.int8 if self.bits == 8 else torch.uint8
-        return {f"{m}_values": ((rows, width), codes) for m in ("mu", "nu")} | {
+        if isinstance(grid, PieceGrid):
+            n = grid.numel if self.bits == 8 else -(-grid.numel // 2)
+            values, rows = (n,), grid.rows
+        else:
+            rows = grid.rows if grid else -(-p.numel() // self.block_size)
+            values = (rows, self.block_size if self.bits == 8
+                      else self.block_size // 2)
+        return {f"{m}_values": (values, codes) for m in ("mu", "nu")} | {
             f"{m}_scales": ((rows, 1), torch.float32) for m in ("mu", "nu")
         }
+
+    def _piece_moments(self, st, grid: PieceGrid):
+        """The dequantized moments of a :class:`PieceGrid` state, flat
+        fp32: ``(mu, nu)`` (nu from the sqrt domain)."""
+        n, layout = grid.numel, grid.layout
+        qm, qn = st["mu_values"], st["nu_values"]
+        if self.bits == 4:
+            qm, qn = _unpack(qm, n) - 7, _unpack(qn, n)
+        mu = dequantize_pieces(qm, st["mu_scales"], layout)
+        s = dequantize_pieces(qn, st["nu_scales"], layout)
+        return mu, s * s
+
+    def _store_piece_moments(self, st, grid: PieceGrid, mu, nu):
+        """Quantize flat fp32 moments into a :class:`PieceGrid` state on
+        the global grid: the absmax of each, one max-reduce, the codes."""
+        layout = grid.layout
+        y = torch.sqrt(torch.clamp_min(nu, 0.0))
+        amax = torch.stack([absmax_pieces(mu, layout),
+                            absmax_pieces(y, layout)], dim=1)
+        reduce_rows_max([(grid, amax)])
+        qmax_mu, qmax_nu = (127.0, 127.0) if self.bits == 8 else (7.0, 15.0)
+        qm, st["mu_scales"] = quantize_pieces(mu, layout, amax[:, 0],
+                                              qmax_mu)
+        qn, st["nu_scales"] = quantize_pieces(y, layout, amax[:, 1], qmax_nu)
+        if self.bits == 4:
+            qm, qn = _pack(qm + 7), _pack(qn)
+        st["mu_values"], st["nu_values"] = qm, qn
 
 
 class QAdamW(_LowBitOptimizer):
     """AdamW with int8 (fused CUDA step) or int4 (packed nibbles)
     moments; the reference's ``q_adamw``."""
+
+    _shard_rows = True
 
     def __init__(self, params, lr: float = 1e-3, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
@@ -325,7 +584,7 @@ class QAdamW(_LowBitOptimizer):
             hyper = dict(b1=group["b1"], b2=group["b2"], eps=group["eps"],
                          lr=group["lr"], wd=group["weight_decay"])
             corrections = {}  # step count -> (bc1, bc2)
-            leaves, shards = [], []
+            leaves, shards, pieces = [], [], []
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -335,8 +594,14 @@ class QAdamW(_LowBitOptimizer):
                     corrections[st["step"]] = bias_corrections(
                         hyper["b1"], hyper["b2"], st["step"])
                 bc1, bc2 = corrections[st["step"]]
-                grid = shard_grid(p, self.block_size)
-                if grid is not None:
+                grid = self._layout(p)
+                if isinstance(grid, PieceGrid):
+                    if self.bits == 8:
+                        pieces.append((p, st, grid, bc1, bc2))
+                    else:
+                        self._step_4bit_pieces(p, st, grid, bc1, bc2,
+                                               **hyper)
+                elif grid is not None:
                     leaves += self._whole_rows_leaf(p, st, grid, bc1, bc2)
                     if grid.n_split:
                         shards.append((p, st, grid, bc1, bc2))
@@ -353,7 +618,34 @@ class QAdamW(_LowBitOptimizer):
                                       state_checked=True, **hyper)
             for dst, src in own:
                 dst.copy_(src)
+            self._step_pieces(pieces, hyper)
         return loss
+
+    @staticmethod
+    def _step_pieces(pieces, hyper):
+        """The 8-bit split-block step of every :class:`PieceGrid`
+        parameter of a group: the first launch of each, one max-reduce
+        of all their block maxima, the second launch of each."""
+        args, maxima = [], []
+        for p, st, grid, bc1, bc2 in pieces:
+            a = (_local_flat(p), p.grad.to_local().reshape(-1).contiguous(),
+                 st["mu_values"], st["mu_scales"], st["nu_values"],
+                 st["nu_scales"], grid.layout)
+            args.append(a)
+            maxima.append(qadam_split_absmax(*a, bc1, bc2, **hyper))
+        reduce_rows_max([(grid, amax) for (_, _, grid, _, _), amax
+                         in zip(pieces, maxima)])
+        for (_, st, _, bc1, bc2), a, amax in zip(pieces, args, maxima):
+            st["mu_scales"], st["nu_scales"] = qadam_split_apply(
+                *a, amax, bc1, bc2, **hyper)
+
+    def _step_4bit_pieces(self, p, st, grid, bc1, bc2, **hyper):
+        # the 4-bit step of _step_4bit over the shard's own elements
+        local = _local_flat(p)
+        mu, nu = _adamw_fp32(local, p.grad.to_local().reshape(-1),
+                             *self._piece_moments(st, grid), bc1, bc2,
+                             **hyper)
+        self._store_piece_moments(st, grid, mu, nu)
 
     @staticmethod
     def _state_rows(st, rows: slice):
@@ -417,16 +709,10 @@ class QAdamW(_LowBitOptimizer):
                 own.append((local[a:b], whole[0, col:col + b - a]))
         return leaves, own
 
-    def _step_4bit(self, p, g, st, bc1, bc2, *, b1, b2, eps, lr, wd):
-        # dequant -> fp32 AdamW -> requant, the reference's op order
-        g = g.float()
-        bc1, bc2 = device_scalar(bc1, g), device_scalar(bc2, g)
+    def _step_4bit(self, p, g, st, bc1, bc2, **hyper):
         qm, qn = self._moments(st)
-        mu = b1 * self._dqmu(qm, g.shape) + (1 - b1) * g
-        nu = b2 * self._dqnu(qn, g.shape) + (1 - b2) * g * g
-        upd = -lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-                     + wd * p.float())
-        p.add_(upd.to(p.dtype))
+        mu, nu = _adamw_fp32(p, g, self._dqmu(qm, g.shape),
+                             self._dqnu(qn, g.shape), bc1, bc2, **hyper)
         (st["mu_values"], st["mu_scales"]), (st["nu_values"],
                                              st["nu_scales"]) = (
             self._qmu(mu), self._qnu(nu))
@@ -469,20 +755,31 @@ class QAGD(_LowBitOptimizer):
         sqrt_bc2 = np.sqrt(f32(bc2))
         floor = float(f32(group["delta"]) * sqrt_bc2)
         coef = float(sqrt_bc2 / f32(bc1))
-        g = self._grad(p).float()
-        qm, qn = self._moments(st)
-        m_old = self._dqmu(qm, g.shape)
+        grid = self._layout(p)
+        if grid is not None:
+            target = _local_flat(p)
+            g = p.grad.to_local().reshape(-1).float()
+            m_old, v_old = self._piece_moments(st, grid)
+        else:
+            target = p
+            g = self._grad(p).float()
+            qm, qn = self._moments(st)
+            m_old = self._dqmu(qm, g.shape)
+            v_old = self._dqnu(qn, g.shape)
         m_new = b1 * m_old + (1 - b1) * g
         if count == 1:
             diff = m_new / device_scalar(bc1, g)
         else:
             diff = (m_new / device_scalar(bc1, g)
                     - m_old / device_scalar(bc1_old, g))
-        v_new = b2 * self._dqnu(qn, g.shape) + (1 - b2) * diff * diff
+        v_new = b2 * v_old + (1 - b2) * diff * diff
         denom = torch.clamp_min(torch.sqrt(v_new), floor) + group["eps"]
         upd = -group["lr"] * (coef * m_new / denom
-                              + group["weight_decay"] * p.float())
-        p.add_(upd.to(p.dtype))
+                              + group["weight_decay"] * target.float())
+        target.add_(upd.to(target.dtype))
+        if grid is not None:
+            self._store_piece_moments(st, grid, m_new, v_new)
+            return
         (st["mu_values"], st["mu_scales"]), (st["nu_values"],
                                              st["nu_scales"]) = (
             self._qmu(m_new), self._qnu(v_new))

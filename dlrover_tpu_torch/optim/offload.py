@@ -17,12 +17,17 @@ The inner optimizer creates a chunk's state on the card at its first
 step and it goes to the host at once, so the full moments never sit on
 the card, at init or later (the reference's promise).  Scalars (step
 counts) stay where the inner optimizer keeps them.  On the CPU the
-host is the device: the chunks step with no copies.  Parameters that
-are DTensors (FSDP2, tensor parallel) are not offloaded yet: sharded
-states come with slice 4.3 of the port.
+host is the device: the chunks step with no copies.
+
+Parameters that are DTensors (FSDP2, tensor parallel, the MoE experts)
+are offloaded by shard: between steps each rank keeps only the local
+tensor of a DTensor state in its pinned host buffer (no gather), and
+the state goes back to the inner optimizer as a DTensor over the same
+mesh, placements, shape and stride (:func:`host_shard`,
+:func:`device_shard`).  Chunks are sized by the local shards.
 """
 
-from typing import Dict, List
+from typing import Any, Dict, List, NamedTuple
 
 import torch
 
@@ -31,15 +36,44 @@ from dlrover_tpu_torch.common.device import is_dtensor
 DEFAULT_CHUNK_BYTES = 256 * 2**20
 
 
+class HostShard(NamedTuple):
+    """A DTensor state offloaded by shard: its local tensor in host
+    memory and what rebuilds the DTensor around it."""
+
+    local: torch.Tensor
+    mesh: Any
+    placements: tuple
+    shape: torch.Size
+    stride: tuple
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_dtensor(t) else t
+
+
+def host_shard(v: torch.Tensor, buf: torch.Tensor) -> HostShard:
+    """Queue the copy of DTensor ``v``'s local tensor into ``buf`` (a
+    host tensor of its shape and dtype) and describe the DTensor."""
+    buf.copy_(v.to_local(), non_blocking=True)
+    return HostShard(buf, v.device_mesh, tuple(v.placements), v.shape,
+                     tuple(v.stride()))
+
+
+def device_shard(h: HostShard, device) -> torch.Tensor:
+    """The DTensor of a :class:`HostShard` with its local tensor
+    queued to ``device``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(h.local.to(device, non_blocking=True),
+                              h.mesh, h.placements, run_check=False,
+                              shape=h.shape, stride=h.stride)
+
+
 class Offload(torch.optim.Optimizer):
     """``inner`` with its state in (pinned) host memory between steps."""
 
     def __init__(self, inner: torch.optim.Optimizer):
         params = [p for g in inner.param_groups for p in g["params"]]
-        if any(is_dtensor(p) for p in params):
-            raise NotImplementedError(
-                "offloading the state of sharded (DTensor) parameters comes "
-                "with slice 4.3 of the port")
         super().__init__(params, {})
         self.inner = inner
         self.chunk_bytes = DEFAULT_CHUNK_BYTES
@@ -74,7 +108,7 @@ class Offload(torch.optim.Optimizer):
         chunks, cur, size = [], [], 0
         for p in params:
             # the state of an Adam-family optimizer: two fp32 moments
-            nbytes = 2 * p.numel() * 4
+            nbytes = 2 * _local(p).numel() * 4
             if cur and size + nbytes > self.chunk_bytes:
                 chunks.append(cur)
                 cur, size = [], 0
@@ -86,7 +120,8 @@ class Offload(torch.optim.Optimizer):
 
     def _offloaded(self, p, st):
         return [(k, v) for k, v in st.items()
-                if torch.is_tensor(v) and v.dim() > 0]
+                if isinstance(v, HostShard)
+                or (torch.is_tensor(v) and v.dim() > 0)]
 
     def _to_device(self, chunk, stream):
         """Queue the chunk's state host->card on ``stream``; returns the
@@ -97,7 +132,9 @@ class Offload(torch.optim.Optimizer):
                 if not st:
                     continue
                 for k, v in self._offloaded(p, st):
-                    if v.device != p.device:
+                    if isinstance(v, HostShard):
+                        st[k] = device_shard(v, p.device)
+                    elif v.device != p.device:
                         st[k] = v.to(p.device, non_blocking=True)
             return stream.record_event()
 
@@ -111,18 +148,22 @@ class Offload(torch.optim.Optimizer):
                     continue
                 host = self._host.setdefault(id(p), {})
                 for k, v in self._offloaded(p, st):
-                    if v.device.type != "cuda":
+                    if isinstance(v, HostShard) or v.device.type != "cuda":
                         continue
+                    local = _local(v)
                     buf = host.get(k)
-                    if buf is None or buf.shape != v.shape:
-                        buf = torch.empty(v.shape, dtype=v.dtype,
+                    if buf is None or buf.shape != local.shape:
+                        buf = torch.empty(local.shape, dtype=local.dtype,
                                           pin_memory=True)
                         host[k] = buf
-                    buf.copy_(v, non_blocking=True)
+                    if is_dtensor(v):
+                        st[k] = host_shard(v, buf)
+                    else:
+                        buf.copy_(v, non_blocking=True)
+                        st[k] = buf
                     # the device copy is freed here: keep its memory until
                     # the side stream has read it
-                    v.record_stream(stream)
-                    st[k] = buf
+                    local.record_stream(stream)
 
     def _step_chunk(self, chunk):
         ids = {id(p) for p in chunk}
@@ -172,8 +213,16 @@ class Offload(torch.optim.Optimizer):
             self._side.synchronize()
 
     def state_dict(self):
+        """The inner optimizer's state dict; a DTensor state offloaded by
+        shard comes back as the DTensor, its local tensor on the card."""
         self._synchronize()
-        return self.inner.state_dict()
+        sd = self.inner.state_dict()
+        params = [p for g in self.param_groups for p in g["params"]]
+        sd["state"] = {i: {k: (device_shard(v, params[i].device)
+                               if isinstance(v, HostShard) else v)
+                           for k, v in st.items()}
+                       for i, st in sd["state"].items()}
+        return sd
 
     def load_state_dict(self, state_dict):
         self._synchronize()

@@ -21,15 +21,23 @@ semantics by hand (:class:`MoEMLP` over a mesh, attached by
   factor is the rank's own, so the mean of the ranks' aux losses (the
   data-parallel average every loss and gradient takes) is the
   reference's aux loss and its gradient;
+- the expert kernels are DTensors placed as ``moe_rules`` places them
+  (:func:`attach_mesh`): ``Shard(0)`` over ``expert`` and, under tensor
+  parallelism, their tensor dim over ``tensor`` (FSDP2 adds ``fsdp``),
+  so the sharded flash checkpoint saves each rank's box of them and
+  restores it at another expert world, as any other DTensor;
 - the batch is replicated over the ``expert`` axis (the reference's
   ``batch_spec`` is ``("data", "fsdp")``), so every rank of an expert
   group holds the same tokens and gating: each dispatches only to its
-  ``e / ep`` experts (its ``[e / ep, c, d]`` slice), runs them, and the
-  outputs are all-gathered over the group (the all-to-all of split
-  tokens reduces to that when the tokens are replicated); the backward
-  takes the rank's slice of the gathered gradient and all-reduces the
-  tokens' ``[t, d]`` gradient from its experts over the group, so every
-  rank ends with the same gradients outside the experts.
+  ``e / ep`` experts (its ``[e / ep, c, d]`` slice), runs them on the
+  kernels' local tensors (their tensor dim gathered first: the tokens
+  are replicated over ``tensor`` too, so every tensor rank runs its
+  experts whole), and the outputs are all-gathered over the group (the
+  all-to-all of split tokens reduces to that when the tokens are
+  replicated); the backward takes the rank's slice of the gathered
+  gradient and all-reduces the tokens' ``[t, d]`` gradient from its
+  experts over the group, so every rank ends with the same gradients
+  outside the experts.
 
 The dispatch and combine stay einsums, as in the reference (no kernel
 computes them).  :func:`collect_moe_aux_loss` sums the aux loss each
@@ -42,9 +50,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dlrover_tpu_torch.common.device import is_dtensor
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.parallel.sharding import (
     TOKEN_AXES,
+    sum_grad_over,
     token_indices,
     token_shard,
 )
@@ -152,24 +162,6 @@ class _GatherExperts(torch.autograd.Function):
         return grad[lo:lo + ctx.n], None, None
 
 
-class _SumGradOver(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over ``group``
-    (each rank's experts give only their part of the tokens' gradient)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        import torch.distributed as dist
-
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
 class MoEMLP(nn.Module):
     """Expert-parallel MLP block (drop-in for the dense MLP).
 
@@ -179,8 +171,9 @@ class MoEMLP(nn.Module):
     ``experts_w_gate`` ``[e, d, h]``; without it the experts apply
     GELU.  ``no_drop`` lifts the capacity to the tokens (up to 2048
     for one-token steps, 512 otherwise) as the reference's decode mode
-    does.  Under expert parallelism (:meth:`shard_experts`) the expert
-    kernels hold this rank's ``e / ep`` experts."""
+    does.  Under expert parallelism (:meth:`distribute_experts`) the
+    expert kernels are DTensors whose local tensors hold this rank's
+    ``e / ep`` experts."""
 
     def __init__(self, num_experts: int, hidden_dim: int, mlp_dim: int,
                  top_k: int = 2, capacity_factor: float = 1.25,
@@ -214,22 +207,55 @@ class MoEMLP(nn.Module):
         names = ("experts_w_in", "experts_w_gate", "experts_w_out")
         return [n for n in names if hasattr(self, n)]
 
-    def shard_experts(self, mesh):
-        """Keep this rank's slice of the expert kernels over the mesh's
-        ``expert`` axis (the leading expert dim, as ``moe_rules``
-        places it)."""
+    def distribute_experts(self, mesh, placements=None):
+        """Make the expert kernels DTensors over the mesh's ``expert``
+        and ``tensor`` axes (those larger than 1): ``Shard(0)`` over
+        ``expert`` (the leading expert dim, as ``moe_rules`` places it)
+        and over ``tensor`` the placement ``placements`` (``{kernel
+        name: placements over TORCH_AXES}``) gives, else replicated."""
+        from torch.distributed.tensor import (
+            Replicate,
+            Shard,
+            distribute_tensor,
+        )
+
+        from dlrover_tpu_torch.parallel.mesh import TORCH_AXES
+
         ep = mesh.shape["expert"]
         if self.num_experts % ep:
             raise ValueError(f"{self.num_experts} experts do not shard "
                              f"over an expert axis of {ep}")
-        rank = mesh.coordinate()["expert"]
-        per = self.num_experts // ep
+        axes = tuple(a for a in ("expert", "tensor") if mesh.shape[a] > 1)
+        if not axes:
+            return
+        sub = mesh[axes]
         for name in self.expert_kernels():
             w = getattr(self, name)
+            pl = (placements or {}).get(name)
+            tensor = pl[TORCH_AXES.index("tensor")] if pl else Replicate()
+            spec = [Shard(0) if a == "expert" else
+                    (tensor if isinstance(tensor, Shard) else Replicate())
+                    for a in axes]
             setattr(self, name, nn.Parameter(
-                w.detach()[rank * per:(rank + 1) * per].clone(),
+                distribute_tensor(w.detach(), sub, spec),
                 requires_grad=w.requires_grad))
-        self.expert_group, self.expert_rank = mesh.group("expert"), rank
+        if ep > 1:
+            self.expert_group = mesh.group("expert")
+            self.expert_rank = mesh.coordinate()["expert"]
+
+    def _kernel(self, name: str) -> torch.Tensor:
+        """An expert kernel as the dispatch reads it: this rank's experts
+        whole (its tensor dim gathered when the tensor axis splits it)."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        w = getattr(self, name)
+        if not is_dtensor(w):
+            return w
+        want = [pl if (isinstance(pl, Shard) and pl.dim == 0)
+                else Replicate() for pl in w.placements]
+        if list(w.placements) != want:
+            w = w.redistribute(placements=want)
+        return w.to_local()
 
     def _capacity(self, t: int, s: int) -> int:
         capacity = max(1, int(self.top_k * t * self.capacity_factor
@@ -262,25 +288,25 @@ class MoEMLP(nn.Module):
                                               capacity, group)
         self.aux_loss = aux
         tokens = tokens_in.to(dtype)
+        w_in = self._kernel("experts_w_in")
         if self.expert_group is not None:
             # this rank's experts' slots only; the tokens' gradient from
             # each rank's experts is summed over the group
-            per = self.experts_w_in.shape[0]
+            per = w_in.shape[0]
             lo = self.expert_rank * per
             dispatch = dispatch[:, lo:lo + per]
-            tokens = _SumGradOver.apply(tokens, self.expert_group)
+            tokens = sum_grad_over(tokens, self.expert_group)
         expert_in = torch.einsum("tec,td->ecd", dispatch.to(dtype), tokens)
-        h = torch.einsum("ecd,edh->ech", expert_in,
-                         self.experts_w_in.to(dtype))
+        h = torch.einsum("ecd,edh->ech", expert_in, w_in.to(dtype))
         if self.gated:
             gate_h = torch.einsum("ecd,edh->ech", expert_in,
-                                  self.experts_w_gate.to(dtype))
+                                  self._kernel("experts_w_gate").to(dtype))
             h = F.silu(gate_h) * h
         else:
             # flax nn.gelu defaults to the tanh approximation
             h = F.gelu(h, approximate="tanh")
         expert_out = torch.einsum("ech,ehd->ecd", h,
-                                  self.experts_w_out.to(dtype))
+                                  self._kernel("experts_w_out").to(dtype))
         if self.expert_group is not None:
             expert_out = _GatherExperts.apply(expert_out, self.expert_group,
                                               self.expert_rank)
@@ -288,26 +314,20 @@ class MoEMLP(nn.Module):
         return out.reshape(b, s, d)
 
 
-def attach_mesh(model: nn.Module, mesh) -> nn.Module:
+def attach_mesh(model: nn.Module, mesh, placements=None) -> nn.Module:
     """Point every :class:`MoEMLP` of ``model`` at ``mesh``: gating over
-    the global tokens of its token axes, and the expert kernels sharded
-    when its ``expert`` axis is larger than 1."""
-    for module in model.modules():
+    the global tokens of its token axes, and the expert kernels made
+    DTensors over its ``expert`` and ``tensor`` axes
+    (:meth:`MoEMLP.distribute_experts`; ``placements`` maps parameter
+    names to their placements over ``TORCH_AXES``)."""
+    for prefix, module in model.named_modules():
         if isinstance(module, MoEMLP):
             module.mesh = mesh
-            if mesh.shape["expert"] > 1:
-                module.shard_experts(mesh)
+            mine = {n: (placements or {}).get(
+                f"{prefix}.{n}" if prefix else n)
+                for n in module.expert_kernels()}
+            module.distribute_experts(mesh, mine)
     return model
-
-
-def expert_sharded(model: nn.Module) -> list:
-    """The names of ``model``'s expert kernels that hold one rank's
-    slice of the experts (read from the layers, which FSDP2's wrapping
-    keeps, not from the parameters, which it replaces)."""
-    return [f"{prefix}.{name}" if prefix else name
-            for prefix, module in model.named_modules()
-            if isinstance(module, MoEMLP) and module.expert_group is not None
-            for name in module.expert_kernels()]
 
 
 def collect_moe_aux_loss(model: nn.Module) -> torch.Tensor:

@@ -17,12 +17,19 @@ dim the axis sizes do not divide.  FSDP2's ``fully_shard`` applies the
 ``fsdp`` axis and DTensor the ``tensor`` axis
 (:mod:`dlrover_tpu_torch.accel.accelerate`).
 
-``moe_rules`` places the expert kernels' leading dim on ``expert``,
-which :func:`dlrover_tpu_torch.parallel.moe.attach_mesh` applies (each
-rank keeps its slice of the experts as plain parameters);
+``moe_rules`` places the expert kernels on ``("expert", "fsdp",
+"tensor")``; :func:`dlrover_tpu_torch.parallel.moe.attach_mesh` makes
+them DTensors over the expert and tensor axes (FSDP2 adds fsdp).
+``gpt_tp_rules``' vocab-parallel ``wte`` and ``lm_head`` are split by
+vocab over the tensor axis (:func:`apply_tensor_parallel`):
+:func:`vocab_parallel_embedding` looks each token up on the rank that
+holds its row and sums over the tensor group, :func:`vocab_logits`
+gives logits sharded on vocab, which the losses of
+:mod:`dlrover_tpu_torch.models.losses` reduce without gathering them.
 ``pipeline_rules`` is copied as data until slice 5.3 of the port.
 """
 
+import functools
 import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Sequence, Tuple, Union
@@ -331,26 +338,147 @@ def _dense_style(colwise: bool):
 
 
 def apply_tensor_parallel(model, mesh, placements: Mapping[str, tuple]):
-    """Shard the Dense layers of the transformer blocks over the tensor
-    axis as the placements say (``Shard(1)`` column, ``Shard(0)`` row
-    parallel).  The vocab-parallel embedding and head of
-    :func:`gpt_tp_rules` run replicated over the tensor axis: every
-    tensor rank computes the same residual stream, so their gradients
-    agree without a collective (their fsdp placement stands)."""
-    from torch.distributed.tensor import Shard
+    """Shard the model over the tensor axis as the placements say: the
+    Dense layers column (``Shard(1)``, ``lm_head`` included: its logits
+    come out sharded on vocab) or row (``Shard(0)``) parallel, and an
+    embedding table split by vocab (``Shard(0)``, ``wte``; its lookup is
+    :func:`vocab_parallel_embedding`, a tied head over it
+    :func:`vocab_logits`).  Everything else stays replicated over the
+    tensor axis, and every tensor rank computes the same residual
+    stream.  The MoE experts take their tensor dim in
+    :func:`dlrover_tpu_torch.parallel.moe.attach_mesh`."""
+    from torch import nn
+    from torch.distributed.tensor import Shard, distribute_tensor
     from torch.distributed.tensor.parallel import parallelize_module
 
     i = TORCH_AXES.index("tensor")
     tp_plan = {}
     for name, module in model.named_modules():
         pl = placements.get(f"{name}.weight")
-        if (pl is None or ".blocks." not in f".{name}."
-                or not hasattr(module, "in_features")):
+        if pl is None or not isinstance(pl[i], Shard):
             continue
-        if isinstance(pl[i], Shard) and pl[i].dim in (0, 1):
+        if isinstance(module, nn.Embedding) and pl[i].dim == 0:
+            module.weight = nn.Parameter(
+                distribute_tensor(module.weight.detach(), mesh["tensor"],
+                                  [Shard(0)]),
+                requires_grad=module.weight.requires_grad)
+        elif hasattr(module, "in_features") and pl[i].dim in (0, 1):
             tp_plan[name] = _dense_style(colwise=pl[i].dim == 1)
     parallelize_module(model, mesh["tensor"], tp_plan)
     return model
+
+
+def vocab_shard(weight, dim: int):
+    """``(local, group, start)`` of a table split by vocab on ``dim`` over
+    a one-dim tensor mesh (the tensor-parallel ``wte`` and ``lm_head``,
+    as forwards see them), else None: the rank's rows (columns), the
+    tensor group and the first vocab id it holds."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    from dlrover_tpu_torch.common.device import is_dtensor
+
+    if not is_dtensor(weight) or weight.device_mesh.ndim != 1:
+        return None
+    pl = weight.placements[0]
+    if not (isinstance(pl, Shard) and pl.dim == dim):
+        return None
+    _, offset = compute_local_shape_and_global_offset(
+        weight.shape, weight.device_mesh, weight.placements)
+    return (weight.to_local(), weight.device_mesh.get_group(0),
+            int(offset[dim]))
+
+
+@functools.lru_cache(maxsize=None)
+def _sum_grad_over():
+    import torch
+
+    class SumGradOver(torch.autograd.Function):
+        """Identity forward; the backward sums the gradient over
+        ``group`` (each rank's part of a split computation gives only
+        its part of the input's gradient)."""
+
+        @staticmethod
+        def forward(ctx, x, group):
+            ctx.group = group
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, grad):
+            import torch.distributed as dist
+
+            grad = grad.contiguous().clone()
+            dist.all_reduce(grad, group=ctx.group)
+            return grad, None
+
+    return SumGradOver
+
+
+def sum_grad_over(x, group):
+    """``x`` as it is, its gradient summed over ``group``."""
+    return _sum_grad_over().apply(x, group)
+
+
+@functools.lru_cache(maxsize=None)
+def _sum_over():
+    import torch
+
+    class SumOver(torch.autograd.Function):
+        """Sum over ``group`` forward; the gradient of a replicated
+        output passes to each rank's part as it is."""
+
+        @staticmethod
+        def forward(ctx, x, group):
+            import torch.distributed as dist
+
+            x = x.clone()
+            dist.all_reduce(x, group=group)
+            return x
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad, None
+
+    return SumOver
+
+
+def vocab_parallel_embedding(tokens, weight):
+    """``F.embedding(tokens, weight)`` for a table split by vocab over
+    the tensor axis: each rank looks up the tokens whose rows it holds
+    (zeros for the rest) and the rows are summed over the tensor group,
+    so every rank gets the whole lookup; each rank's gradient lands on
+    its own rows.  A table that is not split is looked up as it is."""
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.common.device import is_dtensor
+
+    shard = vocab_shard(weight, 0)
+    if shard is None:
+        return F.embedding(tokens,
+                           weight.to_local() if is_dtensor(weight) else weight)
+    local, group, start = shard
+    ids = tokens - start
+    inside = (ids >= 0) & (ids < local.shape[0])
+    rows = F.embedding(ids.clamp(0, local.shape[0] - 1), local)
+    rows = rows * inside[..., None].to(rows.dtype)
+    return _sum_over().apply(rows, group)
+
+
+def vocab_logits(x, weight, transpose: bool):
+    """``x @ weight`` (``weight.t()`` with ``transpose``, a tied
+    ``[vocab, hid]`` table) as a DTensor sharded on vocab when the table
+    is split by vocab over the tensor axis: ``x`` enters as replicated,
+    and its gradient is summed over the tensor group by DTensor.  A
+    plain table gives plain logits."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if vocab_shard(weight, 0 if transpose else 1) is None:
+        return x @ (weight.t() if transpose else weight)
+    xd = DTensor.from_local(x, weight.device_mesh, [Replicate()],
+                            run_check=False)
+    return xd @ (weight.t() if transpose else weight)
 
 
 def apply_fsdp(model, mesh, reshard_after_forward: bool = True):
@@ -358,14 +486,40 @@ def apply_fsdp(model, mesh, reshard_after_forward: bool = True):
     each transformer block is its own unit, the root holds the rest.
     FSDP2 shards dim 0 of every parameter of a unit (padding a dim the
     axis does not divide) and gathers it before the unit's forward, so
-    the kernels see plain tensors."""
-    from torch.distributed.fsdp import fully_shard
+    the kernels see plain tensors.  The root's parameters stay gathered
+    from its forward to its backward: a loss that applies the head
+    itself (``chunked_loss_fn`` over ``return_hidden``) reads them after
+    the forward, and its gradient must land on the gathered parameter,
+    which FSDP2 reduces, not on the shard.  FSDP2 gathers a unit in one
+    dtype, so a layer whose parameters keep another dtype than the rest
+    of its unit (the fp32 norms beside bf16 weights, ``half``) is a unit
+    of its own."""
+    from torch.distributed.fsdp import FSDPModule, fully_shard
 
     fsdp_mesh = (mesh[("data", "fsdp")] if mesh.shape["data"] > 1
                  else mesh["fsdp"])
+
+    def wrap(unit, reshard):
+        wrapped = {id(p) for sub in unit.modules()
+                   if sub is not unit and isinstance(sub, FSDPModule)
+                   for p in sub.parameters()}
+        # the dtype of most of the unit's elements (the norms' few fp32
+        # ones go to units of their own)
+        sizes: Dict[Any, int] = {}
+        for p in unit.parameters():
+            if id(p) not in wrapped:
+                sizes[p.dtype] = sizes.get(p.dtype, 0) + p.numel()
+        main = max(sizes, key=sizes.get) if sizes else None
+        for sub in unit.modules():
+            own = [p for p in sub.parameters(recurse=False)
+                   if id(p) not in wrapped]
+            if sub is not unit and own and all(p.dtype != main
+                                               for p in own):
+                fully_shard(sub, mesh=fsdp_mesh,
+                            reshard_after_forward=reshard)
+        fully_shard(unit, mesh=fsdp_mesh, reshard_after_forward=reshard)
+
     for block in getattr(model, "blocks", []):
-        fully_shard(block, mesh=fsdp_mesh,
-                    reshard_after_forward=reshard_after_forward)
-    fully_shard(model, mesh=fsdp_mesh,
-                reshard_after_forward=reshard_after_forward)
+        wrap(block, reshard_after_forward)
+    wrap(model, False)
     return model

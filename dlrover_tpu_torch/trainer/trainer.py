@@ -22,9 +22,8 @@ the plan is built first and the checkpoint restored onto it: the params
 come back through ``load_checkpoint(target_state=...)`` onto the built
 model's own tensors, so a plan that shards them (DTensors under FSDP2
 or tensor parallelism) saves through the sharded checkpoint (each rank
-its own shard file) and resumes resharded, at any world size.  A plan
-that shards the MoE experts over the ``expert`` axis raises before its
-first step: their checkpoint is not ported yet.
+its own shard file) and resumes resharded, at any world size; the MoE
+experts of an expert-parallel plan are such DTensors too.
 """
 
 import time
@@ -42,7 +41,6 @@ from dlrover_tpu_torch.checkpoint.checkpointer import (
 )
 from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
-from dlrover_tpu_torch.parallel.moe import expert_sharded
 from dlrover_tpu_torch.telemetry.events import emit_event, set_event_source
 from dlrover_tpu_torch.telemetry.metrics import get_registry
 from dlrover_tpu_torch.trainer.elastic_trainer import (
@@ -248,14 +246,6 @@ class Trainer:
         data_iter = iter(self.train_data)
         batch = next(data_iter)
         self._build(0, batch)
-        sliced = expert_sharded(self.model)
-        if sliced:
-            # every run saves (the final save at least), and a rank's
-            # slice of the experts saved as a whole leaf would restore
-            # one rank's experts on every rank
-            raise NotImplementedError(
-                f"{sliced[0]}: a flash checkpoint of expert-sharded MoE "
-                "state is not ported yet")
         # a plan whose params are DTensors persists every rank's shard
         sharded = any(is_dtensor(p) for p in self.model.parameters())
         self._checkpointer = Checkpointer(self.args.output_dir,

@@ -688,11 +688,14 @@ def test_mixtral_moe_llama_forward_and_params():
 
 
 MIXTRAL_STEPS = 4
+# the expert-mesh twin's plans: expert 2 with data 2, and with tensor 2
+MIXTRAL_PLANS = {"expert2_data2": {"expert": 2, "data": -1},
+                 "expert2_tensor2": {"expert": 2, "tensor": 2, "data": -1}}
 
 
 def _mixtral_worker(rank, world, port, in_path, out_path):
-    """One gloo rank of the expert-mesh twin: ``auto_accelerate`` with
-    ``mixed_parallel(expert 2, data -1)`` over four ranks."""
+    """One gloo rank of the expert-mesh twins: ``auto_accelerate`` with
+    each of ``MIXTRAL_PLANS`` over four ranks."""
     import pickle
 
     import torch.distributed as dist
@@ -705,41 +708,44 @@ def _mixtral_worker(rank, world, port, in_path, out_path):
                             world_size=world, rank=rank)
     with open(in_path, "rb") as f:
         job = pickle.load(f)
-    model = port_llama.Llama(port_llama.LlamaConfig.tiny(
-        moe_experts=2, moe_every=2), device="cpu")
-    model.load_state_dict(params_from_jax(job["params"]))
 
     def loss_fn(module, batch):
         ce = port_gpt.cross_entropy_loss(module(batch["x"]), batch["y"])
         return ce + 0.01 * collect_moe_aux_loss(module)
 
-    res = auto_accelerate(
-        model, lambda ps: torch.optim.AdamW(ps, lr=1e-3, weight_decay=1e-4),
-        loss_fn, job["batch"], strategy=Strategy(opts=[
-            ("mixed_parallel", {"expert": 2, "data": -1}),
-            ("amp_native", {"dtype": "float32"})]), device="cpu")
-    state, losses = res.state, []
-    placed = res.place_batch(job["batch"])
-    for _ in range(MIXTRAL_STEPS):
-        state, metrics = res.train_step(state, placed)
-        losses.append(float(metrics["loss"]))
-    experts = [tuple(p.shape) for n, p in res.model.named_parameters()
-               if "experts_w" in n]
+    out = {}
+    for label, mesh in MIXTRAL_PLANS.items():
+        model = port_llama.Llama(port_llama.LlamaConfig.tiny(
+            moe_experts=2, moe_every=2), device="cpu")
+        model.load_state_dict(params_from_jax(job["params"]))
+        res = auto_accelerate(
+            model, lambda ps: torch.optim.AdamW(ps, lr=1e-3,
+                                                weight_decay=1e-4),
+            loss_fn, job["batch"], strategy=Strategy(opts=[
+                ("mixed_parallel", mesh),
+                ("amp_native", {"dtype": "float32"})]), device="cpu")
+        state, losses = res.state, []
+        placed = res.place_batch(job["batch"])
+        for _ in range(MIXTRAL_STEPS):
+            state, metrics = res.train_step(state, placed)
+            losses.append(float(metrics["loss"]))
+        # the experts are DTensors: each rank's local box
+        experts = [(tuple(p.to_local().shape), str(p.placements))
+                   for n, p in res.model.named_parameters()
+                   if "experts_w" in n]
+        out[label] = {"losses": losses, "experts": experts,
+                      "mesh": dict(res.mesh.shape)}
     dist.barrier()
     dist.destroy_process_group()
     if rank == 0:
         with open(out_path, "wb") as f:
-            pickle.dump({"losses": losses, "experts": experts,
-                         "mesh": dict(res.mesh.shape)}, f)
+            pickle.dump(out, f)
 
 
-def test_mixtral_trains_via_auto_accelerate_on_expert_mesh():
-    """Twin of the reference's expert-mesh test on gloo (world 4:
-    expert 2 x data 2), both packages in fp32 from the JAX package's
-    init with AdamW (1e-3, optax's weight decay 1e-4), ``moe_every`` 2:
-    each rank holds one of the two experts of each MoE block, and every
-    step's loss is the JAX package's on ``jax.devices()[:4]`` at rtol
-    1e-4 and falls."""
+@pytest.fixture(scope="module")
+def mixtral_runs():
+    """The expert-mesh twins: the port's runs of every plan (one gloo
+    spawn of world 4) and the JAX package's on ``jax.devices()[:4]``."""
     import optax
     from torch_gloo import spawn
 
@@ -767,21 +773,56 @@ def test_mixtral_trains_via_auto_accelerate_on_expert_mesh():
             0.01 * jax_aux(st["intermediates"])
 
     jbatch = jax.tree.map(jnp.asarray, batch)
-    res = auto_accelerate(
-        model, lambda: optax.adamw(1e-3), loss_fn, jbatch,
-        strategy=Strategy(opts=[
-            ("mixed_parallel", {"expert": 2, "data": -1}),
-            ("amp_native", {"dtype": "float32"})]),
-        devices=jax.devices()[:4])
-    state, want = res.state, []
-    placed = res.place_batch(jbatch)
-    for _ in range(MIXTRAL_STEPS):
-        state, m = res.train_step(state, placed)
-        want.append(float(m["loss"]))
+    want = {}
+    for label, mesh in MIXTRAL_PLANS.items():
+        res = auto_accelerate(
+            model, lambda: optax.adamw(1e-3), loss_fn, jbatch,
+            strategy=Strategy(opts=[
+                ("mixed_parallel", mesh),
+                ("amp_native", {"dtype": "float32"})]),
+            devices=jax.devices()[:4])
+        state, losses = res.state, []
+        placed = res.place_batch(jbatch)
+        for _ in range(MIXTRAL_STEPS):
+            state, m = res.train_step(state, placed)
+            losses.append(float(m["loss"]))
+        want[label] = losses
+    return got, want
+
+
+def test_mixtral_trains_via_auto_accelerate_on_expert_mesh(mixtral_runs):
+    """Twin of the reference's expert-mesh test on gloo (world 4:
+    expert 2 x data 2), both packages in fp32 from the JAX package's
+    init with AdamW (1e-3, optax's weight decay 1e-4), ``moe_every`` 2:
+    each rank holds one of the two experts of each MoE block, and every
+    step's loss is the JAX package's on ``jax.devices()[:4]`` at rtol
+    1e-4 and falls."""
+    got, want = mixtral_runs
+    got = got["expert2_data2"]
     assert got["mesh"]["expert"] == 2 and got["mesh"]["data"] == 2
     # one of the two experts a rank, in block 1 (moe_every 2)
-    assert got["experts"] == [(1, 64, 128), (1, 64, 128), (1, 128, 64)]
-    np.testing.assert_allclose(got["losses"], want, rtol=1e-4)
+    assert [shape for shape, _ in got["experts"]] == [
+        (1, 64, 128), (1, 64, 128), (1, 128, 64)]
+    np.testing.assert_allclose(got["losses"], want["expert2_data2"],
+                               rtol=1e-4)
+    assert got["losses"][-1] < got["losses"][0], got["losses"]
+
+
+def test_mixtral_at_expert_2_tensor_2_matches_the_jax_package(mixtral_runs):
+    """Expert 2 x tensor 2 (the reference's ``moe_rules`` place the
+    experts on ``("expert", "fsdp", "tensor")``): each rank holds one
+    expert, its last dim split over the tensor axis, and every step's
+    loss is the JAX package's on the same plan at rtol 1e-4 and falls."""
+    got, want = mixtral_runs
+    got = got["expert2_tensor2"]
+    assert got["mesh"]["expert"] == 2 and got["mesh"]["tensor"] == 2
+    # (FSDP2 over its one-rank fsdp axis adds a placement in front)
+    assert [shape for shape, _ in got["experts"]] == [
+        (1, 64, 64), (1, 64, 64), (1, 128, 32)]
+    assert all(pl.endswith("Shard(dim=0), Shard(dim=2))")
+               for _, pl in got["experts"]), got["experts"]
+    np.testing.assert_allclose(got["losses"], want["expert2_tensor2"],
+                               rtol=1e-4)
     assert got["losses"][-1] < got["losses"][0], got["losses"]
 
 

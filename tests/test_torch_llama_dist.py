@@ -176,12 +176,13 @@ def test_llama_trains_on_mesh_as_the_jax_package():
     assert got["mixed"]["mesh"]["fsdp"] == 2
     assert got["mixed"]["mesh"]["tensor"] == 2
     assert got["tensor4"]["mesh"]["tensor"] == 4
-    # q column-parallel over tensor, dim 0 over fsdp; the head stays
-    # replicated over the tensor axis (the port's named deviation)
-    # (placements over the fsdp x tensor mesh)
+    # q column-parallel over tensor, dim 0 over fsdp; the head split by
+    # vocab over tensor as gpt_tp_rules places it (placements over the
+    # fsdp x tensor mesh)
     assert got["mixed"]["layout"]["q_proj"] == \
         "(Shard(dim=0), Shard(dim=1))"
-    assert got["mixed"]["layout"]["lm_head"] == "(Shard(dim=0),)"
+    assert got["mixed"]["layout"]["lm_head"] == \
+        "(Shard(dim=0), Shard(dim=1))"
     for label in CASES:
         g, w = got[label], want[label]
         np.testing.assert_allclose(g["losses"], w["losses"], rtol=1e-4)

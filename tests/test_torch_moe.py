@@ -19,7 +19,9 @@ spawn runs the MoE GPT's first step under ``auto_accelerate`` at
 expert 4 against the reference's loss on the same params, and the
 strategy search's expert and ring variants composed with FSDP2 (and
 Ulysses with data parallelism) against one process's losses, and a
-``Trainer`` over expert-sharded plans, which must refuse to checkpoint.
+``Trainer`` over expert-sharded plans, which trains and checkpoints
+them (the expert kernels DTensors; ``test_torch_moe_ckpt.py`` restores
+such checkpoints across expert worlds).
 """
 
 import os
@@ -46,7 +48,7 @@ COMPOSED = {
                        ("sequence_parallel", {"size": 2,
                                               "mode": "ulysses"})],
 }
-# expert-sharded plans whose Trainer must refuse to checkpoint
+# expert-sharded plans whose Trainer checkpoints the expert DTensors
 REFUSED = {
     "data2_expert2": [("mixed_parallel", {"expert": 2, "data": -1})],
     "fsdp2_expert2": COMPOSED["fsdp2_expert2"],
@@ -254,12 +256,11 @@ def _worker(rank, world, port, in_path, out_path):
     dist.all_reduce(total, group=mesh.group("data"))
     grads = {"router": layer.router.weight.grad}
     for name in layer.expert_kernels():
-        g = getattr(layer, name).grad
-        parts = [torch.empty_like(g) for _ in range(2)]
-        dist.all_gather(parts, g, group=mesh.group("expert"))
-        grads[name] = torch.cat(parts)
+        # the experts are DTensors over the expert axis: their gradient
+        # gathered over it
+        grads[name] = getattr(layer, name).grad.full_tensor()
     results["moe"] = {"loss": float(total) / 2,
-                      "local_experts": layer.experts_w_in.shape[0],
+                      "local_experts": layer.experts_w_in.to_local().shape[0],
                       "grads": {n: g.numpy() for n, g in grads.items()}}
 
     # the MoE GPT at expert 4 through auto_accelerate, fp32
@@ -281,7 +282,7 @@ def _worker(rank, world, port, in_path, out_path):
     results["gpt"] = {"loss": float(metrics["loss"]),
                       "mesh": dict(res.mesh.shape),
                       "local_experts": res.model.blocks[1].moe
-                      .experts_w_in.shape[0]}
+                      .experts_w_in.to_local().shape[0]}
 
     # the search's expert and ring variants composed with FSDP2, and
     # Ulysses with data parallelism: three SGD steps of the MoE GPT
@@ -302,14 +303,32 @@ def _worker(rank, world, port, in_path, out_path):
         results["composed"][label] = {"losses": losses,
                                       "mesh": dict(res.mesh.shape)}
 
-    # the Trainer refuses to checkpoint expert-sharded state, the experts
-    # plain parameters or (under FSDP2) DTensors
+    # the Trainer trains and checkpoints expert-sharded state, the experts
+    # DTensors over the expert axis (and fsdp under FSDP2)
     from dlrover_tpu_torch.common.device import is_dtensor
     from dlrover_tpu_torch.trainer.trainer import Trainer, TrainingArguments
 
+    import shutil
+    import time
+    import uuid
+
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.checkpoint.shm_handler import SharedMemoryHandler
+
+    # each rank a node of its own with its own saver, sharing one output
+    # directory (as tests/test_torch_sharded_ckpt.py runs them)
+    sockets = tempfile.mkdtemp(prefix="dlmo")
+    os.environ.update({"DLROVER_SHARED_DIR": sockets,
+                       "DLROVER_NODE_RANK": str(rank),
+                       "DLROVER_RANK": str(rank),
+                       "DLROVER_WORLD_SIZE": str(world),
+                       "DLROVER_LOCAL_WORLD_SIZE": str(world)})
     results["refused"] = {}
     for label, opts in REFUSED.items():
-        out_dir = tempfile.mkdtemp(prefix="moe_trainer_")
+        os.environ["DLROVER_JOB_NAME"] = f"mo-{uuid.uuid4().hex[:10]}"
+        out_dir = [tempfile.mkdtemp(prefix="moe_trainer_")]
+        dist.broadcast_object_list(out_dir)
+        out_dir = out_dir[0]
         trainer = Trainer(
             GPT(GPTConfig.tiny(max_seq_len=64, moe_experts=4, moe_every=2),
                 device="cpu", seed=0),
@@ -319,15 +338,25 @@ def _worker(rank, world, port, in_path, out_path):
                                   ("amp_native", {"dtype": "float32"})])),
             [batch], loss_fn, device="cpu")
         try:
-            trainer.train()
+            out = trainer.train()
             error = None
         except NotImplementedError as e:
-            error = str(e)
+            error, out = str(e), {}
+        tracker = os.path.join(out_dir, "latest_checkpointed_iteration.txt")
+        deadline = time.time() + 60
+        while rank == 0 and not os.path.exists(tracker) \
+                and time.time() < deadline:
+            time.sleep(0.05)
+        dist.barrier()
         kernel = trainer.model.blocks[1].moe.experts_w_in
         results["refused"][label] = {
-            "error": error, "written": os.listdir(out_dir),
+            "error": error, "written": sorted(os.listdir(out_dir)),
+            "losses": out.get("losses"),
             "dtensor": is_dtensor(kernel), "local_experts": (
                 kernel.to_local() if is_dtensor(kernel) else kernel).shape[0]}
+        AsyncCheckpointSaver.reset()
+        SharedMemoryHandler(0).unlink()
+    shutil.rmtree(sockets, ignore_errors=True)
     dist.barrier()
     dist.destroy_process_group()
     if rank == 0:
@@ -487,20 +516,19 @@ def test_search_variants_build_and_match_one_device(world4, label):
 @pytest.mark.parametrize("label", list(REFUSED))
 def test_trainer_refuses_to_checkpoint_expert_shards(world4, label):
     """A Trainer whose plan shards the experts over ``expert`` (2 of 4
-    experts a rank) raises before its first step, naming an expert
-    kernel, and writes no checkpoint: every rank saving its own experts
-    under the same names would restore one rank's experts on every rank.
-    Both plans wrap the model in FSDP2 (HSDP over data x fsdp), so the
-    kernels are DTensors, new parameters that keep no attribute of the
-    old: the refusal reads the layers."""
+    experts a rank) no longer refuses: the expert kernels are DTensors
+    over the expert axis, so it trains its two steps and writes its
+    flash checkpoint (every rank its box of the experts; the restore
+    across expert worlds is ``test_torch_moe_ckpt.py``'s).  Both plans
+    wrap the model in FSDP2 (HSDP over data x fsdp)."""
     got = world4[0]["refused"][label]
     # the rank's 2 experts; over fsdp 2 FSDP2 keeps 1 of them locally
     assert got["local_experts"] == (1 if label.startswith("fsdp2") else 2)
     assert got["dtensor"]
-    assert got["error"] is not None
-    assert "expert-sharded" in got["error"]
-    assert got["error"].startswith("blocks.1.moe.experts_w_in")
-    assert got["written"] == []
+    assert got["error"] is None
+    assert len(got["losses"]) == 2 and np.isfinite(got["losses"]).all()
+    assert "latest_checkpointed_iteration.txt" in got["written"], \
+        got["written"]
 
 
 def test_count_tier_counts_expert_and_ring_variants():
