@@ -120,7 +120,7 @@ Phases, each fatal on failure:
    into the run's directory.  A control run under no scenario; then,
    under ``kill_worker_midstep(seed=42)`` with step window [3, 6],
    a: cold restarts, b: ``--warm-restart`` (the worker forked from the
-   forkserver template), in turns a, b, a, b while the time allows.
+   forkserver template), one run each.
    Each kill run must pass ``default_invariants(8, 2, workdir)``, a
    restore from shm and ``LossTrajectoryMatches`` against the control
    (rtol 1e-3, atol 1e-5): one kill, one restart, step 8 committed,
@@ -285,11 +285,26 @@ Phases, each fatal on failure:
    Phase 3 also holds the split-block mode of B4, B5 and B6 against its
    plain versions at one tensor-4 rank's shard of Llama-3-8B's leaves
    and times it at ``lm_head``'s.
+15. pipeline parallelism and fp8 (slice 5.3), each check fatal:
+   a. ``PipelinedGPT`` at GPT-2 XL's full width and depth (bf16 over
+      fp32 params, flash), 4 stages in this process, 8 microbatches of
+      1: one GPipe step (remat) and one 1F1B step from the weights of an
+      unpipelined XL step on the same batch; loss and every gradient
+      within ``MODEL_REL_NORM`` of it by the relative norm; B1-B3
+      launches exact (768, 384, 384 a step); step times (one process:
+      the stages run one after another, no speed claim);
+   b. ``fp8_dot``'s ``torch._scaled_mm`` against its plain version at
+      XL's MLP products ([8192, 1600]·[1600, 6400] and
+      [8192, 6400]·[6400, 1600]) within ``FP8_REL_NORM``, each timed
+      beside bf16 ``torch.matmul``; then GPT-2 XL through
+      ``auto_accelerate`` with phase 5b's plan plus ``fp8``, 6 steps of
+      int8 q-AdamW: a falling loss, exact launches, the step against
+      5b's in the same run.
 
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  ``--only 2,11`` runs the build
-and the named phases alone (2, 3, 4, 9b, 10, 11, 12, 13, 13a, 13b, 14
-and 14a-14e so far; 5lr,
+and the named phases alone (2, 3, 4, 5b, 9b, 10, 11, 12, 13, 13a, 13b,
+14, 14a-14e, 15, 15a and 15b so far; 5lr,
 which the full run leaves out: phase 5a's model at lr 1e-3 with the
 flash kernels and with the plain attention math, and at SMALL_LR; and
 11d, which the full run leaves out too: 11b's Llama-3-8B for 12 steps
@@ -1845,6 +1860,7 @@ def phase_train_xl(card):
         "train GPT-2 XL int8 q-AdamW", cfg, XL_BATCH, XL_BATCH, steps,
         expected, card,
         optim_factory=lambda ps: q_adamw(ps, lr=3e-4, weight_decay=0.1))
+    XL_BF16["ms"] = statistics.median(result["step_seconds"][2:]) * 1e3
     opt = trainer.state.optimizer
     _check_multi_against_per_leaf(opt, card)
     _report_qadam(trainer, result, n_params, "train GPT-2 XL int8 q-AdamW",
@@ -3089,9 +3105,6 @@ L_SEED = 42
 L_MONITOR_INTERVAL_S = 0.3
 L_MAX_RESTARTS = 2
 L_GLOBAL_BATCH, L_MICRO = 32, 8
-# the second pair of turns (8a, 8b again) runs only when the script has
-# used less than this since it started
-L_TURNS_BUDGET_S = 480.0
 
 # The GPT-2 small worker of phase 8, written into each run's directory:
 # the structure of the port's chaos train loop
@@ -3580,13 +3593,13 @@ def _recovery_breakdown(r) -> dict:
     return out
 
 
-def phase_launcher(card, t_start: float) -> dict:
+def phase_launcher(card) -> dict:
     """Phase 8: slice 3b.2 on the card — ``python -m
     dlrover_tpu_torch.run`` (its ``main``) supervising the GPT-2 small
     worker, which is SIGKILLed mid-step by ``kill_worker_midstep`` and
     must be respawned and restored from shm: 8a cold, 8b with
-    ``--warm-restart``, after a control run under no scenario; in
-    turns 8a, 8b, 8a, 8b while the time allows.  Returns the launch
+    ``--warm-restart``, one run each, after a control run under no
+    scenario.  Returns the launch
     counts of the runs, summed over their incarnations."""
     from dlrover_tpu_torch.models.gpt import GPTConfig
 
@@ -3614,12 +3627,7 @@ def phase_launcher(card, t_start: float) -> dict:
     counts = {"launcher_control": _zero_counts(**{
         f"flash_attention.{k}": v for k, v in inc["counts"].items()})}
     runs = []
-    for turn, label in enumerate(("8a", "8b", "8a", "8b"), start=1):
-        if turn > 2 and time.perf_counter() - t_start > L_TURNS_BUDGET_S:
-            log(f"launcher: turn {turn} skipped, "
-                f"{time.perf_counter() - t_start:.0f} s used of "
-                f"{L_TURNS_BUDGET_S:.0f}")
-            break
+    for turn, label in enumerate(("8a", "8b"), start=1):
         r = _launcher_run(label, turn, control_path)
         bad = _check_launcher_run(r, per_step, control_losses)
         failures += [f"{label} turn {turn}: {f}" for f in bad]
@@ -5757,6 +5765,225 @@ def phase_scale_out(card) -> dict:
     return out
 
 
+# -- phase 15: pipeline parallelism and fp8 (slice 5.3) -----------------------
+
+PP_STAGES, PP_MICRO = 4, 8
+# 15b's products: XL's MLP at batch 8 x 1024 tokens (fc_in, fc_out)
+FP8_SHAPES = ((8192, 1600, 6400), (8192, 6400, 1600))
+# e4m3 codes multiply exactly in fp32; the fp8 tensor cores keep about
+# 14 bits of a partial sum between promotions to fp32 (DeepSeek-V3
+# report, section 3.3.2), so the card's sums round coarser than the
+# plain version's fp32 ones: 1.26e-4 / 1.28e-4 read at XL's two shapes
+# on an "NVIDIA H100 80GB HBM3, 700.00 W".  2^-10 holds that with room
+# and still fails a wrong scale, layout or padding (errors of order 1)
+FP8_REL_NORM = 2.0 ** -10
+XL_BF16 = {}
+
+
+def _pp_expected(layers, micro, forwards):
+    """B1 ``forwards`` times a layer and microbatch, B2 and B3 once."""
+    return _zero_counts(**{
+        "flash_attention.fwd": forwards * layers * micro,
+        "flash_attention.bwd_dq": layers * micro,
+        "flash_attention.bwd_dkv": layers * micro,
+    })
+
+
+def _grads_by_name(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def phase_pipeline_xl(card) -> dict:
+    """15a: ``PipelinedGPT`` at GPT-2 XL's full width and depth (48
+    layers, d 1600, 25 heads, seq 1024, bf16 over fp32 params, flash),
+    4 stages in this process, 8 microbatches of 1: one GPipe step (remat)
+    and one 1F1B step (its backward recomputes each stage) from the
+    weights of an unpipelined XL step on the same batch, whose loss and
+    gradients they are held to by ||got - want|| / ||want||
+    (``MODEL_REL_NORM``); B1-B3 launch counts exact.  In one process the
+    stages run one after another: the step times are no speed claim."""
+    import dataclasses
+
+    import torch
+
+    from dlrover_tpu_torch.models.gpt import (
+        GPT,
+        GPTConfig,
+        cross_entropy_loss,
+        partition_pipeline_params,
+    )
+
+    cfg = GPTConfig.gpt2_xl(attention_impl="flash", remat=True)
+    batch = _xl_batch(cfg.vocab_size, batch=PP_MICRO)
+    x = torch.as_tensor(batch["x"], device="cuda")
+    y = torch.as_tensor(batch["y"], device="cuda")
+    model = GPT(cfg, seed=0)
+    rel = MODEL_REL_NORM["bfloat16"]
+
+    def timed_step(fn, module, expected, label):
+        """Two steps from the same weights (gradients cleared before
+        each): the counts and gradients of the first, the time of the
+        second."""
+        out = {}
+        for turn in range(2):
+            module.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if turn == 0:
+                out["counts"] = launch_counts()
+                out["loss"] = float(loss)
+                out["grads"] = _grads_by_name(module)
+                if out["counts"] != expected:
+                    raise AssertionError(
+                        f"15a {label}: launch counts {out['counts']} != "
+                        f"{expected}")
+            out["ms"] = ms
+        out["peak"] = torch.cuda.max_memory_allocated()
+        return out
+
+    def dense():
+        loss = cross_entropy_loss(model(x), y)
+        loss.backward()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    ref = timed_step(dense, model, _flash_expected(cfg.num_layers, 1, 1,
+                                                   True), "unpipelined")
+    # the unpipelined gradients in the stage-stacked layout
+    want = partition_pipeline_params(ref.pop("grads"), PP_STAGES,
+                                     cfg.num_layers)
+    log(f"15a GPT-2 XL unpipelined, batch {PP_MICRO} x {cfg.max_seq_len}, "
+        f"remat: loss {ref['loss']:.6f}, step {ref['ms']:.3f} ms [{card}]")
+    out = {}
+    pm = model.to_pipelined(PP_STAGES, PP_MICRO)
+    failures = []
+    for label, schedule, remat in (("gpipe", "gpipe", True),
+                                   ("1f1b", "1f1b", False)):
+        pm.config = dataclasses.replace(cfg, remat=remat)
+        if schedule == "gpipe":
+            def fn():
+                loss = cross_entropy_loss(pm(x), y)
+                loss.backward()
+                return loss.detach()
+        else:
+            def fn():
+                return pm.loss_and_grads_1f1b(x, y)
+        # GPipe: each block's forward twice (remat); 1F1B: the forward
+        # stream and the backward's recompute
+        expected = _pp_expected(cfg.num_layers, PP_MICRO, 2)
+        torch.cuda.reset_peak_memory_stats()
+        got = timed_step(fn, pm, expected, label)
+        norms = {n: _rel_norm(g, want[n]) for n, g in got["grads"].items()}
+        if set(norms) != set(want):
+            failures.append(f"{label}: gradients of {sorted(set(want) - set(norms))} missing")
+        worst = max(norms, key=norms.get)
+        loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        log(f"15a PipelinedGPT XL {PP_STAGES} stages x {PP_MICRO} "
+            f"microbatches, {label} (remat {remat}): loss {got['loss']:.6f} "
+            f"({loss_rel:.3e} from the unpipelined), largest gradient "
+            f"||got - want|| / ||want|| {worst} {norms[worst]:.3e} (limit "
+            f"{rel:.4e}); step {got['ms']:.3f} ms = "
+            f"{got['ms'] / ref['ms']:.3f} x the unpipelined {ref['ms']:.3f} "
+            f"ms, one process; peak {got['peak'] / 2**30:.2f} GiB; launches "
+            f"{ {k: v for k, v in got['counts'].items() if v} } [{card}]")
+        if loss_rel > rel:
+            failures.append(f"{label}: loss {loss_rel:.3e} from the "
+                            "unpipelined")
+        failures += [f"{label} {n}: {v:.3e}" for n, v in norms.items()
+                     if not v <= rel]
+        out[f"gpt2_xl_pipeline_{label}"] = got["counts"]
+        del got
+    if failures:
+        raise AssertionError("15a: " + "; ".join(failures))
+    return out
+
+
+def phase_fp8(card) -> dict:
+    """15b: ``fp8_dot`` (``torch._scaled_mm``) on the card against its
+    plain version at XL's MLP shapes, both timed beside bf16
+    ``torch.matmul``; then GPT-2 XL through ``auto_accelerate`` with
+    phase 5b's plan plus ``fp8``, 6 steps."""
+    import torch
+
+    from dlrover_tpu_torch.accel import Strategy
+    from dlrover_tpu_torch.models.gpt import GPTConfig
+    from dlrover_tpu_torch.ops import fp8
+    from dlrover_tpu_torch.optim import q_adamw
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    failures = []
+    for m, k, n in FP8_SHAPES:
+        a = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+        b = torch.randn(k, n, device="cuda", generator=gen) * 0.02
+        aq, sa = fp8.quantize_fp8(a)
+        bq, sb = fp8.quantize_fp8(b)
+        got = fp8.scaled_mm(aq, bq, sa, sb)
+        want = (aq.float() @ bq.float()) * (sa * sb)
+        err = _rel_norm(got, want)
+        b16 = b.bfloat16()
+        t = {"scaled_mm": median_ms(lambda: fp8.scaled_mm(aq, bq, sa, sb), 10),
+             "fp8_dot": median_ms(lambda: fp8.fp8_dot(a, b), 10),
+             "plain": median_ms(lambda: (aq.float() @ bq.float())
+                                * (sa * sb), 5),
+             "bf16": median_ms(lambda: a @ b16, 10)}
+        flops = 2 * m * k * n
+        log(f"15b fp8 [{m}, {k}] x [{k}, {n}]: ||scaled_mm - plain|| / "
+            f"||plain|| {err:.3e} (limit {FP8_REL_NORM:.4e}); ms dev: "
+            f"_scaled_mm on the codes {t['scaled_mm']:.4f} "
+            f"({flops / t['scaled_mm'] / 1e9:.1f} TFLOP/s), fp8_dot with "
+            f"both quantizations {t['fp8_dot']:.4f}, plain {t['plain']:.4f}, "
+            f"bf16 torch.matmul {t['bf16']:.4f} "
+            f"({flops / t['bf16'] / 1e9:.1f} TFLOP/s); _scaled_mm "
+            f"{t['bf16'] / t['scaled_mm']:.3f}x, fp8_dot "
+            f"{t['bf16'] / t['fp8_dot']:.3f}x bf16 [{card}]")
+        if not err <= FP8_REL_NORM:
+            failures.append(f"[{m}, {k}, {n}]: {err:.3e}")
+    if failures:
+        raise AssertionError("15b fp8 products: " + "; ".join(failures))
+    cfg = GPTConfig.gpt2_xl(attention_impl="flash", remat=True,
+                            param_dtype=torch.bfloat16)
+    n_params = 12 * cfg.num_layers + 4
+    steps = XL_STEPS
+    expected = _flash_expected(cfg.num_layers, 1, steps, True, low_bit=8,
+                               n_params=n_params)
+    strategy = Strategy(opts=[
+        ("parallel_mode", {}), ("amp_native", {"dtype": "bfloat16"}),
+        ("checkpoint", {}), ("module_replace", {"attention": "flash"}),
+        ("fp8", {})])
+    trainer, result, counts = run_training(
+        "train GPT-2 XL int8 q-AdamW fp8", cfg, XL_BATCH, XL_BATCH, steps,
+        expected, card, strategy=strategy,
+        optim_factory=lambda ps: q_adamw(ps, lr=3e-4, weight_decay=0.1),
+        save_final=False)
+    model = trainer.state.module
+    if not (model.config.fp8 and isinstance(model.blocks[0].mlp.fc_in,
+                                            fp8.Fp8Dense)):
+        raise AssertionError("15b: the plan did not build fp8 MLPs")
+    step = statistics.median(result["step_seconds"][2:]) * 1e3
+    if XL_BF16:
+        log(f"15b fp8 XL step {step:.3f} ms against 5b's {XL_BF16['ms']:.3f} "
+            f"ms in this run: {XL_BF16['ms'] / step:.3f}x [{card}]")
+    else:
+        log("15b: phase 5b did not run in this call; no bf16 step beside it")
+    return {"gpt2_xl_fp8_int8_qadamw": counts}
+
+
+def phase_pipeline_fp8(card) -> dict:
+    """Phase 15: 15a and 15b, each timed."""
+    out = {}
+    for name, fn in (("15a", phase_pipeline_xl), ("15b", phase_fp8)):
+        t0 = time.perf_counter()
+        out.update(fn(card))
+        _free_cuda()
+        log(f"chip_smoke: phase {name} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _free_cuda():
     import gc
 
@@ -5815,14 +6042,16 @@ def main(argv) -> int:
 
 
 ONLY = {"2": phase_kernels, "3": phase_quant_kernels,
-        "4": lambda card: phase_model_check(), "5lr": phase_small_lr,
+        "4": lambda card: phase_model_check(), "5b": phase_train_xl,
+        "5lr": phase_small_lr,
         "6a": phase_ckpt_small, "9b": phase_fsdp_one_rank,
         "10": phase_example, "11": phase_llama, "11d": phase_llama_losses,
         "12": phase_data, "13": phase_parallel, "13a": phase_ring_blocks,
         "13b": phase_mixtral, "14": phase_scale_out,
         "14a": phase_llama_4bit_fsdp, "14b": phase_mixtral_ckpt,
         "14c": phase_offload_fsdp, "14d": phase_diloco,
-        "14e": phase_tensor_one_rank}
+        "14e": phase_tensor_one_rank, "15": phase_pipeline_fp8,
+        "15a": phase_pipeline_xl, "15b": phase_fp8}
 
 
 def run_only(torch, names) -> int:
@@ -5874,13 +6103,14 @@ def run_phases(torch) -> int:
     for name, phase in (("6a", phase_ckpt_small), ("6b", phase_ckpt_xl),
                         ("7", phase_control_plane)):
         by_path.update(timed(name, phase, card))
-    by_path.update(timed("8", phase_launcher, card, t_start))
+    by_path.update(timed("8", phase_launcher, card))
     for name, phase in (("9a", phase_search_xl), ("9b", phase_fsdp_one_rank),
                         ("9c", phase_offload_xl),
                         ("9d", phase_trainer_strategy),
                         ("10", phase_example), ("11", phase_llama),
                         ("12", phase_data), ("13", phase_parallel),
-                        ("14", phase_scale_out)):
+                        ("14", phase_scale_out),
+                        ("15", phase_pipeline_fp8)):
         by_path.update(timed(name, phase, card))
     leaked = [n for n in os.listdir("/dev/shm")
               if n.startswith(f"dlrover_tpu_ckpt_shm_"

@@ -34,6 +34,18 @@ becomes:
   when the plan is low-bit (``accelerate.py:203`` of the reference),
   wrapped by :func:`dlrover_tpu_torch.optim.offload` for
   ``offload_opt`` (on the CPU it is a no-op, as the reference notes);
+- ``pipeline_parallel``: the model through its ``to_pipelined`` hook
+  (the reference's ``accelerate.py:180-199``), its blocks stage-stacked
+  over the ``pipeline`` axis (``pipeline_rules``; each rank's DTensor
+  shard its stage), embed and head replicated; with no process group
+  every stage runs in this process (a mesh of pipeline 1, noted in the
+  plan).  The ``1f1b`` schedule bypasses the user's loss (the last
+  stage fuses next-token CE; the batch carries ``x``/``y``) and refuses
+  gradient accumulation, as the reference does (``:281-310``);
+- ``fp8``: the MLPs' products in e4m3 on a card with fp8 tensor cores
+  (compute capability 8.9 and up) and on the CPU (the plain version,
+  as the reference keeps its software path under test); elsewhere the
+  reference's degrade to bf16, with its note;
 - the step: :func:`~dlrover_tpu_torch.trainer.elastic_trainer.make_train_step`
   with the plan's gradient accumulation, its loss and gradients averaged
   over the ranks that hold distinct tokens (data x fsdp x sequence:
@@ -55,7 +67,7 @@ import torch
 from dlrover_tpu_torch.accel.model_context import ModelContext
 from dlrover_tpu_torch.accel.opt_lib import OptimizationLibrary
 from dlrover_tpu_torch.accel.strategy import AccelPlan, Strategy
-from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.parallel.mesh import Mesh, build_mesh, set_global_mesh
 from dlrover_tpu_torch.parallel.moe import attach_mesh
@@ -110,6 +122,16 @@ def _note(plan: AccelPlan, note: str):
         plan.notes.append(note)
 
 
+def _hardware_supports_fp8(device) -> bool:
+    """Native fp8 matmul units: a CUDA card of compute capability 8.9
+    and up (Ada, Hopper).  The CPU returns True so the plain path stays
+    test-covered, as the reference's does."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_capability(device) >= (8, 9)
+    return device.type in ("cpu", "meta")
+
+
 def _apply_plan_to_model(plan: AccelPlan, context: ModelContext,
                          device=None, fresh: bool = False):
     """The model with the plan's config knobs (remat, remat policy,
@@ -146,6 +168,13 @@ def _apply_plan_to_model(plan: AccelPlan, context: ModelContext,
             and plan.param_dtype in _DTYPES
             and cfg.param_dtype != _DTYPES[plan.param_dtype]):
         updates["param_dtype"] = _DTYPES[plan.param_dtype]
+    if plan.fp8 and hasattr(cfg, "fp8") and not cfg.fp8:
+        if _hardware_supports_fp8(resolve_device(context.device)):
+            updates["fp8"] = True
+        else:
+            logger.warning("fp8: no fp8 matmul units on this card; "
+                           "running bf16 instead")
+            _note(plan, "fp8 degraded to bf16 (no hw fp8 units)")
     meta = device is not None and torch.device(device).type == "meta"
     if not updates and not fresh and not meta:
         return model
@@ -244,8 +273,16 @@ def build_from_plan(plan: AccelPlan, context: ModelContext,
     """Materialize a plan: mesh, model, placements, optimizer and step.
     ``fresh`` builds on a copy of the model (the dry runs), leaving the
     caller's weights untouched."""
+    import torch.distributed as dist
+
     device = resolve_device(context.device)
-    mesh = build_mesh(plan.mesh_config, device_type=device.type)
+    stages = plan.mesh_config.pipeline
+    mesh_config = plan.mesh_config
+    if stages > 1 and not (dist.is_available() and dist.is_initialized()):
+        # no process group: every stage runs in this process
+        mesh_config = dataclasses.replace(mesh_config, pipeline=1)
+        _note(plan, f"pipeline x{stages}: every stage in this process")
+    mesh = build_mesh(mesh_config, device_type=device.type)
     set_global_mesh(mesh)
     model_plan = plan
     if plan.remat_policy == "offload" and device.type == "cpu":
@@ -256,6 +293,41 @@ def build_from_plan(plan: AccelPlan, context: ModelContext,
         _note(plan, "offload_activation degraded to plain remat on cpu")
         model_plan = dataclasses.replace(plan, remat_policy="full")
     model = _apply_plan_to_model(model_plan, context, fresh=fresh)
+    if stages > 1:
+        # the block stack goes through the pipeline schedule; the plan's
+        # param placement becomes stage-stacked (pipeline axis on the
+        # blocks' leading dim, embed/head replicated)
+        if not hasattr(model, "to_pipelined"):
+            raise ValueError(
+                f"{type(model).__name__} has no to_pipelined hook; "
+                "pipeline_parallel needs a stage-decomposable model")
+        from dlrover_tpu_torch.parallel.sharding import pipeline_rules
+
+        model = model.to_pipelined(stages, plan.pipeline_microbatches)
+        if plan.param_rules.rules:
+            logger.warning("pipeline_parallel overrides param rules %s with "
+                           "stage-stacked placement", plan.param_rules.rules)
+        plan.param_rules = pipeline_rules()
+        plan.opt_state_rules = None
+    use_1f1b = stages > 1 and plan.pipeline_schedule == "1f1b"
+    loss_fn = context.loss_fn
+    if use_1f1b:
+        if not hasattr(model, "loss_and_grads_1f1b"):
+            raise ValueError(
+                f"{type(model).__name__} has no loss_and_grads_1f1b hook; "
+                "the 1f1b schedule needs it (use schedule='gpipe' for "
+                "arbitrary models/losses)")
+        if plan.grad_accum > 1:
+            raise ValueError("grad_accum composes with the gpipe schedule "
+                             "only; 1f1b already microbatches inside the "
+                             "pipeline")
+        logger.warning("pipeline schedule 1f1b: the user loss_fn is "
+                       "bypassed — the last stage fuses next-token cross "
+                       "entropy")
+        _note(plan, "1f1b: user loss_fn bypassed (fused next-token CE)")
+
+        def loss_fn(module, batch):
+            return module.loss_and_grads_1f1b(batch["x"], batch["y"])
     placements = param_placements(model, mesh.shape, plan.param_rules)
     attach_mesh(model, mesh, placements)
     opt_placements = param_placements(model, mesh.shape,
@@ -267,13 +339,24 @@ def build_from_plan(plan: AccelPlan, context: ModelContext,
         apply_fsdp(model, mesh)
     zero = (mesh.distributed and not fsdp and mesh.shape["fsdp"] > 1
             and shards_over(opt_placements, "fsdp"))
-    optimizer = _make_optimizer(plan, context, list(model.parameters()),
-                                mesh, zero, device)
-    reduce_axes = _token_axes(mesh, fsdp) if mesh.distributed else []
+    params = list(model.parameters())
+    plain = [p for p in params if not is_dtensor(p)]
+    if stages > 1 and len(plain) < len(params):
+        # the replicated embed and head and the stage DTensors in groups
+        # of their own (the model's order): a foreach step, CUDA's
+        # default, takes no mix of plain tensors and DTensors
+        params = [{"params": plain},
+                  {"params": [p for p in params if is_dtensor(p)]}]
+    optimizer = _make_optimizer(plan, context, params, mesh, zero, device)
+    # the 1F1B schedule averages its loss and gradients itself
+    reduce_axes = (_token_axes(mesh, fsdp)
+                   if mesh.distributed and not use_1f1b else [])
     hook = _grad_allreduce(mesh, reduce_axes) if reduce_axes else None
-    step_fn = make_train_step(context.loss_fn, optimizer, plan.grad_accum,
-                              device=device, grad_hook=hook)
-    loss_axes = _token_axes(mesh, False) if mesh.distributed else []
+    step_fn = make_train_step(loss_fn, optimizer, plan.grad_accum,
+                              device=device, grad_hook=hook,
+                              backward=not use_1f1b)
+    loss_axes = (_token_axes(mesh, False)
+                 if mesh.distributed and not use_1f1b else [])
 
     def train_step(state, batch):
         state, metrics = step_fn(state, batch)

@@ -3,10 +3,12 @@
 Copy of ``dlrover_tpu/accel/opt_lib.py``: every optimization keeps its
 name and edits the plan as the reference's does; the plan is then
 materialised on ``torch.distributed`` by
-:mod:`dlrover_tpu_torch.accel.accelerate`.  ``pipeline_parallel`` and
-``fp8`` raise ``NotImplementedError`` when applied, naming the part of
-slice 5 of the port that brings them (5.3 the pipeline, 5.4 fp8).  ``module_replace`` selects the CUDA flash kernels, which the
-strategy search adds when the job runs on the card.
+:mod:`dlrover_tpu_torch.accel.accelerate`.  ``module_replace`` selects
+the CUDA flash kernels, which the strategy search adds when the job runs
+on the card; ``fp8`` runs the MLPs' products through
+:mod:`dlrover_tpu_torch.ops.fp8`; ``pipeline_parallel`` stage-stacks the
+blocks over the ``pipeline`` axis (GPipe or 1F1B,
+:mod:`dlrover_tpu_torch.parallel.pipeline`).
 Reference of that file: ``OptimizationLibrary`` with 15 registered methods
 (``atorch/auto/opt_lib/optimization_library.py:18``; zero1/zero2/fsdp/
 parallel_mode/amp_native/tensor_parallel/module_replace/checkpoint/
@@ -19,7 +21,6 @@ from typing import Any, Dict
 
 from dlrover_tpu_torch.accel.strategy import AccelPlan
 from dlrover_tpu_torch.common.log import default_logger as logger
-from dlrover_tpu_torch.common.slices import SLICE_5_3, SLICE_5_4
 from dlrover_tpu_torch.parallel.sharding import fsdp_rules
 
 
@@ -237,14 +238,17 @@ class LowBitOptimizerOpt(Optimization):
 
 class Fp8Opt(Optimization):
     """FP8 (e4m3, dynamic scaling) matmuls where the model supports it
-    (reference: Fp8Optimization + TransformerEngine patching); the
-    port's ``ops/fp8.py`` comes with slice 5.4."""
+    (reference: Fp8Optimization + TransformerEngine patching; here
+    :mod:`dlrover_tpu_torch.ops.fp8`, ``torch._scaled_mm`` on the card).
+    ``build_from_plan`` degrades it to bf16 on a card without fp8
+    tensor cores (compute capability below 8.9)."""
 
     name = "fp8"
 
     def apply(self, plan, config, context=None):
-        raise NotImplementedError(
-            f"optimization {self.name!r} comes with {SLICE_5_4}")
+        plan.fp8 = True
+        plan.notes.append("fp8 (e4m3) matmuls")
+        return plan
 
 
 class CheckpointOpt(Optimization):
@@ -294,16 +298,35 @@ class ModuleReplaceOpt(Optimization):
 
 
 class PipelineParallelOpt(Optimization):
-    """Pipeline stages over the 'pipeline' axis (reference:
-    pipeline_parallel_optimization.py:56); GPipe and 1F1B come with
-    slice 5.3 of the port."""
+    """Pipeline stages over the 'pipeline' axis: build_from_plan
+    routes block stacks through the model's ``to_pipelined`` hook
+    (reference: pipeline_parallel_optimization.py:56).
+
+    ``schedule="gpipe"`` (default) runs the forward pipeline under
+    autograd — any model/loss.  ``schedule="1f1b"`` runs the
+    interleaved schedule (O(stages) activation stash) via the model's
+    ``loss_and_grads_1f1b`` hook, which fuses next-token CE at the last
+    stage — the user loss_fn is bypassed and the batch must carry
+    ``x``/``y`` token arrays."""
 
     name = "pipeline_parallel"
     semiauto = True
 
     def apply(self, plan, config, context=None):
-        raise NotImplementedError(
-            f"optimization {self.name!r} comes with {SLICE_5_3}")
+        plan.mesh_config.pipeline = int(config.get("size", 2))
+        plan.pipeline_microbatches = int(config.get("microbatches", 4))
+        plan.pipeline_schedule = str(config.get("schedule", "gpipe"))
+        if plan.pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                f"unknown pipeline schedule "
+                f"{plan.pipeline_schedule!r} (gpipe | 1f1b)"
+            )
+        plan.notes.append(
+            f"pipeline x{plan.mesh_config.pipeline} "
+            f"({plan.pipeline_schedule} schedule, "
+            f"{plan.pipeline_microbatches} microbatches)"
+        )
+        return plan
 
 
 class OffloadOptStateOpt(Optimization):

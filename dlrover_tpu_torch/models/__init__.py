@@ -1,5 +1,5 @@
 """Model zoo of the port (``dlrover_tpu/models``): GPT, the Llama
-family and the chunked loss so far."""
+family, their pipelined forms and the chunked loss so far."""
 
 from dlrover_tpu_torch.models.gpt import (
     GPT,

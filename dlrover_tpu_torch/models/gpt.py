@@ -42,9 +42,13 @@ ring's blocks and Ulysses' inner ``"ulysses_flash"`` on the flash
 kernels), each rank's positions offset by its place in the sequence;
 ``moe_experts > 0`` replaces the MLP of every ``moe_every``-th block
 with a :class:`~dlrover_tpu_torch.parallel.moe.MoEMLP` named ``moe``.
-Decode with a KV cache, the value head, fp8, the save_attn remat policy
-and pipeline parallelism are later slices of the port and raise
-``NotImplementedError``.
+``fp8=True`` runs the MLPs' products in e4m3
+(:class:`~dlrover_tpu_torch.ops.fp8.Fp8Dense`).  Pipeline parallelism:
+:meth:`GPT.to_pipelined` gives a :class:`PipelinedGPT`, the blocks
+stage-stacked (``blocks.<name>`` ``[stages, layers/stage, ...]``) and
+run through :mod:`dlrover_tpu_torch.parallel.pipeline`.  Decode with a
+KV cache and the save_attn remat policy are slice 5.4 of the port, the
+value head slice 7; they raise ``NotImplementedError``.
 """
 
 import math
@@ -139,7 +143,6 @@ def _check_supported(cfg: GPTConfig):
         (cfg.decode, "decode (KV-cache attention)", SLICE_5_4),
         (cfg.head != "lm", f"head={cfg.head!r}",
          "slice 7 of the port (RL)"),
-        (cfg.fp8, "fp8 matmuls", SLICE_5_4),
         (cfg.remat_policy == "save_attn",
          f"remat_policy={cfg.remat_policy!r}", SLICE_5_4),
     ]
@@ -269,12 +272,19 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
+    """``fc_out(gelu(fc_in(x)))``; with ``config.fp8`` both are
+    :class:`~dlrover_tpu_torch.ops.fp8.Fp8Dense` (the same parameter
+    names), as the reference's ``MLP`` takes ``Fp8Dense``."""
+
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         self.config = config
         d, pd = config.hidden_dim, config.param_dtype
-        self.fc_in = Dense(d, config.mlp_ratio * d, dtype=pd, device=device)
-        self.fc_out = Dense(config.mlp_ratio * d, d, dtype=pd, device=device)
+        dense = Dense
+        if config.fp8:
+            from dlrover_tpu_torch.ops.fp8 import Fp8Dense as dense
+        self.fc_in = dense(d, config.mlp_ratio * d, dtype=pd, device=device)
+        self.fc_out = dense(config.mlp_ratio * d, d, dtype=pd, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.config.dtype
@@ -352,10 +362,11 @@ def init_flax_weights(model: nn.Module, gen: torch.Generator):
             out.normal_(0.0, std, generator=gen)
         w.copy_(out)
 
+    from dlrover_tpu_torch.ops.fp8 import Fp8Dense
     from dlrover_tpu_torch.parallel.moe import MoEMLP
 
     for module in model.modules():
-        if isinstance(module, Dense):
+        if isinstance(module, (Dense, Fp8Dense)):
             draw(module.weight, module.in_features, True)
             if module.bias is not None:
                 module.bias.zero_()
@@ -468,3 +479,287 @@ def cross_entropy_loss(
 
 def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+# -- pipeline parallelism ----------------------------------------------------
+# Reference: ``dlrover_tpu/models/gpt.py:440-733``.  A params-layout
+# transform: block params are stacked [stages, layers/stage, ...] and
+# sharded over the ``pipeline`` mesh axis (each rank's DTensor shard its
+# own stage); embed and head stay replicated; the block stack runs
+# through ``parallel.pipeline`` (GPipe under autograd, or 1F1B).
+
+
+def layers_per_stage(num_layers: int, num_stages: int) -> int:
+    """Stage slot count: ceil(L/S).  Uneven splits pad the last
+    stage(s) with zero layers that the stage fn skips."""
+    return -(-num_layers // num_stages)
+
+
+def partition_pipeline_params(state_dict, num_stages: int, num_layers: int,
+                              stages=None):
+    """A GPT or Llama state dict (``blocks.<i>.<name>``, ``wte``, ...)
+    -> the stage-stacked layout: ``embed.<name>``, ``blocks.<name>``
+    ``[S, ceil(L/S), ...]`` and ``head.<name>`` (``ln_f``, an untied
+    ``lm_head``), the reference's ``{"embed", "blocks", "head"}``.
+    Trailing slots of an uneven split are zero.  ``stages`` keeps only
+    those stages' rows (a rank's own, in the rank form)."""
+    per = layers_per_stage(num_layers, num_stages)
+    stages = list(range(num_stages)) if stages is None else list(stages)
+    out = {}
+    names = sorted({k.split(".", 2)[2] for k in state_dict
+                    if k.startswith("blocks.")})
+    for name in names:
+        first = state_dict[f"blocks.0.{name}"]
+        rows = []
+        for s in stages:
+            for j in range(per):
+                i = s * per + j
+                rows.append(state_dict[f"blocks.{i}.{name}"].detach()
+                            if i < num_layers else torch.zeros_like(first))
+        out[f"blocks.{name}"] = torch.stack(rows).reshape(
+            (len(stages), per) + tuple(first.shape))
+    for key, value in state_dict.items():
+        if key.startswith("blocks."):
+            continue
+        part = "head" if key.split(".")[0] in ("ln_f", "lm_head") else "embed"
+        out[f"{part}.{key}"] = value
+    return out
+
+
+class _GPTEmbed(nn.Module):
+    def __init__(self, inner):
+        super().__init__()
+        self.config = inner.config
+        self.wte, self.wpe = inner.wte, inner.wpe
+
+    def forward(self, tokens):
+        cfg = self.config
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        return (vocab_parallel_embedding(tokens, self.wte.weight).to(cfg.dtype)
+                + F.embedding(pos, self.wpe.weight).to(cfg.dtype)[None])
+
+
+class _GPTHead(nn.Module):
+    def __init__(self, inner):
+        super().__init__()
+        self.config = inner.config
+        self.ln_f = inner.ln_f
+        if not inner.config.tie_embeddings:
+            self.lm_head = inner.lm_head
+
+    def forward(self, h, wte=None):
+        cfg = self.config
+        x = self.ln_f(h.float()).to(cfg.dtype)
+        if cfg.tie_embeddings:
+            return vocab_logits(x, wte.to(cfg.dtype), transpose=True).float()
+        return self.lm_head(x, cfg.dtype).float()
+
+
+class PipelinedDecoder(nn.Module):
+    """A decoder whose blocks run as pipeline stages.
+
+    Built from an unpipelined model (its weights copied into the
+    stage-stacked layout, :func:`partition_pipeline_params`; embed and
+    head modules shared).  On a distributed mesh whose ``pipeline`` axis
+    is ``num_stages`` (the global mesh), each rank holds its
+    own stage: every ``blocks.*`` parameter is a DTensor sharded on the
+    stage dim over the ``pipeline`` sub-mesh (a copy on every data
+    rank, which the step reduces), so the sharded flash checkpoint and
+    the optimizers take the state as it is; otherwise all stages live
+    in this process.  ``forward(tokens)`` runs GPipe under autograd
+    (any loss); ``loss_and_grads_1f1b(tokens, targets)`` runs the 1F1B
+    schedule with next-token CE at the last stage and leaves every
+    gradient in ``.grad``.  Constraints shared by all families: uniform
+    blocks (no MoE interleave), no sequence-parallel attention, no
+    decode."""
+
+    _embed_cls = None
+    _head_cls = None
+
+    def __init__(self, inner, num_stages: int, num_microbatches: int,
+                 batch_axis=("data", "fsdp")):
+        cfg = inner.config
+        if getattr(cfg, "moe_experts", 0) > 0:
+            raise ValueError(
+                "pipeline requires uniform blocks; MoE interleave is "
+                "not supported (shard MoE over the expert axis instead)"
+            )
+        if cfg.attention_impl in ("ring", "ulysses", "ulysses_flash"):
+            raise ValueError(
+                "sequence-parallel attention cannot nest inside the "
+                "pipeline schedule"
+            )
+        if getattr(cfg, "decode", False):
+            raise ValueError(
+                "pipeline is a training construct; decode mode "
+                "keeps a KV cache and is not supported"
+            )
+        super().__init__()
+        self.config = cfg
+        self.num_stages = num_stages
+        self.num_microbatches = num_microbatches
+        self.batch_axis = batch_axis
+        self.per_stage = layers_per_stage(cfg.num_layers, num_stages)
+        from dlrover_tpu_torch.parallel import mesh as mesh_mod
+
+        mesh = mesh_mod._GLOBAL_MESH
+        ranked = (mesh is not None and mesh.distributed
+                  and mesh.shape["pipeline"] > 1)
+        if ranked and mesh.shape["pipeline"] != num_stages:
+            raise ValueError(f"{num_stages} stages on a pipeline axis of "
+                             f"{mesh.shape['pipeline']}")
+        self._mesh = mesh if ranked else None
+        stages = [mesh.coordinate()["pipeline"]] if ranked else None
+        self.embed = self._embed_cls(inner)
+        self.head = self._head_cls(inner)
+        stacked = partition_pipeline_params(
+            {k: v for k, v in inner.state_dict().items()
+             if k.startswith("blocks.")},
+            num_stages, cfg.num_layers, stages)
+        # the block module: its parameters are the stacked tensors; the
+        # stage fn calls it with one slot's slices
+        self.blocks = type(inner.blocks[0])(cfg, device="meta")
+        for key, value in stacked.items():
+            module_name, _, leaf = key[len("blocks."):].rpartition(".")
+            module = self.blocks.get_submodule(module_name)
+            if ranked:
+                value = self._stage_dtensor(value)
+            setattr(module, leaf, nn.Parameter(value))
+
+    def _stage_dtensor(self, local: torch.Tensor):
+        """This rank's stage rows as a DTensor sharded on the stage dim
+        over the ``pipeline`` sub-mesh (a copy on every data rank)."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        shape = (self.num_stages,) + tuple(local.shape[1:])
+        return DTensor.from_local(local, self._mesh["pipeline"], [Shard(0)],
+                                  run_check=False, shape=shape,
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
+    def _block_params(self):
+        return dict(self.blocks.named_parameters())
+
+    def _stage_fn(self):
+        cfg = self.config
+        per, layers = self.per_stage, cfg.num_layers
+        block = self.blocks
+
+        def one(params, h):
+            return torch.func.functional_call(block, params, (h,))
+
+        def stage_fn(stage_params, h, stage):
+            # slots past this stage's real layer count hold zero params
+            # and are skipped (identity), as the reference masks them
+            n_valid = min(per, max(0, layers - stage * per))
+            for j in range(n_valid):
+                params = {n: t[j] for n, t in stage_params.items()}
+                if cfg.remat and torch.is_grad_enabled():
+                    if cfg.remat_policy == "offload":
+                        with save_on_cpu(pin_memory=True):
+                            h = checkpoint(one, params, h,
+                                           use_reentrant=False)
+                    else:
+                        h = checkpoint(one, params, h, use_reentrant=False)
+                else:
+                    h = one(params, h)
+            return h
+
+        return stage_fn
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """GPipe: fp32 logits on every stage."""
+        from dlrover_tpu_torch.parallel.pipeline import pipeline_apply
+
+        x = self.embed(tokens)
+        x = pipeline_apply(
+            self._stage_fn(), self._block_params(), x, self._mesh,
+            num_microbatches=self.num_microbatches,
+            batch_axis=self.batch_axis, with_stage=True)
+        return self.head(x, wte=self.embed.wte.weight)
+
+    def loss_and_grads_1f1b(self, tokens: torch.Tensor,
+                            targets: torch.Tensor) -> torch.Tensor:
+        """Next-token CE through the interleaved (1F1B) schedule.
+
+        The head (final norm and lm head, a tied embedding included)
+        rides the last stage's turn-around; the embedding's gradients
+        chain through the schedule's ``input_grads``; a tied table's
+        gradients from both ends are summed.  Every gradient is left in
+        ``.grad`` (added to what is there); returns the mean loss,
+        detached, averaged over the batch axes' ranks as the
+        gradients are."""
+        from dlrover_tpu_torch.parallel.pipeline import (
+            pipeline_train_step_1f1b,
+        )
+
+        with torch.enable_grad():
+            x = self.embed(tokens)
+        head_names = dict(self.head.named_parameters())
+        hp = {"head": head_names}
+        tied = getattr(self.config, "tie_embeddings", False)
+        if tied:
+            hp["wte"] = self.embed.wte.weight
+
+        def head_loss(params, out, y_mb):
+            logits = torch.func.functional_call(
+                self.head, params["head"], (out,),
+                {"wte": params.get("wte")})
+            return cross_entropy_loss(logits, y_mb)
+
+        res = pipeline_train_step_1f1b(
+            self._stage_fn(), head_loss, self._block_params(), x.detach(),
+            targets, self._mesh, num_microbatches=self.num_microbatches,
+            batch_axis=self.batch_axis, head_params=hp, with_stage=True)
+        if x.requires_grad:
+            x.backward(res.input_grads)
+            # the input grads carry each row's 1/dp of the global mean:
+            # the embedding's gradient is their sum over the batch axes
+            import torch.distributed as dist
+
+            from dlrover_tpu_torch.parallel.pipeline import batch_groups
+
+            for group in batch_groups(self._mesh, self.batch_axis)[0]:
+                for p in self.embed.parameters():
+                    if p.grad is not None:
+                        dist.all_reduce(p.grad, group=group)
+        grads = [(head_names[n], g) for n, g in res.head_grads["head"].items()]
+        if tied:
+            grads.append((self.embed.wte.weight, res.head_grads["wte"]))
+        for name, p in self.blocks.named_parameters():
+            g = res.stage_grads[name]
+            if is_dtensor(p):
+                g = self._stage_dtensor(g)
+            grads.append((p, g))
+        for p, g in grads:
+            if p.requires_grad:
+                p.grad = g if p.grad is None else p.grad + g
+        return res.loss
+
+
+class PipelinedGPT(PipelinedDecoder):
+    """GPT family: wte + wpe embed, LayerNorm head, optional tied
+    embeddings."""
+
+    _embed_cls = _GPTEmbed
+    _head_cls = _GPTHead
+
+    def __init__(self, inner, num_stages, num_microbatches,
+                 batch_axis=("data", "fsdp")):
+        if inner.config.head != "lm":
+            raise ValueError(
+                f"pipeline supports the lm head only, not "
+                f"{inner.config.head!r} (value heads would be "
+                "silently dropped by the stage partitioner)"
+            )
+        super().__init__(inner, num_stages, num_microbatches, batch_axis)
+
+
+def to_pipelined(model: "GPT", num_stages: int, num_microbatches: int,
+                 batch_axis=("data", "fsdp")) -> PipelinedGPT:
+    """auto_accelerate protocol hook (build_from_plan calls this when
+    the plan's mesh has pipeline > 1)."""
+    return PipelinedGPT(model, num_stages, num_microbatches, batch_axis)
+
+
+GPT.to_pipelined = to_pipelined

@@ -45,9 +45,11 @@ Mixtral: ``moe_experts > 0`` replaces the SwiGLU MLP of every
 :mod:`dlrover_tpu_torch.parallel.moe`).  Sequence parallelism:
 ``attention_impl`` ``"ring"`` (GQA-aware, over the flash kernels),
 ``"ulysses"`` and ``"ulysses_flash"`` (k and v repeated first), RoPE at
-each rank's global positions.  The pipelined Llama comes with slice 5.3
-and decode with a KV cache with 5.4; each raises
-``NotImplementedError`` naming its slice.
+each rank's global positions.  Pipeline parallelism:
+:meth:`Llama.to_pipelined` gives a :class:`PipelinedLlama` (the stage-
+stacked layout of :class:`~dlrover_tpu_torch.models.gpt.
+PipelinedDecoder`).  Decode with a KV cache comes with slice 5.4 and
+raises ``NotImplementedError`` naming it.
 """
 
 from dataclasses import dataclass
@@ -60,9 +62,10 @@ from torch.autograd.graph import save_on_cpu
 from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
-from dlrover_tpu_torch.common.slices import SLICE_5_3, SLICE_5_4
+from dlrover_tpu_torch.common.slices import SLICE_5_4
 from dlrover_tpu_torch.models.gpt import (
     Dense,
+    PipelinedDecoder,
     get_attention_fn,
     init_flax_weights,
     moe_layer,
@@ -360,15 +363,38 @@ class Llama(nn.Module):
 
     def to_pipelined(self, num_stages: int, num_microbatches: int,
                      batch_axis=("data", "fsdp")):
-        """The reference's ``auto_accelerate`` hook for a pipeline axis."""
-        raise NotImplementedError(
-            f"the pipelined Llama is not ported yet: it comes with "
-            f"{SLICE_5_3}")
+        """auto_accelerate protocol hook (build_from_plan calls this
+        when the plan's mesh has pipeline > 1)."""
+        return PipelinedLlama(self, num_stages, num_microbatches,
+                              batch_axis)
 
 
-class PipelinedLlama:
-    """The reference's stage-stacked Llama (``PipelinedDecoder``)."""
+class _LlamaEmbed(nn.Module):
+    def __init__(self, inner):
+        super().__init__()
+        self.config = inner.config
+        self.wte = inner.wte
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"PipelinedLlama is not ported yet: it comes with {SLICE_5_3}")
+    def forward(self, tokens):
+        # RoPE blocks need no position embedding at the boundary
+        return vocab_parallel_embedding(
+            tokens, self.wte.weight.to(self.config.dtype))
+
+
+class _LlamaHead(nn.Module):
+    def __init__(self, inner):
+        super().__init__()
+        self.config = inner.config
+        self.ln_f, self.lm_head = inner.ln_f, inner.lm_head
+
+    def forward(self, h, wte=None):
+        return self.lm_head(self.ln_f(h), self.config.dtype).float()
+
+
+class PipelinedLlama(PipelinedDecoder):
+    """Llama family over the pipeline axis (reference:
+    ``dlrover_tpu/models/llama.py:307``): RoPE blocks need no position
+    embedding at the boundary, RMSNorm and an untied lm head."""
+
+    _embed_cls = _LlamaEmbed
+    _head_cls = _LlamaHead

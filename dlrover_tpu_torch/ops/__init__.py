@@ -1,1 +1,2 @@
-"""Kernels of the port (``dlrover_tpu/ops``): CUDA C++ under ``csrc/``."""
+"""Kernels of the port (``dlrover_tpu/ops``): CUDA C++ under ``csrc/``;
+``fp8`` is ``torch._scaled_mm`` (the reference's fp8 is jnp, no Pallas)."""

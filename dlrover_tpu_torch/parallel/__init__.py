@@ -1,8 +1,8 @@
 """Parallelism layer (reference: ``dlrover_tpu/parallel/``): the mesh
 and the partition rules, which become FSDP2 and DTensor placements on
-``torch.distributed``; ``sequence`` (ring and Ulysses attention) and
-``moe`` (the expert-parallel MoE layer).  ``pipeline`` comes with slice
-5.3 of the port."""
+``torch.distributed``; ``sequence`` (ring and Ulysses attention),
+``moe`` (the expert-parallel MoE layer) and ``pipeline`` (GPipe and
+1F1B over the ``pipeline`` axis)."""
 
 from dlrover_tpu_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
 from dlrover_tpu_torch.parallel.sharding import (

@@ -9,17 +9,18 @@ axes the port runs: ``data`` (batch split, params replicated), ``fsdp``
 (the sequence split: ring or Ulysses attention,
 :mod:`dlrover_tpu_torch.parallel.sequence`), ``expert`` (MoE expert
 kernels split, the batch replicated: :mod:`dlrover_tpu_torch.parallel.moe`)
-and ``tensor`` (Megatron-style tensor parallelism, DTensor).  One
-device is one rank.  ``pipeline`` keeps its name and size in
-:class:`MeshConfig`; a mesh that needs it above 1 raises, naming slice
-5.3 of the port, which brings it.
+``tensor`` (Megatron-style tensor parallelism, DTensor) and
+``pipeline`` (stage-stacked blocks, one stage a rank:
+:mod:`dlrover_tpu_torch.parallel.pipeline`; ``mesh.group("pipeline")``
+is the stage group).  One device is one rank.
 
 The reference's ICI/DCN split becomes intra-node/inter-node (NVLink
 against the network): ``num_slices`` is the node count, and only the
 bandwidth-light axes (``data``, ``pipeline``) may span nodes.  Ranks
-are laid out row-major over (data, fsdp, sequence, expert, tensor), so
-with one node's ranks consecutive, the inner axes stay inside a node
-whenever their product divides the node's rank count.
+are laid out row-major over (data, pipeline, fsdp, sequence, expert,
+tensor), so with one node's ranks consecutive, the inner axes stay
+inside a node whenever their product divides the node's rank count, and
+the nodes split ``data`` first, then ``pipeline``.
 
 A world of one with no process group builds a mesh with no
 ``DeviceMesh``: it shards nothing, as the reference's one-device mesh
@@ -32,7 +33,6 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 from dlrover_tpu_torch.common import env_utils
-from dlrover_tpu_torch.common.slices import SLICE_5_3
 
 AXES = ("data", "fsdp", "tensor", "sequence", "expert", "pipeline")
 
@@ -41,8 +41,9 @@ AXES = ("data", "fsdp", "tensor", "sequence", "expert", "pipeline")
 # sequence/expert all-to-alls stay inside a node (its ICI_AXES)
 DCN_AXES = ("data", "pipeline")
 ICI_AXES = ("fsdp", "tensor", "sequence", "expert")
-# the axes a DeviceMesh of the port carries, outermost first
-TORCH_AXES = ("data", "fsdp", "sequence", "expert", "tensor")
+# the axes a DeviceMesh of the port carries, outermost first: the
+# node-spanning axes outside, in the order that absorbs the nodes
+TORCH_AXES = ("data", "pipeline", "fsdp", "sequence", "expert", "tensor")
 
 
 @dataclass
@@ -195,10 +196,6 @@ def build_mesh(
     if world_size is None:
         world_size = dist.get_world_size() if initialized else 1
     sizes = config.axis_sizes(world_size)
-    if sizes["pipeline"] > 1:
-        raise NotImplementedError(
-            f"mesh axis 'pipeline' of size {sizes['pipeline']}: pipeline "
-            f"parallelism comes with {SLICE_5_3}")
     if num_slices is None:
         num_slices = config.num_slices or detect_num_slices()
     if num_slices > 1:

@@ -26,7 +26,9 @@ vocab over the tensor axis (:func:`apply_tensor_parallel`):
 holds its row and sums over the tensor group, :func:`vocab_logits`
 gives logits sharded on vocab, which the losses of
 :mod:`dlrover_tpu_torch.models.losses` reduce without gathering them.
-``pipeline_rules`` is copied as data until slice 5.3 of the port.
+``pipeline_rules`` places the stage-stacked ``blocks`` of a pipelined
+model (:class:`~dlrover_tpu_torch.models.gpt.PipelinedDecoder`) on the
+``pipeline`` axis, each rank's shard its own stage.
 """
 
 import functools
@@ -163,8 +165,9 @@ def replicated_rules() -> PartitionRules:
 
 
 def pipeline_rules() -> PartitionRules:
-    """Stage-stacked block params shard dim 0 over the pipeline axis;
-    embed/head replicate.  Data only until slice 5.3 of the port."""
+    """Stage-stacked block params (``blocks/...`` leaves with leading
+    [stage, layer/stage] dims) shard dim 0 over the pipeline axis;
+    embed/head replicate."""
     return PartitionRules(
         rules=[(r"(^|/)blocks/", ("pipeline",))], default=()
     )

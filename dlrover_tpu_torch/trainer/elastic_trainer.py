@@ -186,6 +186,7 @@ def make_train_step(
     grad_accum: int = 1,
     device: Optional[Union[str, torch.device]] = None,
     grad_hook: Optional[Callable[[torch.nn.Module], None]] = None,
+    backward: bool = True,
 ):
     """Build the ``(state, batch) -> (state, metrics)`` step.
 
@@ -197,7 +198,10 @@ def make_train_step(
     ``grad_accum``, and the loss is their mean, as in the reference.
     ``grad_hook(module)``, when given, runs after the backward passes and
     before the gradients are averaged and measured (the data-parallel
-    all-reduce of :mod:`dlrover_tpu_torch.accel.accelerate`).
+    all-reduce of :mod:`dlrover_tpu_torch.accel.accelerate`).  With
+    ``backward=False`` the loss function leaves the gradients in
+    ``.grad`` itself and returns its loss detached (the 1F1B pipeline,
+    whose schedule runs the backward).
     ``metrics`` holds 0-d tensors ``loss`` and ``grad_norm`` (the
     global L2 norm of the averaged gradients, as ``optax.global_norm``).
     """
@@ -216,7 +220,8 @@ def make_train_step(
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         for i in range(grad_accum):
             loss = loss_fn(module, {k: v[i] for k, v in micro.items()})
-            loss.backward()
+            if backward:
+                loss.backward()
             loss_sum = loss_sum + loss.detach()
         loss = loss_sum / grad_accum
         if grad_hook is not None:

@@ -10,6 +10,12 @@ the flax tree and whose Dense weights keep flax's ``[in, out]``
 layout, so the map is by rule:
 
 - ``block_i`` is ``blocks.i``;
+- a pipelined model's stage-stacked tree (the reference's
+  ``{"embed", "blocks", "head"}``, ``blocks`` leaves ``[stages,
+  layers/stage, ...]``, padded slots included) is ``embed.*``,
+  ``blocks.<name>`` and ``head.*`` of
+  :class:`~dlrover_tpu_torch.models.gpt.PipelinedDecoder`, by the same
+  rules (the optimizer-state converters follow the params);
 - ``Dense.kernel`` is ``Dense.weight``, same layout (GPT's fused
   ``qkv``; Llama's ``q_proj``/``k_proj``/``v_proj``/``o_proj`` and
   ``gate``/``up``/``down``; the untied ``lm_head``);
@@ -82,7 +88,7 @@ def flax_path(name: str) -> Tuple[str, ...]:
     path = []
     i = 0
     while i < len(module):
-        if module[i] == "blocks":
+        if module[i] == "blocks" and module[i + 1].isdigit():
             path.append(f"block_{module[i + 1]}")
             i += 2
         else:

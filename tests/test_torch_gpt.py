@@ -244,8 +244,9 @@ def test_count_params_matches_jax(flax_init):
 def test_later_slices_raise_not_implemented(kw):
     """Options of later slices raise naming their slice; those of slice
     5.2 (MoE, ring and Ulysses) build since it landed
-    (tests/test_torch_moe.py and test_torch_sp_e2e.py drive them)."""
-    if kw.get("moe_experts") or kw.get("attention_impl"):
+    (tests/test_torch_moe.py and test_torch_sp_e2e.py drive them), and
+    fp8 since slice 5.3 (tests/test_torch_fp8.py)."""
+    if kw.get("moe_experts") or kw.get("attention_impl") or kw.get("fp8"):
         model = port_gpt.GPT(port_gpt.GPTConfig.tiny(**kw), device="cpu")
         assert model.config == port_gpt.GPTConfig.tiny(**kw)
         return

@@ -225,18 +225,19 @@ def test_llama_tp_rules_cover_params():
     assert spec["lm_head/kernel"] == ("fsdp", "tensor")
     # fsdp 2 x tensor 2: q holds heads/2, k and v kv_heads/2 (the GQA
     # group kept); the norms replicated
-    # (placements over data, fsdp, sequence, expert, tensor)
+    # (placements over data, pipeline, fsdp, sequence, expert, tensor)
     shape = {"data": 1, "fsdp": 2, "tensor": 2}
     pl = param_placements(model, shape, rules)
     r = Replicate()
-    assert pl["blocks.0.attn.q_proj.weight"] == (r, Shard(0), r, r,
+    assert pl["blocks.0.attn.q_proj.weight"] == (r, r, Shard(0), r, r,
                                                  Shard(1))
-    assert pl["blocks.0.attn.k_proj.weight"] == (r, Shard(0), r, r,
+    assert pl["blocks.0.attn.k_proj.weight"] == (r, r, Shard(0), r, r,
                                                  Shard(1))
-    assert pl["blocks.0.attn.o_proj.weight"] == (r, Shard(1), r, r,
+    assert pl["blocks.0.attn.o_proj.weight"] == (r, r, Shard(1), r, r,
                                                  Shard(0))
-    assert pl["blocks.0.mlp.down.weight"] == (r, Shard(1), r, r, Shard(0))
-    assert pl["blocks.0.ln_mlp.weight"] == (r,) * 5
+    assert pl["blocks.0.mlp.down.weight"] == (r, r, Shard(1), r, r,
+                                              Shard(0))
+    assert pl["blocks.0.ln_mlp.weight"] == (r,) * 6
     # a dim the tensor axis does not divide stays replicated over it:
     # k_proj of one kv head of 24 columns over 16 ranks
     odd = port_llama.Llama(port_llama.LlamaConfig.tiny(
@@ -389,11 +390,15 @@ def test_later_slices_raise_not_implemented(kw, slice_):
 
 
 def test_pipelined_llama_raises_naming_its_slice():
+    """Slice 5.3 landed: the pipelined Llama builds (in process, every
+    stage here) with the stage-stacked layout; tests/test_torch_pipeline.py
+    holds it against the JAX package's."""
     model = port_llama.Llama(port_llama.LlamaConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5.3"):
-        model.to_pipelined(num_stages=2, num_microbatches=2)
-    with pytest.raises(NotImplementedError, match="slice 5.3"):
-        port_llama.PipelinedLlama(model, 2, 2)
+    for pm in (model.to_pipelined(num_stages=2, num_microbatches=2),
+               port_llama.PipelinedLlama(model, 2, 2)):
+        assert isinstance(pm, port_llama.PipelinedLlama)
+        q = dict(pm.named_parameters())["blocks.attn.q_proj.weight"]
+        assert q.shape[:2] == (2, model.config.num_layers // 2)
 
 
 @pytest.mark.parametrize("opts,slice_", [
@@ -403,17 +408,19 @@ def test_pipelined_llama_raises_naming_its_slice():
     ([("fp8", {})], "slice 5.4"),
 ])
 def test_deferred_parallelism_raises_naming_its_slice(opts, slice_):
-    """Slice 5.2's optimizations apply since it landed: they size their
-    mesh axis as the reference's do."""
+    """The optimizations of slices 5.2 and 5.3 apply since they landed:
+    they size their mesh axis (or set fp8) as the reference's do.
+    ``slice_`` keeps the slice each was once deferred to (fp8 was
+    planned for 5.4 and came with 5.3)."""
     from dlrover_tpu_torch.accel import OptimizationLibrary, Strategy
 
-    if slice_ == "slice 5.2":
-        plan = OptimizationLibrary().apply_strategy(Strategy(opts=opts))
-        axis = "sequence" if opts[0][0] == "sequence_parallel" else "expert"
-        assert getattr(plan.mesh_config, axis) == 2
+    plan = OptimizationLibrary().apply_strategy(Strategy(opts=opts))
+    name = opts[0][0]
+    if name == "fp8":
+        assert plan.fp8 is True
         return
-    with pytest.raises(NotImplementedError, match=slice_):
-        OptimizationLibrary().apply_strategy(Strategy(opts=opts))
+    axis = name.split("_")[0]
+    assert getattr(plan.mesh_config, axis) == 2
 
 
 @pytest.mark.parametrize("axis,slice_", [
@@ -421,15 +428,11 @@ def test_deferred_parallelism_raises_naming_its_slice(opts, slice_):
     ("pipeline", "slice 5.3"),
 ])
 def test_deferred_mesh_axes_raise_naming_their_slice(axis, slice_):
-    """The sequence and expert axes build since slice 5.2 landed (two
-    ranks need a process group); the pipeline axis still raises."""
+    """The sequence and expert axes build since slice 5.2 landed, the
+    pipeline axis since slice 5.3: two ranks need a process group."""
     from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
-    if slice_ == "slice 5.2":
-        with pytest.raises(ValueError, match="process group"):
-            build_mesh(MeshConfig(**{"data": 1, axis: 2}), world_size=2)
-        return
-    with pytest.raises(NotImplementedError, match=slice_):
+    with pytest.raises(ValueError, match="process group"):
         build_mesh(MeshConfig(**{"data": 1, axis: 2}), world_size=2)
 
 
@@ -614,7 +617,7 @@ def test_llama2_7b_fsdp_step_counts_on_meta():
     assert plan.param_rules.rules == fsdp_rules().rules
     pl = param_placements(model, {"data": 1, "fsdp": 8, "tensor": 1},
                           plan.param_rules)
-    assert pl["blocks.0.attn.q_proj.weight"][1] == Shard(0)
+    assert pl["blocks.0.attn.q_proj.weight"][2] == Shard(0)  # fsdp
     assert model.blocks[0].attn.q_proj.weight.shape[0] % 8 == 0
     cost = count_step(plan, context)
     # 6 FLOPs a weight a token at least, plus the remat recompute

@@ -39,6 +39,18 @@ and its one-GPU run.  Each test spawns one process per GPU of this file
   tensor 1's own run, whose bf16 gradient is summed in another order,
   the share of codes that differ is reported; step times and each
   card's peak;
+- Llama-3-8B at full width and depth (seq 8192, bf16 params, remat,
+  flash, int8 q-AdamW) at pipeline 4 under the 1F1B schedule, 4
+  microbatches of one sequence, 3 steps, against pipeline 1 on rank 0's
+  GPU alone (the same batch as 4 accumulated micro-batches through
+  ``chunked_loss_fn(8)``): the first loss within 1e-3, the others
+  within 1e-2 (the tensor-4 test's tolerances); step times and each
+  card's peak;
+- the pipeline example (``examples/train_pipelined_lm.py``) on NCCL, one
+  stage a GPU, and GPT-2 small at pipeline 2 x data 2 (GPipe, AdamW):
+  its flash checkpoint after 2 steps (the stage-sharded blocks and the
+  replicated embed and head, each rank's file on ``/dev/shm``) restored
+  bit for bit onto a fresh plan;
 - DiLoCo's outer step over NCCL, one replica a GPU (GPT-2 small's tree),
   each reduce method against the stacked form of the four replicas on
   rank 0: anchors and momenta within rtol 1e-5 / atol 1e-7 but for at
@@ -446,6 +458,188 @@ def _llama_tp_worker(rank, world, out_path):
         json.dump(report, f)
 
 
+LLAMA_PP_MICRO = 4
+
+
+def _llama_pp_worker(rank, world, out_path):
+    """Llama-3-8B at pipeline ``world`` (1F1B, int8 q-AdamW), then
+    pipeline 1 on rank 0 alone over the same batch."""
+    import gc
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel import Strategy, auto_accelerate
+    from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
+    from dlrover_tpu_torch.models.losses import chunked_loss_fn
+
+    cfg = LlamaConfig.llama3_8b(param_dtype=torch.bfloat16)
+    data = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LLAMA_PP_MICRO, LLAMA_SEQ + 1), dtype=np.int32)
+    batch = {"x": data[:, :-1], "y": data[:, 1:]}
+    opts = [("half", {}), ("checkpoint", {}),
+            ("module_replace", {"attention": "flash"}),
+            ("low_bit_opt", {"bits": 8, "learning_rate": 3e-4,
+                             "weight_decay": 0.1})]
+
+    def run(first, grad_accum):
+        torch.cuda.reset_peak_memory_stats()
+        res = auto_accelerate(
+            Llama(cfg, seed=0), lambda ps: torch.optim.AdamW(ps),
+            chunked_loss_fn(num_chunks=8), batch,
+            strategy=Strategy(opts=[first] + opts), grad_accum=grad_accum)
+        state, placed = res.state, res.place_batch(batch)
+        losses, secs = [], []
+        for _ in range(LLAMA_TP_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = res.train_step(state, placed)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        info = {"losses": losses, "secs": secs,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "mesh": dict(res.mesh.shape), "notes": list(res.plan.notes),
+                "model": type(res.model).__name__}
+        del res, state, placed
+        gc.collect()
+        torch.cuda.empty_cache()
+        return info
+
+    pp = run(("pipeline_parallel", {"size": world,
+                                    "microbatches": LLAMA_PP_MICRO,
+                                    "schedule": "1f1b"}), 1)
+    gathered = [None] * world
+    dist.all_gather_object(gathered, (pp["losses"], pp["peak_gib"]))
+    dist.destroy_process_group()
+    if rank != 0:
+        return
+    one = run(("parallel_mode", {}), LLAMA_PP_MICRO)
+    report = {"pipeline": pp, "pipeline1": one,
+              "losses_by_rank": [g[0] for g in gathered],
+              "peaks_gib": [g[1] for g in gathered],
+              "card": torch.cuda.get_device_name(0)}
+    with open(out_path, "w") as f:
+        json.dump(report, f)
+
+
+def _pp_misc_worker(rank, world, out_path):
+    """The pipeline example on NCCL, then GPT-2 small at pipeline 2 x
+    data 2 through its flash checkpoint."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel import Strategy, auto_accelerate
+    from dlrover_tpu_torch.checkpoint.checkpointer import (
+        Checkpointer,
+        StorageType,
+    )
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.examples import train_pipelined_lm
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, cross_entropy_loss
+    from dlrover_tpu_torch.utils.convert import (
+        adamw_state_from_tree,
+        adamw_state_tree,
+        params_tree,
+    )
+
+    report = {"example": train_pipelined_lm.main([])}
+    cfg = GPTConfig.gpt2_small(attention_impl="flash")
+    data = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 1025),
+                                             dtype=np.int32)
+    batch = {"x": data[:, :-1], "y": data[:, 1:]}
+
+    def plan():
+        return auto_accelerate(
+            GPT(cfg, seed=0), lambda ps: torch.optim.AdamW(ps, lr=3e-4),
+            lambda m, b: cross_entropy_loss(m(b["x"]), b["y"]), batch,
+            strategy=Strategy(opts=[("pipeline_parallel", {
+                "size": 2, "microbatches": 2}), ("amp_native", {})]))
+
+    def tree(res):
+        return {"params": params_tree(res.model),
+                "opt_state": adamw_state_tree(res.state.optimizer,
+                                              res.model)}
+
+    def flat(t, prefix=""):
+        out = {}
+        for k, v in (t.items() if isinstance(t, dict) else
+                     enumerate(t) if isinstance(t, (list, tuple)) else []):
+            out.update(flat(v, f"{prefix}/{k}"))
+        if torch.is_tensor(t):
+            v = t.full_tensor() if hasattr(t, "full_tensor") else t
+            out[prefix] = v.detach().cpu().reshape(-1).view(torch.uint8)
+        return out
+
+    sockets = tempfile.mkdtemp(prefix="pp_sock")
+    os.environ.update({"DLROVER_NODE_RANK": str(rank),
+                       "DLROVER_RANK": str(rank),
+                       "DLROVER_WORLD_SIZE": str(world),
+                       "DLROVER_LOCAL_WORLD_SIZE": str(world),
+                       "DLROVER_SHARED_DIR": sockets,
+                       "DLROVER_JOB_NAME": f"ppck{os.getppid()}_{rank}"})
+    path = [tempfile.mkdtemp(prefix="ppck_", dir="/dev/shm")
+            if rank == 0 else None]
+    dist.broadcast_object_list(path)
+    path = path[0]
+    try:
+        res = plan()
+        state = res.state
+        losses = []
+        for _ in range(2):
+            state, metrics = res.train_step(state, res.place_batch(batch))
+            losses.append(float(metrics["loss"]))
+        AsyncCheckpointSaver.reset()
+        ckpt = Checkpointer(path, replicated=False)
+        assert ckpt.save_checkpoint(2, tree(res),
+                                    storage_type=StorageType.DISK)
+        assert ckpt.wait()
+        saved = flat(tree(res))
+        ckpt.close()
+        del res, state
+        gc.collect()
+        tracker = os.path.join(path, "latest_checkpointed_iteration.txt")
+        deadline = time.time() + 300
+        while not os.path.exists(tracker) and time.time() < deadline:
+            time.sleep(0.1)
+        dist.barrier()
+        fresh = plan()
+        AsyncCheckpointSaver.reset()
+        ckpt = Checkpointer(path, replicated=False)
+        step, restored = ckpt.load_checkpoint(target_state=tree(fresh))
+        adamw_state_from_tree(restored["opt_state"], fresh.state.optimizer,
+                              fresh.model)
+        got = flat(tree(fresh))
+        ckpt.close()
+        report.update({
+            "losses": losses, "restore_step": step,
+            "tier": ckpt.last_restore_phases["tier"],
+            "keys": len(saved), "same_keys": set(got) == set(saved),
+            "unequal": sorted(k for k in saved
+                              if k in got and not torch.equal(got[k],
+                                                              saved[k])),
+            "blocks_placements": str(dict(
+                fresh.model.named_parameters())[
+                    "blocks.attn.qkv.weight"].placements)})
+        dist.barrier()
+    finally:
+        from dlrover_tpu_torch.checkpoint.shm_handler import (
+            SharedMemoryHandler,
+        )
+
+        AsyncCheckpointSaver.reset()
+        SharedMemoryHandler(0).unlink()
+        shutil.rmtree(sockets, ignore_errors=True)
+        if rank == 0:
+            shutil.rmtree(path, ignore_errors=True)
+    if rank == 0:
+        report["card"] = torch.cuda.get_device_name(0)
+        with open(out_path, "w") as f:
+            json.dump(report, f)
+
+
 DILOCO_METHODS = {
     "linear": dict(reduce_method="linear"),
     "gta_sum": dict(reduce_method="gta", consensus="sum"),
@@ -597,6 +791,34 @@ def test_llama3_8b_tensor4_int8_matches_tensor1(tmp_path):
 
 
 @pytest.mark.cuda
+def test_llama3_8b_pipeline4_1f1b_int8_matches_pipeline1(tmp_path):
+    _needs(4)
+    report = _spawn("llama_pp", 4, tmp_path, 1800)
+    print(f"Llama-3-8B pipeline 4 1F1B int8 q-AdamW: {json.dumps(report)}")
+    pp, one = report["pipeline"], report["pipeline1"]
+    assert pp["mesh"]["pipeline"] == 4 and pp["model"] == "PipelinedLlama"
+    for losses in report["losses_by_rank"]:
+        assert losses == pp["losses"]
+    p4, p1 = pp["losses"], one["losses"]
+    assert abs(p4[0] - p1[0]) <= 1e-3 * abs(p1[0]), (p4, p1)
+    for a, b in zip(p4[1:], p1[1:]):
+        assert abs(a - b) <= 1e-2 * abs(b), (p4, p1)
+    assert p4[-1] < p4[0]
+
+
+@pytest.mark.cuda
+def test_pipeline_example_and_checkpoint_over_nccl(tmp_path):
+    _needs(4)
+    report = _spawn("pp_misc", 4, tmp_path, 900)
+    print(f"pipeline example and checkpoint over NCCL: {json.dumps(report)}")
+    example = report["example"]
+    assert len(example) == 60 and example[-1] < 0.05 * example[0], example
+    assert report["restore_step"] == 2 and report["tier"] == "storage"
+    assert report["same_keys"] and report["unequal"] == [], report
+    assert "Shard(dim=0)" in report["blocks_placements"]
+
+
+@pytest.mark.cuda
 def test_diloco_over_nccl_equals_the_stacked_form(tmp_path):
     _needs(4)
     report = _spawn("diloco", 4, tmp_path, 600)
@@ -620,6 +842,8 @@ if __name__ == "__main__":
                   "mixtral": _mixtral_worker,
                   "mixtral_eptp": _mixtral_eptp_worker,
                   "llama_tp": _llama_tp_worker,
+                  "llama_pp": _llama_pp_worker,
+                  "pp_misc": _pp_misc_worker,
                   "diloco": _diloco_worker}[kind]
         worker(rank, world, sys.argv[6])
         if dist.is_initialized():

@@ -225,15 +225,17 @@ def test_analyser_reports_model_size():
                                   "pipeline_parallel", "fp8"])
 def test_optimizations_of_slice_5_raise(name):
     """Those of slice 5.2 apply since it landed (the reference's default
-    size 2); the pipeline and fp8 still raise."""
-    if name in ("sequence_parallel", "expert_parallel"):
-        plan = OptimizationLibrary().apply_strategy(
-            Strategy(opts=[(name, {})]))
-        axis = name.split("_")[0]
-        assert getattr(plan.mesh_config, axis) == 2
+    size 2), and so do the pipeline (size 2, 4 microbatches, GPipe) and
+    fp8 since slice 5.3: none raises."""
+    plan = OptimizationLibrary().apply_strategy(Strategy(opts=[(name, {})]))
+    if name == "fp8":
+        assert plan.fp8 is True
         return
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        OptimizationLibrary().apply_strategy(Strategy(opts=[(name, {})]))
+    axis = name.split("_")[0]
+    assert getattr(plan.mesh_config, axis) == 2
+    if name == "pipeline_parallel":
+        assert (plan.pipeline_microbatches, plan.pipeline_schedule) == \
+            (4, "gpipe")
 
 
 def test_auto_accelerate_semiauto_fsdp_on_one_device():

@@ -221,16 +221,28 @@ def test_trainer_runs_on_the_gpu_unless_told_otherwise(tmp_path,
 
 
 @pytest.mark.parametrize("kw,match", [
-    # a strategy is taken since slice 4.1; the optimizations of slice 5
-    # raise when the Trainer is built
+    # a strategy is taken since slice 4.1; the pipeline and fp8 of
+    # slice 5 raised when the Trainer was built until slice 5.3 landed:
+    # both now build and train (``match`` names the slice they came with)
     (dict(strategy=Strategy(opts=[("pipeline_parallel", {"size": 2})])),
      "slice 5"),
     (dict(strategy=Strategy(opts=[("parallel_mode", {}), ("fp8", {})])),
      "slice 5"),
 ])
 def test_trainer_options_of_later_slices_raise(tmp_path, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _trainer(tmp_path, **kw)
+    from dlrover_tpu_torch.models.gpt import PipelinedGPT
+    from dlrover_tpu_torch.ops.fp8 import Fp8Dense
+
+    trainer = _trainer(tmp_path, max_steps=2, **kw)
+    result = trainer.train()
+    assert all(np.isfinite(result["losses"]))
+    model = trainer.state.module
+    if "fp8" in kw["strategy"].names():
+        assert isinstance(model.blocks[0].mlp.fc_in, Fp8Dense)
+    else:
+        assert isinstance(model, PipelinedGPT)
+        assert dict(model.named_parameters())[
+            "blocks.attn.qkv.weight"].shape[0] == 2
 
 
 def test_default_optimizer_is_optax_adamw(tmp_path):
