@@ -300,11 +300,35 @@ Phases, each fatal on failure:
       ``auto_accelerate`` with phase 5b's plan plus ``fp8``, 6 steps of
       int8 q-AdamW: a falling loss, exact launches, the step against
       5b's in the same run.
+16. the RL engine with KV-cache decode (slice 7), each check fatal:
+   a. PPO at GPT-2 small's full width (124,475,904 params, 12 layers,
+      max_seq_len 1024): an actor (``module_replace(flash)``, bf16 amp),
+      a value-head critic that searches its plan (cost model), a frozen
+      bf16 ref; 32 prompts of 128 tokens, 128 new tokens at temperature
+      1, the example's reward; 4 ``ppo_iteration`` s and one
+      ``PPOTrainer`` epoch, each iteration's phase seconds, tokens/s
+      and peak memory; B1-B3 launches exact (from the roles' plans) for
+      the run, one experience phase and one PPO step; greedy decode
+      through the cache against the full forward's logits at every
+      generated position, and one PPO step's actor and critic gradients
+      through B1-B3 against the plain attention's, by the relative norm
+      (``RL_REL_NORM``, 8 * 2^-8);
+   b. Llama-3-8B decode at full width and depth (bf16 params, a cache
+      of the preset's 8192 positions): batch 8, prompts of 1024, 256
+      greedy tokens through ``generate``; the median decode step beside
+      its bound (weights + the whole cache at 3.35 TB/s), tokens/s,
+      the cache's size and the peak; the first 16 greedy tokens'
+      logits against one full forward through B1;
+   c. the RL chaos loop (``rl_rollout_worker_kill``) through the port's
+      launcher, its models on the card at GPT-2 small's width cut to 2
+      layers, 8 leases, a SIGKILL at lease 2: the losses equal the
+      uninterrupted control's (computed here on the card), every lease
+      acked exactly once, and the kill -> first PPO step seconds.
 
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  ``--only 2,11`` runs the build
 and the named phases alone (2, 3, 4, 5b, 9b, 10, 11, 12, 13, 13a, 13b,
-14, 14a-14e, 15, 15a and 15b so far; 5lr,
+14, 14a-14e, 15, 15a, 15b, 16 and 16a-16c so far; 5lr,
 which the full run leaves out: phase 5a's model at lr 1e-3 with the
 flash kernels and with the plain attention math, and at SMALL_LR; and
 11d, which the full run leaves out too: 11b's Llama-3-8B for 12 steps
@@ -383,6 +407,7 @@ CASES = [
     (2, 328, 8, 4, 64, "bfloat16", True),     # GQA group 2, ragged
     (2, 384, 4, 4, 128, "bfloat16", True),
     (1, 136, 4, 2, 128, "bfloat16", True),    # d 128, GQA, ragged
+    (4, 255, 12, 12, 64, "bfloat16", True),   # a seq 4 does not divide
     (8, 1024, 12, 12, 64, "float16", True),   # fp16 at GPT-2 small's shape
     (2, 328, 8, 4, 64, "float16", False),     # fp16, GQA, ragged
     (1, 136, 4, 2, 128, "float16", True),     # fp16, d 128, GQA, ragged
@@ -392,8 +417,9 @@ CASES = [
 ]
 TIMED_CASES = 3
 # the plain version's tile at the Llama shape (fewer Python iterations;
-# the kernels use their own tiles)
-PLAIN_BLOCK = {8192: 512}
+# the kernels use their own tiles), and one tile at seq 255, which
+# _fit_block (the reference's rule) would cut into tiles of one row
+PLAIN_BLOCK = {8192: 512, 255: 255}
 # dtype -> tolerance on (out, dq, dk, dv), lse, delta: bf16 and fp16
 # outputs are rounded once more than the fp32 math inside, fp16 keeping
 # 3 more bits than bf16; fp32 differs only by the order of the sums
@@ -5984,6 +6010,537 @@ def phase_pipeline_fp8(card) -> dict:
     return out
 
 
+# -- phase 16: the RL engine and decode (slice 7 with 5.4's decode) ---------
+
+RL_BATCH, RL_PROMPT_LEN, RL_NEW = 32, 128, 128
+RL_ITERS = 4
+RL_REL_NORM = 8 * 2.0 ** -8
+RL_ACTOR_LR, RL_CRITIC_LR = 1e-5, 1e-4
+L8B_BATCH, L8B_PROMPT, L8B_NEW, L8B_CHECK = 8, 1024, 256, 16
+L8B_TIMED_STEPS = 16
+RL_CHAOS_ENV = {"DLROVER_CHAOS_RL_DEVICE": "cuda",
+                "DLROVER_CHAOS_RL_PRESET": "gpt2_small_2l"}
+
+
+def _role_flash(module, grad_accum=1, train=True) -> dict:
+    """The flash launches one step (``train``) or one forward of a role's
+    module takes, from its plan: its attention impl, remat and gradient
+    accumulation."""
+    cfg = module.config
+    if cfg.attention_impl != "flash":
+        return {}
+    layers = cfg.num_layers
+    if not train:
+        return {"flash_attention.fwd": layers}
+    return {"flash_attention.fwd": (2 if cfg.remat else 1) * layers
+            * grad_accum,
+            "flash_attention.bwd_dq": layers * grad_accum,
+            "flash_attention.bwd_dkv": layers * grad_accum}
+
+
+def _sum_counts(*parts, times=1) -> dict:
+    out = _zero_counts()
+    for part in parts:
+        for k, v in part.items():
+            out[k] += v * times
+    return out
+
+
+def _rl_engine(card):
+    """16a's engine: GPT-2 small's actor (``module_replace(flash)`` and
+    bf16 amp over data parallelism), a value-head critic that searches
+    its own plan (cost model), a frozen bf16 ref holding the actor's
+    initial weights; AdamW for both trainable roles."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.accel import Strategy
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, count_params
+    from dlrover_tpu_torch.rl.model_engine import (
+        ModelRole,
+        RLModelEngine,
+        RoleSpec,
+    )
+    from dlrover_tpu_torch.rl.rollout import (
+        make_actor_loss,
+        make_critic_loss,
+        sample_rollout_batch,
+    )
+
+    cfg = GPTConfig.gpt2_small()
+    actor = GPT(cfg, seed=0)
+    critic = GPT(dataclasses.replace(cfg, head="value",
+                                     attention_impl="flash"), seed=1)
+    ref = GPT(dataclasses.replace(cfg, param_dtype=torch.bfloat16,
+                                  attention_impl="flash"), seed=2)
+    ref.load_state_dict(actor.state_dict())
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (RL_BATCH, RL_PROMPT_LEN), dtype=np.int32)).cuda()
+    t0 = time.perf_counter()
+    engine = RLModelEngine(sample_rollout_batch(prompts.cpu(), RL_NEW), {
+        ModelRole.ACTOR: RoleSpec(
+            model=actor, loss_fn=make_actor_loss(actor, RL_PROMPT_LEN),
+            optim_factory=_adamw_factory(lr=RL_ACTOR_LR, wd=0.0),
+            strategy=Strategy(opts=[
+                ("parallel_mode", {}), ("amp_native", {"dtype": "bfloat16"}),
+                ("module_replace", {"attention": "flash"})])),
+        ModelRole.CRITIC: RoleSpec(
+            model=critic, loss_fn=make_critic_loss(critic, RL_PROMPT_LEN),
+            optim_factory=_adamw_factory(lr=RL_CRITIC_LR, wd=0.0),
+            search=True, rank_mode="cost_model"),
+        ModelRole.REF: RoleSpec(model=ref),
+    }).build()
+    del actor, critic
+    torch.cuda.synchronize()
+    n = count_params(engine.state(ModelRole.ACTOR).module)
+    log(f"16a: engine built in {time.perf_counter() - t0:.1f} s: actor "
+        f"{n} params; {engine.role_report()}")
+    if n != 124_475_904:
+        raise AssertionError(f"16a: the actor has {n} params, not GPT-2 "
+                             "small's 124,475,904")
+    return engine, prompts
+
+
+def _rl_expected(engine):
+    """B1-B3 launches of one experience phase and one PPO step, from
+    the roles' plans: the ref's forward and the critic's values (no
+    grad: no remat), then each trainable role's step; generation runs
+    the decode attention, which launches none."""
+    from dlrover_tpu_torch.rl.model_engine import ModelRole
+
+    exp = _sum_counts(
+        _role_flash(engine._frozen_models[ModelRole.REF], train=False),
+        _role_flash(engine.state(ModelRole.CRITIC).module, train=False))
+    step = _sum_counts(*(
+        _role_flash(engine.state(role).module,
+                    engine._accel[role].plan.grad_accum)
+        for role in ModelRole.TRAINABLE))
+    return exp, step
+
+
+def _reward(vocab: int):
+    def reward_fn(sequences):
+        # the example's form: the share of response tokens in the low
+        # half of the vocab
+        return (sequences[:, RL_PROMPT_LEN:] < vocab // 2).float().mean(1)
+    return reward_fn
+
+
+def _profile_decode(dec, tok, steps: int, label: str, card) -> dict:
+    """``steps`` greedy decode steps of the bound decode model ``dec``
+    (its cache filled) under torch.profiler: the device's busy ms and
+    kernel launches a step against the wall (profiler on)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = dec(tok[:, None])[:, -1].argmax(-1).to(tok.dtype)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = launches = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        busy += us
+        launches += e.count
+    out = {"wall_ms": wall_us / 1e3 / steps, "busy_ms": busy / 1e3 / steps,
+           "launches": launches / steps}
+    log(f"{label} decode step under the profiler ({steps} steps): wall "
+        f"{out['wall_ms']:.3f} ms, device busy {out['busy_ms']:.3f} ms "
+        f"({busy / wall_us:.4f} of the wall), {out['launches']:.1f} "
+        f"kernels a step [{card}]")
+    return out
+
+
+def _greedy_against_full(engine, prompts, card):
+    """Greedy decode through the cache against the full forward (the
+    actor's train module, through B1) at every generated position, and
+    ``generate(temperature=0)`` against the loop's tokens."""
+    import torch
+
+    from dlrover_tpu_torch.rl.generation import (
+        bind_params,
+        decode_variant,
+        generate,
+        rollout_params,
+    )
+    from dlrover_tpu_torch.rl.model_engine import ModelRole
+
+    actor = engine.state(ModelRole.ACTOR).module
+    dec, params = decode_variant(actor), rollout_params(actor)
+    with torch.no_grad():
+        with bind_params(dec, params):
+            dec.reset_cache()
+            logits = [dec(prompts)[:, -1]]
+            toks = []
+            for _ in range(RL_NEW - 1):
+                toks.append(logits[-1].argmax(-1))
+                logits.append(dec(toks[-1][:, None].to(prompts.dtype))[:, -1])
+            toks.append(logits[-1].argmax(-1))
+            _profile_decode(dec, prompts[:, -1], 8, "16a GPT-2 small", card)
+            dec.reset_cache()
+        got = torch.stack(logits, dim=1)
+        seq = torch.cat([prompts, torch.stack(toks, 1).to(prompts.dtype)], 1)
+        full = actor(seq[:, :-1])[:, RL_PROMPT_LEN - 1:]
+        gseq, _ = generate(dec, params, prompts, None, max_new_tokens=RL_NEW,
+                           temperature=0.0)
+    err = _rel_norm(got, full)
+    same = int((gseq == seq).all(dim=1).sum())
+    log(f"16a greedy decode through the cache: {RL_BATCH} x {RL_NEW} "
+        f"positions, ||decode - full forward (B1)|| / ||full|| {err:.3e} "
+        f"(limit {RL_REL_NORM:.4e}); generate(temperature=0) equal to the "
+        f"loop's tokens in {same} of {RL_BATCH} rows [{card}]")
+    if not err <= RL_REL_NORM:
+        raise AssertionError(f"16a: decode against the full forward {err:.3e}")
+    if same != RL_BATCH:
+        raise AssertionError("16a: generate's greedy tokens differ from the "
+                             "decode loop's")
+
+
+def _grads_flash_against_plain(engine, batch, card):
+    """One PPO step's gradients of the actor and the critic through
+    B1-B3 (their train modules) against the same step through the plain
+    attention (a copy with the plain math), by the relative norm."""
+    import copy
+
+    import torch
+
+    from dlrover_tpu_torch.models.gpt import Attention, xla_causal_attention
+    from dlrover_tpu_torch.rl.model_engine import ModelRole
+
+    failures = []
+    for role in ModelRole.TRAINABLE:
+        module = engine.state(role).module
+        plain = copy.deepcopy(module)
+        for m in plain.modules():
+            if isinstance(m, Attention):
+                m._attn = xla_causal_attention
+        loss_fn = engine._roles[role].loss_fn
+        grads = []
+        for mod in (module, plain):
+            mod.zero_grad(set_to_none=True)
+            loss_fn(mod, engine.place_batch(role, batch)).backward()
+            grads.append({n: p.grad for n, p in mod.named_parameters()})
+        norms = {n: _check_norm(n, grads[0][n], grads[1][n], RL_REL_NORM,
+                                failures, f"16a {role}")
+                 for n in grads[1]}
+        worst = max(norms, key=norms.get)
+        log(f"16a {role} PPO step gradients, flash against plain attention: "
+            f"largest ||got - plain|| / ||plain|| {worst} {norms[worst]:.3e} "
+            f"over {len(norms)} params (limit {RL_REL_NORM:.4e}) [{card}]")
+        module.zero_grad(set_to_none=True)
+        del plain, grads
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_rl_ppo(card) -> dict:
+    """16a: PPO at GPT-2 small's full width through the engine's entry
+    points: 4 ``ppo_iteration`` s and one ``PPOTrainer`` epoch (every
+    count at 0 before, exact after), per-iteration phase seconds; then
+    the exact B1-B3 launches of one experience phase and one PPO step,
+    greedy decode against the full forward, and the flash PPO step's
+    gradients against the plain attention's."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.rl.rollout import (
+        make_experience,
+        ppo_iteration,
+        train_on_batch,
+    )
+    from dlrover_tpu_torch.rl.trainer import PPOTrainer, RLTrainConfig
+
+    engine, prompts = _rl_engine(card)
+    impls = {"ref": engine._frozen_models["ref"].config.attention_impl}
+    impls.update({role: engine.state(role).module.config.attention_impl
+                  for role in ("actor", "critic")})
+    if set(impls.values()) != {"flash"}:
+        raise AssertionError(f"16a: a role runs the plain attention on the "
+                             f"card: {impls}")
+    vocab = engine.state("actor").module.config.vocab_size
+    reward_fn = _reward(vocab)
+    exp_want, step_want = _rl_expected(engine)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    history = []
+    for it in range(RL_ITERS):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = ppo_iteration(engine, prompts, gen, max_new_tokens=RL_NEW,
+                          temperature=1.0, kl_coef=0.05, reward_fn=reward_fn)
+        m["iteration_s"] = time.perf_counter() - t0
+        m["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        history.append(m)
+        log(f"16a iteration {it}: rollout_s {m['rollout_s']}, score_s "
+            f"{m['score_s']}, gae_s {m['gae_s']}, train_s {m['train_s']}, "
+            f"iteration {m['iteration_s']:.4f} s, generated "
+            f"{RL_BATCH * RL_NEW / m['rollout_s']:.1f} tokens/s "
+            f"({m['rollout_s'] / RL_NEW * 1e3:.3f} ms a token step), "
+            f"rollout share {m['rollout_s'] / m['iteration_s']:.3f}, reward "
+            f"{m['mean_reward']:.4f}, kl {m['mean_kl']:.4e}, actor loss "
+            f"{m['actor_loss']:.4e}, critic loss {m['critic_loss']:.4e}, "
+            f"peak {m['peak_gib']:.2f} GiB [{card}]")
+    trainer = PPOTrainer(engine, RLTrainConfig(
+        epochs=1, num_rollouts=RL_BATCH, ppo_epochs=1,
+        train_batch_size=RL_BATCH, max_new_tokens=RL_NEW, temperature=1.0,
+        kl_coef=0.05, seed=0), reward_fn=reward_fn)
+    t0 = time.perf_counter()
+    epoch = trainer.train([prompts])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"16a PPOTrainer epoch: {epoch} in {time.perf_counter() - t0:.3f} s "
+        f"[{card}]")
+    want = _sum_counts(exp_want, step_want, times=RL_ITERS + 1)
+    log(f"16a main path ({RL_ITERS} iterations + one trainer epoch): "
+        f"launches {counts}, expected {want}")
+    for h in history + epoch:
+        if not all(isinstance(v, str) or np.isfinite(v) for v in h.values()):
+            raise AssertionError(f"16a: non-finite metrics {h}")
+    if len(epoch) != 1 or epoch[0]["ppo_steps"] != 1:
+        raise AssertionError(f"16a: the trainer epoch ran {epoch}")
+    if counts != want:
+        raise AssertionError(f"16a: launches {counts} != {want}")
+    # the exact launches of one experience phase and one PPO step
+    reset_launch_counts()
+    batch, _ = make_experience(engine, prompts, gen, max_new_tokens=RL_NEW,
+                               temperature=1.0, kl_coef=0.05,
+                               reward_fn=reward_fn)
+    torch.cuda.synchronize()
+    exp_got = launch_counts()
+    reset_launch_counts()
+    train_on_batch(engine, batch)
+    torch.cuda.synchronize()
+    step_got = launch_counts()
+    log(f"16a launches of one experience phase {exp_got} (expected "
+        f"{exp_want}); of one PPO step (actor + critic) {step_got} "
+        f"(expected {step_want}); plans: actor "
+        f"{engine._accel['actor'].strategy.names()}, critic "
+        f"{engine._accel['critic'].strategy.names()} (grad_accum "
+        f"{engine._accel['critic'].plan.grad_accum})")
+    if exp_got != exp_want or step_got != step_want:
+        raise AssertionError("16a: one phase's launches differ from the plans")
+    _greedy_against_full(engine, prompts, card)
+    _grads_flash_against_plain(engine, batch, card)
+    return {"rl_ppo_gpt2_small": counts}
+
+
+def phase_llama_decode(card) -> dict:
+    """16b: Llama-3-8B decode at full width and depth (bf16 params, the
+    preset's max_seq_len 8192: every step attends over the whole
+    cache), batch 8, prompts of 1024, 256 greedy new tokens through
+    ``generate``; a decode loop timed step by step; the first 16 greedy
+    tokens' logits against one full forward through B1."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models.gpt import DecodeCache
+    from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
+    from dlrover_tpu_torch.rl.generation import (
+        bind_params,
+        decode_variant,
+        generate,
+        rollout_params,
+    )
+
+    cfg = LlamaConfig.llama3_8b(param_dtype=torch.bfloat16,
+                                attention_impl="flash")
+    t0 = time.perf_counter()
+    model = Llama(cfg, seed=0)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    log(f"16b: Llama-3-8B built on the card in {time.perf_counter() - t0:.1f}"
+        f" s, {weight_bytes / 1e9:.2f} GB of bf16 weights")
+    dec, params = decode_variant(model), rollout_params(model)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (L8B_BATCH, L8B_PROMPT), dtype=np.int32)).cuda()
+    cache_bytes = (2 * cfg.num_layers * L8B_BATCH * cfg.num_kv_heads
+                   * cfg.max_seq_len * cfg.head_dim * 2)
+    bound_ms = (weight_bytes + cache_bytes) / PEAK_BYTES_S * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    seq, logps = generate(dec, params, prompts, None, max_new_tokens=L8B_NEW,
+                          temperature=0.0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(gen_counts.values()):
+        raise AssertionError(f"16b: decode launched flash kernels "
+                             f"{gen_counts}")
+    if not bool(torch.isfinite(logps).all()) or seq.shape != (
+            L8B_BATCH, L8B_PROMPT + L8B_NEW):
+        raise AssertionError(f"16b: generate gave {tuple(seq.shape)}, "
+                             "non-finite logprobs")
+    # the same loop, each step between CUDA events; the first
+    # L8B_CHECK steps' logits kept for the check
+    with torch.no_grad(), bind_params(dec, params):
+        dec.reset_cache()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        last = dec(prompts)[:, -1]
+        end.record()
+        torch.cuda.synchronize()
+        prefill_ms = start.elapsed_time(end)
+        got_cache = sum(m.cached_key.numel() * m.cached_key.element_size()
+                        * 2 for m in dec.modules()
+                        if isinstance(m, DecodeCache))
+        logits, toks, steps = [last], [], []
+        for _ in range(max(L8B_CHECK, L8B_TIMED_STEPS)):
+            toks.append(last.argmax(-1))
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            last = dec(toks[-1][:, None].to(prompts.dtype))[:, -1]
+            e.record()
+            steps.append((s, e))
+            if len(logits) < L8B_CHECK:
+                logits.append(last)
+        torch.cuda.synchronize()
+        prof = _profile_decode(dec, toks[-1].to(prompts.dtype), 4,
+                               "16b Llama-3-8B", card)
+        dec.reset_cache()
+        step_ms = statistics.median(s.elapsed_time(e) for s, e in steps)
+        got = torch.stack(logits[:L8B_CHECK], dim=1)
+        check = torch.cat([prompts, torch.stack(toks[:L8B_CHECK - 1], 1)
+                           .to(prompts.dtype)], 1)
+        reset_launch_counts()
+        hidden = model(check, return_hidden=True)[:, L8B_PROMPT - 1:]
+        full = model.lm_head(hidden, cfg.dtype).float()
+        torch.cuda.synchronize()
+        full_counts = launch_counts()
+    same = bool((seq[:, L8B_PROMPT:L8B_PROMPT + L8B_CHECK]
+                 == torch.stack(toks[:L8B_CHECK], 1)).all())
+    err = _rel_norm(got, full)
+    log(f"16b Llama-3-8B decode, batch {L8B_BATCH}, prompt {L8B_PROMPT}, "
+        f"{L8B_NEW} greedy tokens over a {cfg.max_seq_len}-position cache "
+        f"({got_cache / 2**30:.3f} GiB, {got_cache / 1e9:.3f} GB): "
+        f"generate {gen_s:.3f} s, {L8B_BATCH * L8B_NEW / gen_s:.1f} tokens/s; "
+        f"prefill {prefill_ms:.3f} ms; median decode step "
+        f"{step_ms:.4f} ms over {len(steps)} steps "
+        f"({L8B_BATCH / step_ms * 1e3:.1f} tokens/s), bound {bound_ms:.4f} "
+        f"ms (weights {weight_bytes / 1e9:.3f} GB + cache "
+        f"{cache_bytes / 1e9:.3f} GB at 3.35 TB/s): {bound_ms / step_ms:.3f} "
+        f"of the bound's speed, the device busy {prof['busy_ms']:.3f} ms a "
+        f"step ({bound_ms / max(prof['busy_ms'], 1e-9):.3f}); peak "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    log(f"16b first {L8B_CHECK} greedy tokens: ||decode - full forward "
+        f"(B1, {full_counts['flash_attention.fwd']} launches)|| / ||full|| "
+        f"{err:.3e} (limit {RL_REL_NORM:.4e}); generate's tokens equal the "
+        f"loop's: {same} [{card}]")
+    if not err <= RL_REL_NORM or not same:
+        raise AssertionError(f"16b: decode against the full forward {err:.3e},"
+                             f" tokens equal {same}")
+    if full_counts["flash_attention.fwd"] != cfg.num_layers:
+        raise AssertionError(f"16b: the full forward launched {full_counts}")
+    del model, dec, params
+    return {}
+
+
+def rl_chaos_child(workdir: str, result_path: str) -> int:
+    """16c's agent, in a process of its own that never touches CUDA:
+    ``rl_rollout_worker_kill`` through the launcher with the loop's
+    models on the card (no invariants here: the parent holds them)."""
+    from dlrover_tpu_torch.chaos import harness, scenarios
+
+    t0 = time.time()
+    report = harness.run_scenario(
+        scenarios.rl_rollout_worker_kill(), workdir=workdir, invariants=[],
+        extra_env=RL_CHAOS_ENV)
+    with open(result_path, "w") as f:
+        json.dump({"rc": report.rc, "wall_s": time.time() - t0}, f)
+    return 0
+
+
+def phase_rl_chaos(card) -> dict:
+    """16c: the RL chaos loop on the card through the port's launcher
+    (GPT-2 small's width, 2 layers, 8 leases, a SIGKILL at lease 2's
+    ``rl.rollout``); the scenario's invariants held here: the losses
+    equal the uninterrupted control's (run in this process on the card),
+    every lease acked exactly once."""
+    from dlrover_tpu_torch.chaos import harness, scenarios
+
+    scenario = scenarios.rl_rollout_worker_kill()
+    opts = scenarios.RUN_OPTIONS[scenario.name]
+    workdir = tempfile.mkdtemp(prefix="rlchaos", dir=OUT_DIR)
+    result_path = os.path.join(workdir, "result.json")
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--rl-chaos-child",
+             os.path.join(workdir, "run"), result_path],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0 or not os.path.exists(result_path):
+            raise AssertionError(f"16c: the launcher child failed: "
+                                 f"{proc.stderr[-3000:]}")
+        with open(result_path) as f:
+            result = json.load(f)
+        run_dir = os.path.join(workdir, "run")
+        report = harness._build_report(
+            scenario, result["rc"], run_dir,
+            os.path.join(run_dir, "events.jsonl"))
+        t0 = time.perf_counter()
+        harness.check_invariants(report, harness.invariants_for_scenario(
+            scenario.name, opts["total_steps"], opts["ckpt_every"], run_dir,
+            env=RL_CHAOS_ENV))
+        control_s = time.perf_counter() - t0
+        verdicts = {r.name: (r.ok, r.detail) for r in report.invariants}
+        kills = [e for e in report.events if e.get("type") == "chaos_inject"
+                 and e.get("action") == "kill"]
+        steps = [e for e in report.events if e.get("type") == "train_step"]
+        after = [e["ts"] for e in steps
+                 if kills and e["ts"] > kills[0]["ts"]]
+        kill_to_step = (min(after) - kills[0]["ts"]) if after else None
+        log(f"16c rl_rollout_worker_kill on the card (GPT-2 small width, 2 "
+            f"layers, {opts['total_steps']} leases): launcher rc "
+            f"{result['rc']}, {result['wall_s']:.1f} s; kill -> first PPO "
+            f"step {kill_to_step} s; control computed in "
+            f"{control_s:.1f} s; invariants {verdicts} [{card}]")
+        held = ("worker_restarted", "training_completed",
+                "loss_trajectory_matches_control", "no_duplicate_shards")
+        bad = [n for n in held if not verdicts.get(n, (False,))[0]]
+        if result["rc"] != 0 or bad or kill_to_step is None:
+            raise AssertionError(f"16c: {bad or 'no step after the kill'}: "
+                                 f"{verdicts}")
+        # the shared segment of the run's socket dir outlives the job
+        with harness._patched_env(
+                {"DLROVER_SHARED_DIR": os.path.join(run_dir, "sock")}):
+            from dlrover_tpu_torch.checkpoint.shm_handler import (
+                SharedMemoryHandler,
+            )
+            SharedMemoryHandler(0).unlink()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {}
+
+
+def phase_rl(card) -> dict:
+    """Phase 16: 16a, 16b and 16c, each timed."""
+    out = {}
+    for name, fn in (("16a", phase_rl_ppo), ("16b", phase_llama_decode),
+                     ("16c", phase_rl_chaos)):
+        t0 = time.perf_counter()
+        out.update(fn(card))
+        _free_cuda()
+        log(f"chip_smoke: phase {name} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _free_cuda():
     import gc
 
@@ -6003,6 +6560,10 @@ def main(argv) -> int:
         # phase 12's agent, as phase 8's
         sys.path.insert(0, ROOT)
         return data_child(*argv[1:5])
+    if argv[:1] == ["--rl-chaos-child"]:
+        # phase 16c's agent, as phase 8's
+        sys.path.insert(0, ROOT)
+        return rl_chaos_child(*argv[1:3])
     import torch
 
     if not torch.cuda.is_available():
@@ -6051,7 +6612,9 @@ ONLY = {"2": phase_kernels, "3": phase_quant_kernels,
         "14a": phase_llama_4bit_fsdp, "14b": phase_mixtral_ckpt,
         "14c": phase_offload_fsdp, "14d": phase_diloco,
         "14e": phase_tensor_one_rank, "15": phase_pipeline_fp8,
-        "15a": phase_pipeline_xl, "15b": phase_fp8}
+        "15a": phase_pipeline_xl, "15b": phase_fp8, "16": phase_rl,
+        "16a": phase_rl_ppo, "16b": phase_llama_decode,
+        "16c": phase_rl_chaos}
 
 
 def run_only(torch, names) -> int:
@@ -6110,7 +6673,7 @@ def run_phases(torch) -> int:
                         ("10", phase_example), ("11", phase_llama),
                         ("12", phase_data), ("13", phase_parallel),
                         ("14", phase_scale_out),
-                        ("15", phase_pipeline_fp8)):
+                        ("15", phase_pipeline_fp8), ("16", phase_rl)):
         by_path.update(timed(name, phase, card))
     leaked = [n for n in os.listdir("/dev/shm")
               if n.startswith(f"dlrover_tpu_ckpt_shm_"

@@ -65,11 +65,13 @@ from dlrover_tpu_torch.chaos.scenarios import (
     CKPT_EVERY_ENV,
     DISK_EVERY_ENV,
     RESIZE_TRAIN_SCRIPT,
+    RL_TRAIN_SCRIPT,
     RUN_OPTIONS,
     SHARD_DATASET_ENV,
     STEP_SLEEP_ENV,
     TOTAL_STEPS_ENV,
     resize_reference_losses,
+    rl_reference_losses,
 )
 from dlrover_tpu_torch.chaos.schedule import load_scenario
 from dlrover_tpu_torch.common.env_utils import proc_stat_fields
@@ -86,6 +88,7 @@ CHAOS_EVENT = "chaos_inject"
 TRAIN_SCRIPTS = {
     "default": CHAOS_TRAIN_SCRIPT,
     "resize": RESIZE_TRAIN_SCRIPT,
+    "rl": RL_TRAIN_SCRIPT,
 }
 
 
@@ -1337,8 +1340,12 @@ RECOVERY_SCENARIOS = frozenset({
 def invariants_for_scenario(
     name: str, total_steps: int, ckpt_every: int, workdir: str,
     disk_every: Optional[int] = None,
+    env: Optional[Dict[str, str]] = None,
 ) -> List[Invariant]:
-    """The reference's selection, for the scenarios the port has."""
+    """The reference's selection, for the scenarios the port has.
+    ``env`` is the run's exported env (the RL loop's device and preset
+    pick its control's)."""
+    env = env or {}
     if name == "master-kill-restart-midround":
         # the control-plane recovery trail: journal replay, client
         # resyncs, exactly-once sharding, NO data-plane restarts —
@@ -1412,6 +1419,26 @@ def invariants_for_scenario(
                 expect_cause=flight.CAUSE_HANG,
             ),
             NoOrphanProcesses(marker=workdir),
+        ]
+    if name == "rl-rollout-worker-kill":
+        # the elastic-RL acceptance trail: full recovery set + the PPO
+        # loss trajectory equal to the uninterrupted control (flash
+        # restore + deterministic train-step replay + the requeued
+        # lease regenerated bit-identically), exactly-once rollout-
+        # lease accounting from the master's journaled dispatch/ack
+        # trail, and the recovery outage booked to a real cause bucket
+        return default_invariants(
+            total_steps, ckpt_every, workdir
+        ) + [
+            LossTrajectoryMatches(rl_reference_losses(
+                total_steps,
+                device=env.get("DLROVER_CHAOS_RL_DEVICE", "cpu"),
+                preset=env.get("DLROVER_CHAOS_RL_PRESET", "tiny"),
+            )),
+            NoDuplicateShards(
+                dataset_size=total_steps, dataset="rl-rollouts"
+            ),
+            GoodputLossAttributed(min_attributed_frac=0.5),
         ]
     if name in RECOVERY_SCENARIOS:
         # the worker-kill trail must also NAME >=90% of its
@@ -1556,12 +1583,11 @@ def run_scenario(
         scenario, workdir, total_steps, ckpt_every,
         disk_every=disk_every, extra_env=extra_env,
     )
-    # the reference selects among its toy loops by RUN_OPTIONS'
-    # "train_script"; the sparse, resize, serving and RL loops come with
-    # later slices of the port, so every scenario runs the GPT loop
+    # the toy loop of RUN_OPTIONS' "train_script", as the reference
+    # selects it (the sparse and serving loops come with slices 6 and 9)
     script = os.path.join(workdir, "chaos_train.py")
     with open(script, "w") as f:
-        f.write(CHAOS_TRAIN_SCRIPT)
+        f.write(TRAIN_SCRIPTS[opts.get("train_script", "default")])
     rc = launch(
         scenario, env, [script, os.path.join(workdir, "ckpt")],
         max_restarts=max_restarts, monitor_interval=monitor_interval,
@@ -1572,7 +1598,7 @@ def run_scenario(
         invariants if invariants is not None
         else invariants_for_scenario(
             scenario.name, total_steps, ckpt_every, workdir,
-            disk_every=disk_every,
+            disk_every=disk_every, env=env,
         )
     )
     return check_invariants(report, checks)

@@ -22,7 +22,11 @@ single-node scenarios (``rpc_partition``, ``storage_brownout``,
 ``shm_corruption``, ``ckpt_brownout_during_preemption``,
 ``goodput_under_scheduled_churn``) and the multi-node hang and
 partition ones with slice 4.4, the sparse and serving ones with slices
-6 and 9, the RL one with slice 7, and the compile-cache one with slice 8.2.
+6 and 9, and the compile-cache one with slice 8.2.  The RL scenario
+(``rl_rollout_worker_kill``, slice 7) drives :data:`RL_TRAIN_SCRIPT`,
+the twin of the reference's elastic PPO loop; it runs without the
+reference's ``compile_cache`` option (the AOT-cached role steps are
+slice 8.2), so the loop calls the engine's own train steps.
 """
 
 from typing import Callable, Dict, Optional
@@ -229,6 +233,287 @@ else:
     ckpt.wait()
 ckpt.close()
 '''
+
+
+# Elastic PPO loop (slice 7), the torch twin of the reference's: the
+# four-role RL engine driven by master-dispatched ROLLOUT LEASES.  Each
+# shard task is one rollout: prompts and the generation RNG derive
+# purely from the lease id, so a lease requeued off a SIGKILLed worker
+# regenerates bit-identically on the replacement, and exactly-once
+# rollout accounting follows from shard_dispatch/shard_ack events.  The
+# four-role state (actor + critic train states, the cursor, the PARTIAL
+# rollout buffer) rides every flash snapshot through PPOStateAdapter;
+# the snapshot is taken after every completed lease and NEVER after a
+# train phase, so a mid-iteration kill restores to the last completed
+# lease and REPLAYS that iteration's train steps, whose losses the
+# loss-trajectory invariant cross-checks.  One PPO train step per lease
+# (LEASES_PER_ITER leases buffered, then that many in-order PPO
+# updates), so train steps == leases == TOTAL_STEPS.  The models, the
+# device and the recipe are :func:`rl_loop`'s (the control computes
+# through the same function); ``DLROVER_CHAOS_RL_DEVICE`` (cpu) and
+# ``DLROVER_CHAOS_RL_PRESET`` (tiny) pick them.  argv: ckpt_dir
+RL_TRAIN_SCRIPT = r'''
+import os, sys, time
+import numpy as np
+
+from dlrover_tpu_torch import chaos as _chaos
+from dlrover_tpu_torch.agent.sharding_client import ShardingClient
+from dlrover_tpu_torch.chaos.scenarios import rl_loop
+from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer, StorageType
+from dlrover_tpu_torch.rl.elastic import (
+    PPOCursor, PPOStateAdapter, lease_prompts, lease_rng,
+)
+from dlrover_tpu_torch.rl.rollout import make_experience, train_on_batch
+from dlrover_tpu_torch.rl.trainer import ReplayBuffer
+from dlrover_tpu_torch.telemetry.events import emit_event
+from dlrover_tpu_torch.trainer.elastic_trainer import ElasticTrainer
+
+ckpt_dir = sys.argv[1]
+TOTAL_STEPS = int(os.environ.get("DLROVER_CHAOS_TOTAL_STEPS", "8"))
+STEP_SLEEP = float(os.environ.get("DLROVER_CHAOS_STEP_SLEEP", "0"))
+LEASES_PER_ITER = int(
+    os.environ.get("DLROVER_CHAOS_RL_LEASES_PER_ITER", "2")
+)
+RESTART_COUNT = int(os.environ.get("DLROVER_RESTART_COUNT", "0") or 0)
+NODE_RANK = int(os.environ.get("DLROVER_NODE_RANK", "0") or 0)
+
+tracker = os.path.join(ckpt_dir, "latest_checkpointed_iteration.txt")
+
+def committed_step():
+    try:
+        with open(tracker) as f:
+            return int(f.read().strip() or -1)
+    except (OSError, ValueError):
+        return -1
+
+DEVICE = os.environ.get("DLROVER_CHAOS_RL_DEVICE", "cpu")
+if DEVICE == "cpu":
+    import torch
+
+    # the tiny loop's ops are a few KB each: one intra-op thread, as a
+    # pool of them costs more than it gives on a shared host
+    torch.set_num_threads(1)
+loop = rl_loop(DEVICE, os.environ.get("DLROVER_CHAOS_RL_PRESET", "tiny"))
+engine = loop["engine"]
+
+# register the PPO adapter BEFORE the load: the import restores into
+# the engine's fresh states
+buffer = ReplayBuffer()
+cursor = PPOCursor(rng_key=np.asarray([loop["seed"]], np.int64))
+adapter = PPOStateAdapter(engine, buffer, cursor)
+ckpt = Checkpointer(ckpt_dir)
+ckpt.register_sparse(adapter)
+start_step, restored = ckpt.load_checkpoint()
+# roles/buffer/cursor were rebuilt by the adapter during the load; the
+# dense subtree only carried the trainer bookkeeping
+
+trainer = ElasticTrainer(global_batch_size=loop["batch"],
+                         micro_batch_size=loop["batch"], dp_size=1)
+trainer.global_step = cursor.ppo_updates
+
+sc = ShardingClient(
+    dataset_name="rl-rollouts", batch_size=1, num_epochs=1,
+    dataset_size=TOTAL_STEPS, shuffle=False,
+    num_minibatches_per_shard=1, storage_type="table",
+)
+
+phase_s = {"rollout": 0.0, "score": 0.0, "gae": 0.0}
+
+def train_phase():
+    # in INSERTION order, never shuffled: a restored incarnation
+    # replays byte-identical PPO steps off the restored buffer
+    t0 = time.perf_counter()
+    batches = buffer.batches()
+    actor_loss = critic_loss = 0.0
+    for bt in batches:
+        with trainer.profile("compute"):
+            losses = train_on_batch(engine, bt)
+        actor_loss = losses["actor_loss"]
+        critic_loss = losses["critic_loss"]
+        trainer.report_step(
+            {"loss": losses["actor_loss"] + losses["critic_loss"]}
+        )
+    cursor.ppo_updates = trainer.global_step
+    emit_event(
+        "rl_iteration",
+        iteration=trainer.global_step // max(1, LEASES_PER_ITER),
+        restart_count=RESTART_COUNT, node_rank=NODE_RANK,
+        leases=len(batches),
+        rollout_s=round(phase_s["rollout"], 4),
+        score_s=round(phase_s["score"], 4),
+        gae_s=round(phase_s["gae"], 4),
+        train_s=round(time.perf_counter() - t0, 4),
+        actor_loss=actor_loss, critic_loss=critic_loss,
+    )
+    phase_s.update(rollout=0.0, score=0.0, gae=0.0)
+    buffer.reset()
+
+while True:
+    if len(buffer.batches()) >= LEASES_PER_ITER:
+        train_phase()
+    with trainer.profile("data_wait"):
+        task = sc.fetch_task()
+    if task is None:
+        break
+    lease_id = int(task.start)
+    if lease_id < cursor.leases_done:
+        # the checkpointed predecessor already buffered (or trained
+        # on) this lease before dying un-acked: ack WITHOUT
+        # regenerating, or the batch would enter the buffer twice
+        sc.report_task_done(task.task_id)
+        continue
+    with trainer.profile("rollout"):
+        batch, metrics = loop["experience"](lease_id)
+    for k in ("rollout", "score", "gae"):
+        phase_s[k] += metrics[k + "_s"]
+    # the kill rule lands HERE: batch generated but neither buffered,
+    # checkpointed nor acked; the master requeues the lease and the
+    # replacement regenerates it bit-identically
+    _chaos.fire("rl.rollout", step=lease_id)
+    buffer.add(batch)
+    cursor.leases_done = lease_id + 1
+    # flash snapshot after EVERY completed lease and never after a
+    # train phase: a mid-iteration kill restores to the last lease and
+    # REPLAYS the iteration's train steps
+    with trainer.profile("checkpoint"):
+        ckpt.save_checkpoint(
+            trainer.global_step, {"trainer": trainer.state_dict()},
+            storage_type=StorageType.MEMORY,
+        )
+    sc.report_task_done(task.task_id)
+    if STEP_SLEEP:
+        time.sleep(STEP_SLEEP)
+
+if buffer.batches():
+    train_phase()
+
+FINAL_STEP = trainer.global_step
+final_sd = {"trainer": trainer.state_dict()}
+deadline = time.time() + 60
+while time.time() < deadline and committed_step() < FINAL_STEP:
+    ckpt.save_checkpoint(
+        FINAL_STEP, final_sd, storage_type=StorageType.DISK,
+    )
+    ckpt.wait()
+    poll_end = time.time() + 10
+    while time.time() < poll_end and committed_step() < FINAL_STEP:
+        time.sleep(0.2)
+assert committed_step() >= FINAL_STEP, (
+    "checkpoint commit did not land"
+)
+ckpt.close()
+'''
+
+# the RL loop's presets: the reference's tiny GPT on the CPU, and GPT-2
+# small's width cut to 2 layers (the card's cell of the scenario)
+RL_PRESETS = {
+    "tiny": dict(num_layers=2, num_heads=4, hidden_dim=64,
+                 vocab_size=32, max_seq_len=16, attention_impl="xla"),
+    "gpt2_small_2l": dict(num_layers=2, num_heads=12, hidden_dim=768,
+                          vocab_size=50304, max_seq_len=1024,
+                          attention_impl="flash"),
+}
+
+
+def rl_loop(device: str = "cpu", preset: str = "tiny"):
+    """The elastic PPO loop's recipe, shared by :data:`RL_TRAIN_SCRIPT`
+    and :func:`rl_reference_losses`: the four-role engine (actor and
+    value-head critic on torch's Adam, the reference's ``optax.adam``,
+    the ref a frozen copy of its own seed), the reward (the share of
+    response tokens in the low half of the vocab) and
+    ``experience(lease_id)``, the lease's batch (prompts and RNG from
+    the lease id).  B=8, prompts of 4 tokens, 8 new tokens, seed 2, as
+    the reference's loop."""
+    import dataclasses
+
+    import torch
+
+    from dlrover_tpu_torch.accel import Strategy
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.rl.elastic import lease_prompts, lease_rng
+    from dlrover_tpu_torch.rl.model_engine import (
+        ModelRole,
+        RLModelEngine,
+        RoleSpec,
+    )
+    from dlrover_tpu_torch.rl.rollout import (
+        make_actor_loss,
+        make_critic_loss,
+        make_experience,
+        sample_rollout_batch,
+    )
+
+    b, prompt_len, max_new, seed = 8, 4, 8, 2
+    actor_cfg = GPTConfig(**RL_PRESETS[preset])
+    vocab = actor_cfg.vocab_size
+    critic_cfg = dataclasses.replace(actor_cfg, head="value")
+    actor = GPT(actor_cfg, device=device, seed=0)
+    critic = GPT(critic_cfg, device=device, seed=3)
+    ref = GPT(actor_cfg, device=device, seed=1)
+    sample = sample_rollout_batch(
+        torch.zeros((b, prompt_len), dtype=torch.int32), max_new)
+    dp = Strategy(opts=[("parallel_mode", {})])
+    engine = RLModelEngine(sample, {
+        ModelRole.ACTOR: RoleSpec(
+            model=actor, loss_fn=make_actor_loss(actor, prompt_len),
+            optim_factory=lambda ps: torch.optim.Adam(ps, lr=5e-3),
+            strategy=dp,
+        ),
+        ModelRole.CRITIC: RoleSpec(
+            model=critic, loss_fn=make_critic_loss(critic, prompt_len),
+            optim_factory=lambda ps: torch.optim.Adam(ps, lr=1e-3),
+            strategy=dp,
+        ),
+        ModelRole.REF: RoleSpec(model=ref),
+    }, device=device).build()
+
+    def reward_fn(sequences):
+        return (sequences[:, prompt_len:] < vocab // 2).float().mean(dim=1)
+
+    def experience(lease_id: int):
+        return make_experience(
+            engine, torch.from_numpy(
+                lease_prompts(lease_id, b, prompt_len, vocab)),
+            lease_rng(seed, lease_id, device=device),
+            max_new_tokens=max_new, kl_coef=0.01, reward_fn=reward_fn,
+        )
+
+    return {"engine": engine, "experience": experience, "batch": b,
+            "seed": seed}
+
+
+def rl_reference_losses(total_steps: int, device: str = "cpu",
+                        preset: str = "tiny"):
+    """Uninterrupted-control loss trajectory of :data:`RL_TRAIN_SCRIPT`,
+    computed in-process: the same recipe (:func:`rl_loop`), the same
+    lease-derived prompts and RNG, the same buffer-then-train iteration
+    structure.  ``result[k-1]`` is the combined actor+critic loss PPO
+    train step ``k`` must report regardless of kills and flash
+    restores: a restore that dropped an optimizer slot, a buffered
+    rollout batch or the cursor forks the trajectory at the first
+    replayed step."""
+    from dlrover_tpu_torch.rl.rollout import train_on_batch
+    from dlrover_tpu_torch.rl.trainer import ReplayBuffer
+
+    leases_per_iter = 2
+    loop = rl_loop(device, preset)
+    engine = loop["engine"]
+    buffer = ReplayBuffer()
+    out = []
+
+    def train():
+        for bt in buffer.batches():
+            losses = train_on_batch(engine, bt)
+            out.append(losses["actor_loss"] + losses["critic_loss"])
+        buffer.reset()
+
+    for lease_id in range(total_steps):
+        batch, _metrics = loop["experience"](lease_id)
+        buffer.add(batch)
+        if len(buffer.batches()) >= leases_per_iter:
+            train()
+    train()
+    return out
 
 
 # Elastic world-resize train loop, the torch twin of the reference's
@@ -704,6 +989,33 @@ def master_respawn_other_host(seed: int = 79) -> Scenario:
     })
 
 
+def rl_rollout_worker_kill(seed: int = 97) -> Scenario:
+    """Elastic RL acceptance: SIGKILL the rollout worker mid-PPO-
+    iteration, on the ``rl.rollout`` hook of lease 2, after the batch is
+    generated but BEFORE it is buffered, checkpointed or acked.  The
+    master requeues the lease (journaled dispatch/ack); the replacement
+    restores the four-role state + partial buffer + cursor from the
+    flash checkpoint, REPLAYS the interrupted iteration's train steps,
+    regenerates the lost lease bit-identically and finishes the budget.
+    Exactly-once rollout accounting, the loss trajectory equal to the
+    uninterrupted control, and recovery-loss attribution are all
+    decided from the event log alone."""
+    return Scenario.from_dict({
+        "name": "rl-rollout-worker-kill",
+        "seed": seed,
+        "rules": [{
+            "name": "kill-rollout-midlease",
+            "point": "rl.rollout",
+            "action": "kill",
+            # lease 2 = the first lease AFTER a train phase: the
+            # restore must land on the post-lease-1 snapshot and
+            # replay PPO steps 1-2 (multi-incarnation loss agreement)
+            "at_step": 2,
+            "only_first_incarnation": True,
+        }],
+    })
+
+
 SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
     "kill_worker_midstep": kill_worker_midstep,
     "sigterm_worker_midstep": sigterm_worker_midstep,
@@ -714,6 +1026,7 @@ SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
     "elastic_resize_churn": elastic_resize_churn,
     "master_kill_restart_midround": master_kill_restart_midround,
     "master_respawn_other_host": master_respawn_other_host,
+    "rl_rollout_worker_kill": rl_rollout_worker_kill,
 }
 
 
@@ -769,6 +1082,18 @@ RUN_OPTIONS: Dict[str, Dict] = {
             # grow-back and leave the decision un-journaled
             "DLROVER_MEMBERSHIP_SELF_RESTART": "0",
         },
+    },
+    # elastic RL: 8 rollout leases = 8 PPO train steps (2 leases per
+    # iteration), so total_steps doubles as the lease-dataset size and
+    # the trainer's step budget; ckpt_every=2 is nominal: the RL loop
+    # flash-saves after EVERY lease, and the kill on lease 2 restores
+    # the post-lease-1 snapshot and replays PPO steps 1-2 before
+    # regenerating the lost lease.  The reference's compile_cache
+    # option is slice 8.2 of the port.
+    "rl-rollout-worker-kill": {
+        "total_steps": 8,
+        "ckpt_every": 2,
+        "train_script": "rl",
     },
     "warm-template-import-kill": {"warm_restart": True},
     "warm-template-midspawn-kill": {"warm_restart": True},

@@ -31,7 +31,18 @@ with its global box; with ``replicated=False`` every rank persists its
 own shard file.  :meth:`CheckpointEngine.load_sharded` restores onto a
 target state's own tensors, resharded (reference ``engine.py:1017-1417``).
 
-Sparse state (``register_sparse``) and the sparse and kv branches of
+The adapter contract of ``register_sparse`` (reference ``:202-232``,
+``:640-1000``): a registered adapter's export nests under the reserved
+``__kv__`` key of every save, taken on the caller's thread before the
+snapshot so it is consistent with the dense state; every restore pops
+the subtree and hands it to the adapter: a same-world restore (shm, or
+this rank's storage file) to ``import_state``, a restore across world
+sizes (storage only: an shm snapshot of another world is skipped) to
+``import_shards_streaming`` with every old rank's subtree.  Any object
+with that surface registers (the RL plane's
+:class:`~dlrover_tpu_torch.rl.elastic.PPOStateAdapter`).  The
+KvVariable tables' :class:`SparseStateAdapter`, its delta chains (a
+``delta`` blob raises here) and the sparse and kv branches of
 ``load_sharded`` (reference ``:1164-1207``) come with slice 6 of the
 port.
 """
@@ -78,6 +89,17 @@ from dlrover_tpu_torch.common.multi_process import (
 )
 from dlrover_tpu_torch.common.storage import get_checkpoint_storage
 from dlrover_tpu_torch.telemetry.events import emit_event
+
+# the reserved key an adapter's export nests under, and the key of its
+# chain metadata (reference ``checkpoint/sparse.py:61-69``)
+KV_STATE_KEY = "__kv__"
+KV_META_KEY = "__meta__"
+# what the engine calls on a registered adapter
+ADAPTER_SURFACE = (
+    "export_for_checkpoint", "import_state", "import_chain",
+    "import_shards_streaming", "checkpoint_chain_poison",
+    "delta_checkpoints_enabled", "delta_full_every",
+)
 from dlrover_tpu_torch.telemetry.metrics import get_registry
 
 _REG = get_registry()
@@ -188,6 +210,8 @@ class CheckpointEngine:
         self._storage = get_checkpoint_storage(path=checkpoint_dir)
         self._notified_agent = False
         self._deletion_keep_latest = deletion_keep_latest
+        # a registered checkpoint adapter (register_sparse)
+        self._sparse = None
         # ship the saver config now so the agent-side saver (and its
         # shm/meta/lock servers) exists before the first load()
         # (reference creates the saver at engine construction too,
@@ -226,10 +250,72 @@ class CheckpointEngine:
         return 1 if self.replicated else self._world_size
 
     def register_sparse(self, adapter) -> None:
-        raise NotImplementedError(
-            "sparse (KvVariable) checkpoint state comes with slice 6 of "
-            "the port"
-        )
+        """Attach a checkpoint adapter: its export becomes checkpoint
+        state beside the dense tree (nested under ``__kv__``, so the
+        state dicts must be dicts), its import runs on every restore.
+        Any object with the adapter surface (:data:`ADAPTER_SURFACE`)
+        registers."""
+        missing = [m for m in ADAPTER_SURFACE
+                   if not callable(getattr(adapter, m, None))]
+        if missing:
+            raise TypeError(
+                f"{type(adapter).__name__} is not a checkpoint adapter: "
+                f"it lacks {missing}")
+        if self.replicated and self._world_size > 1:
+            # replicated persists only rank 0's shard
+            # (global_shard_num=1): every other rank's state would
+            # silently vanish on a storage-tier restore
+            raise ValueError(
+                "sparse state requires per-rank shards: construct the "
+                "engine with replicated=False for world_size "
+                f"{self._world_size} (replicated=True persists only "
+                "rank 0, losing every other rank's rows)"
+            )
+        self._sparse = adapter
+
+    def _merge_sparse(self, state_dict, step: int, durable: bool = False):
+        """The adapter's export folded into a COPY of the state dict,
+        on the caller's thread: the export is consistent with the
+        dense snapshot taken right after it.  ``durable`` marks a save
+        headed for a committed storage step."""
+        if self._sparse is None:
+            return state_dict
+        if not isinstance(state_dict, dict):
+            raise TypeError(
+                "a sparse adapter requires a dict state_dict (its export "
+                f"rides under {KV_STATE_KEY!r}); got "
+                f"{type(state_dict).__name__}"
+            )
+        if KV_STATE_KEY in state_dict:
+            return state_dict
+        merged = dict(state_dict)
+        merged[KV_STATE_KEY] = self._sparse.export_for_checkpoint(
+            step=step, rank=self._rank, durable=durable)
+        return merged
+
+    def _consume_sparse(self, state, stats, tier: str, step):
+        """Pop the ``__kv__`` subtree out of a restored same-world state
+        dict and import it into the adapter; its stage timings land in
+        ``stats.extra`` (the restore event carries them)."""
+        if self._sparse is None or not isinstance(state, dict):
+            return state
+        kv_state = state.pop(KV_STATE_KEY, None)
+        if kv_state is None:
+            logger.warning(
+                "sparse adapter registered but checkpoint step %s "
+                "carries no kv state; the adapter's state is left "
+                "untouched", step,
+            )
+            return state
+        meta = kv_state.get(KV_META_KEY) if isinstance(kv_state, dict) \
+            else None
+        if isinstance(meta, dict) and meta.get("kind") == "delta":
+            raise NotImplementedError(
+                "a delta kv checkpoint (KvVariable's delta chains) "
+                "restores with slice 6 of the port")
+        stats.extra.update(self._sparse.import_state(
+            kv_state, tier=tier, step=step, rank=self._rank))
+        return state
 
     def _notify_agent_to_create_saver(self):
         """Ship the saver config to the agent's factory queue once
@@ -291,6 +377,9 @@ class CheckpointEngine:
         be silently dropped — and ``ready``, the events after which
         its snapshot's CUDA leaves are complete."""
         self._notify_agent_to_create_saver()
+        # an adapter's export joins here on the sync path; the async
+        # path merged it before queueing (the key guard skips it)
+        state_dict = self._merge_sparse(state_dict, step)
         # every rank locks its shard: the agent's breakpoint save reads
         # all local shards, so an unlocked write can be torn even for
         # ranks that never persist to storage; without an agent there
@@ -513,6 +602,9 @@ class CheckpointEngine:
         training stall is the snapshot copy; the host fetch + shm write
         happen on the writer thread, which then enqueues the agent
         persist."""
+        # the adapter's export is taken now, on the training thread,
+        # consistent with the dense snapshot below
+        state_dict = self._merge_sparse(state_dict, step, durable=True)
         has_tensors = any(
             isinstance(leaf, torch.Tensor)
             for _, leaf in _walk(state_dict)
@@ -585,7 +677,25 @@ class CheckpointEngine:
             stats = RestoreStats()
             t0 = time.perf_counter()
             config, state = self.get_state_dict_from_memory(stats)
+            if (
+                config is not None
+                and self._sparse is not None
+                and int(getattr(config, "world_size", 0) or 0)
+                != self._world_size
+            ):
+                # an shm snapshot of another world is per-node state:
+                # an adapter's cross-world restore reads every old
+                # rank's subtree from the committed storage tier
+                logger.warning(
+                    "shm snapshot is from world size %s but this world "
+                    "is %s; skipping the shm tier (cross-world restores "
+                    "read committed storage)",
+                    config.world_size, self._world_size,
+                )
+                config, state = None, {}
             if config is not None:
+                state = self._consume_sparse(
+                    state, stats, tier="shm", step=config.step)
                 self._record_restore(
                     "shm", config.step, time.perf_counter() - t0,
                     stats.to_phases(), sp,
@@ -651,6 +761,19 @@ class CheckpointEngine:
         )
         if step is None:
             return None, {}
+        if self._sparse is not None:
+            own_shard = shards.get(want_rank)
+            ckpt_world = (_checkpoint_world(own_shard[0])
+                          if own_shard else None)
+            if own_shard is None or ckpt_world != self._world_size:
+                # only now pay the all-ranks read: a cross-world restore
+                # of the adapter's state needs every old rank's subtree
+                step, shards = read_last_checkpoint(
+                    self.checkpoint_dir, self._storage, stats=stats)
+                if step is None:
+                    return None, {}
+            return self._load_sparse_from_storage(
+                step, shards, want_rank, stats, t0, own)
         if want_rank not in shards:
             logger.error(
                 "checkpoint step %s has no shard for rank %s "
@@ -669,6 +792,61 @@ class CheckpointEngine:
             "restored step %s from storage (read %.3fs, assemble "
             "%.3fs, %d workers)",
             step, stats.read_s, stats.assemble_s, stats.workers,
+        )
+        return step, state
+
+    def _load_sparse_from_storage(self, step, shards, want_rank, stats,
+                                  t0, own):
+        """Storage restore with an adapter registered: same world =
+        this rank's file, its subtree to ``import_state``; another
+        world = the dense state of this rank's file (or the lowest
+        rank's) and every old rank's subtree to
+        ``import_shards_streaming``."""
+        ckpt_world = (_checkpoint_world(shards[min(shards)][0])
+                      or len(shards))
+        if ckpt_world == self._world_size and want_rank not in shards:
+            # the world did NOT change: a missing own shard is a broken
+            # checkpoint, not a reshard
+            logger.error(
+                "checkpoint step %s has no shard for rank %s though the "
+                "world size (%s) is unchanged; treating the checkpoint "
+                "as unusable", step, want_rank, ckpt_world,
+            )
+            return None, {}
+        if ckpt_world == self._world_size:
+            meta, raw = shards[want_rank]
+            state = state_dict_from_raw(meta, raw, stats=stats)
+            state = self._consume_sparse(state, stats, tier="storage",
+                                         step=step)
+        else:
+            logger.warning(
+                "checkpoint step %s is from world %s, this world is %s: "
+                "restoring the adapter's state from %d rank file(s)",
+                step, ckpt_world, self._world_size, len(shards),
+            )
+            dense_rank = want_rank if want_rank in shards else min(shards)
+            chains, state = {}, {}
+            for rank, (meta, raw) in sorted(shards.items()):
+                full = state_dict_from_raw(meta, raw, stats=stats)
+                kv_state = (full.pop(KV_STATE_KEY, None)
+                            if isinstance(full, dict) else None)
+                if kv_state is not None:
+                    chains[rank] = [kv_state]
+                if rank == dense_rank:
+                    state = full
+            if chains:
+                stats.extra.update(self._sparse.import_shards_streaming(
+                    chains, world_size=self._world_size, rank=self._rank,
+                    from_world=ckpt_world, tier="storage", step=step))
+        if own:
+            self._record_restore(
+                "storage", step, time.perf_counter() - t0,
+                stats.to_phases(),
+            )
+        logger.info(
+            "restored step %s from storage (read %.3fs, assemble %.3fs, "
+            "%d workers)", step, stats.read_s, stats.assemble_s,
+            stats.workers,
         )
         return step, state
 
@@ -698,6 +876,11 @@ class CheckpointEngine:
         from dlrover_tpu_torch.checkpoint.restore import RestoreStats
         from dlrover_tpu_torch.telemetry.tracing import span as _span
 
+        if self._sparse is not None:
+            raise NotImplementedError(
+                "a resharded restore with a registered adapter (the kv "
+                "branches of load_sharded) comes with slice 6 of the "
+                "port; restore with load() (no target state)")
         failures: List[str] = []
         with _span("ckpt.restore") as sp:
             sp.set_attribute("sharded", True)
@@ -953,6 +1136,16 @@ class CheckpointEngine:
             self._prefault_thread.join(timeout=30.0)
         self._prefault_thread = None
         self._shm_handler.close()
+
+
+def _checkpoint_world(meta) -> Optional[int]:
+    """The world size a rank file was written at (its config's
+    stamp), or None when it carries none."""
+    config = meta.get("config") if isinstance(meta, dict) else None
+    world = getattr(config, "world_size", None)
+    if world is None and isinstance(config, dict):
+        world = config.get("world_size")
+    return int(world) if world else None
 
 
 def _agreed_shm_step(step: Optional[int]) -> Optional[int]:

@@ -414,6 +414,18 @@ class JobMaster:
             self.node_num,
         )
 
+    def _poll_ticks(self, period: float):
+        """One tick every ``period`` seconds until the master stops.
+        The wait on the stop event wakes at least once a second: waits
+        of the whole period (30 s by default) left a supervisor's
+        SIGTERM unanswered past its 10 s grace on a loaded host."""
+        deadline = time.monotonic() + period
+        while not self._stop.wait(
+                min(1.0, max(0.0, deadline - time.monotonic()))):
+            if time.monotonic() >= deadline:
+                deadline = time.monotonic() + period
+                yield
+
     def run(self) -> int:
         """Main poll loop (reference ``dist_master.py:211``)."""
         ctx = Context.instance()
@@ -430,7 +442,7 @@ class JobMaster:
                 ):
                     self._exit_code = 1
                 return self._exit_code
-            while not self._stop.wait(ctx.seconds_to_check_hang):
+            for _ in self._poll_ticks(ctx.seconds_to_check_hang):
                 if (
                     self.journal is not None
                     and self.journal.entries_since_snapshot

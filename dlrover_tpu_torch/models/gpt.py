@@ -46,11 +46,27 @@ with a :class:`~dlrover_tpu_torch.parallel.moe.MoEMLP` named ``moe``.
 (:class:`~dlrover_tpu_torch.ops.fp8.Fp8Dense`).  Pipeline parallelism:
 :meth:`GPT.to_pipelined` gives a :class:`PipelinedGPT`, the blocks
 stage-stacked (``blocks.<name>`` ``[stages, layers/stage, ...]``) and
-run through :mod:`dlrover_tpu_torch.parallel.pipeline`.  Decode with a
-KV cache and the save_attn remat policy are slice 5.4 of the port, the
-value head slice 7; they raise ``NotImplementedError``.
+run through :mod:`dlrover_tpu_torch.parallel.pipeline`.
+
+Decode (``decode=True``, reference ``gpt.py:195-268, 364-371``): each
+attention layer keeps a KV cache (``cached_key``, ``cached_value``,
+``cache_index``) and the model a ``pos_index``, so a prompt is
+prefilled in one call and then continued one token a call at the
+absolute positions that follow; :func:`cached_decode_attention` attends
+over the whole ``max_seq_len`` cache under the reference's mask.  The
+cache lives in non-persistent module buffers (never parameters, never
+in a state dict), allocated by the first call at its batch size and
+cleared by :meth:`GPT.reset_cache`; the two indices are host ints, so a
+step needs no device read.  The cache is laid out ``[b, kv_heads,
+max_len, head_dim]`` (the reference's is ``[b, max_len, kv_heads,
+head_dim]``; :func:`dlrover_tpu_torch.utils.convert.cache_from_jax`
+transposes), so each step's two products read it in place.
+``head="value"`` ends in the RLHF critic's scalar ``value_head`` (fp32
+Dense, reference ``:406-412``).  The save_attn remat policy is slice
+5.4 of the port and raises ``NotImplementedError`` naming it.
 """
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Union
@@ -139,18 +155,12 @@ class GPTConfig:
 
 def _check_supported(cfg: GPTConfig):
     """Options of the reference that later slices of the port bring."""
-    unsupported = [
-        (cfg.decode, "decode (KV-cache attention)", SLICE_5_4),
-        (cfg.head != "lm", f"head={cfg.head!r}",
-         "slice 7 of the port (RL)"),
-        (cfg.remat_policy == "save_attn",
-         f"remat_policy={cfg.remat_policy!r}", SLICE_5_4),
-    ]
-    for bad, what, where in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"GPT {what} is not ported yet: it comes with {where}"
-            )
+    if cfg.remat_policy == "save_attn":
+        raise NotImplementedError(
+            f"GPT remat_policy={cfg.remat_policy!r} is not ported yet: it "
+            f"comes with {SLICE_5_4}")
+    if cfg.head not in ("lm", "value"):
+        raise ValueError(f"unknown head {cfg.head!r} (lm | value)")
 
 
 def xla_causal_attention(
@@ -168,6 +178,118 @@ def xla_causal_attention(
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
+
+
+def _fp32_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with fp32 products and an fp32 result (the reference's
+    ``preferred_element_type=jnp.float32``): on the card a bf16 or fp16
+    pair goes through the product with an fp32 output, the operands
+    never widened in memory (a step reads its whole cache once)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def decode_mask(q_pos: torch.Tensor, max_len: int) -> torch.Tensor:
+    """``[s, max_len]``, True where a query may not look: a later
+    position, or the unfilled tail of the cache."""
+    return torch.arange(max_len, device=q_pos.device)[None, :] > q_pos[:, None]
+
+
+@functools.lru_cache(maxsize=4)
+def _step_mask(start: int, s: int, max_len: int, device) -> torch.Tensor:
+    """:func:`decode_mask` of positions ``start .. start + s``: every
+    layer of a decode step reads the same one, built once."""
+    return decode_mask(torch.arange(start, start + s, device=device), max_len)
+
+
+def cached_decode_attention(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    q_pos: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
+    masked: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Chunked decode attention against a KV cache (reference
+    ``dlrover_tpu/models/gpt.py:195``, plain math there too).
+
+    ``q``: ``[b, s_new, h, d]`` (a prompt prefill or a 1-token step);
+    ``k_cache``/``v_cache``: ``[b, kv_heads, max_len, d]`` with this
+    chunk already written (``kv_heads`` may divide ``h``: GQA, the cache
+    never repeated; head ``i`` reads kv head ``i // (h // kv_heads)``);
+    ``q_pos``: ``[s_new]`` absolute positions.  Masks both causality
+    inside the chunk and the unfilled tail of the cache; the logits and
+    the softmax in fp32, the probabilities cast to ``dtype`` for the
+    product with ``v``.  ``masked`` is :func:`decode_mask` of ``q_pos``
+    when the caller has it."""
+    b, s, h, d = q.shape
+    kvh, max_len = k_cache.shape[1], k_cache.shape[2]
+    group = h // kvh
+    # rows (group, query) of each kv head
+    qg = q.reshape(b, s, kvh, group, d).permute(0, 2, 3, 1, 4).reshape(
+        b * kvh, group * s, d)
+    logits = _fp32_bmm(
+        qg, k_cache.reshape(b * kvh, max_len, d).transpose(1, 2)
+    ) * d ** -0.5
+    if masked is None:
+        masked = decode_mask(q_pos, max_len)
+    # in place (the logits are this call's own; a prefill's are the
+    # largest tensor of the step), the [s, max_len] mask broadcast
+    # over the group
+    logits.view(b * kvh, group, s, max_len).masked_fill_(masked, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    out = torch.bmm(probs, v_cache.reshape(b * kvh, max_len, d).to(dtype))
+    return out.reshape(b, kvh, group, s, d).permute(0, 3, 1, 2, 4).reshape(
+        b, s, h, d)
+
+
+class DecodeCache(nn.Module):
+    """The KV cache of one decode-mode attention layer (the reference's
+    ``cache`` collection of the layer): ``cached_key`` and
+    ``cached_value`` (``[b, kv_heads, max_len, head_dim]``, the dtype of
+    k and v; non-persistent buffers, ``None`` until the first call) and
+    ``cache_index``, the next position to write."""
+
+    def __init__(self, max_len: int):
+        super().__init__()
+        self.max_len = max_len
+        self.register_buffer("cached_key", None, persistent=False)
+        self.register_buffer("cached_value", None, persistent=False)
+        self.cache_index = 0
+
+    def reset(self):
+        self.cached_key = self.cached_value = None
+        self.cache_index = 0
+
+    def attend(self, q, k, v, dtype) -> torch.Tensor:
+        """Write this chunk's ``k``/``v`` (``[b, s, kv_heads, d]``) at
+        ``cache_index`` and attend ``q`` over the cache."""
+        b, s, kvh, d = k.shape
+        pos = self.cache_index
+        if pos + s > self.max_len:
+            raise ValueError(
+                f"decode position {pos} + {s} exceeds max_seq_len "
+                f"{self.max_len}: reset the cache (reset_cache())")
+        if self.cached_key is None:
+            shape = (b, kvh, self.max_len, d)
+            self.cached_key = torch.zeros(shape, dtype=k.dtype,
+                                          device=k.device)
+            self.cached_value = torch.zeros(shape, dtype=v.dtype,
+                                            device=v.device)
+        self.cached_key[:, :, pos:pos + s] = k.transpose(1, 2)
+        self.cached_value[:, :, pos:pos + s] = v.transpose(1, 2)
+        self.cache_index = pos + s
+        masked = _step_mask(pos, s, self.max_len, q.device)
+        return cached_decode_attention(q, self.cached_key, self.cached_value,
+                                       None, dtype=dtype, masked=masked)
+
+
+def reset_cache(model: nn.Module):
+    """Clear every decode cache of ``model`` (and its ``pos_index``):
+    the next call prefills a new batch."""
+    for module in model.modules():
+        if isinstance(module, DecodeCache):
+            module.reset()
+        if hasattr(module, "pos_index"):
+            module.pos_index = 0
 
 
 def _local_heads(t):
@@ -253,6 +375,8 @@ class Attention(nn.Module):
         self.qkv = Dense(d, 3 * d, dtype=pd, device=device)
         self.o_proj = Dense(d, d, dtype=pd, device=device)
         self._attn = get_attention_fn(config.attention_impl)
+        if config.decode:
+            self.cache = DecodeCache(config.max_seq_len)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -267,7 +391,10 @@ class Attention(nn.Module):
         else:
             q, k, v = (t.reshape(b, s, -1, cfg.head_dim)
                        for t in qkv.split(d, dim=-1))
-        out = self._attn(q, k, v, dtype=cfg.dtype)
+        if cfg.decode:
+            out = self.cache.attend(q, k, v, cfg.dtype)
+        else:
+            out = self._attn(q, k, v, dtype=cfg.dtype)
         return self.o_proj(out.reshape(b, s, -1), cfg.dtype)
 
 
@@ -395,7 +522,9 @@ class GPT(nn.Module):
     (``dlrover_tpu/models/gpt.py:356-363``).  The weights are drawn on ``device`` by a generator there,
     so a GPT-2 XL needs no host pass over its 1.56B params; one seed
     therefore gives other weights on the card than on the CPU (nothing
-    compares the two).
+    compares the two).  ``head="value"`` returns fp32 values ``[batch,
+    seq]`` instead of logits; ``decode=True`` keeps a KV cache across
+    calls (:meth:`reset_cache`).
     """
 
     def __init__(
@@ -417,23 +546,42 @@ class GPT(nn.Module):
             for i in range(config.num_layers)
         )
         self.ln_f = _layer_norm(config, device)
-        if not config.tie_embeddings:
+        if config.head == "value":
+            # scalar value head (RLHF critic / reward models)
+            self.value_head = Dense(d, 1, dtype=pd, device=device)
+        elif not config.tie_embeddings:
             self.lm_head = Dense(d, config.vocab_size, bias=False, dtype=pd,
                                  device=device)
+        # decode: the absolute position of the next token (host int)
+        self.pos_index = 0
         if device.type != "meta":  # shapes only (the strategy analyser)
             init_flax_weights(
                 self, torch.Generator(device=device).manual_seed(seed))
 
+    def reset_cache(self):
+        """Clear the decode caches: the next call prefills."""
+        reset_cache(self)
+
     def forward(self, tokens: torch.Tensor,
                 return_hidden: bool = False) -> torch.Tensor:
-        """fp32 logits; with ``return_hidden`` the final layernorm's
-        output in the compute dtype instead, for losses that apply the
-        head themselves (:mod:`dlrover_tpu_torch.models.losses`)."""
+        """fp32 logits (values with ``head="value"``); with
+        ``return_hidden`` the final layernorm's output in the compute
+        dtype instead, for losses that apply the head themselves
+        (:mod:`dlrover_tpu_torch.models.losses`)."""
         cfg = self.config
         b, s = tokens.shape
-        # under sequence parallelism this rank's shard starts later
-        pos = torch.arange(s, device=tokens.device) + sequence_offset(
-            cfg.attention_impl, s)
+        if cfg.decode:
+            # absolute positions continue across decode chunks
+            offset = self.pos_index
+            if offset + s > cfg.max_seq_len:
+                raise ValueError(
+                    f"decode position {offset} + {s} exceeds max_seq_len "
+                    f"{cfg.max_seq_len}: reset the cache (reset_cache())")
+            self.pos_index = offset + s
+        else:
+            # under sequence parallelism this rank's shard starts later
+            offset = sequence_offset(cfg.attention_impl, s)
+        pos = torch.arange(s, device=tokens.device) + offset
         # flax Embed(dtype=...) casts the table; casting the gathered
         # rows is the same values without touching the whole table
         x = (
@@ -455,6 +603,8 @@ class GPT(nn.Module):
         x = self.ln_f(x.float()).to(cfg.dtype)
         if return_hidden:
             return x
+        if cfg.head == "value":
+            return self.value_head(x, torch.float32)[..., 0]
         if cfg.tie_embeddings:
             logits = vocab_logits(x, self.wte.weight.to(cfg.dtype),
                                   transpose=True)

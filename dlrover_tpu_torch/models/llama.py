@@ -48,10 +48,15 @@ Mixtral: ``moe_experts > 0`` replaces the SwiGLU MLP of every
 each rank's global positions.  Pipeline parallelism:
 :meth:`Llama.to_pipelined` gives a :class:`PipelinedLlama` (the stage-
 stacked layout of :class:`~dlrover_tpu_torch.models.gpt.
-PipelinedDecoder`).  Decode with a KV cache comes with slice 5.4 and
-raises ``NotImplementedError`` naming it.
+PipelinedDecoder`).  Decode (``decode=True``, reference
+``llama.py:152-186``): each attention layer keeps a KV cache at kv-head
+granularity (GQA, never repeated;
+:class:`~dlrover_tpu_torch.models.gpt.DecodeCache`) and RoPE runs at the
+absolute positions the cache index gives; :meth:`Llama.reset_cache`
+clears it.
 """
 
+import functools
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -62,13 +67,14 @@ from torch.autograd.graph import save_on_cpu
 from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
-from dlrover_tpu_torch.common.slices import SLICE_5_4
 from dlrover_tpu_torch.models.gpt import (
     Dense,
+    DecodeCache,
     PipelinedDecoder,
     get_attention_fn,
     init_flax_weights,
     moe_layer,
+    reset_cache,
     uses_moe,
 )
 from dlrover_tpu_torch.parallel.sequence import sequence_offset
@@ -147,11 +153,8 @@ class LlamaConfig:
 
 
 def _check_supported(cfg: LlamaConfig):
-    """Options of the reference that later slices of the port bring."""
-    if cfg.decode:
-        raise NotImplementedError(
-            f"Llama decode (KV-cache attention) is not ported yet: it comes "
-            f"with {SLICE_5_4}")
+    """The head counts' constraint (every option of the reference's
+    Llama is ported)."""
     if cfg.num_heads % cfg.num_kv_heads:
         raise ValueError(f"num_heads {cfg.num_heads} is not a multiple of "
                          f"num_kv_heads {cfg.num_kv_heads}")
@@ -174,19 +177,34 @@ class RMSNorm(nn.Module):
         return (norm * self.weight).to(x.dtype)
 
 
+def _rope_angles(positions: torch.Tensor, d: int, theta: float):
+    """cos and sin of ``positions * theta^(-2i/d)`` in fp32, shaped to
+    broadcast over ``[b, s, h, d/2]``."""
+    freqs = 1.0 / (theta ** (torch.arange(
+        0, d, 2, dtype=torch.float32, device=positions.device) / d))
+    angles = positions[:, None].to(torch.float32) * freqs[None, :]
+    return torch.cos(angles)[None, :, None, :], torch.sin(angles)[None, :,
+                                                                   None, :]
+
+
+@functools.lru_cache(maxsize=4)
+def _decode_angles(start: int, s: int, d: int, theta: float, device):
+    """:func:`_rope_angles` at positions ``start .. start + s``: every
+    layer of a decode step reads the same ones, computed once."""
+    return _rope_angles(torch.arange(s, device=device) + start, d, theta)
+
+
+def _rotate(x: torch.Tensor, cos, sin) -> torch.Tensor:
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Rotary position embedding on ``[b, s, h, d]``: the two halves of
     each head rotated by ``positions * theta^(-2i/d)``, in fp32."""
-    d = x.shape[-1]
-    freqs = 1.0 / (theta ** (
-        torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d))
-    angles = positions[:, None].to(torch.float32) * freqs[None, :]
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return _rotate(x, *_rope_angles(positions, x.shape[-1], theta))
 
 
 def _tensor_parallel_heads(q, k, v, cfg: LlamaConfig, b: int, s: int):
@@ -240,6 +258,8 @@ class LlamaAttention(nn.Module):
         self.o_proj = Dense(config.num_heads * hd, d, bias=False, dtype=pd,
                             device=device)
         self._attn = get_attention_fn(config.attention_impl)
+        if config.decode:
+            self.cache = DecodeCache(config.max_seq_len)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -251,6 +271,13 @@ class LlamaAttention(nn.Module):
             q, k, v = _tensor_parallel_heads(q, k, v, cfg, b, s)
         else:
             q, k, v = (t.reshape(b, s, -1, cfg.head_dim) for t in (q, k, v))
+        if cfg.decode:
+            # RoPE at the absolute positions that follow the cache's
+            angles = _decode_angles(self.cache.cache_index, s, cfg.head_dim,
+                                    cfg.rope_theta, x.device)
+            q, k = _rotate(q, *angles), _rotate(k, *angles)
+            out = self.cache.attend(q, k, v, cfg.dtype)
+            return self.o_proj(out.reshape(b, s, -1), cfg.dtype)
         # under sequence parallelism this rank's shard starts later
         positions = torch.arange(s, device=x.device) + sequence_offset(
             cfg.attention_impl, s)
@@ -335,6 +362,10 @@ class Llama(nn.Module):
         if device.type != "meta":
             init_flax_weights(
                 self, torch.Generator(device=device).manual_seed(seed))
+
+    def reset_cache(self):
+        """Clear the decode caches: the next call prefills."""
+        reset_cache(self)
 
     def forward(self, tokens: torch.Tensor,
                 return_hidden: bool = False) -> torch.Tensor:

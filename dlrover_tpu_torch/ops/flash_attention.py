@@ -369,7 +369,21 @@ def bwd_dq_cuda(q, k, v, out, dout, lse, scale: float, causal: bool):
 
 
 def bwd_dkv_cuda(q, k, v, dout, lse, delta, scale: float, causal: bool):
-    """Launch the dK/dV kernel: per-kv-head ``(dk, dv)`` shaped as k."""
+    """Launch the dK/dV kernel: per-kv-head ``(dk, dv)`` shaped as k.
+
+    The bf16 and fp16 kernel reads the rows of lse and Delta (``[b, h,
+    s]`` as one flat array) through TMA boxes that must start on 16
+    bytes: a seq that 4 does not divide is padded to the next multiple
+    of 4 here (zero q, dO, lse and Delta rows, which add nothing to dK
+    and dV; zero keys and values, whose dK and dV are sliced off)."""
+    s = q.shape[1]
+    if s % 4 and q.dtype != torch.float32 and q.shape[-1] < 256:
+        pad = 4 - s % 4
+        q, k, v, dout = (F.pad(x, (0, 0, 0, 0, 0, pad))
+                         for x in (q, k, v, dout))
+        lse, delta = (F.pad(x, (0, pad)) for x in (lse, delta))
+        dk, dv = bwd_dkv_cuda(q, k, v, dout, lse, delta, scale, causal)
+        return dk[:, :s], dv[:, :s]
     q, k, v, dout = _cuda_inputs(q, k, v, dout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)

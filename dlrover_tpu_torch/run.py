@@ -280,7 +280,10 @@ class _MasterSupervisor:
         try:
             self.proc.wait(timeout=10)
         except subprocess.TimeoutExpired:
+            # reap it: right after the SIGKILL the process may not have
+            # exited yet, and poll() would still read it as running
             self.proc.kill()
+            self.proc.wait()
         for d in self._fresh_journal_dirs:
             shutil.rmtree(d, ignore_errors=True)
 

@@ -24,7 +24,13 @@ layout, so the map is by rule:
 - ``bias`` is ``bias``;
 - an MoE block's ``moe/router/kernel`` is ``moe.router.weight`` and its
   expert kernels ``moe/experts_w_{in,gate,out}`` (``[e, in, out]``) are
-  parameters of the same names on ``moe``.
+  parameters of the same names on ``moe``;
+- the critic's ``value_head/{kernel,bias}`` is ``value_head.{weight,
+  bias}`` (the Dense rule).
+
+The decode ``cache`` collection of the JAX package (``block_i/attn/
+{cached_key, cached_value, cache_index}`` and GPT's ``pos_index``) goes
+into a decode-mode model's caches with :func:`cache_from_jax`.
 
 Both directions copy values exactly (bf16 leaves too, and the fp32
 norm scales a bf16 model keeps), so a round trip is bit-exact.  The
@@ -139,6 +145,28 @@ def _set(tree: Dict[str, Any], path, value):
 def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax GPT params (nested dict of arrays) -> GPT state dict."""
     return {_torch_name(path): _tensor(value) for path, value in _flat(params)}
+
+
+def cache_from_jax(model: torch.nn.Module, cache: Mapping[str, Any]):
+    """The JAX package's decode ``cache`` collection (after a prefill or
+    a step) into the caches of ``model``, a decode-mode GPT or Llama of
+    the same shape, in place: each layer's ``cached_key`` and
+    ``cached_value`` (``[b, max_len, kv_heads, d]`` there, ``[b,
+    kv_heads, max_len, d]`` here) and ``cache_index``, and GPT's
+    ``pos_index``, on the model's device."""
+    device = next(model.parameters()).device
+    for path, value in _flat(cache):
+        if path == ("pos_index",):
+            model.pos_index = int(np.asarray(value))
+            continue
+        *module, leaf = path
+        name = _torch_name(tuple(module) + ("kernel",)).rsplit(".", 1)[0]
+        layer = model.get_submodule(name).cache
+        if leaf == "cache_index":
+            layer.cache_index = int(np.asarray(value))
+        else:
+            setattr(layer, leaf,
+                    _tensor(value).transpose(1, 2).contiguous().to(device))
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

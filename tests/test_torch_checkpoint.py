@@ -664,14 +664,26 @@ def test_a_lock_whose_holder_died_is_taken_over(tmp_path):
 # -- what later slices bring ---------------------------------------------------
 
 
+def _sharded_restore_with_an_adapter(d):
+    from dlrover_tpu_torch.rl.elastic import PPOStateAdapter
+
+    engine = _engine(d)
+    engine.register_sparse(PPOStateAdapter(None, include_roles=False))
+    return engine.load_sharded({"w": torch.zeros(2)})
+
+
 @pytest.mark.parametrize("make,match", [
-    (lambda d: _engine(d).register_sparse(object()), "slice 6"),
+    (_sharded_restore_with_an_adapter, "slice 6"),
     (lambda d: Checkpointer("gs://bucket/run"), "slice 8"),
 ])
 def test_options_of_later_slices_raise(saver, tmp_path, make, match):
     """The target-state restore (``load_sharded``) and the orbax tier
     (``orbax_dir``), once on this list, came with slice 4.2: their cases
-    moved to ``test_options_of_slice_4_2_no_longer_raise``."""
+    moved to ``test_options_of_slice_4_2_no_longer_raise``.  The adapter
+    contract of ``register_sparse`` came with slice 7 (an adapter
+    registers: ``tests/test_torch_rl_elastic.py``); a resharded restore
+    with one registered, the kv branches of ``load_sharded``, is still
+    slice 6's."""
     with pytest.raises(NotImplementedError, match=match):
         make(tmp_path)
 

@@ -429,6 +429,37 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol, causal, b, s, h, kvh, d):
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,kvh,d", [
+    (4, 255, 12, 12, 64),   # a PPO batch's tokens[:, :-1]
+    (2, 33, 4, 2, 128),     # GQA, a seq of one tile and a row
+    (1, 1022, 8, 8, 64),
+])
+def test_cuda_dkv_takes_a_seq_that_4_does_not_divide(cuda, dtype, tol,
+                                                      causal, b, s, h, kvh,
+                                                      d):
+    """The dK/dV kernel reads lse and Delta rows through 16-byte TMA
+    boxes: the wrapper pads a seq that 4 does not divide, and the
+    result is the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, dout = (
+        torch.randn(b, s, n, d, generator=gen, device=cuda).to(dtype)
+        for n in (h, kvh, kvh, h)
+    )
+    scale = d ** -0.5
+    out, lse = fa.fwd_cuda(q, k, v, scale, causal)
+    delta = fa.delta_plain(out, dout)
+    want = fa.bwd_dkv_plain(q, k, v, dout, lse, delta, scale, causal, s, s)
+    got = fa.bwd_dkv_cuda(q, k, v, dout, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
 # fp16 holds 11 significant bits to bf16's 8; the head_dim-256 FMA
 # kernels round p and dS where the wgmma kernels do
 PAD_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3}

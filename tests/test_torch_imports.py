@@ -117,6 +117,35 @@ def test_the_modules_of_slice_4_2_are_checked_and_mirror_a_reference(
     assert f"dlrover_tpu/{rel}" in doc
 
 
+SLICE_7 = [
+    ("dlrover_tpu_torch.rl.ppo", "dlrover_tpu/rl/ppo.py"),
+    ("dlrover_tpu_torch.rl.generation", "dlrover_tpu/rl/generation.py"),
+    ("dlrover_tpu_torch.rl.model_engine", "dlrover_tpu/rl/model_engine.py"),
+    ("dlrover_tpu_torch.rl.hybrid_engine", "dlrover_tpu/rl/hybrid_engine.py"),
+    ("dlrover_tpu_torch.rl.rollout", "dlrover_tpu/rl/rollout.py"),
+    ("dlrover_tpu_torch.rl.trainer", "dlrover_tpu/rl/trainer.py"),
+    ("dlrover_tpu_torch.rl.elastic.lease", "dlrover_tpu/rl/elastic/lease.py"),
+    ("dlrover_tpu_torch.rl.elastic.adapter",
+     "dlrover_tpu/rl/elastic/adapter.py"),
+    ("dlrover_tpu_torch.rl.__init__", "dlrover_tpu/rl/"),
+    ("dlrover_tpu_torch.rl.elastic.__init__", "dlrover_tpu/rl/elastic/"),
+    ("dlrover_tpu_torch.examples.rlhf_ppo", "examples/rlhf_ppo.py"),
+]
+
+
+@pytest.mark.parametrize("module,reference", SLICE_7)
+def test_the_modules_of_slice_7_are_checked_and_name_their_reference(
+        module, reference):
+    """The RL engine of slice 7 (and the twin of its example) is among
+    the modules the tests above import and scan, each naming the
+    reference it mirrors, which exists."""
+    assert module in MODULES
+    assert (ROOT / reference).exists()
+    doc = ast.get_docstring(ast.parse(
+        (ROOT / module.replace(".", os.sep)).with_suffix(".py").read_text()))
+    assert reference in doc
+
+
 def test_the_elastic_example_is_checked_and_names_its_reference():
     """The twin of ``examples/train_gpt_elastic.py`` is among the
     scanned modules and names the reference example."""

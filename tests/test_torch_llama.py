@@ -379,8 +379,11 @@ def test_remat_gives_the_same_gradients(impl):
 def test_later_slices_raise_not_implemented(kw, slice_):
     """Options of later slices raise naming their slice; those of slice
     5.2 build since it landed (tests/test_torch_moe.py and
-    test_torch_sp_e2e.py drive them)."""
-    if slice_ == "slice 5.2":
+    test_torch_sp_e2e.py drive them), and decode, which the reference
+    names slice 5.4's, since slice 7 brought it (tests/test_torch_rl.py
+    holds it against the JAX package's): every option of the
+    reference's Llama builds now."""
+    if slice_ in ("slice 5.2", "slice 5.4"):
         model = port_llama.Llama(port_llama.LlamaConfig.tiny(**kw),
                                  device="cpu")
         assert model.config == port_llama.LlamaConfig.tiny(**kw)

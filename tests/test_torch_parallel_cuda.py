@@ -54,7 +54,15 @@ and its one-GPU run.  Each test spawns one process per GPU of this file
 - DiLoCo's outer step over NCCL, one replica a GPU (GPT-2 small's tree),
   each reduce method against the stacked form of the four replicas on
   rank 0: anchors and momenta within rtol 1e-5 / atol 1e-7 but for at
-  most 1e-6 of a leaf's elements (a gta sign vote at a tie).
+  most 1e-6 of a leaf's elements (a gta sign vote at a tie);
+- the RL engine's hybrid rollout engine with GPT-2 XL's actor at full
+  width and depth (fp32, flash): trained under FSDP2 over the four
+  GPUs, copied into a tensor-4 rollout layout (the MLPs and the vocab-
+  parallel ``wte`` sliced; XL's 25 heads do not split over 4, so the
+  attention projections stay whole on each rank), one PPO step between
+  two reshards; greedy sequences of 8 prompts of 32 tokens, 32 new,
+  equal to one GPU's from the same weights, and the logprobs within
+  1e-3; each reshard's seconds.
 """
 
 import json
@@ -702,6 +710,102 @@ def _diloco_worker(rank, world, out_path):
             json.dump(report, f)
 
 
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = 8, 32, 32
+
+
+def _hybrid_xl_worker(rank, world, out_path):
+    """GPT-2 XL's actor trained under FSDP2 over every GPU, generating
+    greedily on a tensor-``world`` rollout copy; rank 0 also generates
+    from the same weights on its GPU alone."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel import Strategy
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.parallel.sharding import (
+        PartitionRules,
+        gpt_tp_rules,
+    )
+    from dlrover_tpu_torch.rl.generation import (
+        decode_variant,
+        generate,
+        rollout_params,
+    )
+    from dlrover_tpu_torch.rl.hybrid_engine import HybridRolloutEngine
+    from dlrover_tpu_torch.rl.model_engine import (
+        ModelRole,
+        RLModelEngine,
+        RoleSpec,
+    )
+    from dlrover_tpu_torch.rl.rollout import (
+        make_actor_loss,
+        sample_rollout_batch,
+    )
+
+    cfg = GPTConfig.gpt2_xl(attention_impl="flash", dtype=torch.float32)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT), dtype=np.int32))
+    actor = GPT(cfg, seed=0)
+    engine = RLModelEngine(
+        sample_rollout_batch(prompts, HYBRID_NEW),
+        {ModelRole.ACTOR: RoleSpec(
+            model=actor, loss_fn=make_actor_loss(actor, HYBRID_PROMPT),
+            optim_factory=lambda ps: torch.optim.AdamW(ps, lr=1e-5),
+            strategy=Strategy(opts=[("fsdp", {}), ("amp_native",
+                                                   {"dtype": "float32"})]))},
+    ).build()
+    del actor
+    # XL's 25 heads do not split over 4 ranks: the attention
+    # projections stay whole, the MLPs and the vocab are sliced
+    rules = PartitionRules(
+        rules=[(pat.replace("qkv|", "").replace("o_proj|", ""), spec)
+               for pat, spec in gpt_tp_rules().rules],
+        default=())
+    mesh = build_mesh(MeshConfig(data=1, tensor=world))
+    hybrid = HybridRolloutEngine(engine, mesh, rules)
+    report = {}
+    runs = []
+    for turn in range(2):
+        params = hybrid.reshard_actor_for_rollout()
+        seq, lp = generate(hybrid.rollout_model, params, prompts.cuda(), None,
+                           max_new_tokens=HYBRID_NEW, temperature=0.0)
+        runs.append((seq.cpu().numpy().tolist(), lp.cpu().numpy().tolist()))
+        if turn == 0:
+            batch = {"tokens": seq,
+                     "old_logprobs": lp,
+                     "advantages": torch.ones_like(lp),
+                     "returns": torch.ones_like(lp)}
+            state, metrics = engine.train_step(ModelRole.ACTOR)(
+                engine.state(ModelRole.ACTOR),
+                engine.place_batch(ModelRole.ACTOR, batch))
+            engine.set_state(ModelRole.ACTOR, state)
+            report["loss"] = float(metrics["loss"])
+        del params
+    report["sharded"] = sorted(
+        n for n, p in hybrid.rollout_model.named_parameters()
+        if "Shard" in str(getattr(p, "placements", "")))
+    report["reshard_s"] = hybrid.reshard_times
+    # rank 0's one-GPU reference: the train state's weights, gathered
+    module = engine.state(ModelRole.ACTOR).module
+    full = rollout_params(module)
+    if rank == 0:
+        one = dataclasses.replace(cfg, dtype=torch.float32)
+        dec = decode_variant(GPT(one, device="meta"))
+        seq, lp = generate(dec, full, prompts.cuda(), None,
+                           max_new_tokens=HYBRID_NEW, temperature=0.0)
+        report["one_gpu"] = (seq.cpu().numpy().tolist(),
+                             lp.cpu().numpy().tolist())
+        report["hybrid"] = runs[-1]
+        report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        report["card"] = torch.cuda.get_device_name(0)
+        with open(out_path, "w") as f:
+            json.dump(report, f)
+    dist.barrier()
+
+
 def _spawn(kind, world, tmp_path, timeout):
     import subprocess
 
@@ -828,6 +932,29 @@ def test_diloco_over_nccl_equals_the_stacked_form(tmp_path):
         assert report[label]["worst_share"] <= 1e-6, (label, report[label])
 
 
+@pytest.mark.cuda
+def test_hybrid_rollout_of_gpt2_xl_fsdp4_to_tensor4(tmp_path):
+    _needs(4)
+    import subprocess
+
+    report = _spawn("hybrid_xl", 4, tmp_path, 1200)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip().splitlines()
+    print(f"hybrid rollout engine, GPT-2 XL FSDP2 4 -> tensor 4: "
+          f"reshards {report['reshard_s']} s, PPO step loss "
+          f"{report['loss']}, {len(report['sharded'])} sliced params, "
+          f"peak {report['peak_gib']:.2f} GiB on rank 0 {card}")
+    assert report["sharded"], "the rollout layout sliced nothing"
+    assert len(report["reshard_s"]) == 2
+    one_seq, one_lp = report["one_gpu"]
+    seq, lp = report["hybrid"]
+    assert seq == one_seq
+    assert max(abs(a - b) for ra, rb in zip(lp, one_lp)
+               for a, b in zip(ra, rb)) <= 1e-3
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         import torch.distributed as dist
@@ -844,7 +971,8 @@ if __name__ == "__main__":
                   "llama_tp": _llama_tp_worker,
                   "llama_pp": _llama_pp_worker,
                   "pp_misc": _pp_misc_worker,
-                  "diloco": _diloco_worker}[kind]
+                  "diloco": _diloco_worker,
+                  "hybrid_xl": _hybrid_xl_worker}[kind]
         worker(rank, world, sys.argv[6])
         if dist.is_initialized():
             dist.destroy_process_group()

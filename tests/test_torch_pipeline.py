@@ -456,9 +456,9 @@ def test_pipelined_models_match_the_reference(family, layers, stages,
 
 def test_pipelined_guards_reject_unsupported_configs():
     """Twin of ``test_pipelined_guards_reject_unsupported_configs``: the
-    pipeline's guards raise the reference's ``ValueError``.  A decode or
-    value-head model cannot be built in the port (slices 5.4 and 7), so
-    those guards are reached through a stand-in holding the config."""
+    pipeline's guards raise the reference's ``ValueError``, reached
+    through a stand-in holding the config and, since slice 7 brought
+    decode and the value head, through the real models too."""
     from types import SimpleNamespace
 
     from dlrover_tpu_torch.models import gpt as port_gpt
@@ -475,8 +475,11 @@ def test_pipelined_guards_reject_unsupported_configs():
     for cls, cfg, match in cases:
         with pytest.raises(ValueError, match=match):
             cls(SimpleNamespace(config=cfg), 2, 2)
-    with pytest.raises(NotImplementedError, match="slice 5.4"):
-        port_gpt.GPT(port_gpt.GPTConfig.tiny(decode=True), device="cpu")
+    for cls, cfg, match in cases:
+        family = port_gpt.GPT if cls is port_gpt.PipelinedGPT \
+            else port_llama.Llama
+        with pytest.raises(ValueError, match=match):
+            family(cfg, device="cpu").to_pipelined(2, 2)
     with pytest.raises(ValueError, match="MoE"):
         port_gpt.GPT(port_gpt.GPTConfig.tiny(moe_experts=2),
                      device="cpu").to_pipelined(2, 2)
