@@ -165,22 +165,23 @@ Phases, each fatal on failure:
    micro-batch) under ``fsdp`` + ``amp_native`` + ``checkpoint``
    (FSDP2, bf16, remat) on a one-rank NCCL group, through ``python -m
    dlrover_tpu_torch.run --nproc_per_node=1 --max_restarts=3``, depth
-   cut to 25 and 24 steps, a storage save every 4 steps with an orbax
-   (DCP) copy of every 2nd:
-   a. an uninterrupted control of 25 steps, then a run of 24 SIGKILLed
-      once its snapshot of step 16 is in shm (after committed saves)
+   cut to 13 and 12 steps (the host phases' depth keeps the whole script
+   inside its limit), a storage save every 4
+   steps with an orbax (DCP) copy of every 2nd:
+   a. an uninterrupted control of 13 steps, then a run of 12 SIGKILLed
+      once its snapshot of step 8 is in shm (after a committed save)
       whose respawned worker
       restores params and AdamW moments from shm through
       ``load_checkpoint(target_state=...)``: every loss of every
       incarnation within rtol 1e-3 / atol 1e-5 of the control's (bit
       equality reported), exactly 24 B1 and 12 B2 and B3 launches in
-      every step, step 24 committed;
-   b. the killed run's committed step 24, saved under FSDP2 (DTensors),
+      every step, step 12 committed;
+   b. the killed run's committed step 12, saved under FSDP2 (DTensors),
       restores from storage bit-equal into an unwrapped data plan and
       into a one-rank tensor plan (DTensor Dense layers); each then
-      takes step 25 with the control's loss (rtol 1e-3 / atol 1e-5);
+      takes step 13 with the control's loss (rtol 1e-3 / atol 1e-5);
       with the flash storage removed, the orbax tier alone restores
-      step 20 bit-equal;
+      step 12 (the respawned worker's first storage save) bit-equal;
    c. prints the sharded save's stall on the host and on the card, the
       seconds to shm and to commit, each restore's read / assemble /
       h2d by tier and its rate, and the example's tokens/s beside
@@ -324,11 +325,32 @@ Phases, each fatal on failure:
       layers, 8 leases, a SIGKILL at lease 2: the losses equal the
       uninterrupted control's (computed here on the card), every lease
       acked exactly once, and the kill -> first PPO step seconds.
+17. sparse training (slice 6), each check fatal; no CUDA kernel of the
+   port runs here (the tower is ATen, the tables host C++):
+   a. ``DeepFM(DeepFMConfig())`` (26 fields of 16, tower 429-128-64-1)
+      with its tower on the card, batch 4096 of each field's ids drawn
+      Zipf(1.05) over its Criteo Kaggle vocabulary (33,762,577 keys in
+      all), 350 strict steps (the table past 2 M rows), then the
+      pipelined and auto modes over the first 100 of those batches,
+      each on a fresh model: samples/s, the median step, its gather,
+      H2D, device, D2H and update shares, the card's busy share (CUDA
+      events), rows and host GiB; losses finite and falling, the
+      pipelined last-10 mean within 0.05 of the strict one;
+   b. the strict table's sparse flash checkpoint: a paged shm base, a
+      delta after 8 more steps, a fresh engine and fresh tables
+      restoring it from shm; two durable saves with delta checkpoints
+      restored from storage (the chain, base + delta) with the segment
+      gone; digests of rows, frequencies and slots equal the saves';
+      bytes, ratio, stalls, restore seconds and GB/s by tier;
+   c. ``sparse_kill_restore`` through the port's launcher (a child
+      that never touches CUDA), the tower on the card, the spill tier
+      armed: the losses equal the uninterrupted control's (run here on
+      the card), ``KvStateRoundTrip`` holds, kill -> first step seconds.
 
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  ``--only 2,11`` runs the build
 and the named phases alone (2, 3, 4, 5b, 9b, 10, 11, 12, 13, 13a, 13b,
-14, 14a-14e, 15, 15a, 15b, 16 and 16a-16c so far; 5lr,
+14, 14a-14e, 15, 15a, 15b, 16, 16a-16c, 17 and 17a-17c so far; 5lr,
 which the full run leaves out: phase 5a's model at lr 1e-3 with the
 flash kernels and with the plain attention math, and at SMALL_LR; and
 11d, which the full run leaves out too: 11b's Llama-3-8B for 12 steps
@@ -3768,7 +3790,7 @@ def profile_step(trainer, batch, card, label):
 
 EXAMPLE = os.path.join(ROOT, "dlrover_tpu_torch", "examples",
                        "train_gpt_elastic.py")
-E_STEPS, E_SAVE_EVERY, E_ORBAX_EVERY, E_KILL_AT = 24, 4, 2, 16
+E_STEPS, E_SAVE_EVERY, E_ORBAX_EVERY, E_KILL_AT = 12, 4, 2, 8
 E_GLOBAL_BATCH = 32
 # seconds one launcher run of the example may take (about 40-75 s)
 E_RUN_TIMEOUT_S = 300
@@ -4093,7 +4115,7 @@ def phase_example(card) -> dict:
     vocab = GPTConfig.gpt2_small().vocab_size
     # the killed run's final state (its replay equals the control's)
     saved = kill["ckpt"]
-    ref24 = _reference_state(saved, E_STEPS)
+    ref_last = _reference_state(saved, E_STEPS)
     orbax_steps = sorted(int(n.split("_")[1]) for n in os.listdir(
         saved + "_durable") if n.startswith("step_"))
     ref_orbax = _reference_state(saved, orbax_steps[-1])
@@ -4102,7 +4124,7 @@ def phase_example(card) -> dict:
     try:
         for kind in ("data", "tensor"):
             plan = _restore_plan(kind, saved)
-            bad = _same_bytes(plan["restored"], ref24)
+            bad = _same_bytes(plan["restored"], ref_last)
             dts = sum(p.__class__.__name__ == "DTensor"
                       for p in plan["model"].parameters())
             batch = _example_batch(E_STEPS + 1, vocab)
@@ -6541,6 +6563,440 @@ def phase_rl(card) -> dict:
     return out
 
 
+# -- phase 17: sparse training (KvVariable, DeepFM, the split step) ---------
+
+# 17a: Criteo-scale DeepFM.  The 26 categorical fields of Criteo's
+# Kaggle display-advertising data with their counts of distinct values
+# (33,762,577 in all), each field's ids drawn with a Zipf skew over its
+# own vocabulary; the fields' key ranges are disjoint
+S_FIELD_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
+                  93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652,
+                  2173, 4, 7046547, 18, 15, 286181, 105, 142572)
+S_ZIPF = 1.05
+S_BATCH = 4096
+S_STEPS = 350             # ~2.03 M distinct keys at this skew and batch
+S_MIN_ROWS = 2_000_000
+# the pipelined and auto runs take the first S_COMPARE_STEPS of the
+# strict run's batches (a step is ~0.1 s of host table work on the card
+# machine: 350 steps a mode would take the phase past two minutes)
+S_COMPARE_STEPS = 100
+S_SEED = 1
+# both optimizers' learning rate: the reference class's GroupAdam rate
+# (1e-2) makes the hot rows of a Zipf stream diverge (every field's
+# hottest ids are updated every step; on the CPU, at this width and
+# batch, the strict loss went 0.92 -> 1514 at step 3)
+S_LR = 1e-3
+# the pipelined mode's staleness-1 trajectory against the strict one:
+# the reference's tests hold each mode to training (the last loss below
+# 0.6 of the first); here both modes are held to that, over the means
+# of the first and last 10 steps, and the pipelined mean loss of the
+# last 10 steps to within S_STALE_ATOL of the strict one's
+S_FALL = 0.6
+S_STALE_ATOL = 0.05
+S_DELTA_STEPS = 8
+# where the tower runs (a rehearsal on the CPU points it there)
+S_DEVICE = "cuda"
+
+
+def _zipf_ids(rng, n: int, vocab: int):
+    """``n`` ids of a Zipf(S_ZIPF) law truncated to ``vocab``, by the
+    inverse of its continuous CDF (rank 1 the hottest, id 0)."""
+    import numpy as np
+
+    a = 1.0 - S_ZIPF
+    u = rng.random(n)
+    ranks = np.floor((1.0 + u * (vocab ** a - 1.0)) ** (1.0 / a))
+    return np.minimum(ranks, vocab).astype(np.int64) - 1
+
+
+def _sparse_batches(cfg, steps: int, seed: int = S_SEED):
+    """Batches of the bench's form (``bench.py:800-811``: normal dense
+    features, the first field's parity as the label) over the fields'
+    Zipf ids."""
+    import numpy as np
+
+    assert cfg.num_sparse_fields == len(S_FIELD_VOCABS)
+    offsets = np.concatenate([[0], np.cumsum(S_FIELD_VOCABS)[:-1]])
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        sparse = np.stack([_zipf_ids(rng, S_BATCH, v) + o
+                           for v, o in zip(S_FIELD_VOCABS, offsets)], axis=1)
+        dense = rng.normal(size=(S_BATCH, cfg.num_dense_features)).astype(
+            np.float32)
+        labels = (sparse[:, 0] % 2).astype(np.float32)
+        out.append((sparse, dense, labels))
+    return out
+
+
+def _rss_gib() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def _sparse_model():
+    import torch
+
+    from dlrover_tpu_torch.models.deepfm import DeepFM, DeepFMConfig
+    from dlrover_tpu_torch.trainer.sparse_pipeline import (
+        make_deepfm_device_step,
+    )
+
+    model = DeepFM(DeepFMConfig(), device=S_DEVICE)
+    model.sparse_optimizer.lr = S_LR
+    opt = torch.optim.Adam(model.dense.parameters(), lr=S_LR,
+                           betas=(0.9, 0.999), eps=1e-8)
+    return model, opt, make_deepfm_device_step(model, opt)
+
+
+def _sparse_run(mode, batches, card):
+    """One mode of 17a on a fresh model: the losses, the report and
+    what it printed."""
+    import torch
+
+    from dlrover_tpu_torch.trainer.sparse_pipeline import (
+        SparseTrainPipeline,
+    )
+
+    rss0 = _rss_gib()
+    model, opt, step = _sparse_model()
+    pipe = SparseTrainPipeline(model.table, model.sparse_optimizer, step,
+                               device=S_DEVICE, pipeline=mode, timing=True)
+    losses, marks = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run(None, batches, on_aux=lambda a: losses.append(a["loss"]),
+             on_step=lambda s, n: marks.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = torch.stack(losses).float().cpu().tolist()
+    rep = pipe.overlap_report()
+    steps = [b - a for a, b in zip(marks, marks[1:])]
+    med = statistics.median(steps)
+    shares = {k: rep[k] / rep["wall_s"] for k in
+              ("gather_s", "h2d_s", "update_s", "fetch_s")}
+    shares["device"] = rep.get("device_s", float("nan")) / rep["wall_s"]
+    shares["d2h"] = rep.get("d2h_device_s", float("nan")) / rep["wall_s"]
+    rows = len(model.table)
+    name = rep.get("mode", mode)
+    log(f"17a DeepFM {name} ({'auto' if mode == 'auto' else 'fixed'}): "
+        f"{len(batches)} steps of batch {S_BATCH}: "
+        f"{len(batches) * S_BATCH / wall:.0f} samples/s, median step "
+        f"{med * 1e3:.2f} ms; shares of the wall: gather "
+        f"{shares['gather_s']:.3f}, H2D (host) {shares['h2d_s']:.3f}, "
+        f"device {shares['device']:.3f}, D2H (device) {shares['d2h']:.3f}, "
+        f"update {shares['update_s']:.3f}, host wait for D2H "
+        f"{shares['fetch_s']:.3f}; card busy share (step kernels) "
+        f"{shares['device']:.3f}; table {rows} rows ({3 * rows * 80 / 2**30:.3f}"
+        f" GiB of keys, values and counts in its 3 tables), host RSS "
+        f"+{_rss_gib() - rss0:.2f} GiB; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} [{card}]")
+    return model, opt, step, losses, rep
+
+
+def phase_sparse_deepfm(card, keep=False):
+    """17a: DeepFM at the reference's width (26 fields of 16, 13 dense
+    features, tower 429-128-64-1) on the card, batch 4096 of Zipf ids
+    over Criteo's 33.8 M keys: S_STEPS strict steps (the table past
+    S_MIN_ROWS rows), then the pipelined and auto modes over the first
+    S_COMPARE_STEPS of the same batches, each on a fresh model."""
+    import math
+
+    from dlrover_tpu_torch.models.deepfm import DeepFMConfig
+
+    batches = _sparse_batches(DeepFMConfig(), S_STEPS)
+    out, chosen = {}, None
+    for mode in (False, True, "auto"):
+        model, opt, step, losses, rep = _sparse_run(
+            mode, batches if mode is False else batches[:S_COMPARE_STEPS],
+            card)
+        key = "auto" if mode == "auto" else (
+            "pipelined" if mode else "strict")
+        out[key] = losses
+        if mode == "auto":
+            chosen = rep["mode"]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"17a {key}: a loss is not finite")
+        head = sum(losses[:10]) / 10
+        tail = sum(losses[-10:]) / 10
+        if not tail < S_FALL * head:
+            raise AssertionError(f"17a {key}: the loss does not fall to "
+                                 f"{S_FALL} of its start ({head:.4f} -> "
+                                 f"{tail:.4f})")
+        if key == "strict" and len(model.table) < S_MIN_ROWS:
+            raise AssertionError(f"17a {key}: {len(model.table)} rows < "
+                                 f"{S_MIN_ROWS}")
+        if key == "strict" and keep:
+            kept = (model, opt, step, batches)
+        del model, opt, step
+        _free_cuda()
+    strict = out["strict"][:S_COMPARE_STEPS]
+    gap = abs(sum(out["pipelined"][-10:]) - sum(strict[-10:])) / 10
+    worst = max(abs(p - s) / abs(s)
+                for p, s in zip(out["pipelined"], strict))
+    log(f"17a pipelined against strict: last-10 mean loss gap {gap:.4f} "
+        f"(limit {S_STALE_ATOL}) over {S_COMPARE_STEPS} steps, worst "
+        f"relative gap of a step {worst:.4f}; auto chose {chosen}")
+    if gap > S_STALE_ATOL:
+        raise AssertionError(f"17a: pipelined last-10 mean loss {gap:.4f} "
+                             f"from strict's, over {S_STALE_ATOL}")
+    return kept if keep else {}
+
+
+def _kv_digests(adapter) -> dict:
+    from dlrover_tpu_torch.checkpoint.sparse import rows_digest
+
+    out = {}
+    for name, t in adapter.tables.items():
+        d = 0
+        for k, v, f in t.export_chunks(1 << 20):
+            d = (d + rows_digest(k, v, f)) % (1 << 64)
+        out[name] = (len(t), d)
+    return out
+
+
+def phase_sparse_ckpt(card, model=None, opt=None, step=None,
+                      batches=None):
+    """17b: the sparse flash checkpoint of 17a's strict table (plus its
+    GroupAdam slots and the tower): a paged shm base, 8 more steps, a
+    paged delta; a fresh engine and fresh tables restore it from shm;
+    two durable saves with delta checkpoints (a base, 2 steps, a
+    delta) and a fresh engine restores the chain from storage with the
+    segment gone.  Digests of rows, frequencies and slots must equal the
+    saves'."""
+    import torch
+
+    from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.checkpoint.sparse import SparseStateAdapter
+    from dlrover_tpu_torch.models.deepfm import DeepFMConfig
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        TrainState,
+        train_state_tree,
+    )
+    from dlrover_tpu_torch.trainer.sparse_pipeline import (
+        SparseTrainPipeline,
+    )
+
+    if model is None:
+        model, opt, step, batches = phase_sparse_deepfm(card, keep=True)
+    more = _sparse_batches(DeepFMConfig(), S_DELTA_STEPS + 2, seed=S_SEED + 1)
+    pipe = SparseTrainPipeline(model.table, model.sparse_optimizer, step,
+                               device=S_DEVICE, pipeline=False)
+    adapter = SparseStateAdapter(digest=False)
+    adapter.register_optimizer(model.sparse_optimizer)
+    state = TrainState.create(model.dense, opt)
+    out_dir = os.path.join(OUT_DIR, "ckpt_sparse")
+    os.environ["DLROVER_SHM_PAGED"] = "1"
+    AsyncCheckpointSaver.reset()
+
+    def engine():
+        return CheckpointEngine(out_dir, replicated=True, local_rank=0,
+                                global_rank=0, world_size=1)
+
+    def fresh_adapter():
+        from dlrover_tpu_torch.ops.kv_variable import (
+            GroupAdamOptimizer,
+            KvVariable,
+        )
+
+        t = KvVariable(dim=16, seed=123, name="deepfm")
+        o = GroupAdamOptimizer(t, learning_rate=1e-2)
+        a = SparseStateAdapter(digest=False)
+        a.register_optimizer(o)
+        return a
+
+    def kv_bytes(digests):
+        # keys (8) + values (16 x 4) + freq (8) per row of each table
+        return sum(rows for rows, _ in digests.values()) * (8 + 64 + 8)
+
+    try:
+        eng = engine()
+        eng.register_sparse(adapter)
+        saves = []
+        for s in (len(batches), len(batches) + S_DELTA_STEPS):
+            if saves:
+                pipe.run(None, more[:S_DELTA_STEPS])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not eng.save_to_memory(s, {"dense": train_state_tree(state)}):
+                raise AssertionError("17b: a paged save was skipped")
+            saves.append((time.perf_counter() - t0,
+                          dict(eng.last_save_phases)))
+        (base_s, base), (delta_s, delta) = saves
+        if (base["kind"], delta["kind"]) != ("base", "delta"):
+            raise AssertionError(f"17b: paged kinds {base['kind']}, "
+                                 f"{delta['kind']}")
+        want = _kv_digests(adapter)
+        tower = {n: p.detach().clone() for n, p in
+                 model.dense.named_parameters()}
+        log(f"17b paged shm: base {base['bytes']} B in {base_s:.3f} s "
+            f"(kv {base['kv_bytes']} B), delta after {S_DELTA_STEPS} steps "
+            f"{delta['bytes']} B in {delta_s:.3f} s (skipped "
+            f"{delta['bytes_skipped']} B), base/delta "
+            f"{base['bytes'] / max(delta['bytes'], 1):.2f}x; save stall "
+            f"base {base_s:.3f} s, delta {delta_s:.3f} s [{card}]")
+
+        # shm restore into a fresh engine and fresh tables
+        a2 = fresh_adapter()
+        e2 = engine()
+        e2.register_sparse(a2)
+        t0 = time.perf_counter()
+        got_step, got = e2.load()
+        shm_s = time.perf_counter() - t0
+        if got_step != len(batches) + S_DELTA_STEPS:
+            raise AssertionError(f"17b: shm restore gave step {got_step}")
+        if e2.last_restore_phases.get("tier") != "shm":
+            raise AssertionError(f"17b: {e2.last_restore_phases}")
+        if _kv_digests(a2) != want:
+            raise AssertionError("17b: shm-restored tables differ")
+        kernel = got["dense"]["params"]["dense_0"]["kernel"]
+        if not torch.equal(kernel, tower["dense_0.weight"].cpu()):
+            raise AssertionError("17b: shm-restored tower differs")
+        e2.close()
+        del a2, got
+        log(f"17b shm restore (paged, chain replayed): {shm_s:.3f} s, "
+            f"{kv_bytes(want) / shm_s / 1e9:.3f} GB/s of kv rows "
+            f"[{card}]")
+
+        # durable saves with a delta chain, restored from storage
+        os.environ.pop("DLROVER_SHM_PAGED")
+        adapter.enable_delta_checkpoints(full_every=8)
+        durable = []
+        for i, s in enumerate((len(batches) + S_DELTA_STEPS,
+                               len(batches) + S_DELTA_STEPS + 2)):
+            if i:
+                pipe.run(None, more[S_DELTA_STEPS:])
+            t0 = time.perf_counter()
+            if not eng.save_to_storage(s, {"dense": train_state_tree(state)}):
+                raise AssertionError("17b: a durable save was skipped")
+            stall = time.perf_counter() - t0
+            _wait_committed(out_dir, s)
+            durable.append((s, stall))
+        want = _kv_digests(adapter)
+        eng.close()
+        a3 = fresh_adapter()
+        e3 = engine()
+        e3._shm_handler.unlink()
+        e3.register_sparse(a3)
+        t0 = time.perf_counter()
+        got_step, _ = e3.load()
+        storage_s = time.perf_counter() - t0
+        phases = e3.last_restore_phases
+        if got_step != durable[-1][0] or phases.get("tier") != "storage" \
+                or phases.get("kv_chain") != 2:
+            raise AssertionError(f"17b: storage restore {got_step} "
+                                 f"{phases}")
+        if _kv_digests(a3) != want:
+            raise AssertionError("17b: storage-restored tables differ")
+        e3.close()
+        log(f"17b storage: durable base stall {durable[0][1]:.3f} s, delta "
+            f"stall {durable[1][1]:.3f} s; restore of the chain (base + "
+            f"delta) {storage_s:.3f} s, {kv_bytes(want) / storage_s / 1e9:.3f}"
+            f" GB/s of kv rows; tables {[r for r, _ in want.values()]} rows "
+            f"[{card}]")
+    finally:
+        os.environ.pop("DLROVER_SHM_PAGED", None)
+        AsyncCheckpointSaver.reset()
+        _unlink_segments()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {}
+
+
+def sparse_chaos_child(workdir: str, result_path: str) -> int:
+    """17c's agent, in a process of its own that never touches CUDA:
+    ``sparse_kill_restore`` through the launcher with the tower on the
+    card (no invariants here: the parent holds them)."""
+    from dlrover_tpu_torch.chaos import harness, scenarios
+
+    t0 = time.time()
+    report = harness.run_scenario(
+        scenarios.sparse_kill_restore(), workdir=workdir, invariants=[],
+        extra_env={"DLROVER_CHAOS_SPARSE_DEVICE": S_DEVICE})
+    with open(result_path, "w") as f:
+        json.dump({"rc": report.rc, "wall_s": time.time() - t0}, f)
+    return 0
+
+
+def phase_sparse_chaos(card) -> dict:
+    """17c: ``sparse_kill_restore`` through the port's launcher, the
+    DeepFM loop's tower on the card, the spill tier armed as in its run
+    options; the scenario's invariants held here: the losses equal the
+    uninterrupted control's (run in this process on the card) and the
+    kv digests round-trip (``KvStateRoundTrip``)."""
+    from dlrover_tpu_torch.chaos import harness, scenarios
+
+    scenario = scenarios.sparse_kill_restore()
+    opts = scenarios.RUN_OPTIONS[scenario.name]
+    workdir = tempfile.mkdtemp(prefix="spchaos", dir=OUT_DIR)
+    result_path = os.path.join(workdir, "result.json")
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__),
+             "--sparse-chaos-child", os.path.join(workdir, "run"),
+             result_path], capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0 or not os.path.exists(result_path):
+            raise AssertionError(f"17c: the launcher child failed: "
+                                 f"{proc.stderr[-3000:]}")
+        with open(result_path) as f:
+            result = json.load(f)
+        run_dir = os.path.join(workdir, "run")
+        report = harness._build_report(
+            scenario, result["rc"], run_dir,
+            os.path.join(run_dir, "events.jsonl"))
+        env = dict(opts.get("extra_env", {}),
+                   DLROVER_CHAOS_SPARSE_DEVICE=S_DEVICE)
+        harness.check_invariants(report, harness.invariants_for_scenario(
+            scenario.name, opts["total_steps"], opts["ckpt_every"], run_dir,
+            env=env))
+        verdicts = {r.name: (r.ok, r.detail) for r in report.invariants}
+        kills = [e for e in report.events if e.get("type") == "chaos_inject"
+                 and e.get("action") == "kill"]
+        steps = [e for e in report.events if e.get("type") == "train_step"]
+        after = [e["ts"] for e in steps
+                 if kills and e["ts"] > kills[0]["ts"]]
+        kill_to_step = (min(after) - kills[0]["ts"]) if after else None
+        spilled = max((e.get("spilled_rows", 0) for e in report.events
+                       if e.get("type") == "kv_checkpoint"), default=0)
+        log(f"17c sparse_kill_restore (the DeepFM tower on {S_DEVICE}, "
+            f"spill tier armed, {opts['total_steps']} steps): launcher rc "
+            f"{result['rc']}, {result['wall_s']:.1f} s; kill -> first step "
+            f"{kill_to_step} s; up to {spilled} spilled rows; invariants "
+            f"{verdicts} [{card}]")
+        bad = [n for n, (ok, _) in verdicts.items() if not ok]
+        if result["rc"] != 0 or bad or kill_to_step is None or not spilled:
+            raise AssertionError(f"17c: {bad or 'no step after the kill'}: "
+                                 f"{verdicts}")
+        with harness._patched_env(
+                {"DLROVER_SHARED_DIR": os.path.join(run_dir, "sock")}):
+            from dlrover_tpu_torch.checkpoint.shm_handler import (
+                SharedMemoryHandler,
+            )
+            SharedMemoryHandler(0).unlink()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {}
+
+
+def phase_sparse(card) -> dict:
+    """Phase 17: 17a, 17b (on 17a's strict table) and 17c, each timed."""
+    t0 = time.perf_counter()
+    model, opt, step, batches = phase_sparse_deepfm(card, keep=True)
+    log(f"chip_smoke: phase 17a took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_sparse_ckpt(card, model, opt, step, batches)
+    del model, opt, step, batches
+    _free_cuda()
+    log(f"chip_smoke: phase 17b took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_sparse_chaos(card)
+    log(f"chip_smoke: phase 17c took {time.perf_counter() - t0:.1f} s")
+    return {}
+
+
 def _free_cuda():
     import gc
 
@@ -6564,6 +7020,10 @@ def main(argv) -> int:
         # phase 16c's agent, as phase 8's
         sys.path.insert(0, ROOT)
         return rl_chaos_child(*argv[1:3])
+    if argv[:1] == ["--sparse-chaos-child"]:
+        # phase 17c's agent, as phase 8's
+        sys.path.insert(0, ROOT)
+        return sparse_chaos_child(*argv[1:3])
     import torch
 
     if not torch.cuda.is_available():
@@ -6614,7 +7074,9 @@ ONLY = {"2": phase_kernels, "3": phase_quant_kernels,
         "14e": phase_tensor_one_rank, "15": phase_pipeline_fp8,
         "15a": phase_pipeline_xl, "15b": phase_fp8, "16": phase_rl,
         "16a": phase_rl_ppo, "16b": phase_llama_decode,
-        "16c": phase_rl_chaos}
+        "16c": phase_rl_chaos, "17": phase_sparse,
+        "17a": phase_sparse_deepfm, "17b": phase_sparse_ckpt,
+        "17c": phase_sparse_chaos}
 
 
 def run_only(torch, names) -> int:
@@ -6673,7 +7135,8 @@ def run_phases(torch) -> int:
                         ("10", phase_example), ("11", phase_llama),
                         ("12", phase_data), ("13", phase_parallel),
                         ("14", phase_scale_out),
-                        ("15", phase_pipeline_fp8), ("16", phase_rl)):
+                        ("15", phase_pipeline_fp8), ("16", phase_rl),
+                        ("17", phase_sparse)):
         by_path.update(timed(name, phase, card))
     leaked = [n for n in os.listdir("/dev/shm")
               if n.startswith(f"dlrover_tpu_ckpt_shm_"

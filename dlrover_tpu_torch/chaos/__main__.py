@@ -99,10 +99,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         f"in {workdir}"
     )
     nnodes = args.nnodes
-    if nnodes <= 1 and scenario.name == "elastic-resize-churn":
+    resize = scenario.name in ("elastic-resize-churn", "sparse-resize-churn")
+    if nnodes <= 1 and resize:
         # the subset-fault scenario is meaningless single-node
         nnodes = 2
-    if scenario.name == "elastic-resize-churn":
+    if resize:
         # needs the elastic runner: a min_nodes<nnodes master, a
         # shared checkpoint dir, and the replacement-agent respawn
         report = harness.run_elastic_resize_scenario(

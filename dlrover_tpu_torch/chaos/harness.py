@@ -46,8 +46,14 @@ with :class:`WorldSizeTrajectory`, :class:`BoundedStepLossPerRestart`,
 :class:`ResizePhasesOnTimeline`, :class:`NodeCompletedSteps`,
 :class:`NoRestartForNode` and :class:`InjectionsOnlyOnNode`; the resize
 set also holds ``NoDuplicateShards`` over the lead rank's sharded
-dataset.  The serving runners come with slice 9, the sparse, RL and
-compile-cache invariants with slices 6, 7 and 8.
+dataset.  The sparse set: :class:`KvStateRoundTrip`,
+:class:`SpillBreakerTripped`, :class:`KvReshardExactlyOnce` and
+:class:`KvStreamingReshardReplayed` decide from the ``kv_checkpoint``
+digests that rows, frequencies and optimizer slots came through a kill
+or a reshard bit for bit, and :func:`seed_sparse_world_checkpoint`
+writes the committed world-2 checkpoint the streaming-reshard kill
+restores from.  The serving runners come with slice 9, the
+compile-cache invariants with slice 8.2.
 """
 
 import json
@@ -68,10 +74,14 @@ from dlrover_tpu_torch.chaos.scenarios import (
     RL_TRAIN_SCRIPT,
     RUN_OPTIONS,
     SHARD_DATASET_ENV,
+    SPARSE_RESHARD_TRAIN_SCRIPT,
+    SPARSE_RESIZE_TRAIN_SCRIPT,
+    SPARSE_TRAIN_SCRIPT,
     STEP_SLEEP_ENV,
     TOTAL_STEPS_ENV,
     resize_reference_losses,
     rl_reference_losses,
+    sparse_reference_losses,
 )
 from dlrover_tpu_torch.chaos.schedule import load_scenario
 from dlrover_tpu_torch.common.env_utils import proc_stat_fields
@@ -87,9 +97,140 @@ CHAOS_EVENT = "chaos_inject"
 
 TRAIN_SCRIPTS = {
     "default": CHAOS_TRAIN_SCRIPT,
+    "sparse": SPARSE_TRAIN_SCRIPT,
     "resize": RESIZE_TRAIN_SCRIPT,
+    "sparse_resize": SPARSE_RESIZE_TRAIN_SCRIPT,
+    "sparse_reshard": SPARSE_RESHARD_TRAIN_SCRIPT,
     "rl": RL_TRAIN_SCRIPT,
 }
+
+
+def seed_sparse_world_checkpoint(
+    ckpt_dir: str,
+    world: int = 2,
+    step: int = 4,
+    out_json: str = "",
+    n_keys: int = 1200,
+    dim: int = 16,
+) -> Dict:
+    """Write a COMMITTED ``world``-rank sparse checkpoint directly in
+    the storage layout (rank_N.ckpt/rank_N.meta + tracker; reference
+    ``harness.py:82``) — no shm, no saver — so a world-1 job restoring
+    from ``ckpt_dir`` must run the cross-world STREAMING reshard on its
+    first load.  Each rank's table holds exactly the keys
+    ``owner_of_keys`` assigns it, trained a few GroupAdam steps so
+    values/freq/slots are non-trivial.  Returns (and writes to
+    ``out_json``) the per-table additive digest sums and the
+    distinct-union row count the exactly-once invariant checks
+    against."""
+    import pickle
+
+    import numpy as np
+
+    from dlrover_tpu_torch.checkpoint.saver import (
+        meta_file,
+        shard_file,
+        step_dirname,
+    )
+    from dlrover_tpu_torch.checkpoint.shm_handler import (
+        CheckpointConfig,
+        TensorMeta,
+        _flatten_state_dict,
+    )
+    from dlrover_tpu_torch.checkpoint.sparse import (
+        KV_STATE_KEY,
+        SparseStateAdapter,
+        owner_of_keys,
+        rows_digest,
+    )
+    from dlrover_tpu_torch.common.constants import CheckpointConstant
+    from dlrover_tpu_torch.ops.kv_variable import (
+        GroupAdamOptimizer,
+        KvVariable,
+    )
+
+    def _serialize(state_dict, rank: int) -> Tuple[Dict, bytes]:
+        """state dict -> (meta, raw) in the exact shm/storage layout the
+        engine's restore reads back."""
+        flat = _flatten_state_dict(state_dict)
+        entries, scalars = [], {}
+        for key, leaf in flat.items():
+            if isinstance(leaf, (np.ndarray, np.generic)):
+                entries.append((key, np.ascontiguousarray(leaf)))
+            else:
+                scalars[key] = leaf
+        blob = pickle.dumps(scalars)
+        metas, offset = {}, 0
+        for key, arr in entries:
+            metas[key] = TensorMeta(
+                shape=tuple(arr.shape), dtype=str(arr.dtype),
+                offset=offset, nbytes=arr.nbytes,
+            )
+            offset += arr.nbytes
+        raw = bytearray(offset + len(blob))
+        for key, arr in entries:
+            m = metas[key]
+            raw[m.offset:m.offset + m.nbytes] = arr.tobytes()
+        raw[offset:] = blob
+        meta = {
+            "tensors": metas,
+            "config": CheckpointConfig(
+                step=step, path=ckpt_dir, rank=rank,
+                world_size=world, global_shard_num=world,
+            ),
+            "scalar_offset": offset,
+            "scalar_nbytes": len(blob),
+        }
+        return meta, bytes(raw)
+
+    step_dir = os.path.join(ckpt_dir, step_dirname(step))
+    os.makedirs(step_dir, exist_ok=True)
+    keys = np.arange(n_keys, dtype=np.int64)
+    table_sums: Dict[str, int] = {}
+    union_rows = 0
+    for rank in range(world):
+        table = KvVariable(dim=dim, seed=rank + 21, name="emb")
+        opt = GroupAdamOptimizer(table, learning_rate=5e-3)
+        adapter = SparseStateAdapter(digest=True)
+        adapter.register_optimizer(opt)
+        mine = keys[owner_of_keys(keys, world) == rank]
+        rng = np.random.default_rng(rank + 3)
+        for _ in range(3):
+            batch = rng.choice(mine, size=min(256, mine.size),
+                               replace=False)
+            opt.apply_gradients(
+                batch, np.tanh(table.gather(batch)) * 0.1
+            )
+        kv_state = adapter.export_state(step=step, rank=rank)
+        for name, tbl in adapter.tables.items():
+            k, v, f = tbl.export()
+            table_sums[name] = (
+                table_sums.get(name, 0) + rows_digest(k, v, f)
+            ) % (1 << 64)
+            union_rows += len(k)
+        sd = {
+            "w": np.zeros(8, np.float32),
+            KV_STATE_KEY: kv_state,
+        }
+        meta, raw = _serialize(sd, rank)
+        with open(os.path.join(step_dir, shard_file(rank)), "wb") as f:
+            f.write(raw)
+        with open(os.path.join(step_dir, meta_file(rank)), "wb") as f:
+            f.write(pickle.dumps(meta))
+    with open(
+        os.path.join(ckpt_dir, CheckpointConstant.TRACKER_FILE), "w"
+    ) as f:
+        f.write(str(step))
+    seed = {
+        "step": int(step),
+        "world": int(world),
+        "rows": int(union_rows),
+        "tables": {n: f"{s:016x}" for n, s in table_sums.items()},
+    }
+    if out_json:
+        with open(out_json, "w") as f:
+            json.dump(seed, f, indent=2)
+    return seed
 
 
 @dataclass
@@ -1105,6 +1246,302 @@ class GoodputConservation(Invariant):
 
 
 
+def _kv_events(events: List[dict], stage: str) -> List[dict]:
+    return [
+        e for e in events
+        if e.get("type") == "kv_checkpoint" and e.get("stage") == stage
+    ]
+
+
+class KvStateRoundTrip(Invariant):
+    """Sparse state is bit-identical through the kill/restore cycle,
+    decided from telemetry alone: the first post-fault kv restore's
+    per-table content digests (keys + values + frequency counters +
+    optimizer slot tables) equal the digests the matching export
+    stamped before the fault.  Requires ``DLROVER_KV_DIGEST`` armed in
+    the run."""
+
+    name = "kv_state_round_trip"
+
+    def check(self, events, run):
+        fault_ts = _first_fault_ts(events)
+        if fault_ts is None:
+            return InvariantResult(
+                self.name, False, "no chaos_inject event recorded"
+            )
+        restores = [
+            e for e in _kv_events(events, "restore")
+            if e["ts"] >= fault_ts
+        ]
+        if not restores:
+            return InvariantResult(
+                self.name, False, "no kv restore after the fault"
+            )
+        restore = restores[0]
+        digests = restore.get("digests")
+        if not digests:
+            return InvariantResult(
+                self.name, False,
+                "kv restore carries no digests "
+                "(DLROVER_KV_DIGEST not armed?)",
+            )
+        step = restore.get("step")
+        exports = [
+            e for e in _kv_events(events, "export")
+            if e.get("step") == step and e.get("digests")
+            and e["ts"] <= restore["ts"]
+        ]
+        if not exports:
+            return InvariantResult(
+                self.name, False,
+                f"no digested kv export at restored step {step}",
+            )
+        expected = exports[-1]["digests"]
+        if expected != digests:
+            diff = sorted(
+                t for t in set(expected) | set(digests)
+                if expected.get(t) != digests.get(t)
+            )
+            return InvariantResult(
+                self.name, False,
+                f"digest mismatch at step {step} for table(s) {diff}: "
+                f"exported {expected} != restored {digests}",
+            )
+        rows = sum(int(d.get("rows", 0)) for d in digests.values())
+        return InvariantResult(
+            self.name, True,
+            f"{len(digests)} table(s), {rows} row(s) bit-identical "
+            f"through the cycle at step {step}",
+        )
+
+
+class SpillBreakerTripped(Invariant):
+    """The injected spill-tier fault tripped the production
+    write-failure breaker (not just the export skip): some post-fault kv
+    export event carries ``spill_disabled``, the stat the tables write
+    through to telemetry when the cold tier is taken offline."""
+
+    name = "spill_breaker_tripped"
+
+    def check(self, events, run):
+        fault_ts = _first_fault_ts(events)
+        if fault_ts is None:
+            return InvariantResult(
+                self.name, False, "no chaos_inject event recorded"
+            )
+        hits = [
+            e for e in _kv_events(events, "export")
+            if e["ts"] >= fault_ts and e.get("spill_disabled")
+        ]
+        if not hits:
+            return InvariantResult(
+                self.name, False,
+                "no post-fault kv export reports spill_disabled — "
+                "the breaker never tripped",
+            )
+        lost = max(int(e.get("lost_rows", 0)) for e in hits)
+        return InvariantResult(
+            self.name, True,
+            f"breaker tripped ({len(hits)} export(s) with the cold "
+            f"tier offline, up to {lost} stranded row(s) skipped)",
+        )
+
+
+class KvReshardExactlyOnce(Invariant):
+    """Cross-world sparse restores redistribute the hash table EXACTLY
+    ONCE, decided from events alone.  For every resharded restore
+    generation (grouped by restored step + new world size):
+
+    - the per-rank imported row counts sum to the distinct union of the
+      old world's rows (``total_rows``, which every participant must
+      agree on) — no row lost, none imported twice;
+    - per table, the restore digests (additive across disjoint shards)
+      sum — mod 2**64 — to the sum of the old ranks' export digests at
+      that step: the redistributed CONTENT is the old content, bit for
+      bit.
+    """
+
+    name = "kv_reshard_exactly_once"
+
+    def __init__(self, min_reshards: int = 2):
+        self.min_reshards = min_reshards
+
+    @staticmethod
+    def _sum64(hexes: List[str]) -> int:
+        total = 0
+        for h in hexes:
+            total = (total + int(h, 16)) % (1 << 64)
+        return total
+
+    def check(self, events, run):
+        groups: Dict[tuple, Dict[int, dict]] = {}
+        for e in _kv_events(events, "restore"):
+            if not e.get("resharded"):
+                continue
+            key = (e.get("step"), e.get("world_size"))
+            # one record per (group, rank): retries keep the last
+            groups.setdefault(key, {})[e.get("rank")] = e
+        if len(groups) < self.min_reshards:
+            return InvariantResult(
+                self.name, False,
+                f"only {len(groups)} resharded restore generation(s) "
+                f"(need {self.min_reshards}): {sorted(groups)}",
+            )
+        # last digested export per (step, rank)
+        exports: Dict[tuple, dict] = {}
+        for e in _kv_events(events, "export"):
+            if e.get("digests") and e.get("step") is not None:
+                exports[(e["step"], e.get("rank", 0))] = e
+        problems = []
+        detail = []
+        for (step, world), by_rank in sorted(groups.items()):
+            recs = list(by_rank.values())
+            totals = {int(r.get("total_rows", -1)) for r in recs}
+            if len(totals) != 1:
+                problems.append(
+                    f"step {step}->world {world}: ranks disagree on "
+                    f"total_rows {sorted(totals)}"
+                )
+                continue
+            total_rows = totals.pop()
+            got_rows = sum(int(r.get("rows", 0)) for r in recs)
+            if got_rows != total_rows:
+                problems.append(
+                    f"step {step}->world {world}: imported "
+                    f"{got_rows} != union {total_rows} row(s)"
+                )
+                continue
+            src = [
+                exp for (s, _r), exp in exports.items() if s == step
+            ]
+            if not src:
+                problems.append(
+                    f"step {step}: no digested source exports"
+                )
+                continue
+            tables = set()
+            for r in recs:
+                tables |= set(r.get("digests") or {})
+            bad_tables = []
+            for table in sorted(tables):
+                want = self._sum64([
+                    exp["digests"][table]["sum"]
+                    for exp in src if table in exp["digests"]
+                ])
+                got = self._sum64([
+                    r["digests"][table]["sum"]
+                    for r in recs if table in (r.get("digests") or {})
+                ])
+                if want != got:
+                    bad_tables.append(table)
+            if bad_tables:
+                problems.append(
+                    f"step {step}->world {world}: digest sums "
+                    f"diverge for table(s) {bad_tables}"
+                )
+                continue
+            detail.append(
+                f"step {step}->world {world}: {total_rows} row(s) "
+                f"across {len(recs)} rank(s)"
+            )
+        if problems:
+            return InvariantResult(
+                self.name, False, "; ".join(problems)
+            )
+        return InvariantResult(
+            self.name, True,
+            f"{len(detail)} exactly-once reshard(s): "
+            + "; ".join(detail),
+        )
+
+
+class KvStreamingReshardReplayed(Invariant):
+    """A worker SIGKILLed mid-streaming-reshard is replaced by one that
+    replays the reshard from the SAME committed storage with
+    exactly-once rows, decided from events + the seeder's JSON:
+
+    - the fault fired on a ``kv.reshard_chunk`` hook (the kill landed
+      mid-stream, after at least one chunk imported);
+    - a post-fault ``kv_checkpoint`` restore with ``streamed`` ran in
+      MORE than one chunk and imported rows == total_rows == the
+      seeder's distinct union (no row lost, no chunk double-imported);
+    - its per-table digests equal the seeder's per-shard export sums
+      (additive across the disjoint world-2 shards)."""
+
+    name = "kv_streaming_reshard_replayed"
+
+    def __init__(self, seed_json_path: str):
+        self.seed_json_path = seed_json_path
+
+    def check(self, events, run):
+        try:
+            with open(self.seed_json_path) as f:
+                seed = json.load(f)
+        except (OSError, ValueError) as e:
+            return InvariantResult(
+                self.name, False, f"seed JSON unreadable: {e}"
+            )
+        inj = [
+            e for e in _injections(events)
+            if e.get("point") == "kv.reshard_chunk"
+        ]
+        if not inj:
+            return InvariantResult(
+                self.name, False,
+                "no chaos_inject on kv.reshard_chunk — the kill "
+                "never landed mid-reshard",
+            )
+        fault_ts = inj[0]["ts"]
+        restores = [
+            e for e in _kv_events(events, "restore")
+            if e.get("resharded") and e.get("streamed")
+            and e["ts"] >= fault_ts
+        ]
+        if not restores:
+            return InvariantResult(
+                self.name, False,
+                "no streamed resharded kv restore after the fault",
+            )
+        r = restores[-1]
+        if int(r.get("chunks", 0)) <= 1:
+            return InvariantResult(
+                self.name, False,
+                f"reshard ran in {r.get('chunks')} chunk(s) — not "
+                "actually streamed (window too large?)",
+            )
+        rows, total = int(r.get("rows", -1)), int(
+            r.get("total_rows", -2)
+        )
+        if not (rows == total == int(seed["rows"])):
+            return InvariantResult(
+                self.name, False,
+                f"imported {rows} row(s) vs union {total} vs seeded "
+                f"{seed['rows']} — rows lost or double-imported",
+            )
+        if not seed.get("tables"):
+            return InvariantResult(
+                self.name, False, "seed JSON names no tables"
+            )
+        digests = r.get("digests") or {}
+        bad = []
+        for table, want in seed["tables"].items():
+            got = (digests.get(table) or {}).get("sum")
+            if got != want:
+                bad.append(f"{table}: {got} != seeded {want}")
+        if bad:
+            return InvariantResult(
+                self.name, False,
+                "digest mismatch vs seeded shards: " + "; ".join(bad),
+            )
+        return InvariantResult(
+            self.name, True,
+            f"replayed reshard imported {rows}/{total} row(s) in "
+            f"{r.get('chunks')} chunk(s), {len(digests)} table "
+            f"digest(s) equal the seeded sums (kill at chunk "
+            f"{inj[0].get('step')} of incarnation 0)",
+        )
+
+
 class NoOrphanProcesses(Invariant):
     """No process whose cmdline or environment references the job's
     workdir survives the run — catches leaked trainers, forkserver
@@ -1440,6 +1877,47 @@ def invariants_for_scenario(
             ),
             GoodputLossAttributed(min_attributed_frac=0.5),
         ]
+    if name == "sparse-streaming-reshard-kill":
+        # the streaming-reshard trail: the worker died mid-reshard (no
+        # train_step in incarnation 0, so no BoundedStepLoss), the
+        # replacement replayed the reshard exactly-once against the
+        # seeder's digests, and the job still finished + committed
+        return [
+            WorkerRestarted(),
+            KvStreamingReshardReplayed(
+                os.path.join(workdir, "seed_kv.json")
+            ),
+            TrainingCompleted(total_steps=total_steps),
+            NoOrphanProcesses(marker=workdir),
+        ]
+    if name == "sparse-kill-restore":
+        # the sparse acceptance trail: full recovery set + the loss
+        # trajectory equal to the uninterrupted DeepFM control (on the
+        # run's device) + the kv digests proving rows/freq/slots
+        # bit-identical through the cycle
+        return default_invariants(
+            total_steps, ckpt_every, workdir
+        ) + [
+            LossTrajectoryMatches(sparse_reference_losses(
+                total_steps,
+                device=env.get("DLROVER_CHAOS_SPARSE_DEVICE", "cpu"),
+            )),
+            KvStateRoundTrip(),
+        ]
+    if name == "sparse-spill-io-error":
+        # no loss-trajectory assertion: rows stranded on the dead spill
+        # disk are LOST by design — the contract is graceful
+        # degradation (breaker trips, DRAM rows commit, the restore
+        # round-trips exactly what the post-fault export contains)
+        return [
+            WorkerRestarted(),
+            RendezvousReconverged(),
+            BoundedStepLoss(ckpt_interval=ckpt_every),
+            SpillBreakerTripped(),
+            KvStateRoundTrip(),
+            TrainingCompleted(total_steps=total_steps),
+            NoOrphanProcesses(marker=workdir),
+        ]
     if name in RECOVERY_SCENARIOS:
         # the worker-kill trail must also NAME >=90% of its
         # non-productive time (death witness -> rendezvous ->
@@ -1583,8 +2061,18 @@ def run_scenario(
         scenario, workdir, total_steps, ckpt_every,
         disk_every=disk_every, extra_env=extra_env,
     )
+    if opts.get("seed_kv_world"):
+        # pre-seed a committed old-world sparse checkpoint so the job's
+        # FIRST restore is a cross-world streaming reshard; the
+        # seeder's digest sums land in seed_kv.json for the
+        # exactly-once invariant
+        seed_sparse_world_checkpoint(
+            os.path.join(workdir, "ckpt"),
+            world=int(opts["seed_kv_world"]),
+            out_json=os.path.join(workdir, "seed_kv.json"),
+        )
     # the toy loop of RUN_OPTIONS' "train_script", as the reference
-    # selects it (the sparse and serving loops come with slices 6 and 9)
+    # selects it (the serving loops come with slice 9)
     script = os.path.join(workdir, "chaos_train.py")
     with open(script, "w") as f:
         f.write(TRAIN_SCRIPTS[opts.get("train_script", "default")])
@@ -1822,6 +2310,27 @@ def elastic_resize_invariants(
     ]
 
 
+def sparse_resize_invariants(
+    nnodes: int, total_steps: int, disk_every: int, workdir: str,
+) -> List[Invariant]:
+    """The sparse elastic-resize acceptance set (reference
+    ``harness.py:3534``): everything the dense resize proves about the
+    world trajectory, the storage-tier reshard and the loss control,
+    PLUS exactly-once redistribution of the hash-table rows across both
+    world changes (kv digests additive across disjoint shards)."""
+    return [
+        WorldSizeTrajectory([nnodes, nnodes - 1, nnodes]),
+        EventRecorded("resize_decision", min_count=2),
+        RestoredFromTier("storage"),
+        LossTrajectoryMatches(resize_reference_losses(total_steps)),
+        BoundedStepLossPerRestart(interval=disk_every),
+        KvReshardExactlyOnce(min_reshards=2),
+        FinalStepCommitted(),
+        GoodputConservation(),
+        NoOrphanProcesses(marker=workdir),
+    ]
+
+
 def run_elastic_resize_scenario(
     scenario,
     workdir: str,
@@ -2024,9 +2533,13 @@ def run_elastic_resize_scenario(
     report = _build_report(scenario, rc, workdir, event_log,
                            extra_sources=[agent_event_glob])
     report.master_respawned_at = master_respawned_at
+    default_set = (
+        sparse_resize_invariants
+        if opts.get("train_script") == "sparse_resize"
+        else elastic_resize_invariants
+    )
     checks = (
         invariants if invariants is not None
-        else elastic_resize_invariants(nnodes, total_steps, disk_every,
-                                       workdir)
+        else default_set(nnodes, total_steps, disk_every, workdir)
     )
     return check_invariants(report, checks)

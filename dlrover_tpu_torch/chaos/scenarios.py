@@ -21,12 +21,19 @@ single-node scenarios (``rpc_partition``, ``storage_brownout``,
 ``storage_stall``, ``straggler``, ``preemption_notice``,
 ``shm_corruption``, ``ckpt_brownout_during_preemption``,
 ``goodput_under_scheduled_churn``) and the multi-node hang and
-partition ones with slice 4.4, the sparse and serving ones with slices
-6 and 9, and the compile-cache one with slice 8.2.  The RL scenario
+partition ones with slice 4.4, the serving ones with slice 9, and the
+compile-cache one with slice 8.2.  The RL scenario
 (``rl_rollout_worker_kill``, slice 7) drives :data:`RL_TRAIN_SCRIPT`,
 the twin of the reference's elastic PPO loop; it runs without the
 reference's ``compile_cache`` option (the AOT-cached role steps are
-slice 8.2), so the loop calls the engine's own train steps.
+slice 8.2), so the loop calls the engine's own train steps.  The
+sparse scenarios (``sparse_kill_restore``,
+``sparse_spill_io_error``, ``sparse_streaming_reshard_kill`` and
+``sparse_resize_churn``) drive :data:`SPARSE_TRAIN_SCRIPT`,
+:data:`SPARSE_RESHARD_TRAIN_SCRIPT` and
+:data:`SPARSE_RESIZE_TRAIN_SCRIPT`, the twins of the reference's DeepFM,
+streaming-reshard and sparse-resize loops; ``DLROVER_CHAOS_SPARSE_DEVICE``
+puts the DeepFM loop's dense tower on the card.
 """
 
 from typing import Callable, Dict, Optional
@@ -694,6 +701,281 @@ else:
 ckpt.close()
 """
 
+# Sparse elastic train loop, the torch twin of the reference's: a DeepFM
+# job whose embedding lives in a host KvVariable table (GroupAdam slot
+# tables riding along, the spill tier armed when DLROVER_CHAOS_KV_SPILL
+# sets a DRAM budget).  The SparseStateAdapter registers the tables with
+# the flash-checkpoint engine, so every save snapshots keys/values/freq
+# and the optimizer slots into the shm segment next to the dense tower's
+# train state, and a restore imports them back bit-exact.  The batch at
+# step k is a pure function of k and the step is :func:`sparse_step`, so
+# :func:`sparse_reference_losses` recomputes the uninterrupted control
+# in-process and the harness compares every reported loss against it — a
+# restore that lost an embedding row, a frequency count or an Adam moment
+# forks the trajectory at the first replayed step.  The dense tower runs
+# on DLROVER_CHAOS_SPARSE_DEVICE (cpu).  argv: ckpt_dir
+SPARSE_TRAIN_SCRIPT = r"""
+import os, sys, time
+
+from dlrover_tpu_torch.chaos.scenarios import sparse_loop, sparse_step
+from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer, StorageType
+from dlrover_tpu_torch.checkpoint.sparse import SparseStateAdapter
+from dlrover_tpu_torch.trainer.elastic_trainer import (
+    ElasticTrainer, TrainState, restore_train_state, train_state_tree,
+)
+
+ckpt_dir = sys.argv[1]
+DEVICE = os.environ.get("DLROVER_CHAOS_SPARSE_DEVICE", "cpu")
+TOTAL_STEPS = int(os.environ.get("DLROVER_CHAOS_TOTAL_STEPS", "12"))
+CKPT_EVERY = int(os.environ.get("DLROVER_CHAOS_CKPT_EVERY", "2"))
+DISK_EVERY = int(os.environ.get("DLROVER_CHAOS_DISK_EVERY", "0"))
+STEP_SLEEP = float(os.environ.get("DLROVER_CHAOS_STEP_SLEEP", "0"))
+KV_SPILL = int(os.environ.get("DLROVER_CHAOS_KV_SPILL", "0"))
+
+tracker = os.path.join(ckpt_dir, "latest_checkpointed_iteration.txt")
+
+def committed_step():
+    try:
+        with open(tracker) as f:
+            return int(f.read().strip() or -1)
+    except (OSError, ValueError):
+        return -1
+
+model, dense_opt, device_step = sparse_loop(DEVICE)
+if KV_SPILL:
+    # node-local spill files next to (not inside) the shared ckpt dir;
+    # O_TRUNC on re-open wipes a dead predecessor's file
+    spill_dir = os.path.join(os.path.dirname(ckpt_dir), "kvspill")
+    os.makedirs(spill_dir, exist_ok=True)
+    model.table.enable_spill(
+        os.path.join(spill_dir, "emb.spill"), KV_SPILL
+    )
+    model.sparse_optimizer.enable_spill(spill_dir, KV_SPILL)
+
+adapter = SparseStateAdapter()
+adapter.register_optimizer(model.sparse_optimizer)
+ckpt = Checkpointer(ckpt_dir)
+ckpt.register_sparse(adapter)
+
+state = TrainState.create(model.dense, dense_opt)
+start_step, restored = ckpt.load_checkpoint()
+if start_step is None:
+    start_step = 0
+else:
+    # the tower's params AND Adam slots come back into the live module
+    # and optimizer; the kv tables were already imported by the engine
+    # through the adapter
+    restore_train_state(state, restored["dense"])
+
+trainer = ElasticTrainer(global_batch_size=16, micro_batch_size=16,
+                         dp_size=1)
+trainer.global_step = start_step
+
+for k in range(start_step, TOTAL_STEPS):
+    # strict split step: the sparse update retires before the step is
+    # reported, so a checkpoint taken after the report is exactly
+    # step-consistent across the tower AND the host tables
+    with trainer.profile("compute") as p:
+        loss = sparse_step(model, device_step, k)
+        p.block(loss)
+    state.step = k + 1
+    trainer.report_step({"loss": float(loss)})
+    if STEP_SLEEP:
+        time.sleep(STEP_SLEEP)
+    with trainer.profile("checkpoint"):
+        sd = {"dense": train_state_tree(state),
+              "trainer": trainer.state_dict()}
+        if DISK_EVERY and trainer.global_step % DISK_EVERY == 0:
+            ckpt.save_checkpoint(
+                trainer.global_step, sd,
+                storage_type=StorageType.DISK,
+            )
+            ckpt.wait()
+            deadline = time.time() + 30
+            while (time.time() < deadline
+                   and committed_step() < trainer.global_step):
+                time.sleep(0.1)
+        elif trainer.global_step % CKPT_EVERY == 0:
+            ckpt.save_checkpoint(
+                trainer.global_step, sd,
+                storage_type=StorageType.MEMORY,
+            )
+
+final_sd = {"dense": train_state_tree(state),
+            "trainer": trainer.state_dict()}
+deadline = time.time() + 60
+while time.time() < deadline and committed_step() < TOTAL_STEPS:
+    ckpt.save_checkpoint(
+        TOTAL_STEPS, final_sd, storage_type=StorageType.DISK,
+    )
+    ckpt.wait()
+    poll_end = time.time() + 10
+    while time.time() < poll_end and committed_step() < TOTAL_STEPS:
+        time.sleep(0.2)
+assert committed_step() >= TOTAL_STEPS, (
+    "checkpoint commit did not land"
+)
+ckpt.close()
+"""
+
+
+# the sparse loop's model, data and step (torch is imported in the
+# worker and in the harness's control computation, never with this
+# module)
+SPARSE_BATCH = 16
+SPARSE_VOCAB = 4000
+
+
+def sparse_loop(device: str = "cpu"):
+    """The DeepFM of :data:`SPARSE_TRAIN_SCRIPT` (the reference's
+    config and seeds), its tower's Adam (optax.adam's formula, lr 1e-2)
+    and the device step."""
+    import torch
+
+    from dlrover_tpu_torch.models.deepfm import DeepFM, DeepFMConfig
+    from dlrover_tpu_torch.trainer.sparse_pipeline import (
+        make_deepfm_device_step,
+    )
+
+    cfg = DeepFMConfig(num_sparse_fields=6, num_dense_features=4,
+                       embedding_dim=8, hidden_dims=(16,), seed=5)
+    model = DeepFM(cfg, device=device)
+    dense_opt = torch.optim.Adam(model.dense.parameters(), lr=1e-2,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    return model, dense_opt, make_deepfm_device_step(model, dense_opt)
+
+
+def sparse_batch(k: int, cfg):
+    """The batch of step ``k`` (the reference's): a pure function of
+    ``k``; the label is the parity of the first field's id."""
+    import numpy as np
+
+    rng = np.random.default_rng(10_000 + k)
+    sparse = rng.integers(
+        0, SPARSE_VOCAB, (SPARSE_BATCH, cfg.num_sparse_fields)
+    ).astype(np.int64)
+    dense = rng.normal(
+        size=(SPARSE_BATCH, cfg.num_dense_features)
+    ).astype(np.float32)
+    labels = (sparse[:, 0] % 2).astype(np.float32)
+    return sparse, dense, labels
+
+
+def sparse_step(model, device_step, k: int):
+    """One strict split step of the sparse loop: gather, copy to the
+    tower's device, the device step, the gradient back to the host and
+    the group update.  Returns the loss (a device scalar)."""
+    import torch
+
+    sparse, dense, labels = sparse_batch(k, model.config)
+    dev = model.device
+    emb = torch.from_numpy(model.gather_embeddings(sparse)).to(dev)
+    _, egrads, aux = device_step(
+        None, emb, torch.from_numpy(dense).to(dev),
+        torch.from_numpy(labels).to(dev))
+    model.apply_sparse_gradients(sparse, egrads.cpu().numpy())
+    return aux["loss"]
+
+
+def sparse_reference_losses(total_steps: int, device: str = "cpu"):
+    """Uninterrupted-control loss trajectory of
+    :data:`SPARSE_TRAIN_SCRIPT`, computed in-process through the same
+    :func:`sparse_loop` and :func:`sparse_step`: ``result[k-1]`` is the
+    loss step ``k`` must report regardless of kills and flash restores."""
+    model, _opt, device_step = sparse_loop(device)
+    return [float(sparse_step(model, device_step, k))
+            for k in range(total_steps)]
+
+
+# Streaming-reshard kill loop, the twin of the reference's: a WORLD-1
+# job whose checkpoint dir was PRE-SEEDED by the harness with a committed
+# world-2 sparse checkpoint.  The very first restore is therefore a
+# cross-world STREAMING reshard — `kv.reshard_chunk` fires once per
+# window, and the scenario SIGKILLs the worker mid-stream.  Committed
+# storage is untouched by the partial reshard (it only mutates
+# in-process tables), so the replacement replays the identical reshard
+# from the same shards and trains to completion; the exactly-once
+# digests are checked against the seeder's JSON.  argv: ckpt_dir
+SPARSE_RESHARD_TRAIN_SCRIPT = r"""
+import os, sys, time
+import numpy as np
+import torch
+
+from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer, StorageType
+from dlrover_tpu_torch.checkpoint.sparse import SparseStateAdapter
+from dlrover_tpu_torch.ops.kv_variable import GroupAdamOptimizer, KvVariable
+from dlrover_tpu_torch.trainer.elastic_trainer import ElasticTrainer
+
+ckpt_dir = sys.argv[1]
+TOTAL_STEPS = int(os.environ.get("DLROVER_CHAOS_TOTAL_STEPS", "10"))
+CKPT_EVERY = int(os.environ.get("DLROVER_CHAOS_CKPT_EVERY", "2"))
+STEP_SLEEP = float(os.environ.get("DLROVER_CHAOS_STEP_SLEEP", "0"))
+DIM = int(os.environ.get("DLROVER_CHAOS_RESHARD_KV_DIM", "16"))
+
+tracker = os.path.join(ckpt_dir, "latest_checkpointed_iteration.txt")
+
+def committed_step():
+    try:
+        with open(tracker) as f:
+            return int(f.read().strip() or -1)
+    except (OSError, ValueError):
+        return -1
+
+table = KvVariable(dim=DIM, seed=17, name="emb")
+kv_opt = GroupAdamOptimizer(table, learning_rate=5e-3)
+adapter = SparseStateAdapter()
+adapter.register_optimizer(kv_opt)
+ckpt = Checkpointer(ckpt_dir)
+ckpt.register_sparse(adapter)
+
+# the seeded checkpoint is stamped world 2, this job is world 1: the
+# load below IS the streaming reshard (kv.reshard_chunk per window —
+# the kill rule lands here in incarnation 0, before any train step)
+step0, restored = ckpt.load_checkpoint()
+assert step0 is not None, "pre-seeded world-2 checkpoint missing"
+start_step = int(step0)
+w = torch.as_tensor(restored["w"], dtype=torch.float32).clone()
+
+trainer = ElasticTrainer(global_batch_size=8, micro_batch_size=8,
+                         dp_size=1)
+trainer.global_step = start_step
+
+for k in range(start_step, TOTAL_STEPS):
+    krng = np.random.default_rng(5_000 + k)
+    keys = krng.integers(0, 1_200, 64).astype(np.int64)
+    with trainer.profile("h2d"):
+        emb = table.gather(keys)
+    with trainer.profile("compute") as p:
+        kv_opt.apply_gradients(keys, np.tanh(emb) * 0.1)
+        w = w * 0.9
+        p.block(w)
+    trainer.report_step({"loss": float(w.sum())})
+    if STEP_SLEEP:
+        time.sleep(STEP_SLEEP)
+    with trainer.profile("checkpoint"):
+        if trainer.global_step % CKPT_EVERY == 0:
+            ckpt.save_checkpoint(
+                trainer.global_step, {"w": w.numpy().copy()},
+                storage_type=StorageType.MEMORY,
+            )
+
+final_sd = {"w": w.numpy().copy()}
+deadline = time.time() + 60
+while time.time() < deadline and committed_step() < TOTAL_STEPS:
+    ckpt.save_checkpoint(
+        TOTAL_STEPS, final_sd, storage_type=StorageType.DISK,
+    )
+    ckpt.wait()
+    poll_end = time.time() + 10
+    while time.time() < poll_end and committed_step() < TOTAL_STEPS:
+        time.sleep(0.2)
+assert committed_step() >= TOTAL_STEPS, (
+    "checkpoint commit did not land"
+)
+ckpt.close()
+"""
+
+
 # the resize loop's model, data and optimizer (torch is imported in the
 # worker and in the harness's control computation, never with this
 # module: the harness process of a single-node run is the agent's)
@@ -764,6 +1046,58 @@ def resize_reference_losses(total_steps: int):
         state, metrics = step(state, resize_batch(k))
         out.append(float(metrics["loss"]))
     return out
+
+
+
+def _sparse_resize_script() -> str:
+    """:data:`RESIZE_TRAIN_SCRIPT` plus a KvVariable embedding
+    partitioned across the world by the SAME key hash the cross-world
+    reshard uses (:func:`~dlrover_tpu_torch.checkpoint.sparse.
+    owner_of_keys`), registered with the checkpointer, so a 2->1->2
+    churn genuinely redistributes hash-table rows from committed storage
+    exactly once (the reference's ``SPARSE_RESIZE_TRAIN_SCRIPT``)."""
+    script = RESIZE_TRAIN_SCRIPT
+    edits = [
+        ("from dlrover_tpu_torch.checkpoint.checkpointer import "
+         "Checkpointer, StorageType\n",
+         "from dlrover_tpu_torch.checkpoint.checkpointer import "
+         "Checkpointer, StorageType\n"
+         "import numpy as np\n"
+         "from dlrover_tpu_torch.checkpoint.sparse import (\n"
+         "    SparseStateAdapter, owner_of_keys,\n)\n"
+         "from dlrover_tpu_torch.ops.kv_variable import "
+         "GroupAdamOptimizer, KvVariable\n"),
+        # host-table sparse state, hash-partitioned across the world:
+        # this rank's table holds ONLY the keys owner_of_keys assigns
+        # it, so each rank's shard is a distinct slice of the table
+        ("ckpt = Checkpointer(ckpt_dir, replicated=False)\n",
+         "ckpt = Checkpointer(ckpt_dir, replicated=False)\n"
+         "table = KvVariable(dim=8, seed=17, name='emb')\n"
+         "kv_opt = GroupAdamOptimizer(table, learning_rate=5e-3)\n"
+         "adapter = SparseStateAdapter()\n"
+         "adapter.register_optimizer(kv_opt)\n"
+         "ckpt.register_sparse(adapter)\n"),
+        # the sparse leg: a step-indexed global key stream routed to
+        # this rank by the owner hash; a row's update depends only on
+        # the row, so its trajectory is world-size independent
+        ("    try:\n        with trainer.profile(\"compute\") as p:\n",
+         "    krng = np.random.default_rng(5_000 + k)\n"
+         "    gkeys = krng.integers(0, 3_000, 48).astype(np.int64)\n"
+         "    mine = gkeys[owner_of_keys(gkeys, WORLD) == RANK]\n"
+         "    if mine.size:\n"
+         "        kv_opt.apply_gradients(\n"
+         "            mine, np.tanh(table.gather(mine)) * 0.1)\n"
+         "    try:\n        with trainer.profile(\"compute\") as p:\n"),
+    ]
+    for old, new in edits:
+        if script.count(old) != 1:
+            raise AssertionError(f"resize script anchor moved: {old!r}")
+        script = script.replace(old, new)
+    return script
+
+
+# argv: ckpt_dir (SHARED across all nodes)
+SPARSE_RESIZE_TRAIN_SCRIPT = _sparse_resize_script()
 
 
 def kill_worker_midstep(seed: int = 42) -> Scenario:
@@ -1016,6 +1350,112 @@ def rl_rollout_worker_kill(seed: int = 97) -> Scenario:
     })
 
 
+def sparse_kill_restore(seed: int = 61) -> Scenario:
+    """Sparse elastic recovery acceptance (reference ``:1740``): SIGKILL
+    a DeepFM job mid-run — embedding table, frequency counters and
+    GroupAdam slot tables (spill tier ACTIVE: the harness arms a DRAM
+    budget so real rows live on the cold tier) must ride the flash
+    checkpoint and come back bit-identical: the restored incarnation's
+    loss trajectory equals the uninterrupted control, and the
+    ``kv_checkpoint`` digests prove every row/freq/slot survived — all
+    decided from telemetry events alone."""
+    return Scenario.from_dict({
+        "name": "sparse-kill-restore",
+        "seed": seed,
+        "rules": [{
+            "name": "kill-sparse-midstep",
+            "point": "trainer.step",
+            "action": "kill",
+            "step_window": [5, 7],
+            "only_first_incarnation": True,
+        }],
+    })
+
+
+def sparse_spill_io_error(seed: int = 67) -> Scenario:
+    """Graceful degradation: the spill tier's disk dies DURING a
+    checkpoint export (io_error on the ``kv.spill`` hook).  Stranded
+    cold rows drop out of that export; training continues and the
+    production write-failure breaker trips on the next spill pass
+    (``spill_disabled`` on the following export event); the checkpoint
+    of the DRAM-resident rows still commits, and after a kill two steps
+    later the restore is valid — round-trip digests still match the
+    (post-fault) export."""
+    return Scenario.from_dict({
+        "name": "sparse-spill-io-error",
+        "seed": seed,
+        "rules": [
+            {
+                "name": "spill-disk-dies",
+                "point": "kv.spill",
+                "action": "io_error",
+                "at_step": 4,
+                "max_count": 1,
+                "only_first_incarnation": True,
+            },
+            {
+                "name": "kill-after-breaker",
+                "point": "trainer.step",
+                "action": "kill",
+                "at_step": 7,
+                "only_first_incarnation": True,
+            },
+        ],
+    })
+
+
+def sparse_resize_churn(seed: int = 71) -> Scenario:
+    """Sparse elastic world-resize: a node loss shrinks a two-node
+    sparse job to one, and the hash-table embedding (plus its optimizer
+    slot tables) is RESHARDED from committed storage — all old ranks'
+    kv shards read, rows re-partitioned by key hash, the owned subset
+    imported — then the world grows back and reshards again.
+    Exactly-once row accounting and the shm-tier refusal across world
+    sizes are decided from the ``kv_checkpoint`` events alone."""
+    return Scenario.from_dict({
+        "name": "sparse-resize-churn",
+        "seed": seed,
+        "rules": [{
+            "name": "node1-loss",
+            "point": "agent.monitor",
+            "action": "kill_node",
+            # progress-based, not wall-clock: the node dies only once
+            # its trainer has REPORTED past step 6 (two world-2 disk
+            # commits exist)
+            "after_step": 6,
+            "env_equals": {
+                "DLROVER_NODE_RANK": "1",
+                "DLROVER_AGENT_RESPAWNED": "",
+            },
+        }],
+    })
+
+
+def sparse_streaming_reshard_kill(seed: int = 79) -> Scenario:
+    """Streaming-reshard crash consistency: the harness pre-seeds a
+    committed world-2 sparse checkpoint, the world-1 job's first restore
+    streams the cross-world reshard in bounded windows, and the worker
+    is SIGKILLed on the 3rd ``kv.reshard_chunk`` — mid-stream, tables
+    half-imported.  Committed storage is untouched (the reshard mutates
+    only in-process tables), so the replacement replays the identical
+    reshard from the same shards; the additive per-table digests on its
+    resharded restore event must equal the seeder's per-shard export
+    sums with imported rows == the distinct union — no row lost, no
+    chunk double-imported."""
+    return Scenario.from_dict({
+        "name": "sparse-streaming-reshard-kill",
+        "seed": seed,
+        "rules": [{
+            "name": "kill-mid-reshard",
+            "point": "kv.reshard_chunk",
+            "action": "kill",
+            "after_calls": 3,
+            "max_count": 1,
+            "only_first_incarnation": True,
+        }],
+    })
+
+
 SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
     "kill_worker_midstep": kill_worker_midstep,
     "sigterm_worker_midstep": sigterm_worker_midstep,
@@ -1027,6 +1467,10 @@ SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
     "master_kill_restart_midround": master_kill_restart_midround,
     "master_respawn_other_host": master_respawn_other_host,
     "rl_rollout_worker_kill": rl_rollout_worker_kill,
+    "sparse_kill_restore": sparse_kill_restore,
+    "sparse_spill_io_error": sparse_spill_io_error,
+    "sparse_resize_churn": sparse_resize_churn,
+    "sparse_streaming_reshard_kill": sparse_streaming_reshard_kill,
 }
 
 
@@ -1094,6 +1538,70 @@ RUN_OPTIONS: Dict[str, Dict] = {
         "total_steps": 8,
         "ckpt_every": 2,
         "train_script": "rl",
+    },
+    # sparse recovery: the toy DeepFM loop (train_script selects it in
+    # the harness), per-table content digests armed so the round-trip
+    # invariant can decide bit-identity from events alone, and a DRAM
+    # budget small enough that real rows live on the spill tier (the
+    # control runs DRAM-only — residence is transparent, values equal)
+    "sparse-kill-restore": {
+        "total_steps": 12,
+        "ckpt_every": 2,
+        "train_script": "sparse",
+        "extra_env": {
+            "DLROVER_KV_DIGEST": "1",
+            "DLROVER_CHAOS_KV_SPILL": "48",
+        },
+    },
+    # spill-disk death mid-export: same loop + budget; the kill lands
+    # at step 7 so the step-6 export (post-breaker, spill_disabled
+    # stamped) is the one the restore round-trips
+    "sparse-spill-io-error": {
+        "total_steps": 12,
+        "ckpt_every": 2,
+        "train_script": "sparse",
+        "extra_env": {
+            "DLROVER_KV_DIGEST": "1",
+            "DLROVER_CHAOS_KV_SPILL": "48",
+        },
+    },
+    # streaming reshard: the harness pre-seeds a committed world-2
+    # sparse checkpoint at step 4 (seed_kv_world), the window is pinned
+    # to 200 rows so the ~600-row-per-rank tables stream in several
+    # chunks (the kill rule needs a 3rd chunk to land on), and digests
+    # are armed for the exactly-once verdict
+    "sparse-streaming-reshard-kill": {
+        "total_steps": 10,
+        "ckpt_every": 2,
+        "train_script": "sparse_reshard",
+        "seed_kv_world": 2,
+        "extra_env": {
+            "DLROVER_KV_DIGEST": "1",
+            "DLROVER_KV_RESHARD_WINDOW_ROWS": "200",
+        },
+    },
+    # sparse resize: the elastic-resize recipe (the same control-plane
+    # knobs as elastic-resize-churn) with the kv-partitioned loop and
+    # digests armed; disk commits every 3 steps bound the cross-world
+    # restore's step loss AND guarantee a world-1 commit exists before
+    # the harness respawns the replacement agent
+    "sparse-resize-churn": {
+        "total_steps": 24,
+        "disk_every": 3,
+        "step_sleep": 0.3,
+        "shrunk_step_sleep": 1.0,
+        "train_script": "sparse_resize",
+        "extra_env": {
+            "DLROVER_KV_DIGEST": "1",
+            "DLROVER_MONITOR_REPORT_INTERVAL": "0.5",
+            "DLROVER_HANG_DETECTION_S": "2.5",
+            "DLROVER_RESIZE_GRACE_S": "1.0",
+            "DLROVER_RESIZE_REDELIVER_S": "15.0",
+            "DLROVER_RESIZE_STOP_TIMEOUT_S": "1.5",
+            "DLROVER_SECONDS_TO_CHECK_HANG": "0.5",
+            "DLROVER_BREAKPOINT_COMMIT_TIMEOUT_S": "3",
+            "DLROVER_MEMBERSHIP_SELF_RESTART": "0",
+        },
     },
     "warm-template-import-kill": {"warm_restart": True},
     "warm-template-midspawn-kill": {"warm_restart": True},

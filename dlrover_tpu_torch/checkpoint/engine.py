@@ -39,12 +39,24 @@ the subtree and hands it to the adapter: a same-world restore (shm, or
 this rank's storage file) to ``import_state``, a restore across world
 sizes (storage only: an shm snapshot of another world is skipped) to
 ``import_shards_streaming`` with every old rank's subtree.  Any object
-with that surface registers (the RL plane's
-:class:`~dlrover_tpu_torch.rl.elastic.PPOStateAdapter`).  The
-KvVariable tables' :class:`SparseStateAdapter`, its delta chains (a
-``delta`` blob raises here) and the sparse and kv branches of
-``load_sharded`` (reference ``:1164-1207``) come with slice 6 of the
-port.
+with that surface registers: the KvVariable tables'
+:class:`~dlrover_tpu_torch.checkpoint.sparse.SparseStateAdapter` and the
+RL plane's :class:`~dlrover_tpu_torch.rl.elastic.PPOStateAdapter`.
+
+Delta chains (reference ``:220-265``, ``:738-821``): with delta
+checkpoints enabled on the adapter, a durable save exports only the
+rows touched since the last one, and its subtree names the committed
+steps a restore replays first (base, then deltas), read back from their
+step dirs.  A cross-world restore streams every old rank's chain
+through the adapter's windowed reshard over views of the rank files.
+``load_sharded`` restores the adapter's state beside the target
+(reference ``:1164-1207``): this rank's own subtree from the shm tier or
+its own rank file, the streaming reshard across worlds.
+
+The paged shm tier (``DLROVER_SHM_PAGED``, reference ``:421``): a
+memory save of a dict state writes only the changed dense leaves and
+the adapter's delta on the shm consumer slot (``export_for_shm``), and
+re-bases when the segment cannot take a delta.
 """
 
 import os
@@ -155,11 +167,6 @@ class CheckpointEngine:
         deletion_keep_latest: int = 0,
         async_snapshot: bool = True,
     ):
-        if paged_enabled():
-            raise NotImplementedError(
-                "the paged shm tier (DLROVER_SHM_PAGED) comes with the "
-                "sparse state in slice 6 of the port"
-            )
         self.checkpoint_dir = checkpoint_dir
         self.replicated = replicated
         # Async-snapshot mode: the training stall of a flash save is
@@ -212,6 +219,7 @@ class CheckpointEngine:
         self._deletion_keep_latest = deletion_keep_latest
         # a registered checkpoint adapter (register_sparse)
         self._sparse = None
+        self._warned_keep_latest = False
         # ship the saver config now so the agent-side saver (and its
         # shm/meta/lock servers) exists before the first load()
         # (reference creates the saver at engine construction too,
@@ -288,6 +296,22 @@ class CheckpointEngine:
             )
         if KV_STATE_KEY in state_dict:
             return state_dict
+        if durable and self._sparse.delta_checkpoints_enabled() and (
+            # the newest delta's chain spans at most full_every
+            # committed steps (base included), so keep_latest >=
+            # full_every retains every link
+            0 < self._deletion_keep_latest
+            < self._sparse.delta_full_every()
+        ) and not self._warned_keep_latest:
+            self._warned_keep_latest = True
+            logger.warning(
+                "delta flash checkpoints need every chain link on "
+                "storage, but deletion_keep_latest=%d < full_every="
+                "%d — a pruned link breaks restore; raise "
+                "keep_latest or lower full_every",
+                self._deletion_keep_latest,
+                self._sparse.delta_full_every(),
+            )
         merged = dict(state_dict)
         merged[KV_STATE_KEY] = self._sparse.export_for_checkpoint(
             step=step, rank=self._rank, durable=durable)
@@ -307,15 +331,92 @@ class CheckpointEngine:
                 "untouched", step,
             )
             return state
+        self._import_kv_same_world(kv_state, tier, step, stats)
+        return state
+
+    def _import_kv_same_world(self, kv_state, tier, step, stats):
+        """Same-world import, delta-chain aware: a full/base subtree
+        imports verbatim; a delta replays its chain — the base and the
+        intermediate deltas read from the committed step dirs its link
+        metadata names, then the subtree in hand.  A broken chain (a
+        pruned or never-persisted link) raises: restoring part of the
+        sparse state silently would be worse than failing the tier."""
         meta = kv_state.get(KV_META_KEY) if isinstance(kv_state, dict) \
             else None
         if isinstance(meta, dict) and meta.get("kind") == "delta":
-            raise NotImplementedError(
-                "a delta kv checkpoint (KvVariable's delta chains) "
-                "restores with slice 6 of the port")
-        stats.extra.update(self._sparse.import_state(
-            kv_state, tier=tier, step=step, rank=self._rank))
-        return state
+            want_rank = 0 if self.replicated else self._rank
+            links = self._kv_chain_links(meta, want_rank)
+            if links is None:
+                raise RuntimeError(
+                    f"kv delta checkpoint of step {step} is "
+                    "unusable: a chain link is missing from storage "
+                    "(pruned by deletion_keep_latest, or its persist "
+                    "never committed)"
+                )
+            info = self._sparse.import_chain(
+                links + [kv_state], tier=tier, step=step,
+                rank=self._rank,
+            )
+        else:
+            info = self._sparse.import_state(
+                kv_state, tier=tier, step=step, rank=self._rank)
+        stats.extra.update(info)
+
+    def _read_kv_state_at(self, step: int, rank: int):
+        """One rank's nested kv subtree of a committed step, as views
+        of the rank file's mmap (the streaming import pages in only the
+        window it copies); None when the step dir or the subtree is
+        absent."""
+        from dlrover_tpu_torch.checkpoint.saver import read_checkpoint_at
+
+        got_step, shards = read_checkpoint_at(
+            self.checkpoint_dir, step, self._storage, only_rank=rank,
+        )
+        if got_step is None or rank not in shards:
+            return None
+        from dlrover_tpu_torch.checkpoint.sparse import SparseStateAdapter
+
+        meta, raw = shards[rank]
+        flat, _metas = flat_from_raw(meta, raw, detach=False)
+        kv_flat, _rest = SparseStateAdapter.split_flat(flat)
+        if not kv_flat:
+            return None
+        # the views reference the mapping, which stays alive for as
+        # long as the caller holds them
+        return SparseStateAdapter.nest_flat(kv_flat)
+
+    def _kv_chain_links(self, kv_meta, rank: int):
+        """A delta link's replay prefix (base and intermediate deltas,
+        oldest first) for one rank; None when a link is missing."""
+        from dlrover_tpu_torch.checkpoint.sparse import SparseStateAdapter
+
+        links = []
+        for s in SparseStateAdapter.chain_steps(kv_meta):
+            st = self._read_kv_state_at(int(s), rank)
+            if st is None:
+                logger.error(
+                    "kv delta chain broken: step %s has no kv shard "
+                    "for rank %s on storage", s, rank,
+                )
+                return None
+            links.append(st)
+        return links
+
+    def _kv_chains_for(self, nested_per_rank):
+        """{rank: [links..., subtree]} for a cross-world streaming
+        reshard, each rank's delta chain resolved; None when a chain is
+        broken."""
+        chains = {}
+        for rank, kv_state in sorted(nested_per_rank.items()):
+            meta = kv_state.get(KV_META_KEY)
+            if isinstance(meta, dict) and meta.get("kind") == "delta":
+                links = self._kv_chain_links(meta, rank)
+                if links is None:
+                    return None
+                chains[rank] = links + [kv_state]
+            else:
+                chains[rank] = [kv_state]
+        return chains
 
     def _notify_agent_to_create_saver(self):
         """Ship the saver config to the agent's factory queue once
@@ -366,6 +467,7 @@ class CheckpointEngine:
     def save_to_memory(
         self, step: int, state_dict, path: str = "",
         block_lock: bool = False, ready: Optional[List] = None,
+        durable: bool = False,
     ) -> bool:
         """Synchronous part of a flash save: device->host copy into
         shm under the shm lock.  Non-blocking lock by default: if the
@@ -375,11 +477,31 @@ class CheckpointEngine:
         thread passes ``block_lock=True`` — it is off the training
         path, so waiting for the agent is free and the save must not
         be silently dropped — and ``ready``, the events after which
-        its snapshot's CUDA leaves are complete."""
+        its snapshot's CUDA leaves are complete.  ``durable`` marks a
+        save headed for a committed storage step (the adapter's
+        storage delta chain)."""
         self._notify_agent_to_create_saver()
+        # paged hot saves (DLROVER_SHM_PAGED): write only what
+        # changed — dense leaves copy-skipped, sparse rows as delta
+        # pages through the shm consumer slot.  Sparse DURABLE saves
+        # stay flat: their delta chain belongs to the storage consumer
+        # and replays from committed step dirs, not shm.
+        use_paged = (
+            paged_enabled()
+            and not durable
+            and isinstance(state_dict, dict)
+            and KV_STATE_KEY not in state_dict
+        )
         # an adapter's export joins here on the sync path; the async
         # path merged it before queueing (the key guard skips it)
-        state_dict = self._merge_sparse(state_dict, step)
+        merged_here = (
+            not use_paged
+            and self._sparse is not None
+            and isinstance(state_dict, dict)
+            and KV_STATE_KEY not in state_dict
+        )
+        if not use_paged:
+            state_dict = self._merge_sparse(state_dict, step, durable)
         # every rank locks its shard: the agent's breakpoint save reads
         # all local shards, so an unlocked write can be torn even for
         # ranks that never persist to storage; without an agent there
@@ -396,6 +518,11 @@ class CheckpointEngine:
                     step,
                 )
                 _SAVE_SKIPPED_TOTAL.inc(reason="saver_busy")
+                if merged_here and durable:
+                    # a delta export already DRAINED its baseline; the
+                    # skipped save means those rows never became
+                    # durable — the next export must re-base
+                    self._sparse.checkpoint_chain_poison()
                 return False
             lock_wait = time.perf_counter() - t0
             locked = True
@@ -408,18 +535,24 @@ class CheckpointEngine:
                 global_shard_num=self.global_shard_num,
             )
             start = time.perf_counter()
-            self._shm_handler.save_state_dict(state_dict, config,
-                                              ready=ready)
+            if use_paged:
+                self._save_paged(step, state_dict, config, ready)
+            else:
+                self._shm_handler.save_state_dict(state_dict, config,
+                                                  ready=ready)
             phases = dict(self._shm_handler.last_save_phases)
             phases["lock_wait_s"] = round(lock_wait, 6)
             phases["total_s"] = round(
                 time.perf_counter() - start + lock_wait, 6)
             self.last_save_phases = phases
             _SHM_SAVE_SECONDS.observe(phases["total_s"])
-            for stage in ("fetch", "memcpy"):
-                _SAVE_STAGE_SECONDS.observe(
-                    float(phases[f"{stage}_s"]), mode="flat", stage=stage
-                )
+            mode = "paged" if phases.get("paged") else "flat"
+            for stage in ("fetch", "compare", "memcpy", "kv", "publish"):
+                sec = phases.get(f"{stage}_s")
+                if sec is not None:
+                    _SAVE_STAGE_SECONDS.observe(
+                        float(sec), mode=mode, stage=stage
+                    )
             emit_event(
                 "checkpoint_shm_save",
                 step=step,
@@ -436,6 +569,46 @@ class CheckpointEngine:
         finally:
             if locked:
                 self._shm_lock.release()
+
+    def _save_paged(self, step: int, state_dict, config,
+                    ready: Optional[List] = None) -> None:
+        """One paged hot save under the shm lock (reference ``:421``):
+        export the sparse delta on the shm consumer slot and hand it to
+        the handler as a delta page; when the handler cannot take a
+        delta (fresh or invalid epoch, arena overflow) poison the shm
+        chain, re-export a full base and retry once.  Any failure after
+        the delta drained its baseline also poisons: those rows must
+        ride the next base, not vanish."""
+        from dlrover_tpu_torch.checkpoint.shm_handler import (
+            PagedNeedBase,
+            shm_full_every,
+        )
+
+        kv_payload = None
+        if self._sparse is not None:
+            kv_payload = self._sparse.export_for_shm(
+                step=step, rank=self._rank, full_every=shm_full_every())
+        try:
+            try:
+                self._shm_handler.save_state_dict_paged(
+                    state_dict, config, kv_payload=kv_payload,
+                    ready=ready)
+                return
+            except PagedNeedBase as e:
+                logger.info(
+                    "paged save of step %s re-basing: %s", step, e)
+                if self._sparse is not None:
+                    self._sparse.shm_chain_poison()
+                    kv_payload = self._sparse.export_for_shm(
+                        step=step, rank=self._rank,
+                        full_every=shm_full_every())
+                self._shm_handler.save_state_dict_paged(
+                    state_dict, config, kv_payload=kv_payload,
+                    ready=ready)
+        except Exception:
+            if self._sparse is not None:
+                self._sparse.shm_chain_poison()
+            raise
 
     def _agent_lock_available(self) -> bool:
         """Whether an agent-side lock server exists for this shard
@@ -574,6 +747,10 @@ class CheckpointEngine:
             except Exception as e:  # noqa: BLE001
                 self._last_async_error = e
                 _SAVE_ERRORS_TOTAL.inc()
+                if self._sparse is not None:
+                    # the queued snapshot may hold a drained delta that
+                    # never reached shm: re-base the next export
+                    self._sparse.checkpoint_chain_poison()
                 logger.exception(
                     "async snapshot of step %s failed", step
                 )
@@ -602,9 +779,6 @@ class CheckpointEngine:
         training stall is the snapshot copy; the host fetch + shm write
         happen on the writer thread, which then enqueues the agent
         persist."""
-        # the adapter's export is taken now, on the training thread,
-        # consistent with the dense snapshot below
-        state_dict = self._merge_sparse(state_dict, step, durable=True)
         has_tensors = any(
             isinstance(leaf, torch.Tensor)
             for _, leaf in _walk(state_dict)
@@ -617,13 +791,17 @@ class CheckpointEngine:
                 )
                 _SAVE_SKIPPED_TOTAL.inc(reason="writer_busy")
                 return False
+            # the adapter's export is taken now, on the training thread,
+            # consistent with the dense snapshot below: the writer must
+            # not read a table the next step is already scattering into
+            state_dict = self._merge_sparse(state_dict, step, durable=True)
             t0 = time.perf_counter()
             snap, ready = self._device_snapshot(state_dict)
             self.last_snapshot_phases["stall_s"] = time.perf_counter() - t0
             self._ensure_writer()
             self._writer_queue.put((step, snap, path, True, ready))
             return True
-        ok = self.save_to_memory(step, state_dict, path)
+        ok = self.save_to_memory(step, state_dict, path, durable=True)
         if ok and self._event_queue is not None:
             self._event_queue.put(
                 CheckpointEvent(
@@ -798,10 +976,12 @@ class CheckpointEngine:
     def _load_sparse_from_storage(self, step, shards, want_rank, stats,
                                   t0, own):
         """Storage restore with an adapter registered: same world =
-        this rank's file, its subtree to ``import_state``; another
-        world = the dense state of this rank's file (or the lowest
-        rank's) and every old rank's subtree to
-        ``import_shards_streaming``."""
+        this rank's file, its subtree imported (chain-replayed when it
+        is a delta link); another world = the dense state of this
+        rank's file (or the lowest rank's) and every old rank's subtree
+        (its chain resolved) to ``import_shards_streaming``, as views
+        of the rank files' mmaps, so the reshard holds one window of
+        rows at a time, not the sum of the shards."""
         ckpt_world = (_checkpoint_world(shards[min(shards)][0])
                       or len(shards))
         if ckpt_world == self._world_size and want_rank not in shards:
@@ -824,17 +1004,31 @@ class CheckpointEngine:
                 "restoring the adapter's state from %d rank file(s)",
                 step, ckpt_world, self._world_size, len(shards),
             )
+            from dlrover_tpu_torch.checkpoint.sparse import (
+                SparseStateAdapter,
+            )
+
             dense_rank = want_rank if want_rank in shards else min(shards)
-            chains, state = {}, {}
+            kv_per_rank, state = {}, {}
             for rank, (meta, raw) in sorted(shards.items()):
-                full = state_dict_from_raw(meta, raw, stats=stats)
-                kv_state = (full.pop(KV_STATE_KEY, None)
-                            if isinstance(full, dict) else None)
-                if kv_state is not None:
-                    chains[rank] = [kv_state]
+                flat, metas = flat_from_raw(meta, raw, stats=stats,
+                                            detach=False)
+                kv_flat, rest = SparseStateAdapter.split_flat(flat)
+                if kv_flat:
+                    kv_per_rank[rank] = SparseStateAdapter.nest_flat(
+                        kv_flat)
                 if rank == dense_rank:
-                    state = full
-            if chains:
+                    state = _detach_dense_flat(rest, metas, stats)
+            if kv_per_rank:
+                chains = self._kv_chains_for(kv_per_rank)
+                if chains is None:
+                    # a broken chain fails the restore loudly: "no
+                    # checkpoint" would silently restart from scratch
+                    raise RuntimeError(
+                        f"kv delta chain of step {step} is unusable "
+                        "for the cross-world reshard (a link is "
+                        "missing from storage)"
+                    )
                 stats.extra.update(self._sparse.import_shards_streaming(
                     chains, world_size=self._world_size, rank=self._rank,
                     from_world=ckpt_world, tier="storage", step=step))
@@ -876,11 +1070,6 @@ class CheckpointEngine:
         from dlrover_tpu_torch.checkpoint.restore import RestoreStats
         from dlrover_tpu_torch.telemetry.tracing import span as _span
 
-        if self._sparse is not None:
-            raise NotImplementedError(
-                "a resharded restore with a registered adapter (the kv "
-                "branches of load_sharded) comes with slice 6 of the "
-                "port; restore with load() (no target state)")
         failures: List[str] = []
         with _span("ckpt.restore") as sp:
             sp.set_attribute("sharded", True)
@@ -906,10 +1095,23 @@ class CheckpointEngine:
                     "kill landed mid-write); skipping the shm tier")
                 config, flat = None, {}
             if config is not None and flat:
+                # the adapter's subtree is this rank's own table state:
+                # it imports beside the target, never into it
+                kv_flat = (_split_kv_flat(flat)
+                           if self._sparse is not None else {})
                 state = self._assemble_to_target(
                     target_state, flat, metas, stats, failures)
                 flat = None
                 if state is not None:
+                    if kv_flat:
+                        from dlrover_tpu_torch.checkpoint.sparse import (
+                            SparseStateAdapter,
+                        )
+
+                        self._import_kv_same_world(
+                            SparseStateAdapter.nest_flat(kv_flat),
+                            tier="shm", step=config.step, stats=stats)
+                    kv_flat = None
                     self._record_restore(
                         "shm", config.step, time.perf_counter() - t0,
                         {**stats.to_phases(), "sharded": True}, sp,
@@ -928,9 +1130,17 @@ class CheckpointEngine:
             if step is not None and shards:
                 flat_all: Dict[str, Any] = {}
                 metas_all: Dict[str, Any] = {}
+                kv_per_rank: Dict[int, Dict[str, Any]] = {}
                 for rank, (meta, raw) in sorted(shards.items()):
                     f, m = flat_from_raw(meta, raw, stats=stats,
                                          detach=False)
+                    if self._sparse is not None:
+                        # kv keys carry no shard suffix, so across ranks
+                        # they would collide in flat_all: each rank's
+                        # rows are distinct table shards, not replicas
+                        kv_f = _split_kv_flat(f)
+                        if kv_f:
+                            kv_per_rank[rank] = kv_f
                     for key, val in f.items():
                         # shard keys collide across ranks; namespace
                         # them (the ranks in order, so a replicated box
@@ -941,8 +1151,12 @@ class CheckpointEngine:
                             metas_all[nk] = m[key]
                 state = self._assemble_to_target(
                     target_state, flat_all, metas_all, stats, failures)
-                flat_all = shards = None
+                flat_all = None
                 if state is not None:
+                    if kv_per_rank:
+                        self._import_sharded_kv(
+                            kv_per_rank, shards, step, stats)
+                    kv_per_rank = shards = None
                     self._record_restore(
                         "storage", step, time.perf_counter() - t0,
                         {**stats.to_phases(), "sharded": True}, sp,
@@ -977,6 +1191,35 @@ class CheckpointEngine:
                     "no checkpoint tier covers the target state: "
                     + "; ".join(failures))
             return None, {}
+
+    def _import_sharded_kv(self, kv_per_rank, shards, step, stats):
+        """The adapter's import on ``load_sharded``'s storage tier
+        (reference ``:1175``): this rank's own subtree (chain-replayed
+        when it is a delta link) when the world is unchanged and its
+        file exists, the streaming reshard otherwise — the subtrees are
+        views of the rank files' mmaps, so only one window is ever
+        private."""
+        from dlrover_tpu_torch.checkpoint.sparse import SparseStateAdapter
+
+        nested = {
+            rank: SparseStateAdapter.nest_flat(kv)
+            for rank, kv in kv_per_rank.items()
+        }
+        ckpt_world = (_checkpoint_world(shards[min(shards)][0])
+                      or len(shards))
+        if ckpt_world == self._world_size and self._rank in nested:
+            self._import_kv_same_world(
+                nested[self._rank], tier="storage", step=step, stats=stats)
+            return
+        chains = self._kv_chains_for(nested)
+        if chains is None:
+            raise RuntimeError(
+                f"kv delta chain of step {step} is unusable for the "
+                "cross-world reshard (a link is missing from storage)"
+            )
+        stats.extra.update(self._sparse.import_shards_streaming(
+            chains, world_size=self._world_size, rank=self._rank,
+            from_world=ckpt_world, tier="storage", step=step))
 
     def _assemble_to_target(self, target_state, flat, metas, stats=None,
                             failures: Optional[List[str]] = None):
@@ -1146,6 +1389,36 @@ def _checkpoint_world(meta) -> Optional[int]:
     if world is None and isinstance(config, dict):
         world = config.get("world_size")
     return int(world) if world else None
+
+
+def _split_kv_flat(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Pop the ``__kv__/`` entries out of a flat dict (in place); they
+    come back keyed relative to the prefix."""
+    from dlrover_tpu_torch.checkpoint.sparse import SparseStateAdapter
+
+    kv, rest = SparseStateAdapter.split_flat(flat)
+    if kv:
+        flat.clear()
+        flat.update(rest)
+    return kv
+
+
+def _detach_dense_flat(flat, metas, stats):
+    """The dense remainder of a flat dict of views (the kv entries
+    split out) as private tensors, shard entries assembled, nested:
+    the pieces of ``state_dict_from_raw`` without copying the kv
+    subtree (reference ``engine.py:991``)."""
+    from dlrover_tpu_torch.checkpoint.shm_handler import (
+        _assemble,
+        _unflatten_to_nested,
+    )
+
+    t0 = time.perf_counter()
+    out = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+           for k, v in flat.items()}
+    if stats is not None:
+        stats.assemble_s += time.perf_counter() - t0
+    return _unflatten_to_nested(_assemble(out, metas, stats))
 
 
 def _agreed_shm_step(step: Optional[int]) -> Optional[int]:

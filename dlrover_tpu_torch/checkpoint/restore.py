@@ -155,6 +155,23 @@ class StagedRestore:
         futs = [self.submit(fn, item) for item in items]
         return [f.result() for f in futs]
 
+    def map_pipelined(self, fn: Callable, items: Iterable, depth: int = 2):
+        """Generator of ``fn(item)`` results in input order with at most
+        ``depth`` calls in flight (reference ``restore.py:185``): the
+        streaming reshard partitions window k+1 on the pool while the
+        caller imports window k, so memory stays ~``depth`` windows.
+        Serial (one worker), the inline futures run each call when its
+        result is read."""
+        from collections import deque
+
+        pending: deque = deque()
+        for item in items:
+            pending.append(self.submit(fn, item))
+            if len(pending) >= max(1, depth):
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+
     def copy_chunked(self, dst: torch.Tensor, src: torch.Tensor) -> List:
         """``dst.copy_(src)`` of two flat uint8 tensors, split into
         ~chunk_bytes pieces on the pool; returns the futures.  Splitting

@@ -29,9 +29,16 @@ same.  The untargeted reads assemble those entries into full tensors,
 as the reference's ``_assemble_flat`` does; the target-state restore
 (``CheckpointEngine.load_sharded``) reads them as views (``load_flat``
 / ``flat_from_raw`` with ``detach=False``) and copies each target box
-straight out of them.  The paged base+delta tier (``DLROVER_SHM_PAGED``,
-reference ``:425-1058``) comes with the sparse state in slice 6.  A save fires the reference's
-``ckpt.shm_save`` chaos hook once its snapshot is published.
+straight out of them.  A save fires the reference's ``ckpt.shm_save``
+chaos hook once its snapshot is published.
+
+The paged base+delta tier (``DLROVER_SHM_PAGED``, reference
+``:159-1058``, :meth:`SharedMemoryHandler.save_state_dict_paged`) keeps
+the JAX package's segment layout byte for byte: a memory save copies
+only the dense leaves whose bytes changed and appends the sparse
+adapter's delta as a kv page, then flips one byte to publish; a reader
+(or the agent's persist, which gets the flat layout back) replays the
+page chain.
 
 torch is imported where a tensor is made or read, not with the module:
 the agent's side of it (segments, meta, the raw bytes it persists, the
@@ -103,6 +110,9 @@ def _dtype_tables():
     names = {
         "bool": torch.bool,
         "uint8": torch.uint8,
+        "uint16": torch.uint16,
+        "uint32": torch.uint32,
+        "uint64": torch.uint64,
         "int8": torch.int8,
         "int16": torch.int16,
         "int32": torch.int32,
@@ -370,12 +380,132 @@ def default_job_suffix() -> str:
     return hashlib.md5(socket_dir().encode()).hexdigest()[:8]
 
 
+# -- paged base+delta shm layout (hot-save tier) ------------------------
+#
+# Segment anatomy (DLROVER_SHM_PAGED), byte for byte the JAX package's
+# (reference ``shm_handler.py:159-183``):
+#
+#   [ 0: 8]  magic  b"DLRVPG01"
+#   [ 8: 9]  active directory slot (0/1) — the ATOMIC publish: a
+#            single byte flips after everything the new generation
+#            references is in place, so a reader or a SIGKILL
+#            mid-write always lands on the previous consistent
+#            snapshot
+#   [12:16]  dir_cap (u32) — capacity of each directory slot
+#   [16            : 16+dir_cap  ]  directory slot 0
+#   [16+dir_cap    : 16+2*dir_cap]  directory slot 1
+#   [data_off ...]  per-leaf ping-pong extents (A/B copy-on-write: a
+#            delta save writes changed leaves to the INACTIVE side
+#            and flips per-leaf `active` in the new directory), then
+#            two kv arenas (base + delta blob pages bump-allocated;
+#            a re-base targets the arena the live directory does NOT
+#            reference)
+#
+# Each directory slot is [len u32 | crc32 u32 | pickled directory];
+# the directory carries generation, config, per-leaf {offset, len,
+# crc, gen} placement, the pickled scalar blob, and the kv page
+# chain — so the segment stands alone even if the meta SharedDict
+# host died with the trainer.  The port reads a directory through the
+# meta allowlist (:func:`load_meta`), so a JAX-written segment's
+# ``CheckpointConfig`` comes back as the port's class.
+
+PAGED_MAGIC = b"DLRVPG01"
+_PAGED_HDR = 16
+_PAGED_ALIGN = 64
+
+
+class PagedNeedBase(Exception):
+    """The paged segment cannot accept a delta save (no valid epoch,
+    leaf layout changed, kv arena or directory slot overflow) — the
+    caller must re-export a full kv base and retry."""
+
+
 def paged_enabled() -> bool:
-    """``DLROVER_SHM_PAGED`` opt-in for the paged hot-save tier, which
-    the port does not have yet (slice 6)."""
+    """``DLROVER_SHM_PAGED`` opt-in for the paged hot-save tier
+    (default off: memory saves write the flat full segment)."""
     return os.environ.get(
         "DLROVER_SHM_PAGED", ""
     ).strip().lower() in ("1", "true", "yes", "on")
+
+
+def shm_full_every() -> int:
+    """Full-base cadence of the paged kv chain: every Nth paged save
+    re-bases even without a poison, bounding both the delta replay a
+    restore pays and the page directory's growth.  0 = no cadence
+    (re-base only on poison/overflow).  ``DLROVER_SHM_FULL_EVERY``."""
+    try:
+        return max(
+            0, int(os.environ.get("DLROVER_SHM_FULL_EVERY", "32"))
+        )
+    except ValueError:
+        return 32
+
+
+def save_chunk_bytes() -> int:
+    """Chunk size of the paged save's parallel memcpy
+    (``DLROVER_SAVE_CHUNK_BYTES``; default 64 MB, the restore
+    pipeline's)."""
+    env = os.environ.get("DLROVER_SAVE_CHUNK_BYTES", "").strip()
+    if env:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            pass
+    return 64 * 2**20
+
+
+def save_workers() -> int:
+    """Threads of the paged save's memcpy (``DLROVER_SAVE_WORKERS``;
+    default half the cores, 2 to 8)."""
+    env = os.environ.get("DLROVER_SAVE_WORKERS", "").strip()
+    if env:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            pass
+    return min(8, max(2, (os.cpu_count() or 2) // 2))
+
+
+def _align_up(n: int, a: int = _PAGED_ALIGN) -> int:
+    return (n + a - 1) // a * a
+
+
+def _crc(buf) -> int:
+    import zlib
+
+    return zlib.crc32(buf) & 0xFFFFFFFF
+
+
+def _host_bytes(leaf, nbytes: int) -> np.ndarray:
+    """A layout entry's bytes on the host as a flat uint8 array (a view
+    for host leaves, a copy for CUDA ones; the caller has ordered the
+    copy after the work that wrote the leaf)."""
+    if isinstance(leaf, np.ndarray):
+        return np.ascontiguousarray(leaf).reshape(-1).view(np.uint8)
+    if isinstance(leaf, SnapshotLeaf):
+        src = leaf.flat[leaf.start:leaf.start + nbytes]
+    else:
+        src = _as_bytes(leaf)
+    if src.is_cuda:
+        src = src.cpu()
+    return src.numpy()
+
+
+def _copy_chunked(dst: np.ndarray, src: np.ndarray, submit,
+                  chunk_bytes: int) -> list:
+    """``dst[:] = src`` (flat uint8) in ``chunk_bytes`` pieces, each a
+    CPU tensor ``copy_`` (the GIL is released for the copy) submitted
+    through ``submit`` (inline when None); returns the futures."""
+    import torch
+
+    if not src.size:
+        return []
+    d, s = torch.from_numpy(dst), torch.from_numpy(src)
+    if submit is None:
+        d.copy_(s)
+        return []
+    return [submit(d[lo:lo + chunk_bytes].copy_, s[lo:lo + chunk_bytes])
+            for lo in range(0, src.size, chunk_bytes)]
 
 
 # -- meta files ---------------------------------------------------------------
@@ -520,6 +650,10 @@ class SharedMemoryHandler:
         self._write_lock = threading.Lock()
         self._attach_lock = threading.Lock()
         self._stagers: Dict[torch.device, _DeviceStager] = {}
+        # writer-side copy of the last published page directory (paged
+        # mode); None = unknown — the next paged save tries to adopt
+        # the in-segment directory before starting a fresh epoch
+        self._paged_dir: Optional[Dict[str, Any]] = None
         # phase timings of the last save (seconds): the engine logs
         # them and the chip smoke reports them
         self.last_save_phases: Dict[str, float] = {}
@@ -549,6 +683,9 @@ class SharedMemoryHandler:
         """
         entries, scalars, shard_info = _extract_entries(state_dict)
         scalar_blob = pickle.dumps(scalars)
+        # a flat write clobbers any paged epoch in this segment; the
+        # next paged save must start a fresh one
+        self._paged_dir = None
         metas: Dict[str, TensorMeta] = {}
         offset = 0
         for key, leaf in entries:
@@ -635,6 +772,604 @@ class SharedMemoryHandler:
             }
         )
 
+    # -- paged write (trainer side) ----------------------------------------
+
+    def save_state_dict_paged(
+        self, state_dict, config: CheckpointConfig,
+        kv_payload: Optional[Tuple[str, Dict[str, Any]]] = None,
+        workers: Optional[int] = None,
+        chunk_bytes: Optional[int] = None,
+        ready: Optional[List] = None,
+    ) -> Dict[str, Any]:
+        """Paged hot save (reference ``shm_handler.py:425``): write only
+        what changed, publish with an atomic directory swap.
+
+        Dense leaves are compared bit for bit against their active
+        extent and copy-skipped when unchanged; changed leaves go to
+        the leaf's INACTIVE extent (per-leaf ping-pong copy-on-write)
+        through a chunked parallel copy (``DLROVER_SAVE_WORKERS``).
+        CUDA leaves are fetched to the host first, after the events in
+        ``ready`` (or the current stream) complete.  ``kv_payload`` is
+        the sparse adapter's ``("base"|"delta", state)`` — the blob
+        lands in a bump-allocated kv page (a base targets the arena the
+        live directory does NOT reference).  Raises
+        :class:`PagedNeedBase` when a delta cannot land (no valid epoch,
+        layout changed, arena/directory overflow): the caller re-exports
+        a full base and retries.  Returns the phase/byte accounting dict
+        (also stored in ``last_save_phases``)."""
+        import struct
+
+        entries, scalars, shard_info = _extract_entries(state_dict)
+        scalars_blob = pickle.dumps(scalars)
+        kv_kind = kv_payload[0] if kv_payload else None
+        kv_blob = (
+            pickle.dumps(kv_payload[1]) if kv_payload else b""
+        )
+        config.writing = False  # paged publishes are atomic, never torn
+
+        metas: Dict[str, Dict[str, Any]] = {}
+        order = []
+        for key, leaf in entries:
+            gshape, ranges = shard_info.get(key, (None, None))
+            shape, name, nbytes = _leaf_meta(leaf)
+            metas[key] = {
+                "shape": shape, "dtype": name, "nbytes": nbytes,
+                "global_shape": gshape, "index": ranges,
+            }
+            order.append(key)
+
+        if workers is None:
+            workers = save_workers()
+        if chunk_bytes is None:
+            chunk_bytes = save_chunk_bytes()
+
+        with self._write_lock:
+            d = self._paged_dir
+            if d is None:
+                # a respawned writer adopts the in-segment epoch so
+                # its first save stays O(touched) and never clobbers
+                # the snapshot a concurrent restore may still need
+                d = self._read_paged_directory(verify_pages=False)
+            epoch_ok = self._paged_epoch_matches(d, order, metas)
+            if epoch_ok and kv_kind == "base":
+                other = 1 - int(d["kv_active"])
+                cap = int(d["kv_arena"][other][1])
+                epoch_ok = _align_up(len(kv_blob)) <= cap
+            if epoch_ok and kv_kind is None and d.get("kv_pages"):
+                # the sparse plane disappeared — pages would go stale
+                epoch_ok = False
+            if not epoch_ok:
+                if kv_kind == "delta":
+                    raise PagedNeedBase(
+                        "no valid paged epoch for a delta save"
+                    )
+                prev_gen = int(d.get("generation", 0)) if (
+                    isinstance(d, dict)
+                ) else 0
+                d = self._paged_new_epoch(
+                    order, metas, len(kv_blob), len(scalars_blob),
+                    prev_gen=prev_gen,
+                )
+                fresh = True
+            else:
+                fresh = False
+            buf = self._shm.buf
+            gen = int(d["generation"]) + (0 if fresh else 1)
+            new_leaves = {k: dict(v) for k, v in d["leaves"].items()}
+
+            t_fetch = t_compare = t_memcpy = t_kv = 0.0
+            copied = skipped = pages = 0
+            futures: list = []
+            pool = None
+            if workers > 1:
+                from concurrent.futures import ThreadPoolExecutor
+
+                pool = ThreadPoolExecutor(
+                    max_workers=workers,
+                    thread_name_prefix="shm-save",
+                )
+            submit = pool.submit if pool is not None else None
+            if ready:
+                t0 = time.perf_counter()
+                for ev in ready:
+                    ev.synchronize()
+                t_fetch += time.perf_counter() - t0
+
+            try:
+                for i, (key, leaf) in enumerate(entries):
+                    slot = new_leaves[key]
+                    nbytes = int(slot["nbytes"])
+                    t0 = time.perf_counter()
+                    host_b = _host_bytes(leaf, nbytes)
+                    t_fetch += time.perf_counter() - t0
+                    entries[i] = (key, None)  # free eagerly
+                    if not fresh and nbytes:
+                        cur_off = (
+                            slot["off_a"] if slot["active"] == 0
+                            else slot["off_b"]
+                        )
+                        t0 = time.perf_counter()
+                        cur = np.frombuffer(
+                            buf, dtype=np.uint8, count=nbytes,
+                            offset=cur_off,
+                        )
+                        same = np.array_equal(cur, host_b)
+                        t_compare += time.perf_counter() - t0
+                        if same:
+                            skipped += nbytes
+                            continue
+                        side = 1 - int(slot["active"])
+                    else:
+                        side = 0
+                    dst_off = slot["off_a"] if side == 0 else slot["off_b"]
+                    dst = np.frombuffer(
+                        buf, dtype=np.uint8,
+                        count=max(1, nbytes), offset=dst_off,
+                    )[:nbytes]
+                    t0 = time.perf_counter()
+                    futures.extend(_copy_chunked(
+                        dst, host_b, submit, chunk_bytes))
+                    t_memcpy += time.perf_counter() - t0
+                    slot["active"] = side
+                    slot["gen"] = gen
+                    slot["crc"] = _crc(host_b)
+                    copied += nbytes
+                    pages += 1
+                t0 = time.perf_counter()
+                for f in futures:
+                    f.result()
+                t_memcpy += time.perf_counter() - t0
+            finally:
+                if pool is not None:
+                    pool.shutdown(wait=True)
+
+            # kv blob page (base -> the other arena; delta -> bump)
+            kv_pages = list(d.get("kv_pages") or ())
+            kv_active = int(d.get("kv_active", 0))
+            kv_tail = int(d.get("kv_tail", 0))
+            if kv_kind is not None:
+                t0 = time.perf_counter()
+                if kv_kind == "base":
+                    kv_active = 0 if fresh else 1 - kv_active
+                    arena_off, arena_cap = d["kv_arena"][kv_active]
+                    page_off = int(arena_off)
+                    kv_pages = []
+                else:
+                    arena_off, arena_cap = d["kv_arena"][kv_active]
+                    page_off = kv_tail
+                    if (
+                        page_off + len(kv_blob)
+                        > int(arena_off) + int(arena_cap)
+                    ):
+                        raise PagedNeedBase(
+                            "kv delta arena overflow "
+                            f"({page_off - int(arena_off)}"
+                            f"+{len(kv_blob)} > {arena_cap})"
+                        )
+                buf[page_off:page_off + len(kv_blob)] = kv_blob
+                kv_pages.append({
+                    "kind": kv_kind, "step": int(config.step),
+                    "off": page_off, "len": len(kv_blob),
+                    "crc": _crc(kv_blob), "gen": gen,
+                })
+                kv_tail = _align_up(page_off + len(kv_blob))
+                copied += len(kv_blob)
+                pages += 1
+                t_kv = time.perf_counter() - t0
+
+            new_dir = {
+                "generation": gen,
+                "config": config,
+                "order": order,
+                "leaves": new_leaves,
+                "scalars_blob": scalars_blob,
+                "kv_pages": kv_pages,
+                "kv_arena": d["kv_arena"],
+                "kv_active": kv_active,
+                "kv_tail": kv_tail,
+                "data_end": d["data_end"],
+                "dir_cap": d["dir_cap"],
+            }
+            payload = pickle.dumps(new_dir)
+            if len(payload) + 8 > int(d["dir_cap"]):
+                if kv_kind == "delta":
+                    raise PagedNeedBase("page directory slot overflow")
+                raise RuntimeError(
+                    "paged directory exceeds its slot even on a "
+                    f"fresh epoch ({len(payload)} > {d['dir_cap']})"
+                )
+            # chaos hook: a kill here lands BETWEEN the data/page
+            # writes and the directory publish — the crash-consistency
+            # tests prove readers still see the previous generation
+            from dlrover_tpu_torch import chaos as _chaos
+
+            _chaos.fire(
+                "ckpt.paged_write", step=config.step, handler=self,
+                generation=gen, kind="base" if fresh else "delta",
+            )
+            t0 = time.perf_counter()
+            dir_cap = int(d["dir_cap"])
+            prev_slot = None if fresh else self._paged_active_slot()
+            new_header = fresh or prev_slot is None
+            slot_idx = 0 if new_header else 1 - prev_slot
+            slot_off = _PAGED_HDR + slot_idx * dir_cap
+            buf[slot_off + 8:slot_off + 8 + len(payload)] = payload
+            struct.pack_into(
+                "<II", buf, slot_off, len(payload), _crc(payload)
+            )
+            if new_header:
+                # invalidate the other slot BEFORE the magic goes in:
+                # a reader must never parse pre-epoch garbage
+                other_off = _PAGED_HDR + (1 - slot_idx) * dir_cap
+                struct.pack_into("<II", buf, other_off, 0, 0)
+                struct.pack_into("<I", buf, 12, dir_cap)
+                buf[0:8] = PAGED_MAGIC
+            buf[8] = slot_idx  # THE atomic publish
+            self._paged_dir = new_dir
+            self._meta.set({
+                "paged": True,
+                "tensors": {},
+                "config": config,
+                "generation": gen,
+                "scalar_offset": int(d["data_end"]),
+                "scalar_nbytes": 0,
+            })
+            t_publish = time.perf_counter() - t0
+
+        total = sum(m["nbytes"] for m in metas.values()) + len(kv_blob)
+        self.last_save_phases = {
+            "fetch_s": round(t_fetch, 6),
+            "compare_s": round(t_compare, 6),
+            "memcpy_s": round(t_memcpy, 6),
+            "kv_s": round(t_kv, 6),
+            "publish_s": round(t_publish, 6),
+            "paged": True,
+            "kind": "base" if fresh else "delta",
+            "generation": gen,
+            "pages_written": pages,
+            "bytes": int(copied),
+            "bytes_skipped": int(skipped),
+            "bytes_total": int(total),
+            "kv_bytes": len(kv_blob),
+        }
+        _chaos.fire("ckpt.shm_save", step=config.step, handler=self)
+        logger.debug(
+            "rank %s paged save step %s gen %s: %s, wrote %d pages "
+            "%.1f MB (skipped %.1f MB of %.1f MB)",
+            self._rank, config.step, gen,
+            "base" if fresh else "delta", pages, copied / 2**20,
+            skipped / 2**20, total / 2**20,
+        )
+        return dict(self.last_save_phases)
+
+    def _paged_epoch_matches(
+        self, d: Optional[Dict[str, Any]], order, metas,
+    ) -> bool:
+        """A directory can absorb a delta save only if the dense leaf
+        layout is unchanged — same keys in the same order with the
+        same shapes/dtypes (their extents are preallocated)."""
+        if not isinstance(d, dict) or d.get("order") != order:
+            return False
+        leaves = d.get("leaves") or {}
+        for key in order:
+            e = leaves.get(key)
+            m = metas[key]
+            if (
+                e is None
+                or tuple(e["shape"]) != tuple(m["shape"])
+                or e["dtype"] != m["dtype"]
+                or int(e["nbytes"]) != int(m["nbytes"])
+            ):
+                return False
+        return self._attach(min_size=int(d.get("data_end", 0))) is not None
+
+    def _paged_new_epoch(
+        self, order, metas, kv_len: int, scalars_len: int,
+        prev_gen: int = 0,
+    ) -> Dict[str, Any]:
+        """Lay out a fresh epoch: directory slots, per-leaf ping-pong
+        extents, two kv arenas — and size/(re)create the segment.
+        Returns the epoch skeleton (generation = next to publish)."""
+        leaves: Dict[str, Dict[str, Any]] = {}
+        # directory capacity: a prototype pickle of the fully
+        # populated directory, doubled, plus headroom for the kv page
+        # chain the epoch will accumulate
+        proto = {
+            k: {**m, "off_a": 0, "off_b": 0, "active": 0,
+                "gen": 0, "crc": 0}
+            for k, m in metas.items()
+        }
+        proto_len = len(pickle.dumps({
+            "generation": 0, "config": CheckpointConfig(),
+            "order": order, "leaves": proto,
+            "scalars_blob": b"\0" * scalars_len,
+            "kv_pages": [], "kv_arena": ((0, 0), (0, 0)),
+            "kv_active": 0, "kv_tail": 0, "data_end": 0,
+            "dir_cap": 0,
+        }))
+        dir_cap = _align_up(2 * proto_len + 65536)
+        off = _align_up(_PAGED_HDR + 2 * dir_cap)
+        for key in order:
+            m = metas[key]
+            ext = _align_up(int(m["nbytes"]))
+            leaves[key] = {
+                **m, "off_a": off, "off_b": off + ext,
+                "active": 0, "gen": 0, "crc": 0,
+            }
+            off += 2 * ext
+        arenas = ((0, 0), (0, 0))
+        if kv_len:
+            kv_cap = _align_up(kv_len + max(kv_len // 2, 1 << 20))
+            arenas = ((off, kv_cap), (off + kv_cap, kv_cap))
+            off += 2 * kv_cap
+        total = off
+        if self._shm is None or self._shm.size < total:
+            if self._shm is not None:
+                logger.warning(
+                    "paged epoch needs %d bytes > segment %d: "
+                    "recreating (previous snapshot discarded)",
+                    total, self._shm.size,
+                )
+                self._shm.close()
+                self._shm.unlink()
+                self._shm = None
+            self._shm = get_or_create_shm(self._shm_name, total)
+        return {
+            "generation": prev_gen + 1,
+            "config": None,
+            "order": order,
+            "leaves": leaves,
+            "scalars_blob": b"",
+            "kv_pages": [],
+            "kv_arena": arenas,
+            "kv_active": 0,
+            "kv_tail": int(arenas[0][0]),
+            "data_end": total,
+            "dir_cap": dir_cap,
+        }
+
+    def _paged_active_slot(self) -> Optional[int]:
+        shm = self._attach(min_size=_PAGED_HDR)
+        if shm is None or bytes(shm.buf[0:8]) != PAGED_MAGIC:
+            return None
+        slot = shm.buf[8]
+        return int(slot) if slot in (0, 1) else None
+
+    # -- paged read --------------------------------------------------------
+
+    def _read_paged_directory(
+        self, verify_pages: bool = True,
+    ) -> Optional[Dict[str, Any]]:
+        """Parse the in-segment page directory.  Tries the active
+        slot first; a torn slot (bad length/CRC/pickle, or pages that
+        fail their CRC) falls back to the other slot — the previous
+        generation.  Returns None when neither slot verifies."""
+        import struct
+
+        shm = self._attach(min_size=_PAGED_HDR)
+        if shm is None or shm.size < _PAGED_HDR:
+            return None
+        if bytes(shm.buf[0:8]) != PAGED_MAGIC:
+            return None
+        active = int(shm.buf[8])
+        (dir_cap,) = struct.unpack_from("<I", shm.buf, 12)
+        if active not in (0, 1) or dir_cap <= 8:
+            return None
+        if shm.size < _PAGED_HDR + 2 * dir_cap:
+            shm = self._attach(min_size=_PAGED_HDR + 2 * dir_cap)
+            if shm is None or bytes(shm.buf[0:8]) != PAGED_MAGIC:
+                return None
+        for slot in (active, 1 - active):
+            off = _PAGED_HDR + slot * dir_cap
+            ln, crc = struct.unpack_from("<II", shm.buf, off)
+            if not 0 < ln <= dir_cap - 8:
+                continue
+            payload = bytes(shm.buf[off + 8:off + 8 + ln])
+            if _crc(payload) != crc:
+                logger.warning(
+                    "paged directory slot %d torn (crc mismatch)%s",
+                    slot,
+                    "; falling back to the previous generation"
+                    if slot == active else "",
+                )
+                continue
+            try:
+                d = load_meta(payload)
+            except Exception:  # noqa: BLE001 - a torn slot falls back
+                continue
+            if not isinstance(d, dict) or "generation" not in d:
+                continue
+            data_end = int(d.get("data_end", 0))
+            if data_end > shm.size:
+                shm = self._attach(min_size=data_end)
+                if shm is None:
+                    continue
+            if verify_pages and not self._paged_verify(d, shm.buf):
+                logger.warning(
+                    "paged generation %s fails page CRC; %s",
+                    d.get("generation"),
+                    "falling back to the previous generation"
+                    if slot == active else "refusing the snapshot",
+                )
+                continue
+            if slot != active:
+                logger.warning(
+                    "paged restore fell back to previous generation "
+                    "%s", d.get("generation"),
+                )
+            return d
+        return None
+
+    def _paged_verify(self, d: Dict[str, Any], buf) -> bool:
+        """Every extent/page the directory references must match its
+        recorded CRC — a half-written or clobbered generation (e.g. a
+        re-epoch that overwrote pages before dying) must not restore."""
+        try:
+            for key in d["order"]:
+                e = d["leaves"][key]
+                nbytes = int(e["nbytes"])
+                if not nbytes:
+                    continue
+                off = e["off_a"] if int(e["active"]) == 0 else e["off_b"]
+                got = _crc(np.frombuffer(
+                    buf, dtype=np.uint8, count=nbytes, offset=int(off)
+                ))
+                if got != int(e["crc"]):
+                    return False
+            for p in d.get("kv_pages") or ():
+                blob = np.frombuffer(
+                    buf, dtype=np.uint8, count=int(p["len"]),
+                    offset=int(p["off"]),
+                )
+                if _crc(blob) != int(p["crc"]):
+                    return False
+        except (KeyError, TypeError, ValueError, IndexError):
+            return False
+        return True
+
+    @staticmethod
+    def _paged_metas(d: Dict[str, Any]) -> Dict[str, TensorMeta]:
+        """Flat-compatible TensorMetas over each leaf's ACTIVE extent
+        (offset = extent offset), so every consumer of (views, metas)
+        works unchanged."""
+        metas: Dict[str, TensorMeta] = {}
+        for key in d["order"]:
+            e = d["leaves"][key]
+            off = int(
+                e["off_a"] if int(e["active"]) == 0 else e["off_b"]
+            )
+            gshape, index = e.get("global_shape"), e.get("index")
+            metas[key] = TensorMeta(
+                shape=tuple(e["shape"]), dtype=e["dtype"],
+                offset=off, nbytes=int(e["nbytes"]),
+                global_shape=tuple(gshape) if gshape else None,
+                index=tuple(tuple(r) for r in index) if index else None,
+            )
+        return metas
+
+    def _paged_kv_state(
+        self, d: Dict[str, Any], buf,
+    ) -> Optional[Dict[str, Any]]:
+        """Replay the kv page chain (base + deltas) back to one full
+        kv export — bit-identical to what a flat full save would have
+        carried."""
+        pages = d.get("kv_pages") or []
+        if not pages:
+            return None
+        from dlrover_tpu_torch.checkpoint.sparse import merge_kv_states
+
+        blobs = [
+            pickle.loads(bytes(
+                buf[int(p["off"]):int(p["off"]) + int(p["len"])]
+            ))
+            for p in pages
+        ]
+        return merge_kv_states(blobs[0], blobs[1:])
+
+    def _load_flat_paged(
+        self, stats=None, detach: bool = True,
+    ) -> Tuple[
+        Optional[CheckpointConfig], Dict[str, Any], Dict[str, Any]
+    ]:
+        from dlrover_tpu_torch.checkpoint.restore import detach_flat
+        from dlrover_tpu_torch.checkpoint.sparse import KV_STATE_KEY
+
+        t0 = time.perf_counter()
+        d = self._read_paged_directory(verify_pages=True)
+        if d is None:
+            logger.warning(
+                "paged shm snapshot unreadable (torn or absent); "
+                "refusing to load"
+            )
+            return None, {}, {}
+        buf = self._shm.buf
+        metas = self._paged_metas(d)
+        kv = self._paged_kv_state(d, buf)
+        if stats is not None:
+            stats.read_s += time.perf_counter() - t0
+        if detach:
+            flat = detach_flat(metas, buf, stats=stats)
+        else:
+            flat = tensor_views(metas, buf, stats=stats)
+        flat.update(pickle.loads(d["scalars_blob"]))
+        if kv is not None:
+            flat.update(_flatten_state_dict({KV_STATE_KEY: kv}))
+        return d["config"], flat, metas
+
+    def _read_raw_paged(
+        self,
+    ) -> Tuple[Optional[CheckpointConfig], Any, Dict]:
+        """Materialize the paged snapshot as FLAT raw bytes + flat
+        meta — the agent's persist path (and the breakpoint save)
+        consume the exact format a flat save would have produced, so
+        the storage tier never learns about pages."""
+        from dlrover_tpu_torch.checkpoint.sparse import KV_STATE_KEY
+
+        d = self._read_paged_directory(verify_pages=True)
+        if d is None:
+            return None, b"", {}
+        buf = self._shm.buf
+        page_metas = self._paged_metas(d)
+        arrays: Dict[str, Any] = {
+            key: (m.offset, m.nbytes) for key, m in page_metas.items()
+        }
+        scalars = dict(pickle.loads(d["scalars_blob"]))
+        kv = self._paged_kv_state(d, buf)
+        kv_arrays: Dict[str, np.ndarray] = {}
+        if kv is not None:
+            for k, v in _flatten_state_dict({KV_STATE_KEY: kv}).items():
+                if isinstance(v, (np.ndarray, np.generic)):
+                    kv_arrays[k] = np.ascontiguousarray(v)
+                    arrays[k] = kv_arrays[k]
+                else:
+                    scalars[k] = v
+        metas: Dict[str, TensorMeta] = {}
+        offset = 0
+        for key in arrays:
+            src = page_metas.get(key)
+            if src is not None:
+                shape, dtype, nbytes = src.shape, src.dtype, src.nbytes
+            else:
+                arr = kv_arrays[key]
+                shape, dtype, nbytes = (tuple(arr.shape), str(arr.dtype),
+                                        int(arr.nbytes))
+            metas[key] = TensorMeta(
+                shape=tuple(shape), dtype=dtype, offset=offset,
+                nbytes=nbytes,
+                global_shape=src.global_shape if src else None,
+                index=src.index if src else None,
+            )
+            offset += nbytes
+        blob = pickle.dumps(scalars)
+        raw = bytearray(offset + len(blob))
+        for key, val in arrays.items():
+            m = metas[key]
+            if not m.nbytes:
+                continue
+            if key in kv_arrays:
+                src_b = val.reshape(-1).view(np.uint8)
+            else:
+                src_b = np.frombuffer(buf, dtype=np.uint8, count=val[1],
+                                      offset=val[0])
+            np.frombuffer(raw, dtype=np.uint8, count=m.nbytes,
+                          offset=m.offset)[:] = src_b
+        raw[offset:offset + len(blob)] = blob
+        config: CheckpointConfig = d["config"]
+        meta = {
+            "tensors": metas,
+            "config": config,
+            "scalar_offset": offset,
+            "scalar_nbytes": len(blob),
+            "paged_generation": int(d["generation"]),
+        }
+        return config, bytes(raw), meta
+
+    def paged_generation(self) -> int:
+        """Generation of the currently readable paged snapshot (0 if
+        none) — test/diagnostic surface."""
+        d = self._read_paged_directory(verify_pages=False)
+        return int(d["generation"]) if d else 0
+
     # -- read (agent side / restore) --------------------------------------
 
     def metadata(self) -> Dict[str, Any]:
@@ -663,7 +1398,10 @@ class SharedMemoryHandler:
                 except FileNotFoundError:
                     return None
             if min_size and self._shm.size < min_size:
-                self._shm.close()
+                try:
+                    self._shm.close()
+                except BufferError:  # a reader still holds a view
+                    pass
                 self._shm = None
                 try:
                     self._shm = PersistentSharedMemory(name=self._shm_name)
@@ -694,7 +1432,13 @@ class SharedMemoryHandler:
         t0 = time.perf_counter()
         meta = self._meta.get(default_if_absent=True)
         if not meta:
+            # the meta host may have died with the trainer; a paged
+            # segment stands alone (the directory IS the metadata)
+            if self._paged_active_slot() is not None:
+                return self._load_flat_paged(stats=stats, detach=detach)
             return None, {}, {}
+        if meta.get("paged"):
+            return self._load_flat_paged(stats=stats, detach=detach)
         config: CheckpointConfig = meta["config"]
         if config.writing:
             logger.warning("shm snapshot is mid-write; refusing to load")
@@ -738,7 +1482,11 @@ class SharedMemoryHandler:
         never blocked behind a disk write (see saver._save_shard)."""
         meta = self._meta.get(default_if_absent=True)
         if not meta:
+            if self._paged_active_slot() is not None:
+                return self._read_raw_paged()
             return None, b"", {}
+        if meta.get("paged"):
+            return self._read_raw_paged()
         config: CheckpointConfig = meta["config"]
         total = meta["scalar_offset"] + meta["scalar_nbytes"]
         shm = self._attach(min_size=total)

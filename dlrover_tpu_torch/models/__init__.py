@@ -1,6 +1,7 @@
 """Model zoo of the port (``dlrover_tpu/models``): GPT, the Llama
-family, their pipelined forms and the chunked loss so far."""
+family, their pipelined forms, the chunked loss and DeepFM so far."""
 
+from dlrover_tpu_torch.models.deepfm import DeepFM, DeepFMConfig
 from dlrover_tpu_torch.models.gpt import (
     GPT,
     GPTConfig,
@@ -14,6 +15,8 @@ from dlrover_tpu_torch.models.losses import (
 )
 
 __all__ = [
+    "DeepFM",
+    "DeepFMConfig",
     "GPT",
     "GPTConfig",
     "Llama",

@@ -176,9 +176,17 @@ class PPOStateAdapter:
         rows = 0
         if self._buffer is not None:
             self._buffer.reset()
+            from dlrover_tpu_torch.checkpoint.shm_handler import map_leaves
+
             batches = state.get(BUFFER_KEY) or {}
             for name in sorted(batches):
-                self._buffer.add(batches[name])
+                # the buffer keeps what it is given, and a restore may
+                # hand over views of the shm segment or a rank file's
+                # mmap: it gets private copies
+                self._buffer.add(map_leaves(
+                    lambda _, leaf: (leaf.clone()
+                                     if isinstance(leaf, torch.Tensor)
+                                     else leaf), batches[name]))
             rows = int(self._buffer.num)
         cursor_state = state.get(CURSOR_KEY)
         if cursor_state:

@@ -26,7 +26,9 @@ layout, so the map is by rule:
   expert kernels ``moe/experts_w_{in,gate,out}`` (``[e, in, out]``) are
   parameters of the same names on ``moe``;
 - the critic's ``value_head/{kernel,bias}`` is ``value_head.{weight,
-  bias}`` (the Dense rule).
+  bias}`` (the Dense rule);
+- DeepFM's dense tower ``dense_i/{w,b}`` is ``dense_i.{weight,bias}``
+  (:func:`deepfm_dense_from_jax`).
 
 The decode ``cache`` collection of the JAX package (``block_i/attn/
 {cached_key, cached_value, cache_index}`` and GPT's ``pos_index``) goes
@@ -475,3 +477,28 @@ def adamw_state_from_tree(tree, optimizer: torch.optim.Optimizer,
             _copy_into(st["exp_avg"], mu[path])
             _copy_into(st["exp_avg_sq"], nu[path])
             st["step"].fill_(float(count))
+
+
+_DEEPFM_LEAVES = {"w": "weight", "b": "bias"}
+
+
+def deepfm_dense_from_jax(params: Mapping[str, Any], tower: torch.nn.Module):
+    """Load DeepFM's dense params of the JAX package (``{"dense_i":
+    {"w", "b"}}``, ``w`` ``[in, out]``) into the port's
+    :class:`~dlrover_tpu_torch.models.deepfm.DenseTower` (``dense_i.
+    weight`` in the same layout, ``dense_i.bias``); values are copied
+    exactly."""
+    own = dict(tower.named_parameters())
+    seen = set()
+    with torch.no_grad():
+        for (*module, leaf), value in _flat(params):
+            name = ".".join([*module, _DEEPFM_LEAVES.get(leaf, leaf)])
+            if name not in own:
+                raise KeyError(f"DeepFM tower has no parameter {name!r}")
+            own[name].copy_(_tensor(value).reshape(own[name].shape))
+            seen.add(name)
+    missing = sorted(set(own) - seen)
+    if missing:
+        raise KeyError(f"JAX params lack {missing}")
+    return tower
+

@@ -673,7 +673,6 @@ def _sharded_restore_with_an_adapter(d):
 
 
 @pytest.mark.parametrize("make,match", [
-    (_sharded_restore_with_an_adapter, "slice 6"),
     (lambda d: Checkpointer("gs://bucket/run"), "slice 8"),
 ])
 def test_options_of_later_slices_raise(saver, tmp_path, make, match):
@@ -682,8 +681,9 @@ def test_options_of_later_slices_raise(saver, tmp_path, make, match):
     moved to ``test_options_of_slice_4_2_no_longer_raise``.  The adapter
     contract of ``register_sparse`` came with slice 7 (an adapter
     registers: ``tests/test_torch_rl_elastic.py``); a resharded restore
-    with one registered, the kv branches of ``load_sharded``, is still
-    slice 6's."""
+    with one registered, the kv branches of ``load_sharded``, came with
+    the sparse slice: its case moved to
+    ``test_options_of_the_sparse_slice_no_longer_raise``."""
     with pytest.raises(NotImplementedError, match=match):
         make(tmp_path)
 
@@ -699,10 +699,35 @@ def test_options_of_slice_4_2_no_longer_raise(saver, tmp_path, make):
     assert out in (None, (None, {}))
 
 
-def test_paged_tier_raises(saver, tmp_path, monkeypatch):
+def test_options_of_the_sparse_slice_no_longer_raise(saver, tmp_path,
+                                                     monkeypatch):
+    """``load_sharded`` with an adapter registered and nothing saved
+    restores nothing; an engine starts under ``DLROVER_SHM_PAGED``."""
+    assert _sharded_restore_with_an_adapter(tmp_path) == (None, {})
     monkeypatch.setenv("DLROVER_SHM_PAGED", "1")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        _engine(tmp_path)
+    _engine(tmp_path).close()
+
+
+def test_paged_tier_raises(saver, tmp_path, monkeypatch):
+    """The paged tier (``DLROVER_SHM_PAGED``) refuses what it cannot
+    hold: a delta page on a segment with no paged epoch raises
+    ``PagedNeedBase`` (the engine then re-exports a base); the engine's
+    first paged save is a base, and it restores."""
+    from dlrover_tpu_torch.checkpoint.shm_handler import PagedNeedBase
+
+    monkeypatch.setenv("DLROVER_SHM_PAGED", "1")
+    engine = _engine(tmp_path)
+    handler = engine._shm_handler
+    with pytest.raises(PagedNeedBase, match="no valid paged epoch"):
+        handler.save_state_dict_paged(
+            {"w": np.zeros(4, np.float32)}, CheckpointConfig(step=1),
+            kv_payload=("delta", {}))
+    assert engine.save_to_memory(1, {"w": torch.ones(4)})
+    assert engine.last_save_phases["kind"] == "base"
+    step, state = engine.load()
+    assert step == 1 and torch.equal(state["w"], torch.ones(4))
+    handler.unlink()
+    engine.close()
 
 
 # -- on the card ---------------------------------------------------------------

@@ -146,6 +146,40 @@ def test_the_modules_of_slice_7_are_checked_and_name_their_reference(
     assert reference in doc
 
 
+SLICE_6 = [
+    ("dlrover_tpu_torch.native.__init__", "dlrover_tpu/native/__init__.py"),
+    ("dlrover_tpu_torch.ops.kv_variable", "dlrover_tpu/ops/kv_variable.py"),
+    ("dlrover_tpu_torch.checkpoint.sparse",
+     "dlrover_tpu/checkpoint/sparse.py"),
+    ("dlrover_tpu_torch.checkpoint.shm_handler",
+     "dlrover_tpu/checkpoint/shm_handler.py"),
+    ("dlrover_tpu_torch.checkpoint.engine",
+     "dlrover_tpu/checkpoint/engine.py"),
+    ("dlrover_tpu_torch.models.deepfm", "dlrover_tpu/models/deepfm.py"),
+    ("dlrover_tpu_torch.trainer.sparse_pipeline",
+     "dlrover_tpu/trainer/sparse_pipeline.py"),
+    ("dlrover_tpu_torch.chaos.scenarios", "dlrover_tpu/chaos/scenarios.py"),
+    ("dlrover_tpu_torch.chaos.harness", "dlrover_tpu/chaos/harness.py"),
+]
+
+
+@pytest.mark.parametrize("module,reference", SLICE_6)
+def test_the_modules_of_the_sparse_slice_are_checked_and_name_their_reference(
+        module, reference):
+    """KvVariable, the sparse adapter, the paged tier, DeepFM, the
+    split-step pipeline and the sparse chaos set are among the modules
+    the tests above import and scan, each naming the reference it
+    mirrors, which exists; the C++ store is the reference's, byte for
+    byte."""
+    assert module in MODULES
+    assert (ROOT / reference).exists()
+    doc = ast.get_docstring(ast.parse(
+        (ROOT / module.replace(".", os.sep)).with_suffix(".py").read_text()))
+    assert reference in doc
+    assert (PKG / "native" / "kv_store.cc").read_bytes() == \
+        (ROOT / "dlrover_tpu" / "native" / "kv_store.cc").read_bytes()
+
+
 def test_the_elastic_example_is_checked_and_names_its_reference():
     """The twin of ``examples/train_gpt_elastic.py`` is among the
     scanned modules and names the reference example."""

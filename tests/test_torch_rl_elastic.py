@@ -271,7 +271,9 @@ def test_adapter_detects_torn_snapshot(engine):
 
 def test_register_sparse_takes_the_adapter_surface(job):
     """Any object with the adapter surface registers; one without it,
-    or a replicated engine over several ranks, is refused."""
+    or a replicated engine over several ranks, is refused.  With one
+    registered, ``load_sharded`` (whose kv branches came with the
+    sparse slice) restores nothing from an empty directory."""
     ckpt = CheckpointEngine(job, replicated=True, local_rank=0,
                             global_rank=0, world_size=1)
     with pytest.raises(TypeError, match="import_state"):
@@ -281,8 +283,7 @@ def test_register_sparse_takes_the_adapter_surface(job):
     with pytest.raises(ValueError, match="per-rank shards"):
         wide.register_sparse(PPOStateAdapter(None))
     ckpt.register_sparse(PPOStateAdapter(None, include_roles=False))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ckpt.load_sharded({"w": torch.zeros(2)})
+    assert ckpt.load_sharded({"w": torch.zeros(2)}) == (None, {})
     ckpt.close()
     wide.close()
 
