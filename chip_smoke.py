@@ -117,7 +117,11 @@ Phases, each fatal on failure:
    supervises a GPT-2 small worker (seq 1024, global batch 32,
    micro-batch 8, AdamW, flash attention, the whole train state to shm
    every 2 steps, 8 steps, the final step to storage) that it writes
-   into the run's directory.  A control run under no scenario; then,
+   into the run's directory.  The control is the worker's training in
+   this process (its model, seed, batch, AdamW and step, 8 steps, no
+   launcher: a launcher run under no scenario was cut to keep the
+   script inside its limit; its loss must fall, its launches are the
+   path ``launcher_control_inprocess``); then,
    under ``kill_worker_midstep(seed=42)`` with step window [3, 6],
    a: cold restarts, b: ``--warm-restart`` (the worker forked from the
    forkserver template), one run each.
@@ -346,11 +350,29 @@ Phases, each fatal on failure:
       that never touches CUDA), the tower on the card, the spill tier
       armed: the losses equal the uninterrupted control's (run here on
       the card), ``KvStateRoundTrip`` holds, kill -> first step seconds.
+18. BERT and GPT's save_attn remat (slice 5.4), each check fatal:
+   a. a narrow BERT in fp32 on the card against the CPU (logits within
+      1e-4); then ``Bert(BertConfig())`` at full width (vocab 30528, 12
+      layers, 12 heads, hidden 768, seq 512) through ``auto_accelerate``
+      with ``[half, checkpoint]`` and AdamW, 8 steps on one MLM batch
+      of 32 x 512 (two segments, 15% of positions masked, the last 32
+      positions of half the rows padded): a finite loss that falls, no
+      hand kernel launched (BERT's attention is ATen, as the
+      reference's is jnp), the median step, tokens/s, MFU (6 FLOPs per
+      weight per token plus 12 L s d of non-causal attention), the peak
+      and the top ops of one step from ``utils/profiler``;
+   b. inside phase 5b, on its GPT-2 XL and int8 q-AdamW state (no
+      second XL model): one step under full remat and one under
+      ``remat_policy="save_attn"`` from the same state: losses and
+      updated parameters within rtol 1e-3 / atol 1e-5, exactly 96 B1,
+      48 B2, 48 B3 and 1 B6 in the save_attn step; then 4 steps of
+      each policy, interleaved, median and peak beside 5b's.
 
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  ``--only 2,11`` runs the build
 and the named phases alone (2, 3, 4, 5b, 9b, 10, 11, 12, 13, 13a, 13b,
-14, 14a-14e, 15, 15a, 15b, 16, 16a-16c, 17 and 17a-17c so far; 5lr,
+14, 14a-14e, 15, 15a, 15b, 16, 16a-16c, 17, 17a-17c, 18 (18a, then 5b
+with 18b), 18a and 18b (5b with 18b) so far; 5lr,
 which the full run leaves out: phase 5a's model at lr 1e-3 with the
 flash kernels and with the plain attention math, and at SMALL_LR; and
 11d, which the full run leaves out too: 11b's Llama-3-8B for 12 steps
@@ -1914,6 +1936,10 @@ def phase_train_xl(card):
     _report_qadam(trainer, result, n_params, "train GPT-2 XL int8 q-AdamW",
                   card)
     profile_step(trainer, trainer.train_data[0], card, "GPT-2 XL int8 q-AdamW")
+    # 18b runs here, on 5b's model and state: no second XL model
+    t0 = time.perf_counter()
+    phase_save_attn(trainer, card, XL_BF16["ms"], result["peak_bytes"])
+    log(f"chip_smoke: phase 18b took {time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -3378,20 +3404,15 @@ def launcher_child(label: str, workdir: str, ckpt_dir: str,
     """One launcher run of phase 8, in a process of its own that never
     touches CUDA (this process is the agent): ``run.main`` with the
     GPT-2 small worker under ``kill_worker_midstep`` (``8a``, ``8b``
-    with ``--warm-restart``) or under no scenario (``control``).  The
-    run's invariants are evaluated on its event log; what this process
-    and its children mapped goes into ``result_path``."""
+    with ``--warm-restart``).  The run's invariants are evaluated on its
+    event log; what this process and its children mapped goes into
+    ``result_path``."""
     from dlrover_tpu_torch.agent.forkserver import TRAINER_PRELOAD
     from dlrover_tpu_torch.chaos import harness, scenarios
-    from dlrover_tpu_torch.chaos.schedule import Scenario
 
     warm = label == "8b"
-    if label == "control":
-        scenario = Scenario.from_dict({"name": "control", "seed": 0,
-                                       "rules": []})
-    else:
-        scenario = scenarios.kill_worker_midstep(seed=L_SEED)
-        scenario.rules[0].step_window = list(L_KILL_WINDOW)
+    scenario = scenarios.kill_worker_midstep(seed=L_SEED)
+    scenario.rules[0].step_window = list(L_KILL_WINDOW)
     out_dir = os.path.join(workdir, "out")
     os.makedirs(out_dir, exist_ok=True)
     env, event_log = harness.scenario_env(
@@ -3404,22 +3425,20 @@ def launcher_child(label: str, workdir: str, ckpt_dir: str,
     t0 = time.time()
     with _ProcSampler(workdir) as sampler:
         rc = harness.launch(
-            None if label == "control" else scenario, env,
+            scenario, env,
             [script, ckpt_dir, out_dir], max_restarts=L_MAX_RESTARTS,
             monitor_interval=L_MONITOR_INTERVAL_S, warm_restart=warm)
     wall = time.time() - t0
     report = harness._build_report(scenario, rc, workdir, event_log)
-    checks = []
-    if label != "control":
-        with open(control_path) as f:
-            control = json.load(f)
-        # the tier-1 twin's set: the reference's acceptance, whose
-        # goodput ledger must name >= 90% of the lost time
-        checks = harness.invariants_for_scenario(
-            scenario.name, L_STEPS, L_CKPT_EVERY, workdir) + [
-            harness.RestoredFromTier("shm"),
-            harness.LossTrajectoryMatches(control),
-        ]
+    with open(control_path) as f:
+        control = json.load(f)
+    # the tier-1 twin's set: the reference's acceptance, whose goodput
+    # ledger must name >= 90% of the lost time
+    checks = harness.invariants_for_scenario(
+        scenario.name, L_STEPS, L_CKPT_EVERY, workdir) + [
+        harness.RestoredFromTier("shm"),
+        harness.LossTrajectoryMatches(control),
+    ]
     harness.check_invariants(report, checks)
     result = {
         "label": label, "rc": rc, "ok": report.ok, "wall_s": wall,
@@ -3501,9 +3520,10 @@ def _incarnation_counts(inc) -> dict:
 
 def _check_launcher_run(r, per_step, control=None) -> list:
     """The failures of one launcher run of phase 8, as text.  With
-    ``control`` (the control run's losses of steps 1..L_STEPS) every
-    loss of every incarnation must equal the control's at its step bit
-    for bit: the replay from shm is exact on the card."""
+    ``control`` (the control's losses of steps 1..L_STEPS,
+    ``_launcher_control``) every loss of every incarnation must equal
+    the control's at its step bit for bit: the replay from shm is exact
+    on the card."""
     failures = []
     label = r["label"]
     incs = sorted(r["incarnations"], key=lambda i: i["restart_count"])
@@ -3512,9 +3532,8 @@ def _check_launcher_run(r, per_step, control=None) -> list:
         failures.append(f"rc {r['rc']}, failed invariants {bad}")
     if r["committed"] != L_STEPS:
         failures.append(f"committed step {r['committed']}, not {L_STEPS}")
-    want = 1 if label == "control" else 2
-    if len(incs) != want:
-        failures.append(f"{len(incs)} incarnations, not {want}")
+    if len(incs) != 2:
+        failures.append(f"{len(incs)} incarnations, not 2")
     for inc in incs:
         steps = len(inc["losses"])
         expect = _zero_counts(**{f"flash_attention.{k}": per_step * steps
@@ -3557,12 +3576,6 @@ def _check_launcher_run(r, per_step, control=None) -> list:
         failures.append(f"shm segments: unlinked {r['shm_unlinked']}, "
                         f"left {r['shm_left']}")
     events = r["events"]
-    if label == "control":
-        losses = [incs[0]["losses"][str(s)] for s in range(1, L_STEPS + 1)] \
-            if incs else []
-        if incs and not losses[-1] < losses[0]:
-            failures.append(f"the control's loss did not fall: {losses}")
-        return failures
     kills = [t for t in r["timeline"] if t[3] == "kill"]
     if len(r["timeline"]) != 1 or len(kills) != 1 or not (
             L_KILL_WINDOW[0] <= kills[0][4] <= L_KILL_WINDOW[1]):
@@ -3641,39 +3654,82 @@ def _recovery_breakdown(r) -> dict:
     return out
 
 
+def _launcher_control(cfg):
+    """Phase 8's control: the worker's training (its model, seed,
+    batch, AdamW and step; ``LAUNCHER_WORKER_SCRIPT``) for ``L_STEPS``
+    steps in this process, with every launch count set to 0 just before
+    and read just after.  Returns (losses, the median of steps 3 on in
+    seconds, counts).  It replaces a launcher run under no scenario:
+    the kill runs start the same processes and hold the launcher's
+    invariants themselves."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models.gpt import GPT, cross_entropy_loss
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        TrainState,
+        make_train_step,
+    )
+
+    model = GPT(cfg, seed=0)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=1e-4)
+    step_fn = make_train_step(
+        lambda m, b: cross_entropy_loss(m(b["x"]), b["y"]), optimizer,
+        grad_accum=L_GLOBAL_BATCH // L_MICRO)
+    data = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (L_GLOBAL_BATCH, SMALL_SEQ + 1), dtype=np.int32)
+    batch = {"x": data[:, :-1], "y": data[:, 1:]}
+    state = TrainState.create(model, optimizer)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(L_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    return losses, statistics.median(secs[2:]), counts
+
+
 def phase_launcher(card) -> dict:
     """Phase 8: slice 3b.2 on the card — ``python -m
     dlrover_tpu_torch.run`` (its ``main``) supervising the GPT-2 small
     worker, which is SIGKILLed mid-step by ``kill_worker_midstep`` and
     must be respawned and restored from shm: 8a cold, 8b with
-    ``--warm-restart``, one run each, after a control run under no
-    scenario.  Returns the launch
-    counts of the runs, summed over their incarnations."""
+    ``--warm-restart``, one run each, against the control losses of the
+    worker's training in this process (``_launcher_control``).  Returns
+    the launch counts of the runs, summed over their incarnations."""
+    import math
+
     from dlrover_tpu_torch.models.gpt import GPTConfig
 
     cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash")
     per_step = cfg.num_layers * (L_GLOBAL_BATCH // L_MICRO)
     tokens = L_GLOBAL_BATCH * SMALL_SEQ
     failures = []
-    control = _launcher_run("control", 0)
-    failures += [f"control: {f}" for f in _check_launcher_run(
-        control, per_step)]
-    if failures:
-        raise AssertionError("launcher: " + "; ".join(failures))
-    inc = control["incarnations"][0]
-    control_losses = [inc["losses"][str(s)] for s in range(1, L_STEPS + 1)]
+    control_losses, steady, control_counts = _launcher_control(cfg)
+    expected = _zero_counts(**{f"flash_attention.{k}": per_step * L_STEPS
+                               for k in ("fwd", "bwd_dq", "bwd_dkv")})
+    if control_counts != expected:
+        raise AssertionError(f"launcher: control launches {control_counts} "
+                             f"!= {expected}")
+    if not all(math.isfinite(x) for x in control_losses) or not (
+            control_losses[-1] < control_losses[0]):
+        raise AssertionError(f"launcher: the control's loss did not fall: "
+                             f"{control_losses}")
     control_path = os.path.join(OUT_DIR, "launcher_control_losses.json")
     with open(control_path, "w") as f:
         json.dump(control_losses, f)
-    steady = statistics.median(
-        inc["step_seconds"][str(s)] for s in range(3, L_STEPS + 1))
     phase5a = SMALL_ADAMW["tokens_s"]
-    log(f"launcher: control run (no scenario) {control['wall_s']:.1f} s, "
-        f"losses {control_losses}; steady steps 3..{L_STEPS} median "
-        f"{steady * 1e3:.3f} ms, {tokens / steady:.1f} tokens/s, phase 5a "
-        f"{phase5a:.1f} ({tokens / steady / phase5a:.4f}) [{card}]")
-    counts = {"launcher_control": _zero_counts(**{
-        f"flash_attention.{k}": v for k, v in inc["counts"].items()})}
+    log(f"launcher: control (the worker's training in this process, no "
+        f"launcher) losses {control_losses}; steady steps 3..{L_STEPS} "
+        f"median {steady * 1e3:.3f} ms, {tokens / steady:.1f} tokens/s, "
+        f"phase 5a {phase5a:.1f} ({tokens / steady / phase5a:.4f}) [{card}]")
+    # the control runs in this process, not under the launcher
+    counts = {"launcher_control_inprocess": control_counts}
     runs = []
     for turn, label in enumerate(("8a", "8b"), start=1):
         r = _launcher_run(label, turn, control_path)
@@ -4963,8 +5019,6 @@ def phase_data(card) -> dict:
             f"{per_step} launches of each flash kernel a step"
             + (f"; loader stats {inc['loader_stats']}"
                if inc.get("loader_stats") else "") + f" [{card}]")
-    log(f"12a: the two loaders' {D_STEPS} losses equal bit for bit: "
-        f"{lp == ls}")
     kill = runs["kill"]
     events = kill["events"]
     inj = next(e for e in events if e.get("type") == "chaos_inject")
@@ -6997,6 +7051,273 @@ def phase_sparse(card) -> dict:
     return {}
 
 
+# -- phase 18: BERT and GPT's save_attn remat (slice 5.4) --------------------
+
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 512, 8
+BERT_PAD = 32            # padded positions at the end of half the rows
+BERT_MLM_SHARE = 0.15
+BERT_MASK_ID = 103       # [MASK] in BERT's uncased vocabulary
+BERT_LR = 1e-4
+BERT_SMALL_ATOL = 1e-4   # a narrow BERT in fp32, card against CPU
+SAVE_ATTN_RTOL, SAVE_ATTN_ATOL = 1e-3, 1e-5
+SAVE_ATTN_TIMED_STEPS = 4
+SAVE_ATTN = {}
+
+
+def _bert_batch(vocab: int, batch: int, seq: int, seed: int = 0) -> dict:
+    """MLM traffic: random tokens, two segments (the second half of each
+    row), 15% of the positions masked ([MASK] in, the original token the
+    target), and a padding mask on the last 32 positions of half the
+    rows; from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    targets = rng.integers(0, vocab, (batch, seq), dtype=np.int64)
+    mlm = rng.random((batch, seq)) < BERT_MLM_SHARE
+    mask = np.ones((batch, seq), np.int64)
+    mask[::2, seq - min(BERT_PAD, seq // 2):] = 0
+    mlm &= mask.astype(bool)
+    tokens = np.where(mlm, BERT_MASK_ID, targets)
+    segments = np.broadcast_to((np.arange(seq) >= seq // 2).astype(np.int64),
+                               (batch, seq)).copy()
+    return {"tokens": tokens, "segment_ids": segments, "mask": mask,
+            "targets": targets, "mlm_mask": mlm}
+
+
+def _bert_loss_fn(module, batch):
+    from dlrover_tpu_torch.models.bert import mlm_loss
+
+    logits = module(batch["tokens"], batch["segment_ids"], batch["mask"])
+    return mlm_loss(logits, batch["targets"], batch["mlm_mask"])
+
+
+def _bert_small_check(card):
+    """A narrow BERT (``BertConfig.tiny``, fp32) on the card against the
+    same weights on the CPU: MLM logits and the loss within
+    ``BERT_SMALL_ATOL`` with the padding mask and segments of 18a."""
+    import torch
+
+    from dlrover_tpu_torch.models.bert import Bert, BertConfig
+
+    cfg = BertConfig.tiny(dtype=torch.float32)
+    cpu = Bert(cfg, device="cpu", seed=1)
+    gpu = Bert(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    batch = {k: torch.from_numpy(v) for k, v in
+             _bert_batch(cfg.vocab_size, batch=4, seq=64, seed=1).items()}
+    with torch.no_grad():
+        want = cpu(batch["tokens"], batch["segment_ids"], batch["mask"])
+        got = gpu(*(batch[k].cuda() for k in ("tokens", "segment_ids",
+                                               "mask"))).cpu()
+    err = float((got - want).abs().max())
+    log(f"18a: a narrow BERT in fp32 on the card against the CPU: logits max "
+        f"abs err {err:.3e} (limit {BERT_SMALL_ATOL}) [{card}]")
+    if not err <= BERT_SMALL_ATOL:
+        raise AssertionError(f"18a: BERT logits on the card differ from the "
+                             f"CPU's by {err}")
+
+
+def phase_bert(card) -> dict:
+    """18a: BERT-base (``BertConfig()``: vocab 30528, 12 layers, 12 heads,
+    hidden 768, seq 512, bf16 over fp32 params) through
+    ``auto_accelerate`` with ``[half, checkpoint]`` and AdamW on one
+    fixed MLM batch (``_bert_batch``): a finite loss that falls, no hand
+    kernel launched (the reference's BERT reaches no Pallas kernel), the
+    median step, tokens/s, MFU, the peak and the top ops of one step
+    from ``dlrover_tpu_torch.utils.profiler``."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.accel import Strategy, auto_accelerate
+    from dlrover_tpu_torch.models.bert import Bert, BertConfig
+    from dlrover_tpu_torch.models.gpt import count_params
+    from dlrover_tpu_torch.utils.profiler import parse_trace_dir, trace
+
+    _bert_small_check(card)
+    cfg = BertConfig()
+    t0 = time.perf_counter()
+    model = Bert(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = count_params(model)
+    # the tables that are only looked up (wte is the tied head too)
+    lookup = model.wpe.weight.numel() + model.wse.weight.numel()
+    log(f"18a BERT-base: {n_params} params, {cfg.num_layers} layers, d "
+        f"{cfg.hidden_dim}, vocab {cfg.vocab_size}, built on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = _bert_batch(cfg.vocab_size, BERT_BATCH, BERT_SEQ)
+    result = auto_accelerate(
+        model, lambda ps: torch.optim.AdamW(ps, lr=BERT_LR, betas=(0.9, 0.999),
+                                            eps=1e-8, weight_decay=1e-4),
+        _bert_loss_fn, batch,
+        strategy=Strategy(opts=[("half", {}), ("checkpoint", {})]))
+    del model
+    built = result.model.config
+    if not (built.remat and built.param_dtype == torch.bfloat16):
+        raise AssertionError(f"18a: the plan built {built}")
+    placed = result.place_batch(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state, losses, secs = result.state, [], []
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = result.train_step(state, placed)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"18a BERT-base: losses {[round(x, 6) for x in losses]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"18a: losses not finite and falling: {losses}")
+    if counts != _zero_counts():
+        raise AssertionError(f"18a: hand kernels launched: {counts}")
+    step_s = statistics.median(secs[2:])
+    tokens = BERT_BATCH * BERT_SEQ
+    # 6 FLOPs per weight per token (the tied head counted, the tables
+    # that are only looked up not) plus non-causal attention, 12 L s d
+    # per token; the remat recompute is not counted
+    flops = tokens * (6 * (n_params - lookup)
+                      + 12 * cfg.num_layers * BERT_SEQ * cfg.hidden_dim)
+    log(f"18a BERT-base: median step {step_s * 1e3:.3f} ms over steps "
+        f"3..{BERT_STEPS}, {tokens / step_s:.1f} tokens/s, model FLOPs "
+        f"utilisation {flops / step_s / PEAK_FLOPS['bfloat16']:.4f} of 989 "
+        f"TFLOP/s ({flops:.4e} FLOPs a step), step times "
+        f"{[round(t * 1e3, 3) for t in secs]} ms, peak memory "
+        f"{peak / 2**30:.2f} GiB, launches {counts} [{card}]")
+    logdir = os.path.join(OUT_DIR, "trace_bert")
+    shutil.rmtree(logdir, ignore_errors=True)
+    with trace(logdir):
+        state, _ = result.train_step(state, placed)
+        torch.cuda.synchronize()
+    summary = parse_trace_dir(logdir)
+    if not summary.op_self_time_us:
+        raise AssertionError("18a: the profiler's trace holds no events")
+    log(f"18a BERT-base: one step under utils.profiler.trace spans "
+        f"{summary.total_duration_us / 1e3:.3f} ms; top ops by summed "
+        f"duration:")
+    # the profiler's own span covers the whole step
+    top = [(n, us) for n, us in summary.top_ops(9)
+           if not n.startswith("PyTorch Profiler")]
+    for name, us in top[:8]:
+        log(f"18a:   {us / 1e3:9.3f} ms  {name[:90]}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    result.state = state
+    profile_step(result, batch, card, "BERT-base MLM")
+    return {"bert_base_mlm": counts}
+
+
+def phase_slice_5_4(card):
+    """``--only 18``: 18a, then phase 5b, which runs 18b on its state."""
+    phase_bert(card)
+    _free_cuda()
+    phase_train_xl(card)
+
+
+def phase_save_attn(trainer, card, xl_ms: float, xl_peak: int) -> dict:
+    """18b, in phase 5b's process on its model and q-AdamW state: one
+    step under full remat and one under ``remat_policy="save_attn"``
+    from the same state (params and moments copied before and put back
+    between them): losses and updated parameters within
+    ``SAVE_ATTN_RTOL``/``SAVE_ATTN_ATOL``, and exactly 96 B1, 48 B2, 48
+    B3 and 1 B6 in the save_attn step (the reference's jaxpr holds the
+    flash forward twice a layer under save_attn too); then
+    ``SAVE_ATTN_TIMED_STEPS`` steps of each policy, interleaved, their
+    median and peak beside 5b's."""
+    import dataclasses
+
+    import torch
+
+    module, opt = trainer.state.module, trainer.state.optimizer
+    cfg = module.config
+    placed = trainer.place_batch(trainer.train_data[0])
+    params = [p for p in module.parameters()]
+    saved_p = [p.detach().clone() for p in params]
+    saved_opt = {p: {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in st.items()} for p, st in opt.state.items()}
+
+    def restore():
+        with torch.no_grad():
+            for p, c in zip(params, saved_p):
+                p.copy_(c)
+            for p, st in saved_opt.items():
+                for k, v in st.items():
+                    if torch.is_tensor(v):
+                        opt.state[p][k].copy_(v)
+                    else:
+                        opt.state[p][k] = v
+
+    def step(policy):
+        module.config = dataclasses.replace(cfg, remat_policy=policy)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        trainer.state, metrics = trainer.train_step(trainer.state, placed)
+        loss = float(metrics["loss"])
+        return loss, launch_counts()
+
+    runs = {}
+    for policy in ("full", "save_attn"):
+        restore()
+        loss, counts = step(policy)
+        runs[policy] = (loss, counts, [p.detach().clone() for p in params])
+    expected = _zero_counts(**{
+        "flash_attention.fwd": 2 * cfg.num_layers,
+        "flash_attention.bwd_dq": cfg.num_layers,
+        "flash_attention.bwd_dkv": cfg.num_layers,
+        "quantization.qadam": 1})
+    (l_full, c_full, p_full), (l_sa, c_sa, p_sa) = (runs["full"],
+                                                    runs["save_attn"])
+    worst, bad, elements = 0.0, 0, 0
+    for a, b in zip(p_sa, p_full):
+        diff = (a.float() - b.float()).abs()
+        worst = max(worst, float(diff.max()))
+        bad += int((diff > SAVE_ATTN_ATOL
+                    + SAVE_ATTN_RTOL * b.float().abs()).sum())
+        elements += a.numel()
+    equal = all(torch.equal(a, b) for a, b in zip(p_sa, p_full))
+    del p_full, p_sa, runs
+    log(f"18b GPT-2 XL save_attn: from 5b's state, loss {l_sa:.6f} against "
+        f"full remat's {l_full:.6f}; updated params max abs diff {worst:.3e}, "
+        f"{bad} of {elements} elements past rtol {SAVE_ATTN_RTOL} / atol "
+        f"{SAVE_ATTN_ATOL} (bit-equal: {equal}); launches a step {c_sa} "
+        f"(full remat {c_full}), expected {expected} [{card}]")
+    failures = []
+    if abs(l_sa - l_full) > SAVE_ATTN_ATOL + SAVE_ATTN_RTOL * abs(l_full):
+        failures.append(f"loss {l_sa} against {l_full}")
+    if bad:
+        failures.append(f"{bad} parameter elements differ")
+    if c_sa != expected:
+        failures.append(f"launches {c_sa} != {expected}")
+    if failures:
+        raise AssertionError("18b: " + "; ".join(failures))
+    # the copies go before the timed steps, so their peaks are training's
+    saved_p = saved_opt = None
+    _free_cuda()
+    # the two policies' steps interleaved, so a drift of the host's
+    # speed reaches both alike
+    secs = {"full": [], "save_attn": []}
+    peaks = {"full": 0, "save_attn": 0}
+    for i in range(2 * SAVE_ATTN_TIMED_STEPS):
+        policy = ("full", "save_attn")[i % 2]
+        module.config = dataclasses.replace(cfg, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.state, _ = trainer.train_step(trainer.state, placed)
+        torch.cuda.synchronize()
+        secs[policy].append(time.perf_counter() - t0)
+        peaks[policy] = max(peaks[policy], torch.cuda.max_memory_allocated())
+    timing = {p: (statistics.median(secs[p]) * 1e3, peaks[p]) for p in secs}
+    module.config = cfg
+    log(f"18b GPT-2 XL save_attn: median step {timing['save_attn'][0]:.3f} ms, "
+        f"peak {timing['save_attn'][1] / 2**30:.2f} GiB; full remat in the "
+        f"same process {timing['full'][0]:.3f} ms, peak "
+        f"{timing['full'][1] / 2**30:.2f} GiB; 5b's steps {xl_ms:.3f} ms, "
+        f"peak {xl_peak / 2**30:.2f} GiB ({SAVE_ATTN_TIMED_STEPS} steps of "
+        f"each, interleaved) [{card}]")
+    SAVE_ATTN["counts"] = c_sa
+    return c_sa
+
+
 def _free_cuda():
     import gc
 
@@ -7076,7 +7397,8 @@ ONLY = {"2": phase_kernels, "3": phase_quant_kernels,
         "16a": phase_rl_ppo, "16b": phase_llama_decode,
         "16c": phase_rl_chaos, "17": phase_sparse,
         "17a": phase_sparse_deepfm, "17b": phase_sparse_ckpt,
-        "17c": phase_sparse_chaos}
+        "17c": phase_sparse_chaos,
+        "18": phase_slice_5_4, "18a": phase_bert, "18b": phase_train_xl}
 
 
 def run_only(torch, names) -> int:
@@ -7136,8 +7458,9 @@ def run_phases(torch) -> int:
                         ("12", phase_data), ("13", phase_parallel),
                         ("14", phase_scale_out),
                         ("15", phase_pipeline_fp8), ("16", phase_rl),
-                        ("17", phase_sparse)):
+                        ("17", phase_sparse), ("18a", phase_bert)):
         by_path.update(timed(name, phase, card))
+    by_path["gpt2_xl_save_attn"] = SAVE_ATTN["counts"]
     leaked = [n for n in os.listdir("/dev/shm")
               if n.startswith(f"dlrover_tpu_ckpt_shm_"
                               f"{os.environ['DLROVER_JOB_NAME']}_")]

@@ -253,13 +253,19 @@ class Fp8Opt(Optimization):
 
 class CheckpointOpt(Optimization):
     """Activation rematerialization (reference:
-    checkpoint_optimization.py -> torch.utils.checkpoint per block)."""
+    checkpoint_optimization.py -> torch.utils.checkpoint per block).
+    A model built with GPT's ``save_attn`` policy keeps it: that policy
+    is remat per block too, and only the model config chooses it."""
 
     name = "checkpoint"
 
     def apply(self, plan, config, context=None):
         plan.remat = True
-        plan.notes.append("activation remat per block")
+        cfg = getattr(getattr(context, "model", None), "config", None)
+        if getattr(cfg, "remat_policy", None) == "save_attn":
+            plan.remat_policy = "save_attn"
+        plan.notes.append("activation remat per block" + (
+            f" ({plan.remat_policy})" if plan.remat_policy != "full" else ""))
         return plan
 
 

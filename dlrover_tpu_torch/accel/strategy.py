@@ -30,7 +30,8 @@ class AccelPlan:
     param_rules: PartitionRules = field(default_factory=replicated_rules)
     opt_state_rules: Optional[PartitionRules] = None
     remat: bool = False
-    remat_policy: str = "full"  # "full" | "offload" (pinned host memory)
+    # "full" | "offload" (pinned host memory) | "save_attn" (GPT)
+    remat_policy: str = "full"
     compute_dtype: str = "bfloat16"
     attention_impl: str = "xla"
     sequence_parallel: str = "none"  # none | ulysses | ring

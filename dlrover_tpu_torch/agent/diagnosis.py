@@ -14,8 +14,8 @@ portable, so we use faulthandler dumps for our own process tree and
 Copy of ``dlrover_tpu/agent/diagnosis.py``.  The chip-metrics
 collector asks ``torch.cuda`` for memory stats, and only where this
 process already holds a CUDA context: the agent never creates one (a
-context takes memory on the training card).  NVML readings come with
-slice 8 of the port.
+context takes memory on the training card), and reads no NVML either,
+as the reference's collector reads only the devices its process owns.
 """
 
 import faulthandler

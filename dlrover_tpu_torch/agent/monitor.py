@@ -87,10 +87,13 @@ def get_host_stats() -> Dict[str, float]:
 
 
 def get_chip_stats() -> List[Dict[str, float]]:
-    """Per-accelerator stats: none yet, as in the reference (whose TPU
-    has no pynvml); the GPU's come from NVML in slice 8 of the port.
-    The agent must not initialise CUDA for them: a context would hold
-    memory on the training card."""
+    """Per-accelerator stats: none, as in the reference (whose agent
+    sees no chip of its own).  The agent must not initialise CUDA for
+    them (a context would hold memory on the training card), nor map
+    NVML (``libnvidia-ml``) into its process: the port's chip check
+    requires that the agent map no ``libnvidia*`` library.  The card's
+    memory comes from the trainer's own process
+    (:class:`~dlrover_tpu_torch.agent.diagnosis.ChipMetricsCollector`)."""
     return []
 
 

@@ -3,11 +3,11 @@
 Copy of ``dlrover_tpu/common/storage.py`` (role of
 ``dlrover/python/common/storage.py``): a small write/read/safe-move/
 commit surface the async saver uses so storage backends are
-interchangeable.  The port has the POSIX backend (local disk, NFS,
-FUSE-mounted buckets).  The object-store backend over fsspec
-(``FsspecStorage``) comes with slice 8 of the port.  The POSIX backend
-fires the reference's chaos hooks ``storage.write``, ``storage.read``
-and ``storage.move``.
+interchangeable: the POSIX backend (local disk, NFS, FUSE-mounted
+buckets) and the object-store backend over fsspec (``FsspecStorage``;
+``fsspec`` is imported when one is built, as the card machines need not
+have it).  Both fire the reference's chaos hook ``storage.write``; the
+POSIX backend also ``storage.read`` and ``storage.move``.
 """
 
 import mmap
@@ -181,14 +181,84 @@ class PosixDiskStorage(CheckpointStorage):
 
 
 class FsspecStorage(CheckpointStorage):
-    """Object-store storage over fsspec (reference: storage.py:183):
-    comes with slice 8 of the port."""
+    """Object-store storage over fsspec — ``gs://`` buckets (gcsfs),
+    ``s3://``, or ``memory://`` for tests (reference: storage.py:183,
+    the pluggable storage factory of dlrover's storage.py:320).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "object-store checkpoint storage (fsspec, gs:// and the "
-            "like) comes with slice 8 of the port; use a POSIX path"
-        )
+    Atomicity model: an object PUT is atomic (readers see either
+    nothing or the whole object), so shard writes need no temp+rename;
+    the tracker file is one small object PUT, which replaces the
+    POSIX backend's rename-based commit."""
+
+    def __init__(
+        self,
+        deletion_strategy: Optional[CheckpointDeletionStrategy] = None,
+        fs=None,
+        protocol: str = "gs",
+    ):
+        if fs is None:
+            import fsspec
+
+            fs = fsspec.filesystem(protocol)
+        self._fs = fs
+        self._deletion_strategy = deletion_strategy
+
+    def write(self, content, path: str):
+        _chaos.fire("storage.write", path=path)
+        mode = "wb" if isinstance(
+            content, (bytes, bytearray, memoryview)
+        ) else "w"
+        with self._fs.open(path, mode) as f:
+            f.write(content)
+
+    def read(self, path: str, mode: str = "rb"):
+        if not self._fs.exists(path):
+            return None
+        with self._fs.open(path, mode) as f:
+            return f.read()
+
+    def safe_move(self, src: str, dst: str):
+        if self._fs.exists(dst):
+            self.safe_rmtree(dst)
+        self._fs.mv(src, dst, recursive=True)
+
+    def safe_makedirs(self, path: str):
+        # object stores have no real directories; makedirs is a no-op
+        # beyond fsspec's bookkeeping
+        try:
+            self._fs.makedirs(path, exist_ok=True)
+        except Exception:  # noqa: BLE001 - some backends reject it
+            pass
+
+    def safe_rmtree(self, path: str):
+        try:
+            if self._fs.exists(path):
+                self._fs.rm(path, recursive=True)
+        except FileNotFoundError:
+            pass
+
+    def exists(self, path: str) -> bool:
+        return bool(self._fs.exists(path))
+
+    def listdir(self, path: str) -> List[str]:
+        if not self._fs.exists(path):
+            return []
+        names = []
+        for entry in self._fs.ls(path, detail=False):
+            name = str(entry).rstrip("/").rsplit("/", 1)[-1]
+            if name:
+                names.append(name)
+        return sorted(names)
+
+    def commit(self, step: int, success: bool):
+        if not success or self._deletion_strategy is None:
+            return
+        try:
+            self._deletion_strategy.clean_up(step, self.safe_rmtree)
+        except Exception:  # noqa: BLE001
+            logger.exception(
+                "checkpoint clean-up failed for step %s", step
+            )
 
 
 def get_checkpoint_storage(
@@ -197,8 +267,9 @@ def get_checkpoint_storage(
 ) -> CheckpointStorage:
     """Factory dispatching on the checkpoint path (reference:
     get_checkpoint_storage, storage.py:320): ``gs://...`` (or any
-    ``proto://``) selects the object-store backend, everything else
-    the POSIX backend (covers NFS and FUSE-mounted buckets)."""
+    ``proto://``) selects the fsspec object-store backend, everything
+    else the POSIX backend (covers NFS and FUSE-mounted buckets)."""
     if "://" in path:
-        return FsspecStorage(deletion_strategy, path=path)
+        protocol = path.split("://", 1)[0]
+        return FsspecStorage(deletion_strategy, protocol=protocol)
     return PosixDiskStorage(deletion_strategy)

@@ -1,6 +1,7 @@
 """Model zoo of the port (``dlrover_tpu/models``): GPT, the Llama
-family, their pipelined forms, the chunked loss and DeepFM so far."""
+family, their pipelined forms, the chunked loss, BERT and DeepFM."""
 
+from dlrover_tpu_torch.models.bert import Bert, BertConfig, mlm_loss
 from dlrover_tpu_torch.models.deepfm import DeepFM, DeepFMConfig
 from dlrover_tpu_torch.models.gpt import (
     GPT,
@@ -15,6 +16,8 @@ from dlrover_tpu_torch.models.losses import (
 )
 
 __all__ = [
+    "Bert",
+    "BertConfig",
     "DeepFM",
     "DeepFMConfig",
     "GPT",
@@ -25,4 +28,5 @@ __all__ = [
     "chunked_loss_fn",
     "count_params",
     "cross_entropy_loss",
+    "mlm_loss",
 ]

@@ -25,7 +25,17 @@ the same numerics policy:
   policy keeps each block's checkpointed input in pinned host memory
   between the forward and the backward
   (``torch.autograd.graph.save_on_cpu``), the reference's
-  ``pinned_host`` residuals;
+  ``pinned_host`` residuals; the ``"save_attn"`` policy keeps each
+  block's attention output (the reference's ``attn_out``, after
+  ``o_proj``) and recomputes the rest: the block is checkpointed in two
+  halves, split at ``attn_out`` (:meth:`Block.attn_out`,
+  :meth:`Block.mlp_out`), because the selective policy of
+  ``torch.utils.checkpoint`` sees ATen ops only and the flash forward is
+  a ctypes launch.  As in the reference, the backward of the attention
+  half still re-runs its forward (the flash VJP needs O and lse, which
+  the policy does not keep): B1 twice, B2 and B3 once a layer, as full
+  remat; what the policy saves is the MLP half's recompute of
+  attention;
 - tensor parallelism (:mod:`dlrover_tpu_torch.accel.accelerate`) makes
   the Dense weights DTensors: the fused qkv comes out sharded over the
   tensor axis and is split by heads, so attention (the CUDA kernels
@@ -62,8 +72,7 @@ max_len, head_dim]`` (the reference's is ``[b, max_len, kv_heads,
 head_dim]``; :func:`dlrover_tpu_torch.utils.convert.cache_from_jax`
 transposes), so each step's two products read it in place.
 ``head="value"`` ends in the RLHF critic's scalar ``value_head`` (fp32
-Dense, reference ``:406-412``).  The save_attn remat policy is slice
-5.4 of the port and raises ``NotImplementedError`` naming it.
+Dense, reference ``:406-412``).
 """
 
 import functools
@@ -78,7 +87,6 @@ from torch.autograd.graph import save_on_cpu
 from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import is_dtensor, resolve_device
-from dlrover_tpu_torch.common.slices import SLICE_5_4
 from dlrover_tpu_torch.models.losses import vocab_parallel_nll
 from dlrover_tpu_torch.parallel.sequence import sequence_offset
 from dlrover_tpu_torch.parallel.sharding import (
@@ -154,11 +162,6 @@ class GPTConfig:
 
 
 def _check_supported(cfg: GPTConfig):
-    """Options of the reference that later slices of the port bring."""
-    if cfg.remat_policy == "save_attn":
-        raise NotImplementedError(
-            f"GPT remat_policy={cfg.remat_policy!r} is not ported yet: it "
-            f"comes with {SLICE_5_4}")
     if cfg.head not in ("lm", "value"):
         raise ValueError(f"unknown head {cfg.head!r} (lm | value)")
 
@@ -459,11 +462,19 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(config, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.config.dtype
-        x = x + self.attn(self.ln_attn(x.float()).to(dtype))
+    def attn_out(self, x: torch.Tensor) -> torch.Tensor:
+        """The attention module's output (the reference's ``attn_out``,
+        which the save_attn policy keeps)."""
+        return self.attn(self.ln_attn(x.float()).to(self.config.dtype))
+
+    def mlp_out(self, x: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+        """The block's output from its input and :meth:`attn_out`."""
+        x = x + attn_out
         mlp = self.moe if hasattr(self, "moe") else self.mlp
-        return x + mlp(self.ln_mlp(x.float()).to(dtype))
+        return x + mlp(self.ln_mlp(x.float()).to(self.config.dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp_out(x, self.attn_out(x))
 
 
 @torch.no_grad()
@@ -596,6 +607,13 @@ class GPT(nn.Module):
                     # pinned host memory until the backward needs it
                     with save_on_cpu(pin_memory=True):
                         x = checkpoint(block, x, use_reentrant=True)
+                elif cfg.remat_policy == "save_attn":
+                    # two checkpoints split at attn_out: the second
+                    # keeps it (and the block's input) as its inputs
+                    attn_out = checkpoint(block.attn_out, x,
+                                          use_reentrant=False)
+                    x = checkpoint(block.mlp_out, x, attn_out,
+                                   use_reentrant=False)
                 else:
                     x = checkpoint(block, x, use_reentrant=False)
             else:

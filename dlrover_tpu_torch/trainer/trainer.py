@@ -138,7 +138,7 @@ class Trainer:
                          {"attention": cfg.attention_impl}))
         if getattr(cfg, "remat", False):
             opts.append(("offload_activation", {})
-                        if cfg.remat_policy == "offload"
+                        if getattr(cfg, "remat_policy", "full") == "offload"
                         else ("checkpoint", {}))
         return Strategy(opts=opts)
 

@@ -1,11 +1,12 @@
-"""Flax GPT and Llama params and q-AdamW state <-> the port's models
-and optimizers.
+"""Flax GPT, Llama and BERT params and q-AdamW state <-> the port's
+models and optimizers.
 
 Reference: ``dlrover_tpu/utils/torch_compat.py`` (``gpt2_params_to_torch``
 maps the same flax tree onto HF GPT-2 names) and the ``QAdamWState``
 of ``dlrover_tpu/optim/low_bit.py``.  Here the targets are
-:class:`dlrover_tpu_torch.models.gpt.GPT` and
-:class:`dlrover_tpu_torch.models.llama.Llama`, whose module names follow
+:class:`dlrover_tpu_torch.models.gpt.GPT`,
+:class:`dlrover_tpu_torch.models.llama.Llama` and
+:class:`dlrover_tpu_torch.models.bert.Bert`, whose module names follow
 the flax tree and whose Dense weights keep flax's ``[in, out]``
 layout, so the map is by rule:
 
@@ -20,13 +21,15 @@ layout, so the map is by rule:
   ``qkv``; Llama's ``q_proj``/``k_proj``/``v_proj``/``o_proj`` and
   ``gate``/``up``/``down``; the untied ``lm_head``);
 - ``LayerNorm.scale``, Llama's ``RMSNorm.scale`` (any ``ln_*``) and
-  ``Embed.embedding`` are ``weight``;
+  ``Embed.embedding`` (``wte``, ``wpe``, BERT's segment table ``wse``)
+  are ``weight``;
 - ``bias`` is ``bias``;
 - an MoE block's ``moe/router/kernel`` is ``moe.router.weight`` and its
   expert kernels ``moe/experts_w_{in,gate,out}`` (``[e, in, out]``) are
   parameters of the same names on ``moe``;
 - the critic's ``value_head/{kernel,bias}`` is ``value_head.{weight,
-  bias}`` (the Dense rule);
+  bias}`` and BERT's ``pooler`` and ``classifier`` are Dense layers of
+  those names (the Dense rule);
 - DeepFM's dense tower ``dense_i/{w,b}`` is ``dense_i.{weight,bias}``
   (:func:`deepfm_dense_from_jax`).
 
@@ -58,7 +61,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-_EMBEDDINGS = ("wte", "wpe")
+_EMBEDDINGS = ("wte", "wpe", "wse")
 # the MoE expert kernels: flax params of their own name, not a kernel
 _EXPERTS = "experts_w_"
 

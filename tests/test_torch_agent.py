@@ -4,9 +4,9 @@ rendezvous handler, worker supervision and restart, the preemption
 monitor, the launcher's auto-config and the node check's fault
 injection.
 
-The sharding client is the port's own since slice 8.1.  The platform
-starter comes with slice 8.3: its twin feeds the reference starter's
-argv to the port's launcher.  The chip matmul probe runs its bf16 GEMM
+The sharding client is the port's own since slice 8.1, the platform
+starter since slice 8.3: its twin builds the reference starter's argv
+and hands it to the port's launcher.  The chip matmul probe runs its bf16 GEMM
 chain on the CPU here (on every GPU by default) and refuses to fall
 back to the CPU unasked.  Every check is exact.
 """
@@ -205,9 +205,8 @@ def test_agent_worker_succeeds_after_one_restart(master, client, tmp_path):
 
 
 def test_reference_starter_argv_drives_the_launcher():
-    """The reference's platform starter (its port comes with slice 8)
-    builds an argv from the NodeEnv contract; the port's launcher
-    parses it to the same job."""
+    """The reference's platform starter builds an argv from the NodeEnv
+    contract; the port's launcher parses it to the same job."""
     from dlrover_tpu.trainer.starter import build_run_argv
     from dlrover_tpu_torch.run import parse_args, parse_nnodes
 
@@ -227,6 +226,54 @@ def test_reference_starter_argv_drives_the_launcher():
     assert args.network_check
     assert args.training_script == "train.py"
     assert args.training_script_args == ["--lr", "0.1"]
+
+
+STARTER_ENVS = [
+    {NodeEnv.NODE_NUM: "4", NodeEnv.LOCAL_WORLD_SIZE: "4",
+     NodeEnv.NODE_RANK: "2", "DLROVER_MIN_NODES": "2",
+     "DLROVER_MAX_NODES": "4", "DLROVER_NETWORK_CHECK": "1"},
+    {},
+    {NodeEnv.NODE_NUM: "2", "DLROVER_NETWORK_CHECK": "true"},
+]
+
+
+@pytest.mark.parametrize("env", STARTER_ENVS, ids=["elastic", "empty",
+                                                   "fixed"])
+def test_starter_builds_the_launchers_argv(env):
+    """Twin of ``test_starter_builds_tpurun_argv``: the port's starter
+    turns the NodeEnv contract into the reference starter's argv, token
+    for token, which the port's launcher parses."""
+    from dlrover_tpu.trainer.starter import build_run_argv as jax_argv
+    from dlrover_tpu_torch.run import parse_args
+    from dlrover_tpu_torch.trainer.starter import build_run_argv
+
+    script = ["train.py", "--lr", "0.1"]
+    argv = build_run_argv(script, env=env)
+    assert argv == jax_argv(script, env=env)
+    args = parse_args(argv)
+    assert args.training_script == "train.py"
+    assert args.nproc_per_node == int(env.get(NodeEnv.LOCAL_WORLD_SIZE, 1))
+
+
+def test_starter_main_hands_the_argv_to_the_launcher(monkeypatch):
+    """``python -m dlrover_tpu_torch.trainer.starter -- train.py ...``
+    runs the launcher's ``main`` on the built argv (the leading ``--``
+    dropped) and returns its exit code; no script is an error."""
+    from dlrover_tpu_torch import run
+    from dlrover_tpu_torch.trainer import starter
+
+    seen = []
+    monkeypatch.setattr(run, "main", lambda argv: seen.append(argv) or 7)
+    for key in (NodeEnv.NODE_NUM, NodeEnv.LOCAL_WORLD_SIZE,
+                NodeEnv.NODE_RANK, "DLROVER_MIN_NODES",
+                "DLROVER_MAX_NODES", "DLROVER_NETWORK_CHECK"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv(NodeEnv.LOCAL_WORLD_SIZE, "2")
+    assert starter.main(["--", "train.py", "--", "x"]) == 7
+    assert seen == [["--nnodes", "1:1", "--nproc_per_node", "2",
+                     "train.py", "--", "x"]]
+    with pytest.raises(SystemExit):
+        starter.main([])
 
 
 def test_launcher_auto_config():

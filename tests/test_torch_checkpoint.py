@@ -672,20 +672,24 @@ def _sharded_restore_with_an_adapter(d):
     return engine.load_sharded({"w": torch.zeros(2)})
 
 
-@pytest.mark.parametrize("make,match", [
-    (lambda d: Checkpointer("gs://bucket/run"), "slice 8"),
-])
-def test_options_of_later_slices_raise(saver, tmp_path, make, match):
-    """The target-state restore (``load_sharded``) and the orbax tier
-    (``orbax_dir``), once on this list, came with slice 4.2: their cases
-    moved to ``test_options_of_slice_4_2_no_longer_raise``.  The adapter
-    contract of ``register_sparse`` came with slice 7 (an adapter
-    registers: ``tests/test_torch_rl_elastic.py``); a resharded restore
-    with one registered, the kv branches of ``load_sharded``, came with
-    the sparse slice: its case moved to
-    ``test_options_of_the_sparse_slice_no_longer_raise``."""
-    with pytest.raises(NotImplementedError, match=match):
-        make(tmp_path)
+def test_object_store_path_builds_fsspec_storage(saver):
+    """A Checkpointer over a ``proto://`` directory builds on
+    ``FsspecStorage`` (``tests/test_torch_fsspec_storage.py`` drives
+    it).  The options once refused here came with their slices: the
+    target-state restore and the orbax tier with slice 4.2
+    (``test_options_of_slice_4_2_no_longer_raise``), the adapter
+    contract of ``register_sparse`` with slice 7
+    (``tests/test_torch_rl_elastic.py``), a resharded restore with an
+    adapter with the sparse slice
+    (``test_options_of_the_sparse_slice_no_longer_raise``), and the
+    object-store tier with slice 8.3."""
+    from dlrover_tpu_torch.common.storage import FsspecStorage
+
+    ckpt = Checkpointer("memory://bucket/run")
+    try:
+        assert isinstance(ckpt._engine._storage, FsspecStorage)
+    finally:
+        ckpt.close()
 
 
 @pytest.mark.parametrize("make", [

@@ -242,19 +242,14 @@ def test_count_params_matches_jax(flax_init):
     dict(attention_impl="ring"),
 ])
 def test_later_slices_raise_not_implemented(kw):
-    """Options of later slices raise naming their slice; those of slice
-    5.2 (MoE, ring and Ulysses) build since it landed
-    (tests/test_torch_moe.py and test_torch_sp_e2e.py drive them), fp8
-    since slice 5.3 (tests/test_torch_fp8.py), and decode and the value
-    head since slice 7 (tests/test_torch_rl.py); the save_attn remat
-    policy still raises naming slice 5.4."""
-    if (kw.get("moe_experts") or kw.get("attention_impl") or kw.get("fp8")
-            or kw.get("decode") or kw.get("head")):
-        model = port_gpt.GPT(port_gpt.GPTConfig.tiny(**kw), device="cpu")
-        assert model.config == port_gpt.GPTConfig.tiny(**kw)
-        return
-    with pytest.raises(NotImplementedError, match="slice 5.4"):
-        port_gpt.GPT(port_gpt.GPTConfig.tiny(**kw), device="cpu")
+    """Options of later slices raise naming their slice until it lands;
+    every option here builds now: those of slice 5.2 (MoE, ring and
+    Ulysses; tests/test_torch_moe.py and test_torch_sp_e2e.py drive
+    them), fp8 since slice 5.3 (tests/test_torch_fp8.py), decode and the
+    value head since slice 7 (tests/test_torch_rl.py) and the save_attn
+    remat policy since slice 5.4 (tests/test_torch_save_attn.py)."""
+    model = port_gpt.GPT(port_gpt.GPTConfig.tiny(**kw), device="cpu")
+    assert model.config == port_gpt.GPTConfig.tiny(**kw)
 
 
 def test_offload_remat_matches_full_remat():

@@ -180,6 +180,56 @@ def test_the_modules_of_the_sparse_slice_are_checked_and_name_their_reference(
         (ROOT / "dlrover_tpu" / "native" / "kv_store.cc").read_bytes()
 
 
+SLICE_5_4_AND_8_3 = [
+    ("dlrover_tpu_torch.models.bert", "dlrover_tpu/models/bert.py"),
+    ("dlrover_tpu_torch.models.gpt", "dlrover_tpu/models/gpt.py"),
+    ("dlrover_tpu_torch.utils.torch_compat",
+     "dlrover_tpu/utils/torch_compat.py"),
+    ("dlrover_tpu_torch.utils.timer", "dlrover_tpu/utils/timer.py"),
+    ("dlrover_tpu_torch.utils.numeric_checker",
+     "dlrover_tpu/utils/numeric_checker.py"),
+    ("dlrover_tpu_torch.utils.mup", "dlrover_tpu/utils/mup.py"),
+    ("dlrover_tpu_torch.utils.profiler", "dlrover_tpu/utils/profiler.py"),
+    ("dlrover_tpu_torch.utils.__init__", "dlrover_tpu/utils/"),
+    ("dlrover_tpu_torch.trainer.starter", "dlrover_tpu/trainer/starter.py"),
+    ("dlrover_tpu_torch.common.storage", "dlrover_tpu/common/storage.py"),
+]
+
+
+@pytest.mark.parametrize("module,reference", SLICE_5_4_AND_8_3)
+def test_the_modules_of_slices_5_4_and_8_3_are_checked_and_name_their_reference(
+        module, reference):
+    """BERT and GPT's save_attn (slice 5.4), the utilities, the HF
+    bridge, the starter and the object-store storage (slice 8.3) are
+    among the modules the tests above import and scan, each naming the
+    reference it mirrors, which exists."""
+    assert module in MODULES
+    assert (ROOT / reference).exists()
+    doc = ast.get_docstring(ast.parse(
+        (ROOT / module.replace(".", os.sep)).with_suffix(".py").read_text()))
+    assert reference in doc
+
+
+def test_the_starter_loads_no_torch():
+    """The platform starter runs the launcher in its own process, which
+    never touches the card: it loads no torch (fsspec, which the card
+    machines lack, is held to the same by
+    ``tests/test_torch_fsspec_storage.py``)."""
+    code = (
+        "import json, sys\n"
+        "import dlrover_tpu_torch.trainer.starter\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, check=True,
+    ).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert "dlrover_tpu_torch.trainer.starter" in loaded
+    assert [m for m in loaded if m == "torch" or m.startswith("torch.")] == []
+
+
 def test_the_elastic_example_is_checked_and_names_its_reference():
     """The twin of ``examples/train_gpt_elastic.py`` is among the
     scanned modules and names the reference example."""
