@@ -167,14 +167,18 @@ Phases, each fatal on failure:
    (the twin of ``examples/train_gpt_elastic.py``), at GPT-2 small's
    full width (124,475,904 params, seq 1024, global batch 32 in one
    micro-batch) under ``fsdp`` + ``amp_native`` + ``checkpoint``
-   (FSDP2, bf16, remat) on a one-rank NCCL group, through ``python -m
-   dlrover_tpu_torch.run --nproc_per_node=1 --max_restarts=3``, depth
-   cut to 13 and 12 steps (the host phases' depth keeps the whole script
-   inside its limit), a storage save every 4
-   steps with an orbax (DCP) copy of every 2nd:
-   a. an uninterrupted control of 13 steps, then a run of 12 SIGKILLed
-      once its snapshot of step 8 is in shm (after a committed save)
-      whose respawned worker
+   (FSDP2, bf16, remat) on a one-rank NCCL group, depth cut to 13 and
+   12 steps (the host phases' depth keeps the whole script inside its
+   limit), a storage save every 4 steps with an orbax (DCP) copy of
+   every 2nd:
+   a. an uninterrupted control of 13 steps, the example's ``main`` in
+      this process with an in-process saver (its launches reported
+      under the path ``example_control_inprocess``), then a run of 12
+      through ``python -m dlrover_tpu_torch.run --nproc_per_node=1
+      --max_restarts=3 --warm-restart`` (path ``example_kill``),
+      SIGKILLed once its
+      snapshot of step 8 is in shm (after a committed save), whose
+      respawned worker
       restores params and AdamW moments from shm through
       ``load_checkpoint(target_state=...)``: every loss of every
       incarnation within rtol 1e-3 / atol 1e-5 of the control's (bit
@@ -187,9 +191,12 @@ Phases, each fatal on failure:
       with the flash storage removed, the orbax tier alone restores
       step 12 (the respawned worker's first storage save) bit-equal;
    c. prints the sharded save's stall on the host and on the card, the
-      seconds to shm and to commit, each restore's read / assemble /
-      h2d by tier and its rate, and the example's tokens/s beside
-      phase 9b's FSDP2 step.
+      seconds to shm and to commit, each storage save's persist (ok,
+      seconds, committed) in the control and in the kill run, each
+      restore's read / assemble / h2d by tier and its rate, and the
+      example's tokens/s beside phase 9b's FSDP2 step.
+   On a failure the runs' launcher and event logs are copied into
+   ``chiprun_out/phase10``.
 
 11. the Llama family and the chunked loss (slice 5.1):
    a. a narrow Llama (4 q heads over 1 kv head, head_dim 128, seq 256),
@@ -325,8 +332,9 @@ Phases, each fatal on failure:
       the cache's size and the peak; the first 16 greedy tokens'
       logits against one full forward through B1;
    c. the RL chaos loop (``rl_rollout_worker_kill``) through the port's
-      launcher, its models on the card at GPT-2 small's width cut to 2
-      layers, 8 leases, a SIGKILL at lease 2: the losses equal the
+      launcher (the respawn forked from the warm template), its models
+      on the card at GPT-2 small's width cut to 2 layers, 8 leases, a
+      SIGKILL at lease 2: the losses equal the
       uninterrupted control's (computed here on the card), every lease
       acked exactly once, and the kill -> first PPO step seconds.
 17. sparse training (slice 6), each check fatal; no CUDA kernel of the
@@ -347,9 +355,25 @@ Phases, each fatal on failure:
       gone; digests of rows, frequencies and slots equal the saves';
       bytes, ratio, stalls, restore seconds and GB/s by tier;
    c. ``sparse_kill_restore`` through the port's launcher (a child
-      that never touches CUDA), the tower on the card, the spill tier
+      that never touches CUDA; the respawn forked from the warm
+      template), the tower on the card, the spill tier
       armed: the losses equal the uninterrupted control's (run here on
-      the card), ``KvStateRoundTrip`` holds, kill -> first step seconds.
+      the card), ``KvStateRoundTrip`` holds, kill -> first step seconds;
+   d. the serving plane (slice 9.1) on the host, fed by b's strict table
+      (about 2.04 M rows): a serving adapter on the table publishes a
+      base, 12 more strict steps on new batches publish a delta every
+      4; a ``ReplicaPool`` of 2 ``python -m dlrover_tpu_torch.serving``
+      processes behind a ``python -m dlrover_tpu_torch.serving.router``
+      process ingests the chain while ``LookupLoadHarness`` (4 streams
+      of 256) drives routed lookups of the fields' Zipf keys: every
+      ingest digest equals its publish's, both replicas reach the last
+      generation, a lookup of 100,000 seeded keys (some absent) on each
+      equals ``model.table.gather_or_zeros`` bit for bit, no routed
+      lookup fails, neither the replicas nor the router map a CUDA
+      library; the base's rows, bytes and seconds, each delta's rows,
+      bytes and publish stall, the ingest seconds, freshness, routed
+      lookups/s with p50/p99 and the phase's seconds.  Runs after b,
+      before c.
 18. BERT and GPT's save_attn remat (slice 5.4), each check fatal:
    a. a narrow BERT in fp32 on the card against the CPU (logits within
       1e-4); then ``Bert(BertConfig())`` at full width (vocab 30528, 12
@@ -371,7 +395,7 @@ Phases, each fatal on failure:
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  ``--only 2,11`` runs the build
 and the named phases alone (2, 3, 4, 5b, 9b, 10, 11, 12, 13, 13a, 13b,
-14, 14a-14e, 15, 15a, 15b, 16, 16a-16c, 17, 17a-17c, 18 (18a, then 5b
+14, 14a-14e, 15, 15a, 15b, 16, 16a-16c, 17, 17a-17d, 18 (18a, then 5b
 with 18b), 18a and 18b (5b with 18b) so far; 5lr,
 which the full run leaves out: phase 5a's model at lr 1e-3 with the
 flash kernels and with the plain attention math, and at SMALL_LR; and
@@ -3854,81 +3878,155 @@ E_RUN_TIMEOUT_S = 300
 E_AMP: dict = {}
 
 
-def _example_run(label: str, steps: int, kill_at=None) -> dict:
-    """One ``python -m dlrover_tpu_torch.run`` run of the example (the
-    launcher in a process of its own), with a SIGKILL of the worker at
-    ``kill_at`` when given: rc, the incarnations' records, the events,
-    the checkpoint directory (kept for 10b) and the wall time.  The run
-    gets a short socket directory and a job name of its own; its shm
-    segments are unlinked at the end."""
-    from dlrover_tpu_torch.chaos import harness
-    from dlrover_tpu_torch.chaos.schedule import Scenario
-    from dlrover_tpu_torch.telemetry.events import read_events
-
-    rules = []
-    if kill_at:
-        # the kill lands once the snapshot of step ``kill_at`` is whole
-        # in shm (a kill mid-write would leave the segment torn)
-        rules.append({"name": "kill-after-save", "point": "ckpt.shm_save",
-                      "action": "kill", "at_step": kill_at,
-                      "only_first_incarnation": True})
-    scenario = Scenario.from_dict({"name": f"example-{label}", "seed": 0,
-                                   "rules": rules})
-    workdir = tempfile.mkdtemp(prefix=f"dl10{label}")
+@contextmanager
+def _example_scope(label: str):
+    """The checkpoint directory, record directory, event log and job
+    name of one example run of phase 10, emptied before it; the job's
+    shm segments are unlinked after it, failure included."""
     ckpt = os.path.join(OUT_DIR, f"ckpt_example_{label}")
     rec = os.path.join(OUT_DIR, f"example_{label}")
+    event_log = os.path.join(OUT_DIR, f"example_{label}_events.jsonl")
     for path in (ckpt, ckpt + "_durable", rec):
         shutil.rmtree(path, ignore_errors=True)
-    env, event_log = harness.scenario_env(scenario, workdir, steps,
-                                          E_SAVE_EVERY)
+    if os.path.exists(event_log):
+        os.remove(event_log)
     job = f"{os.environ['DLROVER_JOB_NAME']}_e{label}"
-    env = {**os.environ, **env, "PYTHONPATH": ROOT, "DLROVER_JOB_NAME": job}
-    # a run that outlives its limit dumps every thread's stack of every
-    # process of it (SIGABRT with the fault handler on) into its log
-    env["PYTHONFAULTHANDLER"] = "1"
-    log_path = os.path.join(OUT_DIR, f"example_{label}.log")
-    t0 = time.perf_counter()
     try:
-        with open(log_path, "w") as f:
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "dlrover_tpu_torch.run",
-                 "--nproc_per_node=1", "--max_restarts=3",
-                 "--monitor_interval=0.3", EXAMPLE, "--steps", str(steps),
-                 "--save-every", str(E_SAVE_EVERY),
-                 "--orbax-every", str(E_ORBAX_EVERY), "--ckpt-dir", ckpt,
-                 "--record", rec],
-                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
-                start_new_session=True)
-            try:
-                rc = proc.wait(timeout=E_RUN_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                os.killpg(proc.pid, signal.SIGABRT)
-                time.sleep(5)
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-                rc = "a timeout"
+        yield ckpt, rec, event_log, job
+    finally:
+        prefix = f"dlrover_tpu_ckpt_shm_{job}_"
+        for name in os.listdir("/dev/shm"):
+            if name.startswith(prefix):
+                os.unlink(os.path.join("/dev/shm", name))
+
+
+def _example_result(label, ckpt, rec, event_log, wall) -> dict:
+    """One example run's incarnation records and events, its checkpoint
+    directory (kept for 10b) and its wall time."""
+    from dlrover_tpu_torch.telemetry.events import read_events
+
+    records = []
+    for name in sorted(os.listdir(rec)):
+        if name.startswith("incarnation_") and name.endswith(".json"):
+            with open(os.path.join(rec, name)) as f:
+                records.append(json.load(f))
+    return {"label": label, "records": records,
+            "events": list(read_events(event_log)), "ckpt": ckpt,
+            "wall_s": wall}
+
+
+def _example_run(label: str, steps: int, kill_at: int) -> dict:
+    """One ``python -m dlrover_tpu_torch.run --warm-restart`` run of the
+    example (the launcher in a process of its own) with a SIGKILL of the
+    worker at ``kill_at``; the respawn forks from the warm template, as
+    phase 8b's and 12's do (a cold respawn is phase 8a's path).  The
+    run gets a short socket directory of its own."""
+    from dlrover_tpu_torch.chaos import harness
+    from dlrover_tpu_torch.chaos.schedule import Scenario
+
+    # the kill lands once the snapshot of step ``kill_at`` is whole in
+    # shm (a kill mid-write would leave the segment torn)
+    scenario = Scenario.from_dict({"name": f"example-{label}", "seed": 0,
+                                   "rules": [{
+                                       "name": "kill-after-save",
+                                       "point": "ckpt.shm_save",
+                                       "action": "kill", "at_step": kill_at,
+                                       "only_first_incarnation": True}]})
+    workdir = tempfile.mkdtemp(prefix=f"dl10{label}")
+    log_path = os.path.join(OUT_DIR, f"example_{label}.log")
+    with _example_scope(label) as (ckpt, rec, event_log, job):
+        env, _ = harness.scenario_env(scenario, workdir, steps, E_SAVE_EVERY)
+        env = {**os.environ, **env, "PYTHONPATH": ROOT,
+               "DLROVER_JOB_NAME": job, "DLROVER_EVENT_LOG": event_log}
+        # a run that outlives its limit dumps every thread's stack of
+        # every process of it (SIGABRT with the fault handler on) into
+        # its log
+        env["PYTHONFAULTHANDLER"] = "1"
+        t0 = time.perf_counter()
+        try:
+            with open(log_path, "w") as f:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "dlrover_tpu_torch.run",
+                     "--nproc_per_node=1", "--max_restarts=3",
+                     "--warm-restart", "--monitor_interval=0.3", EXAMPLE,
+                     "--steps", str(steps), "--save-every", str(E_SAVE_EVERY),
+                     "--orbax-every", str(E_ORBAX_EVERY), "--ckpt-dir", ckpt,
+                     "--record", rec],
+                    cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                    start_new_session=True)
+                try:
+                    rc = proc.wait(timeout=E_RUN_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGABRT)
+                    time.sleep(5)
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+                    rc = "a timeout"
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
         wall = time.perf_counter() - t0
         if rc != 0:
             with open(log_path) as f:
                 tail = f.read()[-12000:]
             raise AssertionError(f"example run {label} ended with "
                                  f"{rc} after {wall:.1f} s:\n{tail}")
-        records = []
-        for name in sorted(os.listdir(rec)):
-            if name.startswith("incarnation_") and name.endswith(".json"):
-                with open(os.path.join(rec, name)) as f:
-                    records.append(json.load(f))
-        events = list(read_events(event_log))
-        shutil.copy(event_log, os.path.join(OUT_DIR,
-                                            f"example_{label}_events.jsonl"))
-    finally:
-        prefix = f"dlrover_tpu_ckpt_shm_{job}_"
-        for name in os.listdir("/dev/shm"):
-            if name.startswith(prefix):
-                os.unlink(os.path.join("/dev/shm", name))
-        shutil.rmtree(workdir, ignore_errors=True)
-    return {"label": label, "records": records, "events": events,
-            "ckpt": ckpt, "wall_s": wall}
+        return _example_result(label, ckpt, rec, event_log, wall)
+
+
+def _example_control_inprocess(steps: int) -> dict:
+    """10a's control: the example's ``main`` in this process (its own
+    one-rank NCCL group, an in-process saver, no launcher); the kill run
+    starts the launcher's processes and holds the checks of a launcher
+    run itself."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.chaos import harness
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.examples import train_gpt_elastic
+
+    label = "control_inprocess"
+    with _example_scope(label) as (ckpt, rec, event_log, job):
+        t0 = time.perf_counter()
+        try:
+            with harness._patched_env({"DLROVER_EVENT_LOG": event_log,
+                                       "DLROVER_JOB_NAME": job}):
+                train_gpt_elastic.main([
+                    "--steps", str(steps), "--save-every", str(E_SAVE_EVERY),
+                    "--orbax-every", str(E_ORBAX_EVERY), "--ckpt-dir", ckpt,
+                    "--record", rec])
+            wall = time.perf_counter() - t0
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            AsyncCheckpointSaver.reset()
+            _free_cuda()
+        return _example_result(label, ckpt, rec, event_log, wall)
+
+
+def _keep_example_logs():
+    """On a failure of phase 10: the example runs' launcher logs (the
+    agent's saver logs there) and event logs, into ``chiprun_out/``."""
+    keep = os.path.join(ROOT, "chiprun_out", "phase10")
+    os.makedirs(keep, exist_ok=True)
+    for name in os.listdir(OUT_DIR):
+        if name.startswith("example_") and name.endswith(
+                (".log", "_events.jsonl")):
+            shutil.copy(os.path.join(OUT_DIR, name), keep)
+    log(f"phase 10: kept {sorted(os.listdir(keep))} in {keep}")
+
+
+def _persist_line(r) -> str:
+    """The persists of a run's storage saves (step: ok, seconds, to
+    commit), from its events."""
+    commits = {e["step"]: e["ts"] for e in r["events"]
+               if e.get("type") == "checkpoint_commit"}
+    out = []
+    for e in r["events"]:
+        if e.get("type") == "checkpoint_persist":
+            out.append(f"step {e['step']}: ok {e.get('ok')}, "
+                       f"{e.get('seconds')} s, committed "
+                       f"{'yes' if e['step'] in commits else 'no'}")
+    return "; ".join(out) or "no persist events"
 
 
 def _check_example_run(r, per_step, control=None) -> list:
@@ -4088,18 +4186,27 @@ def _rate(phases) -> str:
 
 def phase_example(card) -> dict:
     """10: the elastic example at GPT-2 small's full width under FSDP2:
-    a control, a SIGKILLed run restored through the target state, the
-    reshard of its state into other plans and the orbax tier alone."""
-    import torch
+    a control (in this process), a SIGKILLed run under the launcher
+    restored through the target state, the reshard of its state into
+    other plans and the orbax tier alone.  On a failure the runs' logs
+    are kept in ``chiprun_out/phase10``."""
+    per_step = _flash_expected(12, 1, 1, True)
+    try:
+        return _phase_example(card, per_step)
+    except BaseException:
+        _keep_example_logs()
+        raise
+
+
+def _phase_example(card, per_step) -> dict:
     import torch.distributed as dist
 
     from dlrover_tpu_torch.checkpoint.saver import read_last_checkpoint
     from dlrover_tpu_torch.models.gpt import GPTConfig
 
-    per_step = _flash_expected(12, 1, 1, True)
     failures = []
-    # 10a
-    control = _example_run("control", E_STEPS + 1)
+    # 10a: the control in this process, the kill run under the launcher
+    control = _example_control_inprocess(E_STEPS + 1)
     want = {st["step"]: st["loss"]
             for inc in control["records"] for st in inc["steps"]}
     failures += _check_example_run(control, per_step)
@@ -4157,6 +4264,9 @@ def phase_example(card) -> dict:
             f"{write.get('total_s')} s after the writer took it (fetch "
             f"{write.get('fetch_s')} s, memcpy {write.get('memcpy_s')} s); "
             f"to commit {to_commit:.3f} s after the call [{card}]")
+    log(f"10c persists of the storage saves: control (in-process saver) "
+        f"{_persist_line(control)}; kill run (the agent's saver) "
+        f"{_persist_line(kill)} [{card}]")
     log(f"10c restore after the kill: {_rate(restore)} [{card}]")
     steady = [st["seconds"] for st in control["records"][0]["steps"][2:]]
     step_s = statistics.median(steady)
@@ -6538,7 +6648,7 @@ def rl_chaos_child(workdir: str, result_path: str) -> int:
     t0 = time.time()
     report = harness.run_scenario(
         scenarios.rl_rollout_worker_kill(), workdir=workdir, invariants=[],
-        extra_env=RL_CHAOS_ENV)
+        extra_env=RL_CHAOS_ENV, warm_restart=True)
     with open(result_path, "w") as f:
         json.dump({"rc": report.rc, "wall_s": time.time() - t0}, f)
     return 0
@@ -6969,7 +7079,8 @@ def sparse_chaos_child(workdir: str, result_path: str) -> int:
     t0 = time.time()
     report = harness.run_scenario(
         scenarios.sparse_kill_restore(), workdir=workdir, invariants=[],
-        extra_env={"DLROVER_CHAOS_SPARSE_DEVICE": S_DEVICE})
+        extra_env={"DLROVER_CHAOS_SPARSE_DEVICE": S_DEVICE},
+        warm_restart=True)
     with open(result_path, "w") as f:
         json.dump({"rc": report.rc, "wall_s": time.time() - t0}, f)
     return 0
@@ -7035,16 +7146,336 @@ def phase_sparse_chaos(card) -> dict:
     return {}
 
 
+# 17d: the serving plane (slice 9.1) on 17b's strict table: a base, then
+# SV_STEPS more strict steps on new batches with a delta every
+# SV_PUB_EVERY, ingested by a pool of SV_POOL replica processes behind
+# one router process while the load harness drives routed lookups
+SV_STEPS, SV_PUB_EVERY, SV_POOL = 12, 4, 2
+SV_CHECK_KEYS, SV_ABSENT_KEYS = 100_000, 5_000
+SV_CONVERGE_S = 60.0
+SV_BUDGET_S = 45.0
+# the ids of 17a's fields, laid end to end
+SV_KEY_SPACE = sum(S_FIELD_VOCABS)
+
+
+class _ZipfKeys:
+    """A lookup stream's key source.  ``fleet/lookup_load.py`` is a copy
+    of the reference's and has no hook for one (ROADMAP §A 9.2 asks for
+    a key sampler): its agent draws each batch as
+    ``self._rng.integers(0, key_space, batch)``, and 17d puts this
+    object in the place of ``_rng``.  It draws from 17a's field laws
+    instead (each key's field uniform, its id Zipf over the field's
+    vocabulary at the field's offset), so the routed traffic hits the
+    table as the trainer's batches do.  It counts its draws and keeps
+    any range other than ``[0, key_space)``; :func:`_zipf_draws_failed`
+    holds both against the agents' lookups, so an agent that drew its
+    keys another way fails the phase instead of passing with uniform
+    keys."""
+
+    def __init__(self, seed: int, key_space: int):
+        import numpy as np
+
+        self._rng = np.random.default_rng(seed)
+        self._offsets = np.concatenate([[0], np.cumsum(S_FIELD_VOCABS)[:-1]])
+        self.key_space = key_space
+        self.draws = 0
+        self.bad_ranges = set()
+
+    def integers(self, low, high, size):
+        import numpy as np
+
+        if (low, high) != (0, self.key_space):
+            self.bad_ranges.add((low, high))
+        self.draws += 1
+        fields = self._rng.integers(0, len(S_FIELD_VOCABS), size)
+        out = np.empty(size, dtype=np.int64)
+        for f in np.unique(fields):
+            m = fields == f
+            out[m] = _zipf_ids(self._rng, int(m.sum()),
+                               S_FIELD_VOCABS[f]) + self._offsets[f]
+        return out
+
+
+def _zipf_draws_failed(load) -> list:
+    """The failures of 17d's key sources: each agent of ``load`` made
+    one draw from its :class:`_ZipfKeys` for each lookup it counted,
+    over the table's key space, and made at least one lookup."""
+    failures = []
+    for agent in load.agents:
+        src = agent._rng
+        if not isinstance(src, _ZipfKeys) or src.bad_ranges or (
+                src.draws != agent.stats.lookups) or not src.draws:
+            failures.append(
+                f"lookup stream {agent.stream_id}: {agent.stats.lookups} "
+                f"lookups, {getattr(src, 'draws', None)} Zipf draws, ranges "
+                f"{getattr(src, 'bad_ranges', None)} (the load harness no "
+                "longer draws its keys through its stream's rng)")
+    return failures
+
+
+def _serving_events(paths, etype):
+    from dlrover_tpu_torch.telemetry.events import read_events
+
+    out = []
+    for p in paths:
+        if os.path.exists(p):
+            out += [e for e in read_events(p) if e.get("type") == etype]
+    return out
+
+
+def phase_sparse_serving(card, model=None, step=None) -> dict:
+    """17d: the serving plane on 17b's strict table (about 2.04 M rows
+    of 16 fp32 trained on the card).  The trainer registers a serving
+    adapter on the DeepFM table and publishes a base, then takes
+    SV_STEPS strict steps on new seeded batches (17a's Zipf law and
+    batch) with a delta every SV_PUB_EVERY; a ``ReplicaPool`` of
+    SV_POOL ``python -m dlrover_tpu_torch.serving`` processes behind one
+    ``python -m dlrover_tpu_torch.serving.router`` process ingests the
+    chain while ``LookupLoadHarness`` (its default streams and batch)
+    drives routed lookups of Zipf keys.  Fatal: an ingest digest that is
+    not its publish's, a replica that does not reach the last
+    generation, a lookup of SV_CHECK_KEYS seeded keys (some absent) on a
+    replica that differs from ``model.table.gather_or_zeros`` by a bit,
+    a failed or stale routed lookup, a replica or router that maps a
+    CUDA library.  On a failure the run's event logs are copied into
+    ``chiprun_out/``."""
+    if model is None:
+        model, opt, step, batches = phase_sparse_deepfm(card, keep=True)
+        phase_sparse_ckpt(card, model, opt, step, batches)
+    t_phase = time.perf_counter()
+    # the published generations (hundreds of MB) go to the system's
+    # temporary directory, never into chip_smoke_out
+    workdir = tempfile.mkdtemp(prefix="serving17d")
+    try:
+        failures = _serving_run(card, model, step, workdir)
+        log(f"17d took {time.perf_counter() - t_phase:.1f} s against a "
+            f"budget of {SV_BUDGET_S:.0f} s [{card}]")
+        if failures:
+            raise AssertionError("17d: " + "; ".join(failures))
+    except BaseException:
+        keep = os.path.join(ROOT, "chiprun_out", "serving17d")
+        shutil.rmtree(keep, ignore_errors=True)
+        shutil.copytree(workdir, keep, ignore=shutil.ignore_patterns(
+            "serving", "router_journal", "*.prom"))
+        log(f"17d: kept the run's logs in {keep}")
+        raise
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {}
+
+
+def _serving_run(card, model, step, workdir) -> list:
+    """17d's run in ``workdir``: the failures, as text."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.chaos import harness
+    from dlrover_tpu_torch.checkpoint.sparse import SparseStateAdapter
+    from dlrover_tpu_torch.common.comm import MessageClient
+    from dlrover_tpu_torch.fleet.lookup_load import LookupLoadHarness
+    from dlrover_tpu_torch.models.deepfm import DeepFMConfig
+    from dlrover_tpu_torch.serving.messages import (
+        LookupRequest,
+        RoutingTableRequest,
+    )
+    from dlrover_tpu_torch.serving.pool import ReplicaPool
+    from dlrover_tpu_torch.serving.publisher import (
+        EmbeddingPublisher,
+        read_manifest,
+    )
+    from dlrover_tpu_torch.trainer.sparse_pipeline import (
+        SparseTrainPipeline,
+    )
+
+    serving_dir = os.path.join(workdir, "serving")
+    pub_log = os.path.join(workdir, "events_trainer.jsonl")
+    router_log = os.path.join(workdir, "events_router.jsonl")
+    port_file = os.path.join(workdir, "router.port")
+    router_stop = os.path.join(workdir, "router.stop")
+    router = pool = ctl = load = None
+    failures = []
+    try:
+        with harness._patched_env({"DLROVER_EVENT_LOG": pub_log}):
+            adapter = SparseStateAdapter(digest=True).register_table(
+                model.table)
+            pub = EmbeddingPublisher(adapter, serving_dir, compact_every=100)
+            t0 = time.perf_counter()
+            base_gen = pub.publish(step=0)
+            base_s = time.perf_counter() - t0
+        base = read_manifest(serving_dir, base_gen)
+        env = dict(os.environ, PYTHONPATH=ROOT, DLROVER_EVENT_LOG=router_log,
+                   DLROVER_SERVING_ROLE="router", DLROVER_MASTER_ADDR="")
+        router = subprocess.Popen(
+            [sys.executable, "-m", "dlrover_tpu_torch.serving.router",
+             "--journal-dir", os.path.join(workdir, "router_journal"),
+             "--port", "0", "--port-file", port_file,
+             "--stop-file", router_stop, "--heartbeat-timeout", "5",
+             "--min-available", "1", "--stats-every", "0.5"],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+        deadline = time.time() + 30
+        while not os.path.exists(port_file):
+            if time.time() > deadline or router.poll() is not None:
+                raise AssertionError("17d: the router never wrote its port")
+            time.sleep(0.05)
+        with open(port_file) as f:
+            router_addr = f"127.0.0.1:{int(f.read().strip())}"
+        pool = ReplicaPool(serving_dir, os.path.join(workdir, "pool"),
+                           router_addr=router_addr, size=SV_POOL,
+                           heartbeat_s=0.25, stats_every_s=0.5,
+                           max_respawns=0)
+        ports = pool.wait_ports(60.0)
+        ctl = MessageClient(router_addr, node_id=-3, node_type="chip-smoke",
+                            timeout=15.0, retries=4, backoff_base=0.1,
+                            backoff_max=1.0, resync_timeout=0.0)
+
+        def wait_admitted(gen):
+            deadline = time.time() + SV_CONVERGE_S
+            while True:
+                live = [m for m in ctl.get(RoutingTableRequest())
+                        .members.values() if not m.get("removed")]
+                if len(live) == SV_POOL and all(
+                        int(m.get("generation", -1)) >= gen for m in live):
+                    return
+                if time.time() > deadline:
+                    raise AssertionError(f"17d: the pool never reached "
+                                         f"generation {gen}: {live}")
+                time.sleep(0.05)
+
+        wait_admitted(base_gen)
+        base_ready_s = time.perf_counter() - t0
+        load = LookupLoadHarness(router_addr, key_space=SV_KEY_SPACE,
+                                 seed=S_SEED)
+        for i, agent in enumerate(load.agents):
+            agent._rng = _ZipfKeys(S_SEED * 1000 + i, SV_KEY_SPACE)
+        batch = load.agents[0]._batch
+        load.start()
+        pipe = SparseTrainPipeline(model.table, model.sparse_optimizer, step,
+                                   device=S_DEVICE, pipeline=False)
+        more = _sparse_batches(DeepFMConfig(), SV_STEPS, seed=S_SEED + 2)
+        deltas = []
+        with harness._patched_env({"DLROVER_EVENT_LOG": pub_log}):
+            for k in range(0, SV_STEPS, SV_PUB_EVERY):
+                pipe.run(None, more[k:k + SV_PUB_EVERY])
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                gen = pub.publish(step=k + SV_PUB_EVERY)
+                deltas.append((gen, time.perf_counter() - t1))
+        last = deltas[-1][0]
+        wait_admitted(last)
+        load.stop()
+        failures += _zipf_draws_failed(load)
+        summary, load = load.summary(), None
+        # every replica at the last generation against the live table
+        rng = np.random.default_rng(S_SEED + 3)
+        keys = np.concatenate([
+            _ZipfKeys(S_SEED + 4, SV_KEY_SPACE).integers(
+                0, SV_KEY_SPACE, SV_CHECK_KEYS - SV_ABSENT_KEYS),
+            SV_KEY_SPACE + rng.integers(0, 10**6, SV_ABSENT_KEYS),
+        ]).astype(np.int64)
+        want = model.table.gather_or_zeros(keys)
+        absent = int((~want.any(axis=1)).sum())
+        equal = {}
+        for rid, port in sorted(ports.items()):
+            cli = MessageClient(f"127.0.0.1:{port}", node_id=-4,
+                                node_type="chip-smoke", timeout=60.0,
+                                retries=2, backoff_base=0.1,
+                                backoff_max=1.0, resync_timeout=0.0)
+            try:
+                resp = cli.get(LookupRequest(keys=keys))
+            finally:
+                cli.close()
+            equal[rid] = (resp.generation == last and
+                          resp.values.tobytes() == want.tobytes())
+            if not equal[rid]:
+                failures.append(f"replica {rid} at generation "
+                                f"{resp.generation} serves other values "
+                                f"than the table at {last}")
+        mapped = {f"replica {rid}": _maps_cuda(m.proc.pid)
+                  for rid, m in pool._members.items()}
+        mapped["router"] = _maps_cuda(router.pid)
+        for who, libs in mapped.items():
+            if libs:
+                failures.append(f"the {who} maps {libs}")
+        replica_logs = pool.event_logs()
+    finally:
+        if ctl is not None:
+            ctl.close()
+        if load is not None:
+            load.stop()
+        if pool is not None:
+            pool.stop()
+        if router is not None:
+            with open(router_stop, "w") as f:
+                f.write("stop")
+            try:
+                router.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                router.kill()
+                router.wait()
+    publishes = _serving_events([pub_log], "serving_publish")
+    events = publishes + _serving_events(replica_logs, "serving_ingest")
+    for inv in (harness.ServedGenerationCommitted(),
+                harness.PublishExactlyOnce()):
+        res = inv.check(events, None)
+        if not res.ok:
+            failures.append(f"{res.name}: {res.detail}")
+    per_replica = {}
+    for path in replica_logs:
+        ing = _serving_events([path], "serving_ingest")
+        per_replica[os.path.basename(path)] = ing
+        if max((e["generation"] for e in ing), default=-1) != last:
+            failures.append(f"{os.path.basename(path)} never ingested "
+                            f"generation {last}")
+    if summary["failed"]:
+        failures.append(f"{summary['failed']} routed lookups failed")
+    route = _serving_events([router_log], "serving_route")
+    bad = sum(int(e.get("failed") or 0) + int(e.get("stale") or 0)
+              for e in route)
+    if bad:
+        failures.append(f"{bad} failed or stale routed lookups counted by "
+                        "the router")
+    pubs = {e["generation"]: e for e in publishes}
+    log(f"17d base: {base['tables']['deepfm']['rows']} rows, "
+        f"{base['nbytes']} B in {base_s:.3f} s (generation {base_gen}); the "
+        f"pool of {SV_POOL} admitted it {base_ready_s:.3f} s after the "
+        f"publish began [{card}]")
+    for gen, stall in deltas:
+        p = pubs.get(gen, {})
+        log(f"17d delta generation {gen}: {p.get('rows')} rows, "
+            f"{p.get('dead_rows')} tombstones, {p.get('bytes')} B, the "
+            f"trainer's publish stall {stall * 1e3:.3f} ms [{card}]")
+    for name, ing in sorted(per_replica.items()):
+        log(f"17d {name}: ingest (generation, kind, seconds) "
+            f"{[(e['generation'], e['kind'], e['seconds']) for e in ing]}; "
+            f"freshness, commit to servable (generation, s) "
+            f"{[(e['generation'], e.get('freshness_s')) for e in ing]} "
+            f"[{card}]")
+    log(f"17d routed lookups (LookupLoadHarness, {summary['streams']} "
+        f"streams of batch {batch}, Zipf keys): {summary['lookups']} in "
+        f"{summary.get('wall_s')} s = {summary.get('qps')} lookups/s, p50 "
+        f"{summary.get('p50_ms')} ms, p99 {summary.get('p99_ms')} ms, "
+        f"failed {summary['failed']}, outcomes {summary['outcomes']}, "
+        f"router windows failed or stale {bad}; the check's "
+        f"{SV_CHECK_KEYS} keys ({absent} absent) bit-equal by replica "
+        f"{equal}; CUDA libraries mapped {mapped} [{card}]")
+    return failures
+
+
 def phase_sparse(card) -> dict:
-    """Phase 17: 17a, 17b (on 17a's strict table) and 17c, each timed."""
+    """Phase 17: 17a, 17b (on 17a's strict table), 17d (on 17b's) and
+    17c, each timed."""
     t0 = time.perf_counter()
     model, opt, step, batches = phase_sparse_deepfm(card, keep=True)
     log(f"chip_smoke: phase 17a took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_sparse_ckpt(card, model, opt, step, batches)
+    log(f"chip_smoke: phase 17b took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_sparse_serving(card, model, step)
     del model, opt, step, batches
     _free_cuda()
-    log(f"chip_smoke: phase 17b took {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: phase 17d took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_sparse_chaos(card)
     log(f"chip_smoke: phase 17c took {time.perf_counter() - t0:.1f} s")
@@ -7397,7 +7828,7 @@ ONLY = {"2": phase_kernels, "3": phase_quant_kernels,
         "16a": phase_rl_ppo, "16b": phase_llama_decode,
         "16c": phase_rl_chaos, "17": phase_sparse,
         "17a": phase_sparse_deepfm, "17b": phase_sparse_ckpt,
-        "17c": phase_sparse_chaos,
+        "17c": phase_sparse_chaos, "17d": phase_sparse_serving,
         "18": phase_slice_5_4, "18a": phase_bert, "18b": phase_train_xl}
 
 

@@ -2,7 +2,7 @@
 
 Copy of ``dlrover_tpu/brain/bo.py`` (the strategy search of
 :mod:`dlrover_tpu_torch.accel.strategy_search` picks what to dry-run
-with it; the rest of ``brain/`` comes with slice 9 of the port).
+with it; the rest of ``brain/`` is ported beside it).
 Reference capability: ``BayesianOptimizer``
 (``dlrover/python/brain/hpsearch/bo.py:30``) — propose hyperparameter
 candidates from observed (params, reward) history.  Implementation

@@ -13,8 +13,9 @@ Examples::
 Copy of ``dlrover_tpu/chaos/__main__.py``, for the scenarios the port
 has (``chaos/scenarios.py``): the single-node harness, the multi-agent
 runner (``--nnodes`` > 1, N launcher processes on one box against one
-master) and the elastic-resize runner.  The serving runners come with
-slice 9.
+master), the elastic-resize runner, and the two serving runners
+(slice 9.1: the train-to-serve mini-cluster beside a supervised replica,
+and the routed replica fleet).
 """
 
 import argparse
@@ -110,6 +111,26 @@ def main(argv: Optional[List[str]] = None) -> int:
             scenario,
             workdir=workdir,
             nnodes=nnodes,
+            total_steps=args.steps,
+            max_restarts=args.max_restarts,
+        )
+    elif scenario.name == "serving-fleet-replica-kill":
+        # needs the fleet runner: an in-process publisher, a
+        # supervised router subprocess and a replica pool under
+        # synthetic routed load
+        report = harness.run_serving_fleet_scenario(
+            scenario, workdir=workdir,
+        )
+    elif scenario.name in (
+        "serving-replica-kill-midingest",
+        "serving-trainer-kill-midpublish",
+    ):
+        # needs the serving runner: the mini-cluster plus a
+        # supervised read-only replica subprocess ingesting the
+        # published generations under lookup traffic
+        report = harness.run_serving_scenario(
+            scenario,
+            workdir=workdir,
             total_steps=args.steps,
             max_restarts=args.max_restarts,
         )

@@ -52,8 +52,17 @@ dataset.  The sparse set: :class:`KvStateRoundTrip`,
 digests that rows, frequencies and optimizer slots came through a kill
 or a reshard bit for bit, and :func:`seed_sparse_world_checkpoint`
 writes the committed world-2 checkpoint the streaming-reshard kill
-restores from.  The serving runners come with slice 9, the
-compile-cache invariants with slice 8.2.
+restores from.  The serving set (slice 9.1):
+:class:`ServedGenerationCommitted`, :class:`PublishExactlyOnce`,
+:class:`ServingConverged` and :class:`ReplicaReingested` decide from the
+``serving_publish``/``serving_ingest`` digests that no torn generation
+was served, and :class:`RoutedTrafficClean`,
+:class:`ReplicaShedAndReadmitted`,
+:class:`FleetHealthyReplicasNotRestarted` and
+:class:`RouterReplayMatchesLive` hold the routed fleet of
+:func:`run_serving_fleet_scenario`; :func:`run_serving_scenario` runs
+the train-to-serve loop beside a supervised replica.  The compile-cache
+invariants come with slice 8.2.
 """
 
 import json
@@ -61,6 +70,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -76,6 +86,7 @@ from dlrover_tpu_torch.chaos.scenarios import (
     SHARD_DATASET_ENV,
     SPARSE_RESHARD_TRAIN_SCRIPT,
     SPARSE_RESIZE_TRAIN_SCRIPT,
+    SPARSE_SERVING_TRAIN_SCRIPT,
     SPARSE_TRAIN_SCRIPT,
     STEP_SLEEP_ENV,
     TOTAL_STEPS_ENV,
@@ -101,6 +112,7 @@ TRAIN_SCRIPTS = {
     "resize": RESIZE_TRAIN_SCRIPT,
     "sparse_resize": SPARSE_RESIZE_TRAIN_SCRIPT,
     "sparse_reshard": SPARSE_RESHARD_TRAIN_SCRIPT,
+    "sparse_serving": SPARSE_SERVING_TRAIN_SCRIPT,
     "rl": RL_TRAIN_SCRIPT,
 }
 
@@ -1542,6 +1554,394 @@ class KvStreamingReshardReplayed(Invariant):
         )
 
 
+def _serving_events(events: List[dict], etype: str) -> List[dict]:
+    return [e for e in events if e.get("type") == etype]
+
+
+class ServedGenerationCommitted(Invariant):
+    """The replica never served a torn or uncommitted generation,
+    decided from events alone: every ``serving_ingest`` generation
+    has EXACTLY ONE matching committed ``serving_publish``, and the
+    per-table content digests the replica verified over what it
+    ACTUALLY applied equal the ones the publisher stamped at commit.
+    (The ingest event is emitted only after the full apply under the
+    swap lock, so a half-applied generation — e.g. a replica killed
+    mid-ingest — can never produce one.)"""
+
+    name = "served_generation_committed"
+
+    def check(self, events, run):
+        publishes = {}
+        for e in _serving_events(events, "serving_publish"):
+            publishes.setdefault(e.get("generation"), []).append(e)
+        ingests = _serving_events(events, "serving_ingest")
+        if not ingests:
+            return InvariantResult(
+                self.name, False, "no serving_ingest events recorded"
+            )
+        problems = []
+        for e in ingests:
+            gen = e.get("generation")
+            pubs = publishes.get(gen)
+            if not pubs:
+                problems.append(
+                    f"gen {gen} ingested but never published"
+                )
+                continue
+            want = pubs[-1].get("tables") or {}
+            got = e.get("tables") or {}
+            if want != got:
+                problems.append(
+                    f"gen {gen} digest mismatch: published {want} != "
+                    f"ingested {got}"
+                )
+        if problems:
+            return InvariantResult(
+                self.name, False, "; ".join(problems[:4])
+            )
+        gens = sorted({e.get("generation") for e in ingests})
+        return InvariantResult(
+            self.name, True,
+            f"{len(ingests)} ingest(s) over generation(s) "
+            f"{gens[0]}..{gens[-1]}, every digest matches its commit",
+        )
+
+
+class PublishExactlyOnce(Invariant):
+    """Every committed generation was published exactly once
+    (``serving_publish`` is emitted after the tracker advance): no
+    generation number repeats, and the sequence is monotonic — the
+    trainer killed mid-publish left its half-written generation
+    uncommitted and its replacement moved on to a fresh number."""
+
+    name = "publish_exactly_once"
+
+    def check(self, events, run):
+        pubs = _serving_events(events, "serving_publish")
+        if not pubs:
+            return InvariantResult(
+                self.name, False, "no serving_publish events recorded"
+            )
+        gens = [e.get("generation") for e in pubs]
+        dupes = sorted({g for g in gens if gens.count(g) > 1})
+        if dupes:
+            return InvariantResult(
+                self.name, False,
+                f"generation(s) {dupes} published more than once",
+            )
+        if gens != sorted(gens):
+            return InvariantResult(
+                self.name, False,
+                f"publish sequence not monotonic: {gens}",
+            )
+        bases = sum(1 for e in pubs if e.get("kind") == "base")
+        return InvariantResult(
+            self.name, True,
+            f"{len(gens)} generation(s) ({bases} base), each "
+            "committed exactly once",
+        )
+
+
+class ServingConverged(Invariant):
+    """The replica caught up: the LAST committed generation (highest
+    ``serving_publish``) was ingested — freshness converges to zero
+    lag after the chaos settles."""
+
+    name = "serving_converged"
+
+    def check(self, events, run):
+        pubs = _serving_events(events, "serving_publish")
+        ingests = _serving_events(events, "serving_ingest")
+        if not pubs or not ingests:
+            return InvariantResult(
+                self.name, False,
+                f"{len(pubs)} publish / {len(ingests)} ingest "
+                "event(s)",
+            )
+        last_pub = max(e.get("generation") for e in pubs)
+        got = {e.get("generation") for e in ingests}
+        if last_pub not in got:
+            return InvariantResult(
+                self.name, False,
+                f"final committed generation {last_pub} never "
+                f"ingested (replica reached {max(got)})",
+            )
+        fresh = [
+            e.get("freshness_s") for e in ingests
+            if e.get("generation") == last_pub
+            and isinstance(e.get("freshness_s"), (int, float))
+        ]
+        tail = f" (freshness {fresh[-1]:.3f}s)" if fresh else ""
+        return InvariantResult(
+            self.name, True,
+            f"replica converged on generation {last_pub}{tail}",
+        )
+
+
+class ReplicaReingested(Invariant):
+    """After the fault, a RESPAWNED replica re-ingested from
+    committed state: some post-fault ``serving_ingest`` carries
+    ``respawned`` and the respawn's first ingest is a BASE (a fresh
+    replica cannot apply a delta onto nothing — re-basing is the
+    recovery path under test)."""
+
+    name = "replica_reingested"
+
+    def check(self, events, run):
+        fault_ts = _first_fault_ts(events)
+        if fault_ts is None:
+            return InvariantResult(
+                self.name, False, "no chaos_inject event recorded"
+            )
+        post = [
+            e for e in _serving_events(events, "serving_ingest")
+            if e.get("respawned") and e["ts"] >= fault_ts
+        ]
+        if not post:
+            return InvariantResult(
+                self.name, False,
+                "no post-fault ingest from a respawned replica",
+            )
+        first = post[0]
+        if first.get("kind") != "base":
+            return InvariantResult(
+                self.name, False,
+                f"respawned replica's first ingest was a "
+                f"{first.get('kind')!r} (gen {first.get('generation')}"
+                "), not a re-base",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"respawned replica re-based at generation "
+            f"{first.get('generation')} and applied {len(post)} "
+            "generation(s)",
+        )
+
+
+def _fleet_injections(events: List[dict], point: str) -> List[dict]:
+    return [
+        e for e in _injections(events) if e.get("point") == point
+    ]
+
+
+class RoutedTrafficClean(Invariant):
+    """The fleet's headline verdict, decided from events alone: the
+    router's ``serving_route`` windows counted real traffic with ZERO
+    ``failed`` and ZERO ``stale`` outcomes, the freshness floor never
+    regressed across windows, and the load harness's client-side
+    aggregate (``serving_lookup_stats`` with ``replica="load"``)
+    agrees that no failure ever reached a caller."""
+
+    name = "routed_traffic_clean"
+
+    def check(self, events, run):
+        windows = [
+            e for e in events if e.get("type") == "serving_route"
+        ]
+        if not windows:
+            return InvariantResult(
+                self.name, False, "no serving_route window recorded"
+            )
+        total = sum(int(e.get("count") or 0) for e in windows)
+        failed = sum(int(e.get("failed") or 0) for e in windows)
+        stale = sum(int(e.get("stale") or 0) for e in windows)
+        if total == 0:
+            return InvariantResult(
+                self.name, False,
+                f"{len(windows)} windows but zero routed lookups",
+            )
+        floors = [
+            int(e.get("generation_floor", -1))
+            for e in sorted(windows, key=lambda e: e.get("ts", 0))
+        ]
+        regress = [
+            (a, b) for a, b in zip(floors, floors[1:]) if b < a
+        ]
+        if failed or stale or regress:
+            return InvariantResult(
+                self.name, False,
+                f"routed {total}: failed={failed} stale={stale} "
+                f"floor_regressions={regress[:3]}",
+            )
+        loads = [
+            e for e in events
+            if e.get("type") == "serving_lookup_stats"
+            and e.get("replica") == "load"
+        ]
+        client_failed = sum(int(e.get("failed") or 0) for e in loads)
+        if client_failed:
+            return InvariantResult(
+                self.name, False,
+                f"{client_failed} client-visible lookup failure(s)",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"{total} routed over {len(windows)} windows, 0 failed, "
+            f"0 stale, floor {floors[0]}->{floors[-1]} monotonic, "
+            f"client failures 0",
+        )
+
+
+class ReplicaShedAndReadmitted(Invariant):
+    """The SIGKILLed pool member was shed (``replica_status`` state
+    suspect/lost from the router) within ``window_s`` of the
+    injection, and its RESPAWNED incarnation later re-joined and was
+    re-admitted at a served generation — the pool healed without any
+    caller noticing."""
+
+    def __init__(self, killed_id: int, window_s: float):
+        self.killed_id = killed_id
+        self.window_s = window_s
+        self.name = f"replica_shed_within[{window_s:g}s]"
+
+    def check(self, events, run):
+        kills = _fleet_injections(events, "serving.ingest")
+        if not kills:
+            return InvariantResult(
+                self.name, False,
+                "no serving.ingest injection (replica never killed)",
+            )
+        kill_ts = kills[0]["ts"]
+        status = [
+            e for e in events
+            if e.get("type") == "replica_status"
+            and int(e.get("replica_id", -1)) == self.killed_id
+        ]
+        sheds = [
+            e for e in status
+            if e.get("state") in ("suspect", "lost")
+            and e["ts"] >= kill_ts
+        ]
+        if not sheds:
+            return InvariantResult(
+                self.name, False,
+                f"replica {self.killed_id} was never shed after the "
+                "kill",
+            )
+        shed_lag = sheds[0]["ts"] - kill_ts
+        if shed_lag > self.window_s:
+            return InvariantResult(
+                self.name, False,
+                f"shed {shed_lag:.2f}s after the kill > "
+                f"{self.window_s:g}s window",
+            )
+        back = [
+            e for e in status
+            if e.get("state") in ("joined", "recovered", "admitted")
+            and e.get("respawned") and e["ts"] > kill_ts
+        ]
+        if not back:
+            return InvariantResult(
+                self.name, False,
+                f"respawned replica {self.killed_id} never re-joined "
+                "the table",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"shed {shed_lag:.2f}s after the kill; respawn "
+            f"re-admitted at gen {back[-1].get('generation')}",
+        )
+
+
+class FleetHealthyReplicasNotRestarted(Invariant):
+    """Blast radius: NO pool member other than the killed one ever
+    reported a respawned incarnation — neither the replica kill nor
+    the router kill/replay may restart healthy replicas."""
+
+    def __init__(self, killed_id: int):
+        self.killed_id = killed_id
+        self.name = "fleet_healthy_not_restarted"
+
+    def check(self, events, run):
+        respawned = {
+            int(e.get("replica_id", -1))
+            for e in events
+            if e.get("type") == "replica_status" and e.get("respawned")
+        }
+        strays = sorted(respawned - {self.killed_id})
+        if strays:
+            return InvariantResult(
+                self.name, False,
+                f"healthy replica(s) {strays} reported respawned "
+                "incarnations",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"only replica {self.killed_id} respawned",
+        )
+
+
+class RouterReplayMatchesLive(Invariant):
+    """The router was killed mid-stream, resumed routing after its
+    respawn, and a cold journal replay reconstructs EXACTLY the live
+    routing table the runner snapshotted (per-member generation /
+    draining / removed plus the freshness floor) — membership is a
+    deterministic function of the journal, not of runtime luck."""
+
+    def __init__(self, journal_dir: str, live_snapshot_json: str):
+        self.journal_dir = journal_dir
+        self.live_snapshot_json = live_snapshot_json
+        self.name = "router_replay_matches_live"
+
+    @staticmethod
+    def _view(members: Dict) -> Dict[int, Tuple]:
+        return {
+            int(v["replica_id"]): (
+                int(v.get("generation", -1)),
+                bool(v.get("draining")),
+                bool(v.get("removed")),
+            )
+            for v in members
+        }
+
+    def check(self, events, run):
+        kills = _fleet_injections(events, "serving.route")
+        if not kills:
+            return InvariantResult(
+                self.name, False,
+                "no serving.route injection (router never killed)",
+            )
+        kill_ts = kills[0]["ts"]
+        resumed = [
+            e for e in events
+            if e.get("type") == "serving_route"
+            and e["ts"] > kill_ts and int(e.get("count") or 0) > 0
+        ]
+        if not resumed:
+            return InvariantResult(
+                self.name, False,
+                "no routed traffic after the router kill (respawn "
+                "never resumed routing)",
+            )
+        try:
+            with open(self.live_snapshot_json) as f:
+                live = json.load(f)
+        except OSError as e:
+            return InvariantResult(
+                self.name, False, f"no live table snapshot: {e}"
+            )
+        from dlrover_tpu_torch.serving.router import RoutingTable
+
+        replayed = RoutingTable.replayed(self.journal_dir)
+        snap = replayed.snapshot()
+        got = self._view(snap["members"])
+        want = self._view(live["members"])
+        if got != want or (
+            snap["generation_floor"] != live["generation_floor"]
+        ):
+            return InvariantResult(
+                self.name, False,
+                f"replayed table != live: replay={got} "
+                f"floor={snap['generation_floor']} vs live={want} "
+                f"floor={live['generation_floor']}",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"replay == live across {len(want)} member(s), floor "
+            f"{snap['generation_floor']}; routing resumed "
+            f"({len(resumed)} post-kill windows)",
+        )
+
 class NoOrphanProcesses(Invariant):
     """No process whose cmdline or environment references the job's
     workdir survives the run — catches leaked trainers, forkserver
@@ -1904,6 +2304,61 @@ def invariants_for_scenario(
             )),
             KvStateRoundTrip(),
         ]
+    if name == "serving-replica-kill-midingest":
+        # the trainer is undisturbed (completion only); the serving
+        # assertions carry the scenario: every served generation was
+        # committed with matching digests (no torn serve), committed
+        # exactly once, the respawned replica re-based from committed
+        # state, and the replica converged on the final generation
+        return [
+            TrainingCompleted(total_steps=total_steps),
+            ServedGenerationCommitted(),
+            PublishExactlyOnce(),
+            ReplicaReingested(),
+            ServingConverged(),
+            NoOrphanProcesses(marker=workdir),
+        ]
+    if name == "serving-fleet-replica-kill":
+        # the fleet trail, decided from the merged router/replica/
+        # load event logs: clean routed traffic throughout BOTH kills
+        # (zero failed, zero stale, floor monotonic, zero client-
+        # visible failures), the killed member shed within the
+        # heartbeat window and its respawn re-admitted, no healthy
+        # member restarted, and the respawned router's journal replay
+        # equal to the live routing table.  The shed window is the
+        # 1 s heartbeat timeout + the 0.4 s sweep cadence + CI slack.
+        return [
+            RoutedTrafficClean(),
+            ReplicaShedAndReadmitted(killed_id=0, window_s=3.0),
+            FleetHealthyReplicasNotRestarted(killed_id=0),
+            RouterReplayMatchesLive(
+                os.path.join(workdir, "router_journal"),
+                os.path.join(workdir, "router_table_live.json"),
+            ),
+            GoodputConservation(),
+            NoOrphanProcesses(marker=workdir),
+        ]
+    if name == "serving-trainer-kill-midpublish":
+        # the data-plane recovery trail (the kill lands mid-step) PLUS
+        # publish exactly-once across the trainer replacement: the
+        # half-published generation never committed, the replacement
+        # re-based at a fresh number, the replica kept serving and
+        # converged — and the restored trainer's loss trajectory still
+        # equals the uninterrupted control (publishing is side-effect-
+        # free for training)
+        return [
+            WorkerRestarted(),
+            BoundedStepLoss(ckpt_interval=ckpt_every),
+            TrainingCompleted(total_steps=total_steps),
+            LossTrajectoryMatches(sparse_reference_losses(
+                total_steps,
+                device=env.get("DLROVER_CHAOS_SPARSE_DEVICE", "cpu"),
+            )),
+            ServedGenerationCommitted(),
+            PublishExactlyOnce(),
+            ServingConverged(),
+            NoOrphanProcesses(marker=workdir),
+        ]
     if name == "sparse-spill-io-error":
         # no loss-trajectory assertion: rows stranded on the dead spill
         # disk are LOST by design — the contract is graceful
@@ -2072,7 +2527,7 @@ def run_scenario(
             out_json=os.path.join(workdir, "seed_kv.json"),
         )
     # the toy loop of RUN_OPTIONS' "train_script", as the reference
-    # selects it (the serving loops come with slice 9)
+    # selects it
     script = os.path.join(workdir, "chaos_train.py")
     with open(script, "w") as f:
         f.write(TRAIN_SCRIPTS[opts.get("train_script", "default")])
@@ -2087,6 +2542,467 @@ def run_scenario(
         else invariants_for_scenario(
             scenario.name, total_steps, ckpt_every, workdir,
             disk_every=disk_every, env=env,
+        )
+    )
+    return check_invariants(report, checks)
+
+
+def run_serving_scenario(
+    scenario,
+    workdir: str,
+    total_steps: Optional[int] = None,
+    max_replica_respawns: int = 1,
+    replica_lookup_batch: int = 256,
+    converge_timeout_s: float = 20.0,
+    invariants: Optional[List[Invariant]] = None,
+    **kwargs,
+) -> ChaosRunReport:
+    """Run a train-to-serve scenario: the single-node mini-cluster
+    (trainer publishing serving generations) PLUS a supervised
+    read-only replica subprocess (``python -m dlrover_tpu_torch.serving``)
+    ingesting them while driving lookup traffic.
+
+    The replica gets its OWN event log (merged into the report like
+    an agent-shipped log) and the scenario spec via ``DLROVER_CHAOS``
+    — rules targeting it select on ``DLROVER_SERVING_ROLE=replica``.
+    A replica that dies is respawned up to ``max_replica_respawns``
+    times with ``DLROVER_SERVING_RESPAWNED=1`` (the schedule's
+    env-equals guard against re-firing, and the ``respawned`` stamp
+    on its events).  After training finishes the runner waits for the
+    replica to converge on the final committed generation, then stops
+    it via the stop file before the orphan scan runs."""
+    scenario = load_scenario(scenario)
+    opts = RUN_OPTIONS.get(scenario.name, {})
+    os.makedirs(workdir, exist_ok=True)
+    serving_dir = os.path.join(workdir, "serving")
+    spec_path = os.path.join(workdir, "chaos_scenario.json")
+    with open(spec_path, "w") as f:
+        json.dump(scenario.to_dict(), f, indent=2)
+    replica_log = os.path.join(workdir, "serving_events.jsonl")
+    stop_file = os.path.join(workdir, "serving_stop")
+
+    replica_env = _pkg_env(dict(os.environ))
+    replica_env.update(opts.get("extra_env", {}))
+    replica_env.update({
+        _chaos.CHAOS_ENV: spec_path,
+        EVENT_LOG_ENV: replica_log,
+        "DLROVER_SERVING_ROLE": "replica",
+        "DLROVER_SERVING_RESPAWNED": "",
+        # the replica needs no master and must not inherit one
+        "DLROVER_MASTER_ADDR": "",
+    })
+    cmd = [
+        sys.executable, "-m", "dlrover_tpu_torch.serving",
+        "--dir", serving_dir,
+        "--poll", "0.1",
+        "--batch", str(replica_lookup_batch),
+        "--key-space", "4000",
+        "--stats-every", "0.5",
+        "--stop-file", stop_file,
+    ]
+    state = {"proc": None, "respawns": 0, "stopping": False}
+
+    def _spawn(respawned: bool):
+        env = dict(replica_env)
+        if respawned:
+            env["DLROVER_SERVING_RESPAWNED"] = "1"
+        state["proc"] = subprocess.Popen(  # noqa: S603
+            cmd, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        )
+
+    def _supervise():
+        while not state["stopping"]:
+            proc = state["proc"]
+            if proc is None:
+                return
+            rc = proc.wait()
+            if state["stopping"] or rc == 0:
+                return
+            if state["respawns"] >= max_replica_respawns:
+                logger.warning(
+                    "serving replica died rc=%s with no respawn "
+                    "budget left", rc,
+                )
+                return
+            state["respawns"] += 1
+            logger.warning(
+                "serving replica died rc=%s; respawning (%d/%d)",
+                rc, state["respawns"], max_replica_respawns,
+            )
+            _spawn(respawned=True)
+
+    _spawn(respawned=False)
+    supervisor = threading.Thread(
+        target=_supervise, daemon=True, name="serving-replica-sup"
+    )
+    supervisor.start()
+
+    try:
+        base = run_scenario(
+            scenario, workdir,
+            total_steps=total_steps,
+            invariants=[],
+            extra_env={"DLROVER_SERVING_DIR": serving_dir},
+            **kwargs,
+        )
+        # let the replica converge on the final committed generation
+        # before stopping it (the freshness the invariants assert)
+        from dlrover_tpu_torch.serving.publisher import (
+            committed_generation,
+        )
+
+        deadline = time.time() + converge_timeout_s
+        target = committed_generation(serving_dir)
+        while time.time() < deadline and target > 0:
+            try:
+                ingested = {
+                    e.get("generation")
+                    for e in collect_events([replica_log])
+                    if e.get("type") == "serving_ingest"
+                }
+            except OSError:
+                ingested = set()
+            if target in ingested:
+                break
+            time.sleep(0.25)
+    finally:
+        state["stopping"] = True
+        with open(stop_file, "w") as f:
+            f.write("stop")
+        proc = state["proc"]
+        if proc is not None:
+            try:
+                proc.wait(timeout=10.0)
+            except subprocess.TimeoutExpired:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=5.0)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        supervisor.join(timeout=5.0)
+
+    report = _build_report(
+        scenario, base.rc, workdir, base.event_log,
+        extra_sources=[replica_log],
+    )
+    resolved_steps = total_steps if total_steps is not None else int(
+        opts.get("total_steps", 10)
+    )
+    checks = (
+        invariants if invariants is not None
+        else invariants_for_scenario(
+            scenario.name, resolved_steps,
+            int(opts.get("ckpt_every", 2)), workdir,
+            env=dict(os.environ, **opts.get("extra_env", {})),
+        )
+    )
+    return check_invariants(report, checks)
+
+
+def run_serving_fleet_scenario(
+    scenario,
+    workdir: str,
+    pool_size: Optional[int] = None,
+    generations: Optional[int] = None,
+    publish_every_s: Optional[float] = None,
+    load_streams: Optional[int] = None,
+    lookup_floor_ms: Optional[float] = None,
+    heartbeat_s: float = 0.25,
+    heartbeat_timeout_s: float = 1.0,
+    converge_timeout_s: float = 30.0,
+    max_router_respawns: int = 1,
+    invariants: Optional[List[Invariant]] = None,
+) -> ChaosRunReport:
+    """Run a serving-FLEET scenario: an in-process publisher shipping
+    embedding generations (bases forced mid-run via ``compact_every``
+    so drained re-bases land under load), a supervised
+    :class:`~dlrover_tpu_torch.serving.pool.ReplicaPool` of replica
+    subprocesses, a ``python -m dlrover_tpu_torch.serving.router``
+    subprocess fronting them (journaled membership; respawned on
+    death with ``DLROVER_SERVING_RESPAWNED=1`` onto the SAME port so
+    clients reconnect), and a
+    :class:`~dlrover_tpu_torch.fleet.lookup_load.LookupLoadHarness` driving
+    real routed lookups throughout.
+
+    The RUNNER process never arms the scenario — only the replica and
+    router subprocesses receive ``DLROVER_CHAOS``, so kill rules
+    select their targets via ``DLROVER_SERVING_ROLE`` /
+    ``DLROVER_SERVING_REPLICA_ID`` env guards.  All subprocess event
+    logs are merged into the report; before teardown the runner
+    snapshots the LIVE routing table (``router_table_live.json``) for
+    the journal-replay-determinism invariant and emits the load
+    harness's client-side aggregate as a ``serving_lookup_stats``
+    event (``replica="load"``), so every verdict decides from events
+    alone."""
+    import numpy as np
+
+    from dlrover_tpu_torch.checkpoint.sparse import SparseStateAdapter
+    from dlrover_tpu_torch.common.comm import MessageClient
+    from dlrover_tpu_torch.fleet.lookup_load import LookupLoadHarness
+    from dlrover_tpu_torch.ops.kv_variable import KvVariable
+    from dlrover_tpu_torch.serving.messages import RoutingTableRequest
+    from dlrover_tpu_torch.serving.pool import ReplicaPool
+    from dlrover_tpu_torch.serving.publisher import (
+        EmbeddingPublisher,
+        committed_generation,
+    )
+    from dlrover_tpu_torch.telemetry.events import emit_event
+
+    scenario = load_scenario(scenario)
+    opts = RUN_OPTIONS.get(scenario.name, {})
+    if pool_size is None:
+        pool_size = int(opts.get("pool_size", 2))
+    if generations is None:
+        generations = int(opts.get("generations", 10))
+    if publish_every_s is None:
+        publish_every_s = float(opts.get("publish_every_s", 0.35))
+    if load_streams is None:
+        load_streams = int(opts.get("load_streams", 4))
+    if lookup_floor_ms is None:
+        lookup_floor_ms = float(opts.get("lookup_floor_ms", 2.0))
+    os.makedirs(workdir, exist_ok=True)
+    serving_dir = os.path.join(workdir, "serving")
+    spec_path = os.path.join(workdir, "chaos_scenario.json")
+    with open(spec_path, "w") as f:
+        json.dump(scenario.to_dict(), f, indent=2)
+    event_log = os.path.join(workdir, "events.jsonl")
+    router_log = os.path.join(workdir, "events_router.jsonl")
+    journal_dir = os.path.join(workdir, "router_journal")
+    router_port_file = os.path.join(workdir, "router.port")
+    router_stop = os.path.join(workdir, "router.stop")
+    live_json = os.path.join(workdir, "router_table_live.json")
+
+    router_env = _pkg_env(dict(os.environ))
+    router_env.update(opts.get("extra_env", {}))
+    router_env.update({
+        _chaos.CHAOS_ENV: spec_path,
+        EVENT_LOG_ENV: router_log,
+        "DLROVER_SERVING_ROLE": "router",
+        "DLROVER_SERVING_RESPAWNED": "",
+        "DLROVER_MASTER_ADDR": "",
+    })
+    state = {"proc": None, "respawns": 0, "stopping": False,
+             "port": 0}
+
+    def _spawn_router(respawned: bool):
+        env = dict(router_env)
+        if respawned:
+            env["DLROVER_SERVING_RESPAWNED"] = "1"
+        try:
+            os.remove(router_port_file)
+        except OSError:
+            pass
+        state["proc"] = subprocess.Popen(  # noqa: S603
+            [
+                sys.executable, "-m", "dlrover_tpu_torch.serving.router",
+                "--journal-dir", journal_dir,
+                # respawns rebind the SAME port so every client's
+                # retry envelope reconnects instead of failing over
+                "--port", str(state["port"]),
+                "--port-file", router_port_file,
+                "--stop-file", router_stop,
+                "--heartbeat-timeout", str(heartbeat_timeout_s),
+                "--min-available", "1",
+                "--stats-every", "0.4",
+            ],
+            env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        )
+
+    def _wait_router_port(timeout_s: float = 20.0) -> int:
+        deadline = time.time() + timeout_s
+        while time.time() < deadline:
+            try:
+                with open(router_port_file) as f:
+                    return int(f.read().strip())
+            except (OSError, ValueError):
+                time.sleep(0.05)
+        raise TimeoutError("router never wrote its port file")
+
+    def _supervise_router():
+        while not state["stopping"]:
+            proc = state["proc"]
+            if proc is None:
+                return
+            rc = proc.wait()
+            if state["stopping"] or rc == 0:
+                return
+            if state["respawns"] >= max_router_respawns:
+                logger.warning(
+                    "router died rc=%s with no respawn budget", rc
+                )
+                return
+            state["respawns"] += 1
+            logger.warning(
+                "router died rc=%s; respawning (%d/%d)",
+                rc, state["respawns"], max_router_respawns,
+            )
+            _spawn_router(respawned=True)
+
+    rc = 0
+    pool = None
+    ctl = None
+    pool_logs: List[str] = []
+    with _patched_env({
+        EVENT_LOG_ENV: event_log,
+        "DLROVER_MASTER_ADDR": "",
+    }):
+        try:
+            # -- publisher state (in-process; never a kill target) --
+            rows, dim = 4000, 16
+            rng = np.random.default_rng(scenario.seed)
+            table = KvVariable(
+                dim, initial_capacity=rows * 2, name="emb"
+            )
+            table.enable_dirty_tracking()
+            table.insert(
+                np.arange(rows, dtype=np.int64),
+                rng.normal(size=(rows, dim)).astype(np.float32),
+            )
+            adapter = SparseStateAdapter(digest=True).register_table(
+                table
+            )
+            pub = EmbeddingPublisher(
+                adapter, serving_dir,
+                compact_every=int(opts.get("compact_every", 3)),
+            )
+            pub.publish(step=0)
+
+            _spawn_router(respawned=False)
+            state["port"] = _wait_router_port()
+            supervisor = threading.Thread(
+                target=_supervise_router, daemon=True,
+                name="router-sup",
+            )
+            supervisor.start()
+            router_addr = f"127.0.0.1:{state['port']}"
+
+            pool = ReplicaPool(
+                serving_dir, os.path.join(workdir, "pool"),
+                router_addr=router_addr, size=pool_size,
+                heartbeat_s=heartbeat_s,
+                lookup_floor_ms=lookup_floor_ms,
+                stats_every_s=0.5, max_respawns=1,
+                extra_env={_chaos.CHAOS_ENV: spec_path},
+            )
+            pool_logs = pool.event_logs()
+            pool.wait_ports(30.0)
+
+            # patient control client: rides out the router respawn
+            ctl = MessageClient(
+                router_addr, node_id=-3, node_type="fleet-runner",
+                timeout=15.0, retries=8, backoff_base=0.1,
+                backoff_max=1.0, resync_timeout=0.0,
+            )
+
+            def _table_view():
+                resp = ctl.get(RoutingTableRequest())
+                live = [
+                    m for m in resp.members.values()
+                    if not m.get("removed")
+                ]
+                return resp, live
+
+            deadline = time.time() + 20.0
+            while time.time() < deadline:
+                _, live = _table_view()
+                if len(live) >= pool_size and all(
+                    int(m.get("generation", -1)) >= 0 for m in live
+                ):
+                    break
+                time.sleep(0.1)
+
+            load = LookupLoadHarness(
+                router_addr, streams=load_streams, batch=128,
+                key_space=rows, timeout_s=30.0, retries=8,
+                seed=scenario.seed,
+            )
+            load.start()
+            try:
+                for g in range(1, generations + 1):
+                    touched = rng.choice(
+                        rows, size=256, replace=False
+                    ).astype(np.int64)
+                    table.scatter_add(
+                        touched,
+                        (rng.normal(size=(len(touched), dim)) * 0.01)
+                        .astype(np.float32),
+                    )
+                    pub.publish(step=g)
+                    time.sleep(publish_every_s)
+
+                # convergence: the whole pool (incl. the respawned
+                # member) admitted at the final committed generation
+                target = committed_generation(serving_dir)
+                deadline = time.time() + converge_timeout_s
+                while time.time() < deadline:
+                    resp, live = _table_view()
+                    if resp.generation_floor >= target and live and \
+                            all(
+                                int(m.get("generation", -1)) >= target
+                                for m in live
+                            ):
+                        break
+                    time.sleep(0.2)
+                # one more beat of routed traffic at the converged
+                # floor so post-respawn windows carry real counts
+                time.sleep(0.6)
+            finally:
+                load.stop()
+
+            summary = load.summary()
+            emit_event(
+                "serving_lookup_stats",
+                count=int(summary["lookups"]),
+                p50_ms=summary.get("p50_ms", 0.0),
+                p99_ms=summary.get("p99_ms", 0.0),
+                qps=summary.get("qps", 0.0),
+                window_s=summary.get("wall_s", 0.0),
+                generation=int(summary["max_generation"]),
+                replica="load",
+                failed=int(summary["failed"]),
+                streams=int(summary["streams"]),
+            )
+            resp, _ = _table_view()
+            with open(live_json, "w") as f:
+                json.dump({
+                    "members": list(resp.members.values()),
+                    "generation_floor": int(resp.generation_floor),
+                    "journal_seq": int(resp.journal_seq),
+                }, f, indent=2)
+        except Exception:  # noqa: BLE001 - report carries the verdict
+            logger.exception("serving-fleet run failed")
+            rc = 1
+        finally:
+            if ctl is not None:
+                ctl.close()
+            if pool is not None:
+                pool.stop()
+            state["stopping"] = True
+            with open(router_stop, "w") as f:
+                f.write("stop")
+            proc = state["proc"]
+            if proc is not None:
+                try:
+                    proc.wait(timeout=10.0)
+                except subprocess.TimeoutExpired:
+                    proc.terminate()
+                    try:
+                        proc.wait(timeout=5.0)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+
+    report = _build_report(
+        scenario, rc, workdir, event_log,
+        extra_sources=[router_log] + pool_logs,
+    )
+    checks = (
+        invariants if invariants is not None
+        else invariants_for_scenario(
+            scenario.name, generations, 2, workdir
         )
     )
     return check_invariants(report, checks)

@@ -21,8 +21,8 @@ single-node scenarios (``rpc_partition``, ``storage_brownout``,
 ``storage_stall``, ``straggler``, ``preemption_notice``,
 ``shm_corruption``, ``ckpt_brownout_during_preemption``,
 ``goodput_under_scheduled_churn``) and the multi-node hang and
-partition ones with slice 4.4, the serving ones with slice 9, and the
-compile-cache one with slice 8.2.  The RL scenario
+partition ones with slice 4.4, and the compile-cache one with slice
+8.2.  The RL scenario
 (``rl_rollout_worker_kill``, slice 7) drives :data:`RL_TRAIN_SCRIPT`,
 the twin of the reference's elastic PPO loop; it runs without the
 reference's ``compile_cache`` option (the AOT-cached role steps are
@@ -33,7 +33,11 @@ sparse scenarios (``sparse_kill_restore``,
 :data:`SPARSE_RESHARD_TRAIN_SCRIPT` and
 :data:`SPARSE_RESIZE_TRAIN_SCRIPT`, the twins of the reference's DeepFM,
 streaming-reshard and sparse-resize loops; ``DLROVER_CHAOS_SPARSE_DEVICE``
-puts the DeepFM loop's dense tower on the card.
+puts the DeepFM loop's dense tower on the card.  The serving scenarios
+(slice 9.1: ``serving_replica_kill_midingest``,
+``serving_trainer_kill_midpublish``, ``serving_fleet_replica_kill``)
+drive :data:`SPARSE_SERVING_TRAIN_SCRIPT`, the twin of the reference's
+train-to-serve loop, or (the fleet one) no trainer at all.
 """
 
 from typing import Callable, Dict, Optional
@@ -74,6 +78,12 @@ from dlrover_tpu_torch.trainer.elastic_trainer import (
 from dlrover_tpu_torch.trainer.recovery import RecoveryProfiler
 
 DEVICE = "cpu"
+# the tiny GPT's step is ~20 ms of single-threaded work: one intra-op
+# thread, as the RL loop below.  With torch's default (a thread per
+# core) a host shared with other processes stretched the step past a
+# second (ROADMAP C 13), as long as the master outage the recovery
+# invariants attribute from the step gaps
+torch.set_num_threads(1)
 ckpt_dir = sys.argv[1]
 TOTAL_STEPS = int(os.environ.get("DLROVER_CHAOS_TOTAL_STEPS", "10"))
 CKPT_EVERY = int(os.environ.get("DLROVER_CHAOS_CKPT_EVERY", "2"))
@@ -818,6 +828,114 @@ assert committed_step() >= TOTAL_STEPS, (
 ckpt.close()
 """
 
+# Train-to-serve loop, the torch twin of the reference's: the sparse
+# DeepFM loop of SPARSE_TRAIN_SCRIPT (its model, data and
+# :func:`sparse_step`, so :func:`sparse_reference_losses` is still the
+# uninterrupted control) PLUS an EmbeddingPublisher shipping the
+# embedding table to a serving replica as committed base/delta
+# generations every DLROVER_CHAOS_PUB_EVERY steps.  A fresh
+# incarnation's publisher always opens with a base at a NEW generation
+# (it cannot know what a dead predecessor half-published), which is what
+# makes the trainer-kill-mid-publish scenario's recovery exactly-once by
+# construction.  The dense tower runs on DLROVER_CHAOS_SPARSE_DEVICE
+# (cpu).  argv: ckpt_dir; serving dir from DLROVER_SERVING_DIR (harness)
+# or <workdir>/serving.
+SPARSE_SERVING_TRAIN_SCRIPT = r"""
+import os, sys, time
+
+from dlrover_tpu_torch.chaos.scenarios import sparse_loop, sparse_step
+from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer, StorageType
+from dlrover_tpu_torch.checkpoint.sparse import SparseStateAdapter
+from dlrover_tpu_torch.serving import EmbeddingPublisher
+from dlrover_tpu_torch.trainer.elastic_trainer import (
+    ElasticTrainer, TrainState, restore_train_state, train_state_tree,
+)
+
+ckpt_dir = sys.argv[1]
+DEVICE = os.environ.get("DLROVER_CHAOS_SPARSE_DEVICE", "cpu")
+TOTAL_STEPS = int(os.environ.get("DLROVER_CHAOS_TOTAL_STEPS", "12"))
+CKPT_EVERY = int(os.environ.get("DLROVER_CHAOS_CKPT_EVERY", "2"))
+PUB_EVERY = int(os.environ.get("DLROVER_CHAOS_PUB_EVERY", "2"))
+COMPACT_EVERY = int(os.environ.get("DLROVER_CHAOS_COMPACT_EVERY", "4"))
+STEP_SLEEP = float(os.environ.get("DLROVER_CHAOS_STEP_SLEEP", "0"))
+serving_dir = os.environ.get("DLROVER_SERVING_DIR") or os.path.join(
+    os.path.dirname(ckpt_dir), "serving"
+)
+
+tracker = os.path.join(ckpt_dir, "latest_checkpointed_iteration.txt")
+
+def committed_step():
+    try:
+        with open(tracker) as f:
+            return int(f.read().strip() or -1)
+    except (OSError, ValueError):
+        return -1
+
+model, dense_opt, device_step = sparse_loop(DEVICE)
+adapter = SparseStateAdapter()
+adapter.register_optimizer(model.sparse_optimizer)
+ckpt = Checkpointer(ckpt_dir)
+ckpt.register_sparse(adapter)
+
+# serving publishes ONLY the embedding table (replicas have no use
+# for optimizer moments); its own adapter shares the table object, so
+# dirty tracking is one truth for both planes
+serving_adapter = SparseStateAdapter().register_table(model.table)
+publisher = EmbeddingPublisher(
+    serving_adapter, serving_dir, compact_every=COMPACT_EVERY,
+)
+
+state = TrainState.create(model.dense, dense_opt)
+start_step, restored = ckpt.load_checkpoint()
+if start_step is None:
+    start_step = 0
+else:
+    restore_train_state(state, restored["dense"])
+
+trainer = ElasticTrainer(global_batch_size=16, micro_batch_size=16,
+                         dp_size=1)
+trainer.global_step = start_step
+
+for k in range(start_step, TOTAL_STEPS):
+    with trainer.profile("compute") as p:
+        loss = sparse_step(model, device_step, k)
+        p.block(loss)
+    state.step = k + 1
+    trainer.report_step({"loss": float(loss)})
+    if STEP_SLEEP:
+        time.sleep(STEP_SLEEP)
+    with trainer.profile("checkpoint"):
+        if trainer.global_step % CKPT_EVERY == 0:
+            ckpt.save_checkpoint(
+                trainer.global_step,
+                {"dense": train_state_tree(state),
+                 "trainer": trainer.state_dict()},
+                storage_type=StorageType.MEMORY,
+            )
+    if trainer.global_step % PUB_EVERY == 0:
+        publisher.publish(step=trainer.global_step)
+
+# final publish so the replica can converge on the last trained state
+if publisher.generation == 0 or TOTAL_STEPS % PUB_EVERY != 0:
+    publisher.publish(step=TOTAL_STEPS)
+
+final_sd = {"dense": train_state_tree(state),
+            "trainer": trainer.state_dict()}
+deadline = time.time() + 60
+while time.time() < deadline and committed_step() < TOTAL_STEPS:
+    ckpt.save_checkpoint(
+        TOTAL_STEPS, final_sd, storage_type=StorageType.DISK,
+    )
+    ckpt.wait()
+    poll_end = time.time() + 10
+    while time.time() < poll_end and committed_step() < TOTAL_STEPS:
+        time.sleep(0.2)
+assert committed_step() >= TOTAL_STEPS, (
+    "checkpoint commit did not land"
+)
+ckpt.close()
+"""
+
 
 # the sparse loop's model, data and step (torch is imported in the
 # worker and in the harness's control computation, never with this
@@ -1456,6 +1574,103 @@ def sparse_streaming_reshard_kill(seed: int = 79) -> Scenario:
     })
 
 
+def serving_replica_kill_midingest(seed: int = 83) -> Scenario:
+    """Serving-plane replica recovery: SIGKILL the serving
+    replica INSIDE a generation apply (the ``serving.ingest`` hook
+    fires under the swap lock, tables half-applied).  The harness
+    respawns it; the fresh replica re-ingests from the newest
+    committed base and converges on the trainer's final generation.
+    The digest chain on ``serving_ingest`` vs ``serving_publish``
+    events proves no torn generation was ever served — the
+    half-applied state died with the process and no event claimed
+    it."""
+    return Scenario.from_dict({
+        "name": "serving-replica-kill-midingest",
+        "seed": seed,
+        "rules": [{
+            "name": "kill-replica-midingest",
+            "point": "serving.ingest",
+            "action": "kill",
+            "after_calls": 3,
+            "max_count": 1,
+            "env_equals": {
+                "DLROVER_SERVING_ROLE": "replica",
+                "DLROVER_SERVING_RESPAWNED": "",
+            },
+        }],
+    })
+
+
+def serving_fleet_replica_kill(seed: int = 97) -> Scenario:
+    """Serving-fleet routing under fire: against a live
+    replica POOL fronted by the lookup router, SIGKILL (a) replica 0
+    INSIDE a generation apply (``serving.ingest``, env-pinned to
+    ``DLROVER_SERVING_REPLICA_ID=0`` — role alone would kill every
+    member) and (b) the ROUTER itself mid-stream (``serving.route``
+    fires once per routed lookup).  The router must shed the dead
+    replica within the heartbeat window and keep answering from the
+    survivors — zero failed and zero stale lookups counted on the
+    ``serving_route`` windows — and the respawned router must replay
+    its journaled membership to the identical routing table and
+    resume routing without restarting any healthy replica.  The
+    ``DLROVER_SERVING_RESPAWNED`` guards keep both kills
+    single-shot."""
+    return Scenario.from_dict({
+        "name": "serving-fleet-replica-kill",
+        "seed": seed,
+        "rules": [{
+            "name": "kill-pool-replica-midingest",
+            "point": "serving.ingest",
+            "action": "kill",
+            "after_calls": 3,
+            "max_count": 1,
+            "env_equals": {
+                "DLROVER_SERVING_ROLE": "replica",
+                "DLROVER_SERVING_REPLICA_ID": "0",
+                "DLROVER_SERVING_RESPAWNED": "",
+            },
+        }, {
+            # time-based, NOT call-count: the router kill must land
+            # AFTER the killed replica has been shed and its respawn
+            # re-admitted (simultaneous kills would leave no router
+            # alive to witness the shed), and the route hook fires
+            # continuously under load so the window is hit exactly
+            "name": "kill-router-midroute",
+            "point": "serving.route",
+            "action": "kill",
+            "after_time": 5.0,
+            "max_count": 1,
+            "env_equals": {
+                "DLROVER_SERVING_ROLE": "router",
+                "DLROVER_SERVING_RESPAWNED": "",
+            },
+        }],
+    })
+
+
+def serving_trainer_kill_midpublish(seed: int = 89) -> Scenario:
+    """Serving-plane publisher exactly-once: SIGKILL the
+    trainer between writing a generation's blobs/manifest and its
+    ``DONE`` marker (the ``serving.publish`` hook sits exactly
+    there).  The half-published generation is never committed — the
+    replica keeps serving the previous one — and the respawned
+    trainer's publisher opens with a fresh BASE at the next
+    generation number: every committed generation is published
+    exactly once, provable by counting ``serving_publish`` events."""
+    return Scenario.from_dict({
+        "name": "serving-trainer-kill-midpublish",
+        "seed": seed,
+        "rules": [{
+            "name": "kill-trainer-midpublish",
+            "point": "serving.publish",
+            "action": "kill",
+            "after_calls": 3,
+            "max_count": 1,
+            "only_first_incarnation": True,
+        }],
+    })
+
+
 SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
     "kill_worker_midstep": kill_worker_midstep,
     "sigterm_worker_midstep": sigterm_worker_midstep,
@@ -1471,6 +1686,11 @@ SCENARIOS: Dict[str, Callable[[int], Scenario]] = {
     "sparse_spill_io_error": sparse_spill_io_error,
     "sparse_resize_churn": sparse_resize_churn,
     "sparse_streaming_reshard_kill": sparse_streaming_reshard_kill,
+    "serving_replica_kill_midingest": serving_replica_kill_midingest,
+    "serving_fleet_replica_kill": serving_fleet_replica_kill,
+    "serving_trainer_kill_midpublish": (
+        serving_trainer_kill_midpublish
+    ),
 }
 
 
@@ -1601,6 +1821,52 @@ RUN_OPTIONS: Dict[str, Dict] = {
             "DLROVER_SECONDS_TO_CHECK_HANG": "0.5",
             "DLROVER_BREAKPOINT_COMMIT_TIMEOUT_S": "3",
             "DLROVER_MEMBERSHIP_SELF_RESTART": "0",
+        },
+    },
+    # serving plane: the sparse loop + publisher shipping the
+    # embedding table every 2 steps (digests armed — manifests and
+    # the torn-serve invariants need them); the serving runner reads
+    # train_script="sparse_serving" and supervises the replica
+    # subprocess itself
+    "serving-replica-kill-midingest": {
+        "total_steps": 12,
+        "ckpt_every": 2,
+        "train_script": "sparse_serving",
+        "extra_env": {
+            "DLROVER_KV_DIGEST": "1",
+            "DLROVER_CHAOS_PUB_EVERY": "2",
+            # slow the loop slightly so several generations commit
+            # while the replica is alive on a loaded CI box
+            "DLROVER_CHAOS_STEP_SLEEP": "0.2",
+        },
+    },
+    # serving fleet: no trainer subprocess at all — the fleet runner
+    # (run_serving_fleet_scenario) publishes in-process and drives
+    # real routed load; these knobs shape the run.  compact_every=3
+    # forces base generations (= drained re-bases) to land mid-load;
+    # the 2 ms lookup floor models the TPU device-gather a CPU-only
+    # CI box cannot reproduce, so in-flight requests genuinely
+    # overlap across the pool
+    "serving-fleet-replica-kill": {
+        "pool_size": 3,
+        "generations": 10,
+        "publish_every_s": 0.35,
+        "compact_every": 3,
+        "load_streams": 4,
+        "lookup_floor_ms": 2.0,
+    },
+    # ckpt_every=4 vs publish-every-2: the kill (3rd publish = step
+    # 6) restores the step-4 snapshot and REPLAYS steps 5-6, so the
+    # loss-trajectory invariant's multi-incarnation cross-check has
+    # real replayed steps to agree on
+    "serving-trainer-kill-midpublish": {
+        "total_steps": 12,
+        "ckpt_every": 4,
+        "train_script": "sparse_serving",
+        "extra_env": {
+            "DLROVER_KV_DIGEST": "1",
+            "DLROVER_CHAOS_PUB_EVERY": "2",
+            "DLROVER_CHAOS_STEP_SLEEP": "0.2",
         },
     },
     "warm-template-import-kill": {"warm_restart": True},

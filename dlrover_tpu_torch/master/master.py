@@ -11,10 +11,6 @@ server) and a main loop that polls for exit/hang conditions every 30 s
 ``tpurun`` spawns on node rank 0 when no external master exists; the
 scheduler-backed distributed flavour adds node watching/scaling on top
 (see :mod:`dlrover_tpu_torch.master.node_manager`).
-
-Deferred in the port: the Brain hooks.  With ``DLROVER_BRAIN_DB`` set
-the master raises ``NotImplementedError`` at construction, since the
-Brain datastore comes with slice 9.
 """
 
 import os
@@ -197,12 +193,34 @@ class JobMaster:
         self._last_brain_ingest = 0.0
         brain_db = os.getenv(BRAIN_DB_ENV, "")
         if brain_db:
-            # raised here, not inside a guard that would log it and run
-            # on without the Brain
-            raise NotImplementedError(
-                f"{BRAIN_DB_ENV} is set, but the Brain datastore comes "
-                "with slice 9 of the port"
-            )
+            try:
+                from dlrover_tpu_torch.brain.datastore import (
+                    SqliteJobMetricsStore,
+                )
+                from dlrover_tpu_torch.brain.service import BrainService
+
+                self.brain_store = SqliteJobMetricsStore(brain_db)
+                self.brain = BrainService(
+                    self.brain_store, job_name=self.job_name
+                )
+                if os.getenv(BRAIN_RESIZE_ENV, "").strip().lower() in (
+                    "1", "true", "yes", "on"
+                ):
+                    self.resize_coordinator.set_brain(self.brain)
+                logger.info(
+                    "brain datastore %s armed (ingest every %.0fs%s)",
+                    brain_db, self._brain_ingest_interval,
+                    ", resize decision source on"
+                    if self.resize_coordinator._brain is not None
+                    else "",
+                )
+            except Exception:  # noqa: BLE001 - an optimizer feed
+                logger.exception(  # must never kill the master
+                    "brain datastore %s unusable; auto-ingest off",
+                    brain_db,
+                )
+                self.brain_store = None
+                self.brain = None
         # -- goodput ledger (causal wall-clock attribution) ------------
         self.goodput_ledger = None
         ledger_interval = _env_float(
@@ -361,9 +379,32 @@ class JobMaster:
         now = now or time.time()
         if now - self._last_brain_ingest < self._brain_ingest_interval:
             return False
-        raise NotImplementedError(
-            "the Brain datastore comes with slice 9 of the port"
-        )
+        self._last_brain_ingest = now
+        from dlrover_tpu_torch.brain import cluster_monitor as _cm
+        from dlrover_tpu_torch.telemetry import timeline as _timeline
+
+        try:
+            _cm.record_throughput_snapshot(
+                self.brain_store,
+                self.job_name,
+                workers=self.elastic_rdzv.latest_world_size(),
+                samples_per_sec=(
+                    self.speed_monitor.samples_per_second()
+                    or self.speed_monitor.running_speed()
+                ),
+                global_step=self.speed_monitor.completed_global_step,
+                timestamp=now,
+            )
+            _cm.ingest_job_events(
+                self.brain_store,
+                self.job_name,
+                _timeline.default_sources(),
+            )
+            _BRAIN_INGESTS_TOTAL.inc()
+            return True
+        except Exception:  # noqa: BLE001 - the optimizer feed must
+            logger.exception("brain ingest failed")  # not kill us
+            return False
 
     def maybe_goodput_ledger(
         self, now: Optional[float] = None, force: bool = False

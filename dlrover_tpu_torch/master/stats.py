@@ -55,8 +55,16 @@ class BrainStatsReporter(StatsReporter):
         self._job_name = job_name
 
     def report(self, metrics: TrainingMetrics):
-        raise NotImplementedError(
-            "the Brain datastore comes with slice 9 of the port"
+        from dlrover_tpu_torch.brain.service import JobMetricRecord
+
+        self._store.persist(
+            JobMetricRecord(
+                job_name=self._job_name,
+                timestamp=time.time(),
+                workers=metrics.workers,
+                samples_per_sec=metrics.samples_per_sec,
+                model_params=metrics.model_params,
+            )
         )
 
 

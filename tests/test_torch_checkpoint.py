@@ -473,6 +473,65 @@ def test_deletion_keeps_latest(tmp_path):
     engine.close()
 
 
+def test_a_slow_persist_is_not_replaced_in_shm_before_it_is_durable(
+        saver, tmp_path, monkeypatch):
+    """The saver takes the shard's shm lock before its first touch of
+    the segment (here made slow, as a 1.49 GB segment's is on a slow
+    host): the trainer's writer, saving the next step with a blocking
+    lock, waits for the copy instead of replacing the step in shm,
+    which the persist would then drop ("shm holds step 2, wanted 1")."""
+    engine = _engine(tmp_path)
+    engine.save_to_memory(1, _port_state(_state()))
+    handler = saver._shm_handlers[0]
+    real_metadata = handler.metadata
+
+    def slow_metadata():
+        time.sleep(1.0)
+        return real_metadata()
+
+    monkeypatch.setattr(handler, "metadata", slow_metadata)
+    persist = threading.Thread(target=saver.save_step_checkpoint,
+                               args=(1,))
+    persist.start()
+    time.sleep(0.3)
+    assert engine.save_to_memory(2, _port_state(_state()), block_lock=True)
+    persist.join(timeout=60)
+    assert not persist.is_alive()
+    assert read_last_checkpoint(str(tmp_path))[0] == 1
+    assert handler.get_checkpoint_config().step == 2
+    engine.close()
+
+
+def test_a_memory_save_during_a_slow_storage_write_is_not_skipped(
+        saver, tmp_path, monkeypatch):
+    """The shard's shm lock is released once the private copy is taken:
+    a synchronous memory save of the next step (non-blocking lock)
+    lands in shm while the persist's storage write is still running,
+    and the persisted step is the one copied."""
+    engine = _engine(tmp_path)
+    engine.save_to_memory(1, _port_state(_state()))
+    handler = saver._shm_handlers[0]
+    real_write = saver.storage.write
+    writing = threading.Event()
+
+    def slow_write(*args, **kwargs):
+        writing.set()
+        time.sleep(1.0)
+        return real_write(*args, **kwargs)
+
+    monkeypatch.setattr(saver.storage, "write", slow_write)
+    persist = threading.Thread(target=saver.save_step_checkpoint,
+                               args=(1,))
+    persist.start()
+    assert writing.wait(timeout=30)
+    assert engine.save_to_memory(2, _port_state(_state()))
+    assert handler.get_checkpoint_config().step == 2
+    persist.join(timeout=60)
+    assert not persist.is_alive()
+    assert read_last_checkpoint(str(tmp_path))[0] == 1
+    engine.close()
+
+
 def test_async_snapshot_stall_and_integrity(saver, tmp_path):
     """The async flash save returns before the shm write and keeps the
     values of the call: in-place updates of every leaf right after it

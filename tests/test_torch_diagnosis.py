@@ -7,8 +7,8 @@ One case more: the chip-metrics collector never makes a CUDA context
 (a context takes memory on the training card); without one in the
 process it answers the reference's "unavailable" line.  The
 ``hang_evidence`` events are held to the reference's own event schema
-(``dlrover_tpu/telemetry/schema.py``; the port's copy comes with
-slice 9).  Numbers are held to 1e-6 relative (``pytest.approx``).
+(``dlrover_tpu/telemetry/schema.py``, which the port's copy
+``dlrover_tpu_torch/telemetry/schema.py`` extends).  Numbers are held to 1e-6 relative (``pytest.approx``).
 """
 
 import json

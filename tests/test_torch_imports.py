@@ -285,3 +285,133 @@ def test_the_launcher_and_the_agent_load_no_torch():
     loaded = json.loads(out.strip().splitlines()[-1])
     assert "dlrover_tpu_torch.agent.training" in loaded
     assert [m for m in loaded if m == "torch" or m.startswith("torch.")] == []
+
+
+SLICE_9_1 = [
+    ("dlrover_tpu_torch.serving.__init__", "dlrover_tpu/serving/__init__.py"),
+    ("dlrover_tpu_torch.serving.__main__", "dlrover_tpu/serving/__main__.py"),
+    ("dlrover_tpu_torch.serving.messages", "dlrover_tpu/serving/messages.py"),
+    ("dlrover_tpu_torch.serving.publisher",
+     "dlrover_tpu/serving/publisher.py"),
+    ("dlrover_tpu_torch.serving.replica", "dlrover_tpu/serving/replica.py"),
+    ("dlrover_tpu_torch.serving.pool", "dlrover_tpu/serving/pool.py"),
+    ("dlrover_tpu_torch.serving.router", "dlrover_tpu/serving/router.py"),
+    ("dlrover_tpu_torch.fleet.__init__", "dlrover_tpu/fleet/"),
+    ("dlrover_tpu_torch.fleet.lookup_load",
+     "dlrover_tpu/fleet/lookup_load.py"),
+    ("dlrover_tpu_torch.brain.__init__", "dlrover_tpu/brain/__init__.py"),
+    ("dlrover_tpu_torch.brain.service", "dlrover_tpu/brain/service.py"),
+    ("dlrover_tpu_torch.brain.datastore", "dlrover_tpu/brain/datastore.py"),
+    ("dlrover_tpu_torch.brain.optimizer_chain",
+     "dlrover_tpu/brain/optimizer_chain.py"),
+    ("dlrover_tpu_torch.brain.cluster_monitor",
+     "dlrover_tpu/brain/cluster_monitor.py"),
+    ("dlrover_tpu_torch.telemetry.schema", "dlrover_tpu/telemetry/schema.py"),
+    ("dlrover_tpu_torch.telemetry.check_events",
+     "dlrover_tpu/telemetry/check_events.py"),
+    ("dlrover_tpu_torch.telemetry.lint_events",
+     "dlrover_tpu/telemetry/lint_events.py"),
+]
+
+
+@pytest.mark.parametrize("module,reference", SLICE_9_1)
+def test_the_modules_of_slice_9_1_are_checked_and_name_their_reference(
+        module, reference):
+    """The serving plane, the lookup load, the Brain's service,
+    datastore, optimizer chain and cluster monitor and the event schema
+    with its checkers (slice 9.1), the ``__main__`` entry points
+    included, are among the modules the subprocess import check and the
+    AST scan above cover, each naming the reference it mirrors, which
+    exists."""
+    assert module in MODULES
+    assert (ROOT / reference).exists()
+    doc = ast.get_docstring(ast.parse(
+        (ROOT / module.replace(".", os.sep)).with_suffix(".py").read_text()))
+    assert reference in doc
+
+
+def test_the_serving_processes_load_no_torch():
+    """The replica, the router, the pool and the lookup load run on the
+    host, as the reference's do: their import closure loads no torch,
+    so they cannot map a CUDA library on a card machine."""
+    code = (
+        "import json, sys\n"
+        "import dlrover_tpu_torch.serving.__main__\n"
+        "import dlrover_tpu_torch.serving.router\n"
+        "import dlrover_tpu_torch.serving.pool\n"
+        "import dlrover_tpu_torch.fleet.lookup_load\n"
+        "import dlrover_tpu_torch.brain.cluster_monitor\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, check=True,
+    ).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert "dlrover_tpu_torch.serving.replica" in loaded
+    assert [m for m in loaded if m == "torch" or m.startswith("torch.")] == []
+
+
+# written into a directory on the spawned processes' PYTHONPATH: at a
+# normal exit each process records its command line and its modules
+_PROBE = r'''
+import atexit, json, os, sys
+
+def _dump():
+    out = os.environ.get("DLROVER_TEST_MODULES_DIR")
+    if not out:
+        return
+    with open("/proc/self/cmdline", "rb") as f:
+        cmd = [a.decode() for a in f.read().split(b"\0") if a]
+    with open(os.path.join(out, f"{os.getpid()}.json"), "w") as f:
+        spec = getattr(sys.modules.get("__main__"), "__spec__", None)
+        json.dump({"cmd": cmd, "main": getattr(spec, "name", ""),
+                   "modules": sorted(sys.modules)}, f)
+
+atexit.register(_dump)
+'''
+
+
+def test_spawned_replicas_and_router_run_the_port(tmp_path, monkeypatch):
+    """A ``ReplicaPool`` replica and the router, started by the port's
+    serving-fleet runner, run the port's modules: their command lines
+    name ``dlrover_tpu_torch`` and neither holds ``jax``, torch or any
+    ``dlrover_tpu.`` module in ``sys.modules`` (where both packages are
+    importable, a pool that spawned ``-m dlrover_tpu.serving`` would
+    quietly serve from the JAX package)."""
+    from dlrover_tpu_torch.chaos import harness
+    from dlrover_tpu_torch.chaos.schedule import Scenario
+
+    probe = tmp_path / "probe"
+    probe.mkdir()
+    (probe / "sitecustomize.py").write_text(_PROBE)
+    out = tmp_path / "modules"
+    out.mkdir()
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (str(probe), os.environ.get("PYTHONPATH", "")) if p))
+    monkeypatch.setenv("DLROVER_TEST_MODULES_DIR", str(out))
+    report = harness.run_serving_fleet_scenario(
+        Scenario.from_dict({"name": "spawn-probe", "seed": 3,
+                            "rules": []}),
+        workdir=str(tmp_path / "run"), pool_size=1, generations=2,
+        publish_every_s=0.1, load_streams=1, invariants=[],
+    )
+    assert report.rc == 0
+    dumps = [json.loads(p.read_text()) for p in out.glob("*.json")]
+    roles = {}
+    for d in dumps:
+        assert "-m" in d["cmd"], d["cmd"]
+        target = d["cmd"][d["cmd"].index("-m") + 1]
+        assert d["main"] in (target, target + ".__main__"), d["main"]
+        roles[target] = d["modules"]
+    assert set(roles) == {"dlrover_tpu_torch.serving",
+                          "dlrover_tpu_torch.serving.router"}
+    assert "dlrover_tpu_torch.serving.replica" in \
+        roles["dlrover_tpu_torch.serving"]
+    assert "dlrover_tpu_torch.serving.messages" in \
+        roles["dlrover_tpu_torch.serving.router"]
+    for mods in roles.values():
+        assert [m for m in mods if _forbidden(m)] == []
+        assert [m for m in mods
+                if m == "torch" or m.startswith("torch.")] == []
