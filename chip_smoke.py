@@ -72,7 +72,12 @@ Phases, each fatal on failure:
 6. flash checkpoint, each check fatal:
    a. GPT-2 small AdamW (seq 1024, global batch 32, micro-batch 8),
       crash and resume through ``Trainer``: this process hosts the
-      agent's ``AsyncCheckpointSaver``; child 1 trains 4 steps
+      agent's ``AsyncCheckpointSaver``; the three children fork from a
+      warm template (the launcher's ``WorkerForkServer`` with the
+      trainer modules, started right after the build, so its imports
+      overlap phases 2-5), each a fresh process that makes its own CUDA
+      context, its output in ``chip_smoke_out/ckpt_child_<role>.log``;
+      child 1 trains 4 steps
       (``save_steps`` 2) over the real unix sockets, writes a digest of
       every parameter and SIGKILLs itself; child 2
       (``DLROVER_RESTART_COUNT=1``) resumes from shm at step 4 with
@@ -391,12 +396,37 @@ Phases, each fatal on failure:
       updated parameters within rtol 1e-3 / atol 1e-5, exactly 96 B1,
       48 B2, 48 B3 and 1 B6 in the save_attn step; then 4 steps of
       each policy, interleaved, median and peak beside 5b's.
+19. the step caches and the fleet (slices 8.2 and 9.2), each fatal:
+   a. warm recovery with the step caches: phase 8's GPT-2 small worker
+      (its model, batch, AdamW and flash) under ``python -m
+      dlrover_tpu_torch.run --warm-restart`` with ``DLROVER_AOT_PRETRACE``
+      and a fresh ``DLROVER_COMPILE_CACHE_DIR`` under the run's
+      directory, so the first incarnation builds the flash library there
+      (its ``nvcc`` seconds printed: what a replacement host pays without
+      the cache) and writes its step's AOT entry; SIGKILLed at step 4 of
+      8, it is respawned from the warm template, which preloaded the
+      entry and its library: the respawn's ``compile_cache`` event says
+      ``aot-hit`` with no new library, its ``aot_cache`` event a hit
+      whose library the template loaded, the template opened no
+      ``/dev/nvidia*`` file and maps no ``libnvidia*`` library (its
+      ``import torch`` maps ``libcuda.so`` and ``libcudart``, as phase 8
+      notes) but maps the flash library, and every loss equals phase
+      8's in-process control bit for bit (``launcher_control_inprocess``,
+      reused; computed here under ``--only 19``); retrace seconds and
+      kill -> first step printed;
+   b. the fleet: ``FleetRunner`` with 200 synthetic agents (the profile
+      of ``tests/test_fleet.py``'s ramp, in packs of 50) against one
+      journal-backed master, in a child process that never imports
+      torch, held 8 s SLO-green with no agent-side error; then a
+      capacity search from 300 agents, capped at 30 s; the per-verb
+      p99s, the sustained agents, and that the master's process maps no
+      CUDA library.
 
 Prints the card, a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  ``--only 2,11`` runs the build
 and the named phases alone (2, 3, 4, 5b, 9b, 10, 11, 12, 13, 13a, 13b,
 14, 14a-14e, 15, 15a, 15b, 16, 16a-16c, 17, 17a-17d, 18 (18a, then 5b
-with 18b), 18a and 18b (5b with 18b) so far; 5lr,
+with 18b), 18a and 18b (5b with 18b), 19, 19a and 19b so far; 5lr,
 which the full run leaves out: phase 5a's model at lr 1e-3 with the
 flash kernels and with the plain attention math, and at SMALL_LR; and
 11d, which the full run leaves out too: 11b's Llama-3-8B for 12 steps
@@ -2143,14 +2173,22 @@ def _small_trainer(out: str, max_steps: int):
                    [{"x": data[:, :-1], "y": data[:, 1:]}], _loss_fn)
 
 
-def ckpt_child(role: str, out: str, result_path: str) -> int:
+def ckpt_child(role: str, out: str, result_path: str,
+               log_path: str = "") -> int:
     """One incarnation of phase 6a's trainer, in a process of its own.
 
     ``kill``: 4 steps from scratch, then SIGKILL without closing
     anything.  ``resume``: resume at step 4 (no step taken: the params
     as restored), then a second Trainer resumes again and takes steps 5
     and 6.  ``storage``: resume at step 6 from storage.  Writes what it
-    saw to ``result_path`` as JSON before it ends."""
+    saw to ``result_path`` as JSON before it ends; its output goes to
+    ``log_path`` (a child forked from the template shares the
+    template's standard streams)."""
+    if log_path:
+        fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+        os.close(fd)
     import torch
 
     sys.path.insert(0, ROOT)
@@ -2183,6 +2221,28 @@ def ckpt_child(role: str, out: str, result_path: str) -> int:
     return 0
 
 
+# the warm template phase 6a's children fork from: the launcher's fork
+# server over its trainer preload and the Trainer
+CKPT_FORK = {}
+
+
+def _ckpt_fork_server():
+    """Phase 6a's fork server, its template started on first use
+    (``run_phases`` starts it right after the build); it imports and
+    never touches CUDA, so every forked child makes its own context."""
+    if "server" not in CKPT_FORK:
+        from dlrover_tpu_torch.agent.forkserver import (
+            TRAINER_PRELOAD,
+            WorkerForkServer,
+        )
+
+        server = WorkerForkServer(
+            preload=TRAINER_PRELOAD + ",dlrover_tpu_torch.trainer.trainer")
+        server._ensure_template()
+        CKPT_FORK["server"] = server
+    return CKPT_FORK["server"]
+
+
 def _run_child(role: str, out: str, restart_count: int) -> dict:
     path = os.path.join(OUT_DIR, f"ckpt_child_{role}.json")
     log_path = os.path.join(OUT_DIR, f"ckpt_child_{role}.log")
@@ -2195,18 +2255,17 @@ def _run_child(role: str, out: str, restart_count: int) -> dict:
                DLROVER_METRICS_FILE=os.path.join(
                    OUT_DIR, f"ckpt_child_{role}_metrics.json"))
     t0 = time.perf_counter()
-    with open(log_path, "w") as f:
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--ckpt-child", role,
-             out, path], cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
-            timeout=600)
+    child = _ckpt_fork_server().spawn(
+        [os.path.abspath(__file__), "--ckpt-child", role, out, path,
+         log_path], env, timeout=300)
+    code = child.wait(timeout=600)
     seconds = time.perf_counter() - t0
     want = -signal.SIGKILL if role == "kill" else 0
-    if proc.returncode != want or not os.path.exists(path):
+    if code != want or not os.path.exists(path):
         with open(log_path) as f:
             tail = f.read()[-4000:]
         raise AssertionError(f"checkpoint child {role} ended with "
-                             f"{proc.returncode}, not {want}:\n{tail}")
+                             f"{code}, not {want}:\n{tail}")
     with open(path) as f:
         result = json.load(f)
     result["seconds"] = seconds
@@ -3203,6 +3262,11 @@ L_SEED = 42
 L_MONITOR_INTERVAL_S = 0.3
 L_MAX_RESTARTS = 2
 L_GLOBAL_BATCH, L_MICRO = 32, 8
+# phase 19a: the kill at step 4 of phase 8's 8
+SC_KILL_WINDOW = [4, 4]
+# phase 8's in-process control, for phase 19a to reuse: {"losses",
+# "path"}
+LAUNCHER_CONTROL = {}
 
 # The GPT-2 small worker of phase 8, written into each run's directory:
 # the structure of the port's chaos train loop
@@ -3218,6 +3282,7 @@ import torch
 
 from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer, StorageType
 from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, cross_entropy_loss
+from dlrover_tpu_torch.ops import cuda_build
 from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.trainer.elastic_trainer import (
     ElasticTrainer, TrainState, make_train_step, restore_train_state,
@@ -3225,6 +3290,9 @@ from dlrover_tpu_torch.trainer.elastic_trainer import (
 )
 from dlrover_tpu_torch.trainer.recovery import RecoveryProfiler
 
+# the kernel libraries this process holds before it ran anything: the
+# ones a warm template preloaded (phase 19a)
+LIBS_AT_START = cuda_build.loaded_libraries()
 ckpt_dir, out_dir = sys.argv[1], sys.argv[2]
 TOTAL_STEPS = int(os.environ["DLROVER_CHAOS_TOTAL_STEPS"])
 CKPT_EVERY = int(os.environ["DLROVER_CHAOS_CKPT_EVERY"])
@@ -3271,7 +3339,18 @@ with prof.phase("model_build"):
 data = np.random.default_rng(0).integers(
     0, cfg.vocab_size, (GLOBAL_BATCH, SEQ + 1), dtype=np.int32)
 batch = {"x": data[:, :-1], "y": data[:, 1:]}
-step = prof.resolve_step(step_fn, restore_busy=lambda: not load_handle.done())
+if os.environ.get("DLROVER_COMPILE_CACHE_DIR"):
+    # the step caches (phase 19a): the resolve finds the entry the first
+    # incarnation wrote, whose flash library the template loaded
+    from dlrover_tpu_torch.common.aot_cache import aot_cache_dir
+
+    step = prof.resolve_step(
+        step_fn, lambda: (TrainState.create(model, optimizer), batch),
+        cache_dir=aot_cache_dir(),
+        restore_busy=lambda: not load_handle.done())
+else:
+    step = prof.resolve_step(step_fn,
+                             restore_busy=lambda: not load_handle.done())
 
 start_step, restored = load_handle.result()
 prof.record_restore(ckpt.last_restore_phases)
@@ -3296,6 +3375,7 @@ with open("/proc/self/cmdline", "rb") as f:
     cmdline = f.read().replace(b"\0", b" ").decode().strip()
 record = {"pid": os.getpid(), "ppid": os.getppid(), "cmdline": cmdline,
           "restart_count": RESTART, "start_step": start_step,
+          "libs_at_start": LIBS_AT_START,
           "model_build_parts": parts,
           "restore": ckpt.last_restore_phases, "losses": {},
           "step_seconds": {}, "done": False}
@@ -3304,6 +3384,7 @@ path = os.path.join(out_dir, f"incarnation_{RESTART}.json")
 def write():
     record["counts"] = dict(fa.LAUNCHES)
     record["phases"] = dict(prof.phases)
+    record["nvcc_s"] = cuda_build.nvcc_seconds()
     record["maps"] = cuda_maps()
     with open(path + ".tmp", "w") as f:
         json.dump(record, f)
@@ -3371,6 +3452,15 @@ def _cuda_device_files(pid) -> list:
     return sorted(found)
 
 
+def _maps_kernels(pid) -> list:
+    """The port's kernel libraries (``<source>-<hash>.so``) mapped into
+    ``pid``."""
+    with open(f"/proc/{pid}/maps") as f:
+        return sorted({line.split()[-1] for line in f
+                       if any(f"/{name}-" in line for name in SOURCES)
+                       and line.rstrip().endswith(".so")})
+
+
 class _ProcSampler:
     """Samples, every 0.2 s, the live processes of the run (those
     ``harness.scan_processes`` finds by ``marker``, which leaves out this
@@ -3397,6 +3487,7 @@ class _ProcSampler:
                     ppid = int(f.read().rsplit(")", 1)[1].split()[1])
                 libs = _maps_cuda(pid)
                 devices = _cuda_device_files(pid)
+                kernels = _maps_kernels(pid)
             except (OSError, ValueError, IndexError):
                 continue
             rec = self.seen.setdefault(pid, {"maps": [], "devices": []})
@@ -3408,6 +3499,8 @@ class _ProcSampler:
             rec.setdefault("ppid", ppid)
             rec["maps"] = sorted(set(rec["maps"]) | set(libs))
             rec["devices"] = sorted(set(rec["devices"]) | set(devices))
+            rec["kernels"] = sorted(set(rec.get("kernels", []))
+                                    | set(kernels))
 
     def _run(self):
         while not self._stop.wait(0.2):
@@ -3434,15 +3527,23 @@ def launcher_child(label: str, workdir: str, ckpt_dir: str,
     from dlrover_tpu_torch.agent.forkserver import TRAINER_PRELOAD
     from dlrover_tpu_torch.chaos import harness, scenarios
 
-    warm = label == "8b"
+    warm = label in ("8b", "19a")
     scenario = scenarios.kill_worker_midstep(seed=L_SEED)
-    scenario.rules[0].step_window = list(L_KILL_WINDOW)
+    scenario.rules[0].step_window = list(
+        SC_KILL_WINDOW if label == "19a" else L_KILL_WINDOW)
     out_dir = os.path.join(workdir, "out")
     os.makedirs(out_dir, exist_ok=True)
     env, event_log = harness.scenario_env(
         scenario, workdir, L_STEPS, L_CKPT_EVERY)
     if warm:
         env["DLROVER_PRELOAD"] = TRAINER_PRELOAD
+    if label == "19a":
+        # the step caches: a fresh job cache under the run's directory,
+        # so the first incarnation builds the flash library into it, and
+        # the template preloads the entry and its library before a fork
+        env["DLROVER_COMPILE_CACHE_DIR"] = os.path.join(workdir,
+                                                        "torch_cache")
+        env["DLROVER_AOT_PRETRACE"] = "1"
     script = os.path.join(workdir, "gpt2_small_worker.py")
     with open(script, "w") as f:
         f.write(LAUNCHER_WORKER_SCRIPT)
@@ -3610,7 +3711,7 @@ def _check_launcher_run(r, per_step, control=None) -> list:
     if len(incs) == 2 and incs[1]["restore"].get("tier") != "shm":
         failures.append(f"the respawned worker restored from "
                         f"{incs[1]['restore'].get('tier')}, not shm")
-    if label == "8b":
+    if label in ("8b", "19a"):
         templates = {p: v for p, v in r["procs"].items()
                      if "dlrover_tpu_torch.agent.forkserver" in v["cmdline"]
                      and v["ppid"] == agent["pid"]}
@@ -3747,6 +3848,7 @@ def phase_launcher(card) -> dict:
     control_path = os.path.join(OUT_DIR, "launcher_control_losses.json")
     with open(control_path, "w") as f:
         json.dump(control_losses, f)
+    LAUNCHER_CONTROL.update(losses=control_losses, path=control_path)
     phase5a = SMALL_ADAMW["tokens_s"]
     log(f"launcher: control (the worker's training in this process, no "
         f"launcher) losses {control_losses}; steady steps 3..{L_STEPS} "
@@ -6644,7 +6746,16 @@ def rl_chaos_child(workdir: str, result_path: str) -> int:
     ``rl_rollout_worker_kill`` through the launcher with the loop's
     models on the card (no invariants here: the parent holds them)."""
     from dlrover_tpu_torch.chaos import harness, scenarios
+    from dlrover_tpu_torch.ops import cuda_build
 
+    # the scenario's compile_cache option scopes the job's kernel cache
+    # to the run (torch_cache/ under its directory): seed it with the
+    # libraries the build phase made, as an operator points a job at a
+    # shared cache, so the loop's workers load them and build nothing
+    kernels = os.path.join(workdir, "torch_cache", "kernels")
+    os.makedirs(kernels, exist_ok=True)
+    for name in SOURCES:
+        shutil.copy2(cuda_build.library_path(name), kernels)
     t0 = time.time()
     report = harness.run_scenario(
         scenarios.rl_rollout_worker_kill(), workdir=workdir, invariants=[],
@@ -7160,7 +7271,7 @@ SV_KEY_SPACE = sum(S_FIELD_VOCABS)
 
 class _ZipfKeys:
     """A lookup stream's key source.  ``fleet/lookup_load.py`` is a copy
-    of the reference's and has no hook for one (ROADMAP §A 9.2 asks for
+    of the reference's and has no hook for one (ROADMAP §A 6 asks for
     a key sampler): its agent draws each batch as
     ``self._rng.integers(0, key_space, batch)``, and 17d puts this
     object in the place of ``_rng``.  It draws from 17a's field laws
@@ -7749,6 +7860,217 @@ def phase_save_attn(trainer, card, xl_ms: float, xl_peak: int) -> dict:
     return c_sa
 
 
+# -- phase 19: the step caches and the fleet (slices 8.2 and 9.2) -------------
+
+
+def _cache_events(events, etype):
+    return {int(e.get("restart_count", 0)): e for e in events
+            if e.get("type") == etype}
+
+
+def phase_step_caches(card) -> dict:
+    """19a: phase 8's GPT-2 small worker under the launcher with
+    ``--warm-restart``, ``DLROVER_AOT_PRETRACE`` and a fresh compile
+    cache; the kill at step 4 of 8.  The first incarnation builds the
+    flash library into the cache and writes its step's AOT entry; the
+    respawn must resolve through both with nothing built, from a
+    template that loaded the library and never initialised the driver,
+    and replay the control's losses bit for bit.  Returns the run's
+    launch counts (path ``launcher_warm_step_caches``)."""
+    from dlrover_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig.gpt2_small(max_seq_len=SMALL_SEQ, attention_impl="flash")
+    per_step = cfg.num_layers * (L_GLOBAL_BATCH // L_MICRO)
+    if not LAUNCHER_CONTROL:
+        # --only 19: phase 8's control, computed here as phase 8 does
+        losses, _steady, _counts = _launcher_control(cfg)
+        path = os.path.join(OUT_DIR, "launcher_control_losses.json")
+        with open(path, "w") as f:
+            json.dump(losses, f)
+        LAUNCHER_CONTROL.update(losses=losses, path=path)
+        log(f"19a: phase 8's control computed here: losses {losses}")
+    control = LAUNCHER_CONTROL["losses"]
+    r = _launcher_run("19a", 19, LAUNCHER_CONTROL["path"])
+    failures = _check_launcher_run(r, per_step, control)
+    events = r["events"]
+    cc = _cache_events(events, "compile_cache")
+    aot = _cache_events(events, "aot_cache")
+    incs = {i["restart_count"]: i for i in r["incarnations"]}
+    first, respawn = cc.get(0, {}), cc.get(1, {})
+    if not (first.get("status") == "cold" and first.get("build_s", 0) > 0
+            and first.get("entries_before") == 0
+            and first.get("entries_after") == 1):
+        failures.append(f"the first incarnation did not build the flash "
+                        f"library into the fresh cache: {first}")
+    if not (aot.get(0, {}).get("wrote") and not aot.get(0, {}).get("hit")):
+        failures.append(f"the first incarnation wrote no AOT entry: "
+                        f"{aot.get(0)}")
+    if not (respawn.get("status") == "aot-hit" and respawn.get("hit")
+            and respawn.get("entries_before") == respawn.get(
+                "entries_after") == 1 and respawn.get("build_s") == 0):
+        failures.append(f"the respawn's compile cache did not hit: "
+                        f"{respawn}")
+    hit = aot.get(1, {})
+    if not (hit.get("hit") and hit.get("preloaded")
+            and hit.get("libraries") == 1
+            and hit.get("libraries_preloaded")):
+        failures.append(f"the respawn's AOT resolve did not hit with the "
+                        f"template's library: {hit}")
+    if [x["name"] for x in incs.get(1, {}).get("libs_at_start", [])] != [
+            "flash_attention"]:
+        failures.append(f"the respawn did not inherit the flash library: "
+                        f"{incs.get(1, {}).get('libs_at_start')}")
+    if incs.get(1, {}).get("nvcc_s", 1.0) != 0.0:
+        failures.append(f"the respawn ran nvcc: {incs.get(1)}")
+    templates = {p: v for p, v in r["procs"].items()
+                 if "dlrover_tpu_torch.agent.forkserver" in v["cmdline"]
+                 and v["ppid"] == r["agent"]["pid"]}
+    for pid, v in templates.items():
+        driver = [m for m in v["maps"] if "libnvidia" in m]
+        if v["devices"] or driver:
+            failures.append(f"the template (pid {pid}) initialised the CUDA "
+                            f"driver: {v['devices'] + driver}")
+        if not any("/flash_attention-" in k for k in v.get("kernels", [])):
+            failures.append(f"the template (pid {pid}) never loaded the "
+                            f"flash library: {v.get('kernels')}")
+    b = _recovery_breakdown(r) if not failures else {}
+    summed = _zero_counts()
+    for i in r["incarnations"]:
+        for k, v in _incarnation_counts(i).items():
+            summed[k] += v
+    seen = {p: {k: v.get(k) for k in ("maps", "devices", "kernels")}
+            for p, v in templates.items()}
+    log(f"19a step caches: {r['wall_s']:.1f} s, invariants "
+        f"{[(n, ok) for n, ok, _ in r['invariants']]}; first incarnation "
+        f"nvcc {incs.get(0, {}).get('nvcc_s')} s (the build a replacement "
+        f"host pays without the cache; compile_cache {json.dumps(first)}); "
+        f"respawn compile_cache {json.dumps(respawn)}; aot_cache "
+        f"{json.dumps(hit)}; templates "
+        f"{json.dumps(seen)} "
+        f"[{card}]")
+    if b:
+        log(f"19a: kill at step {b['kill_step']}, restored at step "
+            f"{b['start_step']} from {b['restore_stages']['tier']}, "
+            f"{b['steps_lost']} step(s) lost; retrace "
+            f"{b['phases'].get('retrace')} s, aot {b['phases'].get('aot')} s; "
+            f"kill -> first step {b['kill_to_first_step_s']:.3f} s: "
+            f"detection {b['detect_s']:.3f} s, recovery phases "
+            f"{json.dumps(b['phases'])} [{card}]")
+    if failures:
+        raise AssertionError("19a: " + "; ".join(failures))
+    return {"launcher_warm_step_caches": summed}
+
+
+# the ramp of tests/test_fleet.py::test_fleet_full_ramp_200_agents
+FLEET_AGENTS = 200
+FLEET_PROFILE = dict(heartbeat_interval=2.0, step_interval=1.0,
+                     shard_interval=4.0, kv_interval=8.0,
+                     reconnect_prob=0.002)
+FLEET_SEARCH_S = 30.0
+
+
+def fleet_child(workdir: str, result_path: str) -> int:
+    """19b, in a process of its own that never imports torch: the
+    FleetRunner's journal-backed master lives here, its 200 agents in
+    packs of 50.  What this process maps goes into the result."""
+    from dlrover_tpu_torch.fleet import AgentProfile, FleetRunner
+    from dlrover_tpu_torch.telemetry.events import read_events
+
+    os.environ["DLROVER_EVENT_LOG"] = os.path.join(workdir, "events.jsonl")
+    runner = FleetRunner(
+        max_nodes=512, profile=AgentProfile(**FLEET_PROFILE),
+        workdir=os.path.join(workdir, "fleet"), fsync_window_s=0.05,
+        piggyback=True, pack_size=50)
+    try:
+        t0 = time.perf_counter()
+        level = runner._probe_level(FLEET_AGENTS, window_s=8.0, settle_s=2.0)
+        level_s = time.perf_counter() - t0
+        stats = runner.stats()
+        t0 = time.perf_counter()
+        # from the level above the one just held green
+        search = runner.capacity_search(
+            start=FLEET_AGENTS + 100, step=100, max_agents=500,
+            window_s=4.0, settle_s=1.0, deadline_s=FLEET_SEARCH_S)
+        search_s = time.perf_counter() - t0
+    finally:
+        runner.stop()
+    reports = [e for e in read_events(os.environ["DLROVER_EVENT_LOG"])
+               if e.get("type") == "fleet_report"]
+    result = {
+        "level": level, "level_s": level_s, "stats": stats,
+        "search": search, "search_s": search_s,
+        "report_agents": sorted({e["agents"] for e in reports}),
+        "pid": os.getpid(), "maps": _maps_cuda(os.getpid()),
+        "devices": _cuda_device_files(os.getpid()),
+        "torch_loaded": "torch" in sys.modules,
+    }
+    with open(result_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_fleet(card) -> dict:
+    """19b: the fleet on the card machine's host (``fleet_child``): 200
+    agents held SLO-green with no agent-side error, then the capacity
+    search; the master's process maps no CUDA library."""
+    workdir = tempfile.mkdtemp(prefix="dl19b")
+    result_path = os.path.join(workdir, "result.json")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("DLROVER_EVENT_LOG", None)
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--fleet-child",
+             workdir, result_path],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+        if proc.returncode != 0 or not os.path.exists(result_path):
+            raise AssertionError(f"19b: the fleet child failed "
+                                 f"({proc.returncode}): {proc.stderr[-3000:]}")
+        with open(result_path) as f:
+            r = json.load(f)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    level, search = r["level"], r["search"]
+    log(f"19b fleet: {FLEET_AGENTS} agents (packs of 50) against one "
+        f"journal-backed master: green {level['green']}, "
+        f"{level['mean_rps']} rps, errors {r['stats']['errors']}, error "
+        f"ratio {level['error_ratio']}, per-verb p99 ms "
+        f"{json.dumps(level['worst_p99_ms'])} ({r['level_s']:.1f} s); "
+        f"capacity search ({r['search_s']:.1f} s, cap {FLEET_SEARCH_S} s): "
+        f"max sustained {search['max_sustained_agents']} agents at "
+        f"{search['rps_at_capacity']} rps, p99 ms at capacity "
+        f"{json.dumps(search['p99_at_capacity_ms'])}, levels "
+        f"{json.dumps(search['levels'])}, first breach "
+        f"{json.dumps(search['first_breach'])}; the master's process (pid "
+        f"{r['pid']}) maps {r['maps'] + r['devices']}, torch loaded "
+        f"{r['torch_loaded']} [{card}]")
+    failures = []
+    if not level["green"] or r["stats"]["errors"]:
+        failures.append(f"{FLEET_AGENTS} agents not sustained green: "
+                        f"{level}, errors {r['stats']['errors']}")
+    if FLEET_AGENTS not in r["report_agents"]:
+        failures.append(f"no fleet_report at {FLEET_AGENTS} agents: "
+                        f"{r['report_agents']}")
+    if r["maps"] or r["devices"] or r["torch_loaded"]:
+        failures.append(f"the master's process maps CUDA: "
+                        f"{r['maps'] + r['devices']}, torch "
+                        f"{r['torch_loaded']}")
+    if not search["levels"]:
+        failures.append("the capacity search probed no level")
+    if failures:
+        raise AssertionError("19b: " + "; ".join(failures))
+    return {}
+
+
+def phase_19(card) -> dict:
+    """Phase 19: 19a and 19b, each timed."""
+    out = {}
+    for name, phase in (("19a", phase_step_caches), ("19b", phase_fleet)):
+        t0 = time.perf_counter()
+        out.update(phase(card))
+        log(f"chip_smoke: phase {name} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _free_cuda():
     import gc
 
@@ -7772,6 +8094,10 @@ def main(argv) -> int:
         # phase 16c's agent, as phase 8's
         sys.path.insert(0, ROOT)
         return rl_chaos_child(*argv[1:3])
+    if argv[:1] == ["--fleet-child"]:
+        # phase 19b's master and agents, as phase 8's agent
+        sys.path.insert(0, ROOT)
+        return fleet_child(*argv[1:3])
     if argv[:1] == ["--sparse-chaos-child"]:
         # phase 17c's agent, as phase 8's
         sys.path.insert(0, ROOT)
@@ -7787,7 +8113,7 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, ROOT)
     if argv[:1] == ["--ckpt-child"]:
-        return ckpt_child(*argv[1:4])
+        return ckpt_child(*argv[1:5])
     os.makedirs(OUT_DIR, exist_ok=True)
     # the run's own IPC namespace: sockets, and the names of its shm
     # segments, which it unlinks at the end
@@ -7803,6 +8129,8 @@ def main(argv) -> int:
             return run_only(torch, argv[1].split(","))
         return run_phases(torch)
     finally:
+        if "server" in CKPT_FORK:
+            CKPT_FORK.pop("server").close()
         left = _unlink_segments()
         shutil.rmtree(sockets, ignore_errors=True)
         for name in os.listdir(OUT_DIR):
@@ -7829,7 +8157,8 @@ ONLY = {"2": phase_kernels, "3": phase_quant_kernels,
         "16c": phase_rl_chaos, "17": phase_sparse,
         "17a": phase_sparse_deepfm, "17b": phase_sparse_ckpt,
         "17c": phase_sparse_chaos, "17d": phase_sparse_serving,
-        "18": phase_slice_5_4, "18a": phase_bert, "18b": phase_train_xl}
+        "18": phase_slice_5_4, "18a": phase_bert, "18b": phase_train_xl,
+        "19": phase_19, "19a": phase_step_caches, "19b": phase_fleet}
 
 
 def run_only(torch, names) -> int:
@@ -7867,6 +8196,8 @@ def run_phases(torch) -> int:
         return out
 
     timed("1 build", phase_build)
+    # 6a's fork template imports while phases 2-5 run
+    _ckpt_fork_server()
     timings = timed("2 flash kernels", phase_kernels, card)
     timed("2 flash repairs", phase_flash_repairs, card)
     timed("2 flash wide head dims", time_wide, card)
@@ -7889,7 +8220,8 @@ def run_phases(torch) -> int:
                         ("12", phase_data), ("13", phase_parallel),
                         ("14", phase_scale_out),
                         ("15", phase_pipeline_fp8), ("16", phase_rl),
-                        ("17", phase_sparse), ("18a", phase_bert)):
+                        ("17", phase_sparse), ("18a", phase_bert),
+                        ("19", phase_19)):
         by_path.update(timed(name, phase, card))
     by_path["gpt2_xl_save_attn"] = SAVE_ATTN["counts"]
     leaked = [n for n in os.listdir("/dev/shm")

@@ -21,8 +21,10 @@ Copy of ``dlrover_tpu/agent/forkserver.py``.  The reference's template
 imports JAX and pushes the compile-cache env into JAX's config after
 the fork (``_sync_jax_config_from_env``), and preloads the AOT cache's
 bytes (``DLROVER_AOT_PRETRACE``); the port preloads torch and its own
-modules, and the step caches come with slice 8 of the port (asking for
-``DLROVER_AOT_PRETRACE`` raises there).
+modules, and with ``DLROVER_AOT_PRETRACE`` the AOT step entries and the
+kernel libraries they list (:func:`_aot_preload`).  It needs no config
+push: the kernel build reads ``DLROVER_COMPILE_CACHE_DIR`` from the
+worker's env at its first build.
 
 Protocol (dedicated pipe fds, so worker stdout stays untouched):
 agent -> template: one JSON line per spawn
@@ -78,15 +80,32 @@ def _flush_and_exit(code: int):
 
 
 def _aot_preload():
-    """The reference reads the job's serialized step executables into
-    template memory here (``DLROVER_AOT_PRETRACE``); that cache comes
-    with slice 8 of the port, so asking for it raises."""
-    if os.environ.get(_AOT_PRETRACE_ENV, "").strip().lower() in (
+    """AOT pre-load (``DLROVER_AOT_PRETRACE``): read the job's AOT step
+    entries into template memory and load the kernel libraries they
+    list — every forked worker INHERITS the bytes and the loaded
+    libraries, so its resolve hits without touching disk and its first
+    step neither builds nor loads a kernel library.  A library load is
+    a ``dlopen`` whose constructors register the kernels' fatbinaries
+    with the statically linked CUDA runtime, which defers the driver to
+    the first CUDA call: the template still makes none, as the
+    reference's template never deserializes.  Called at template start
+    AND before every fork (incremental rescan), so the entry a cold
+    first incarnation writes is already in memory for the replacement
+    fork that follows its death."""
+    if os.environ.get(_AOT_PRETRACE_ENV, "").strip().lower() not in (
             "1", "true", "yes", "on"):
-        raise NotImplementedError(
-            f"{_AOT_PRETRACE_ENV}: the AOT executable cache comes with "
-            "slice 8 of the port"
-        )
+        return
+    try:
+        from dlrover_tpu_torch.common import aot_cache
+
+        n, nbytes = aot_cache.preload_entries()
+        if n:
+            logger.info(
+                "forkserver template preloaded %d AOT cache "
+                "file(s), %.1f MB", n, nbytes / 2**20,
+            )
+    except Exception:  # noqa: BLE001 - preload is best-effort
+        pass
 
 
 def _template_main(req_fd: int, ev_fd: int):

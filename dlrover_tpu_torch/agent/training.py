@@ -18,9 +18,13 @@ shared-memory checkpoint is persisted even when the trainer died.
 Copy of ``dlrover_tpu/agent/training.py``.  The agent never touches
 CUDA: only its workers do.  The reference exports the JAX persistent
 compile-cache env to every worker and to the warm template
-(``_compile_cache_env``); that cache comes with slice 8 of the port,
-so the port exports none.  The worker's ``PYTHONPATH`` carries the
-port's package root.
+(``_compile_cache_env``), always; the port's cache holds its kernel
+libraries (:mod:`dlrover_tpu_torch.common.compile_cache`) and is armed
+only when the operator sets ``DLROVER_COMPILE_CACHE_DIR`` (otherwise the
+kernels keep building into the package tree), so the agent creates its
+``kernels/`` and ``aot/`` directories then and the env reaches every
+worker with the rest of the agent's.  The worker's ``PYTHONPATH``
+carries the port's package root.
 """
 
 import os
@@ -248,6 +252,9 @@ class ElasticTrainingAgent:
         if spec.warm_restart:
             from dlrover_tpu_torch.agent.forkserver import WorkerForkServer
 
+            # the directories exist before the template preloads from
+            # them and before the first incarnation writes its entry
+            self._compile_cache_env()
             self._forkserver = WorkerForkServer()
             # start importing NOW so the template is warm before the
             # first restart needs it
@@ -314,11 +321,31 @@ class ElasticTrainingAgent:
 
     # -- worker process management ----------------------------------------
 
+    @staticmethod
+    def _compile_cache_env() -> Dict[str, str]:
+        """The armed compile cache's env (empty when the operator armed
+        none), with its ``kernels/`` and ``aot/`` directories created
+        here so the first incarnation's build and entry write never race
+        the mkdir."""
+        from dlrover_tpu_torch.common import compile_cache
+        from dlrover_tpu_torch.common.aot_cache import aot_cache_dir
+
+        cache = compile_cache.active_cache_dir()
+        if not cache:
+            return {}
+        try:
+            os.makedirs(compile_cache.kernel_dir(cache), exist_ok=True)
+            os.makedirs(aot_cache_dir(), exist_ok=True)
+        except OSError:
+            pass
+        return compile_cache.cache_env(cache)
+
     def _worker_env(
         self, outcome: RendezvousOutcome, local_rank: int
     ) -> Dict[str, str]:
         base_rank = outcome.base_rank(self._node_rank)
         env = dict(os.environ)
+        env.update(self._compile_cache_env())
         env.update(self._spec.env)
         # make the framework importable in workers even when not
         # pip-installed (script-mode sys.path only has the script dir)

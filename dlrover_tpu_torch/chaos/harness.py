@@ -61,8 +61,14 @@ was served, and :class:`RoutedTrafficClean`,
 :class:`FleetHealthyReplicasNotRestarted` and
 :class:`RouterReplayMatchesLive` hold the routed fleet of
 :func:`run_serving_fleet_scenario`; :func:`run_serving_scenario` runs
-the train-to-serve loop beside a supervised replica.  The compile-cache
-invariants come with slice 8.2.
+the train-to-serve loop beside a supervised replica.  The step-cache
+set (slice 8.2): :class:`CompileCacheHitOnRecovery`,
+:class:`AotCacheHitOnRecovery`, :class:`RetraceBelow`,
+:class:`RecoveryCycleBelow` and :class:`RecoveryPhasesOnTimeline` decide
+from the ``compile_cache``/``aot_cache``/``recovery_phase`` events that a
+respawn found its step's entry and kernel libraries and recovered within
+the reference's ceilings; the ``compile_cache`` run option scopes the
+job's compile cache to the run's workdir.
 """
 
 import json
@@ -259,6 +265,9 @@ class Invariant:
     """Base checker: decide pass/fail from the job's event list."""
 
     name = "invariant"
+    # a measured duration held to a wall-clock ceiling: run_scenario
+    # re-measures a run once when only such invariants failed
+    ceiling_class = False
 
     def check(self, events: List[dict],
               run: "ChaosRunReport") -> InvariantResult:
@@ -965,6 +974,201 @@ class EventRecorded(Invariant):
             self.name, True, f"{len(hits)} event(s)"
         )
 
+
+
+class CompileCacheHitOnRecovery(Invariant):
+    """The replacement incarnation's first post-restore step HIT the
+    job's compile cache — decided from the ``compile_cache`` event the
+    trainer-side retrace monitor emits (kernel libraries before/after
+    the bracketed first step; ``aot-hit`` or ``kernel-cache-hit``)."""
+
+    name = "compile_cache_hit"
+
+    def check(self, events, run):
+        witnesses = [
+            e for e in events
+            if e.get("type") == "compile_cache"
+            and int(e.get("restart_count", 0) or 0) > 0
+        ]
+        if not witnesses:
+            return InvariantResult(
+                self.name, False,
+                "no compile_cache event from a respawned incarnation "
+                "(retrace monitor never ran)",
+            )
+        misses = [e for e in witnesses if not e.get("hit")]
+        if misses:
+            e = misses[0]
+            return InvariantResult(
+                self.name, False,
+                f"cache MISS on restart "
+                f"#{e.get('restart_count')}: entries "
+                f"{e.get('entries_before')}->{e.get('entries_after')} "
+                f"in {e.get('dir')}",
+            )
+        e = witnesses[0]
+        return InvariantResult(
+            self.name, True,
+            f"cache HIT on restart #{e.get('restart_count')} "
+            f"({e.get('entries_before')} warm entries, retrace "
+            f"{e.get('retrace_s')}s)",
+        )
+
+
+class RetraceBelow(Invariant):
+    """Measured ``retrace + aot`` of every respawned incarnation
+    stays under the ceiling — re-establishing a runnable step (the
+    entry's library loads and the first eager call on an AOT hit, a
+    build or a load inside the first call otherwise) must translate
+    into TIME, not just a filesystem witness."""
+
+    ceiling_class = True
+
+    def __init__(self, ceiling_s: float):
+        self.ceiling_s = ceiling_s
+        self.name = f"retrace_below[{ceiling_s:g}s]"
+
+    def check(self, events, run):
+        # keyed by (node_rank, restart_count) — in a multi-node run
+        # one rank's fast recovery must not mask another's violation
+        budgets = flight.recovery_budgets(events)
+        totals = [
+            (key, phases.get("retrace", 0.0) + phases.get("aot", 0.0))
+            for key, phases in budgets.items()
+            if key[1] > 0 and "retrace" in phases
+        ]
+        if not totals:
+            return InvariantResult(
+                self.name, False,
+                "no retrace recovery_phase event from a respawned "
+                "incarnation",
+            )
+        worst = max(totals, key=lambda x: x[1])
+        if worst[1] > self.ceiling_s:
+            return InvariantResult(
+                self.name, False,
+                f"retrace+aot {worst[1]:.3f}s on node{worst[0][0]} "
+                f"restart #{worst[0][1]} > ceiling {self.ceiling_s}s",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"worst retrace+aot {worst[1]:.3f}s ≤ {self.ceiling_s}s "
+            f"across {len(totals)} recovery(ies)",
+        )
+
+
+class AotCacheHitOnRecovery(Invariant):
+    """The replacement incarnation's step resolved through an AOT
+    cache entry (the first incarnation's miss wrote it, and its kernel
+    libraries were loaded before the first call) — decided from the
+    ``aot_cache`` events."""
+
+    name = "aot_cache_hit"
+
+    def check(self, events, run):
+        witnesses = [
+            e for e in events
+            if e.get("type") == "aot_cache"
+            and int(e.get("restart_count", 0) or 0) > 0
+        ]
+        if not witnesses:
+            return InvariantResult(
+                self.name, False,
+                "no aot_cache event from a respawned incarnation "
+                "(the resolve never ran)",
+            )
+        misses = [e for e in witnesses if not e.get("hit")]
+        if misses:
+            e = misses[0]
+            return InvariantResult(
+                self.name, False,
+                f"AOT miss on restart #{e.get('restart_count')}: "
+                f"resolution={e.get('resolution')} "
+                f"reason={e.get('reason', '')!r}",
+            )
+        e = witnesses[0]
+        return InvariantResult(
+            self.name, True,
+            f"AOT hit on restart #{e.get('restart_count')} "
+            f"(load {e.get('load_s')}s, critical-path wait "
+            f"{e.get('wait_s', e.get('load_s'))}s)",
+        )
+
+
+class RecoveryCycleBelow(Invariant):
+    """The whole measured death→first-step budget of every respawned
+    incarnation stays under the ceiling — the sub-second-recovery
+    acceptance, decided from the summed ``recovery_phase`` events
+    (the same numbers the timeline's budget section prints)."""
+
+    ceiling_class = True
+
+    def __init__(self, ceiling_s: float):
+        self.ceiling_s = ceiling_s
+        self.name = f"recovery_cycle_below[{ceiling_s:g}s]"
+
+    def check(self, events, run):
+        budgets = flight.recovery_budgets(events)
+        cycles = [
+            (count, sum(
+                v for k, v in phases.items()
+                if k in flight.RECOVERY_PHASES
+            ))
+            for (_rank, count), phases in budgets.items()
+            if count > 0 and "first_step" in phases
+        ]
+        if not cycles:
+            return InvariantResult(
+                self.name, False,
+                "no complete recovery budget from a respawned "
+                "incarnation",
+            )
+        worst = max(cycles, key=lambda x: x[1])
+        if worst[1] > self.ceiling_s:
+            return InvariantResult(
+                self.name, False,
+                f"death->first-step {worst[1]:.3f}s on restart "
+                f"#{worst[0]} > ceiling {self.ceiling_s}s",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"worst cycle {worst[1]:.3f}s ≤ {self.ceiling_s}s "
+            f"across {len(cycles)} recovery(ies)",
+        )
+
+
+class RecoveryPhasesOnTimeline(Invariant):
+    """The assembled flight-recorder timeline carries the recovery
+    breakdown slices (spawn/import/restore/retrace/first_step) for a
+    respawned incarnation — the budget is not just measured, it is
+    visible where operators look."""
+
+    name = "recovery_phases_on_timeline"
+
+    REQUIRED = ("restore", "retrace", "first_step")
+
+    def check(self, events, run):
+        if run.job_timeline is None:
+            return InvariantResult(
+                self.name, False, "no assembled job timeline"
+            )
+        phases = {
+            s.meta.get("phase")
+            for s in run.job_timeline.slices
+            if s.cat == flight.CAT_RECOVERY_PHASE
+            and int(s.meta.get("restart_count", 0) or 0) > 0
+        }
+        missing = [p for p in self.REQUIRED if p not in phases]
+        if missing:
+            return InvariantResult(
+                self.name, False,
+                f"recovery slices missing phase(s) {missing} "
+                f"(present: {sorted(p for p in phases if p)})",
+            )
+        return InvariantResult(
+            self.name, True,
+            f"phases on timeline: {sorted(p for p in phases if p)}",
+        )
 
 
 class MasterRecoveredFromMirror(Invariant):
@@ -2203,6 +2407,34 @@ def invariants_for_scenario(
             GoodputConservation(),
             NoOrphanProcesses(marker=workdir),
         ]
+    if name == "warm-recovery-cache-hit":
+        # the invisible-recovery trail: the full recovery set PLUS
+        # the AOT hit witnessed from events (the first incarnation's
+        # miss wrote the entry this one hits), the
+        # compile-cache witness agreeing (status=aot-hit), the
+        # measured retrace+aot under a ceiling that separates the
+        # regimes, the WHOLE death->first-step cycle bounded, and
+        # the budget's phase slices on the assembled timeline.
+        # The reference's ceilings and knobs, unchanged.  The port's
+        # step is eager: an AOT hit books the entry's library loads as
+        # aot and the first eager call as retrace (the tiny CPU GPT's
+        # is tens of ms); a build inside the first call (nvcc, tens of
+        # seconds) or a cold import would trip 1.0 s.  The cycle
+        # ceiling bounds the whole budget under host noise; tighten
+        # both via the env knobs on quieter hardware.
+        return default_invariants(
+            total_steps, ckpt_every, workdir
+        ) + [
+            CompileCacheHitOnRecovery(),
+            AotCacheHitOnRecovery(),
+            RetraceBelow(ceiling_s=float(os.environ.get(
+                "DLROVER_CHAOS_RETRACE_CEILING_S", "1.0"
+            ))),
+            RecoveryCycleBelow(ceiling_s=float(os.environ.get(
+                "DLROVER_CHAOS_CYCLE_CEILING_S", "3.0"
+            ))),
+            RecoveryPhasesOnTimeline(),
+        ]
     if name == "master-respawn-other-host":
         # the master-kill trail with the host-portability twist: the
         # respawn has a FRESH journal dir, so recovery must be seeded
@@ -2435,6 +2667,13 @@ def scenario_env(
     if opts.get("shard_dataset"):
         # shard-driven loop: one sample per shard, one shard per step
         env[SHARD_DATASET_ENV] = str(total_steps)
+    if opts.get("compile_cache"):
+        # workdir-scoped compile cache: incarnation 0's kernel build and
+        # AOT entry deterministically pre-populate the replacement's,
+        # with no cross-run pollution from a tmpdir default
+        env["DLROVER_COMPILE_CACHE_DIR"] = os.path.join(
+            workdir, "torch_cache"
+        )
     if opts.get("journal_mirror"):
         # storage-tier journal mirror under the run's workdir; the
         # master (and its respawns) read this env at construction
@@ -2489,6 +2728,7 @@ def run_scenario(
     invariants: Optional[List[Invariant]] = None,
     disk_every: Optional[int] = None,
     extra_env: Optional[Dict[str, str]] = None,
+    _ceiling_budget: Optional[int] = None,
 ) -> ChaosRunReport:
     """Run ``scenario`` against a fresh single-node mini-cluster under
     ``workdir`` and evaluate the invariants.  With ``invariants=None``
@@ -2496,13 +2736,19 @@ def run_scenario(
     full restart trail, ride-it-out scenarios completion+no-orphans);
     pass ``invariants=[]`` to skip checking entirely.
 
+    When the run otherwise succeeded (rc == 0) but SOME invariants
+    failed and every failure is ceiling-class (a measured duration vs
+    a wall-clock ceiling — ``RetraceBelow``/``RecoveryCycleBelow``),
+    the scenario is re-measured ONCE in a fresh sub-workdir and the
+    second report returned, as the reference does: a trip by a few ms
+    on a loaded host is measurement noise, while a real regression
+    trips both runs.  ``DLROVER_CHAOS_CEILING_REMEASURE`` sets the
+    retry budget (default 1; 0 disables).
+
     ``total_steps``/``ckpt_every``/``disk_every`` (durable mid-run
     saves), ``warm_restart`` and ``extra_env`` default to the
     scenario's entry in :data:`scenarios.RUN_OPTIONS`, so named
-    scenarios run correctly from the CLI and tests alike.  The
-    reference re-measures a run once when only its wall-clock-ceiling
-    invariants failed; those invariants (the compile-cache ones) come
-    with slice 8 of the port."""
+    scenarios run correctly from the CLI and tests alike."""
     scenario = load_scenario(scenario)
     opts = RUN_OPTIONS.get(scenario.name, {})
     if total_steps is None:
@@ -2544,7 +2790,39 @@ def run_scenario(
             disk_every=disk_every, env=env,
         )
     )
-    return check_invariants(report, checks)
+    report = check_invariants(report, checks)
+    if _ceiling_budget is None:
+        _ceiling_budget = int(os.environ.get(
+            "DLROVER_CHAOS_CEILING_REMEASURE", "1"
+        ))
+    failed = [r for r in report.invariants if not r.ok]
+    by_name = {inv.name: inv for inv in checks}
+    if (
+        failed and report.rc == 0 and _ceiling_budget > 0
+        and all(
+            getattr(by_name.get(r.name), "ceiling_class", False)
+            for r in failed
+        )
+    ):
+        logger.warning(
+            "ceiling-class trip(s) only (%s); re-measuring once in a "
+            "fresh workdir",
+            ", ".join(f"{r.name}: {r.detail}" for r in failed),
+        )
+        return run_scenario(
+            scenario,
+            os.path.join(workdir, "ceiling_remeasure"),
+            total_steps=total_steps,
+            ckpt_every=ckpt_every,
+            max_restarts=max_restarts,
+            monitor_interval=monitor_interval,
+            warm_restart=warm_restart,
+            invariants=invariants,
+            disk_every=disk_every,
+            extra_env=extra_env,
+            _ceiling_budget=_ceiling_budget - 1,
+        )
+    return report
 
 
 def run_serving_scenario(

@@ -12,8 +12,10 @@
   partially accumulated rollout buffer) rides the flash engine through
   a :class:`PPOStateAdapter` with the sparse adapter's surface, so a
   mid-iteration kill restores to the last completed rollout lease;
-- the AOT-routed role steps (:func:`.lease.resolve_role_steps`) come
-  with slice 8.2 of the port and raise naming it.
+- the AOT-routed role steps (:func:`.lease.resolve_role_steps`): the
+  trainable roles' steps resolve through the AOT step cache, so a
+  respawn finds their kernel libraries loaded before their first
+  calls.
 """
 
 from dlrover_tpu_torch.rl.elastic.adapter import PPOCursor, PPOStateAdapter

@@ -16,7 +16,6 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch.common.device import resolve_device
-from dlrover_tpu_torch.common.slices import SLICE_8_2
 
 
 def lease_prompts(
@@ -54,10 +53,32 @@ def resolve_role_steps(
     cache_dir: Optional[str] = None,
     label_prefix: str = "rl",
 ) -> Dict[str, object]:
-    """The reference routes the trainable roles' train steps through
-    its AOT executable cache so an RL respawn deserializes its compiled
-    steps instead of re-tracing them.  The port's step is eager; its
-    compiled-step cache comes with slice 8.2."""
-    raise NotImplementedError(
-        "resolve_role_steps (the AOT-cached actor and critic steps) is "
-        f"not ported yet: it comes with {SLICE_8_2}")
+    """Route the trainable roles' train steps through the AOT step
+    cache (:func:`dlrover_tpu_torch.common.aot_cache.resolve_step`) so
+    an RL respawn finds its actor/critic steps' kernel libraries loaded
+    before their first calls — the same recovery the dense loop gets.
+
+    Returns ``{role: Resolution}``; call ``resolved[role].fn(state,
+    placed_batch)`` exactly like ``engine.train_step(role)``.  Each
+    role gets its own label (``rl_actor_step`` / ``rl_critic_step``),
+    so the warm fast path resolves per role without example builds."""
+    from dlrover_tpu_torch.common.aot_cache import resolve_step
+    from dlrover_tpu_torch.rl.model_engine import ModelRole
+
+    if roles is None:
+        roles = ModelRole.TRAINABLE
+    resolved = {}
+    for role in roles:
+        def example_args(role=role):
+            return (
+                engine.state(role),
+                engine.place_batch(role, batch),
+            )
+
+        resolved[role] = resolve_step(
+            engine.train_step(role),
+            example_args,
+            label=f"{label_prefix}_{role}_step",
+            cache_dir=cache_dir,
+        )
+    return resolved

@@ -38,12 +38,9 @@ from dlrover_tpu_torch.telemetry.schema import EVENT_SCHEMAS
 _EMBEDDED_MIN_LEN = 200
 
 # schema entries intentionally without an in-package literal call
-# site (emitted by external tooling / reserved for operators).  In the
-# port: the fleet runner's and scoreboard's types, whose emitters
-# (fleet/runner.py, fleet/scoreboard.py) come with slice 9.2; the
-# registry keeps the reference's entries so logs of either package
-# validate against it
-ALLOWED_UNEMITTED: Tuple[str, ...] = ("fleet_report", "fleet_capacity")
+# site (emitted by external tooling / reserved for operators).  None in
+# the port, as in the reference: every registered type has an emitter
+ALLOWED_UNEMITTED: Tuple[str, ...] = ()
 
 
 def _emit_name(node: ast.Call) -> Optional[str]:

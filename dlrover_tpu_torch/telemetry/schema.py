@@ -232,7 +232,10 @@ EVENT_SCHEMAS: Dict[str, EventSchema] = {
         # aot_entries counts the serialized-executable half
         _s("compile_cache", ["hit", "restart_count"],
            ["entries_before", "entries_after", "retrace_s", "dir",
-            "node_rank", "status", "aot_entries"]),
+            "node_rank", "status", "aot_entries",
+            # port only: the nvcc seconds of the bracketed first step
+            # (a cold witness's build)
+            "build_s"]),
         # AOT executable cache resolve: hit = the compiled step was
         # DESERIALIZED (no trace); a miss carries the measured
         # trace_s and whether the entry was written so incarnation
@@ -245,7 +248,11 @@ EVENT_SCHEMAS: Dict[str, EventSchema] = {
             "load_s", "trace_s", "save_s", "wait_s", "entries",
             "reason", "overlapped_restore", "node_rank", "fast",
             "read_s", "unpickle_s", "deserialize_s",
-            "deserialize_cpu_s"]),
+            "deserialize_cpu_s",
+            # port only: the kernel libraries the entry lists, and
+            # whether every one was loaded before the resolve (by the
+            # forkserver template, inherited over the fork)
+            "libraries", "libraries_preloaded"]),
         # master journal mirrored to the checkpoint storage tier
         # (async group commit): how far the mirror lagged when a
         # batch flushed — the host-portable control plane's witness

@@ -17,8 +17,10 @@ over the micro-batches exactly as the reference averages them.
 group from the agent's env contract.  :func:`train_state_tree` and
 :func:`restore_train_state` carry the whole train state (params,
 optimizer slots, step) through a checkpoint, as the reference's
-``restore_train_state`` does.  The AOT step resolution
-(``resolve_train_step``) comes with slice 8 of the port.
+``restore_train_state`` does.  :func:`resolve_train_step` and
+:func:`resolve_train_step_async` resolve the step through the AOT step
+cache (:mod:`dlrover_tpu_torch.common.aot_cache`) before the first step,
+as the reference's do.
 """
 
 import json
@@ -235,6 +237,53 @@ def make_train_step(
         return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step_fn
+
+
+def resolve_train_step(
+    step_fn,
+    example_state,
+    example_batch,
+    profiler=None,
+    label: str = "train_step",
+    restore_busy=None,
+):
+    """Resolve the train step through the AOT step cache before the
+    first step: a warm incarnation finds the entry the first one wrote
+    and loads its kernel libraries (none on the CPU) before the first
+    call, a cold one writes the entry at its first call so the next
+    incarnation hits.  With a
+    :class:`~dlrover_tpu_torch.trainer.recovery.RecoveryProfiler` the
+    resolve books the ``aot``/``retrace`` budget phases and emits the
+    ``aot_cache``/``compile_cache`` witnesses; without one it still
+    returns a ready step (plain :func:`aot_cache.resolve_step`).
+    Always safe: any cache problem falls back to the plain step."""
+    args = (example_state, example_batch)
+    if profiler is not None:
+        return profiler.resolve_step(
+            step_fn, args, label=label, restore_busy=restore_busy
+        )
+    from dlrover_tpu_torch.common import aot_cache
+
+    return aot_cache.resolve_step(step_fn, args, label=label).fn
+
+
+def resolve_train_step_async(
+    step_fn,
+    example_builder: Callable,
+    profiler,
+    label: str = "train_step",
+    restore_busy=None,
+) -> Callable:
+    """:func:`resolve_train_step` on a daemon thread — the recovery
+    posture.  ``example_builder`` is a zero-arg callable returning
+    ``(state, batch)``; the returned ``join()`` yields the step and
+    books the ``aot`` phase as the join wait."""
+    return profiler.resolve_step_async(
+        step_fn,
+        example_builder,
+        label=label,
+        restore_busy=restore_busy,
+    )
 
 
 class ElasticTrainer:

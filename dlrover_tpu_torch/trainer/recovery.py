@@ -27,22 +27,28 @@ worker's env; without it the profiler still measures import/restore/
 retrace relative to process start (a first incarnation, or a cold
 launch).
 
-Copy of ``dlrover_tpu/trainer/recovery.py``.  The reference resolves
-the step through JAX's AOT executable cache and watches the persistent
-compile cache's entries (``common/{aot_cache,compile_cache}.py``);
-their Inductor and CUDA-graph counterparts come with slice 8 of the
-port.  Until then :meth:`RecoveryProfiler.resolve_step` takes the
-reference's own "off" path (the first call runs under
-:meth:`~RecoveryProfiler.measured_retrace`), the ``compile_cache``
-witness reports ``status="off"``, and asking for a cache
-(``resolve_step(cache_dir=...)``, ``resolve_step_async``) raises
-``NotImplementedError`` naming slice 8.
+Copy of ``dlrover_tpu/trainer/recovery.py``.  The step resolves through
+the port's AOT step cache (:mod:`dlrover_tpu_torch.common.aot_cache`)
+and the retrace witness watches the kernel libraries of the job's
+compile cache (:mod:`dlrover_tpu_torch.common.compile_cache`).  The
+port's step is eager, so there is no trace for a hit to skip: on every
+path the ``aot`` phase books the resolve (the entry's library loads on
+a hit) and ``retrace`` books the first eager call, measured with its
+device work, where the reference books 0 on a hit.  A resolve without
+example inputs (``resolve_step(fn)``) keys no entry and takes the
+reference's "off" path.  Where the reference's constructor arms the
+job's cache always, the port's is armed by the operator
+(``DLROVER_COMPILE_CACHE_DIR``, or an in-process
+:func:`~dlrover_tpu_torch.common.compile_cache.enable_persistent_cache`):
+armed, the kernels build into the cache instead of the package tree.
 """
 
 import os
+import threading
 import time
 from typing import Callable, Dict, Optional
 
+from dlrover_tpu_torch.common import compile_cache as _cc
 from dlrover_tpu_torch.common import env_utils
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.telemetry.events import emit_event
@@ -50,10 +56,9 @@ from dlrover_tpu_torch.telemetry.metrics import get_registry
 
 RECOVERY_T0_ENV = "DLROVER_RECOVERY_T0"
 
-_CACHE_SLICE = (
-    "the step caches (the reference's AOT executable cache and "
-    "persistent compile cache) come with slice 8 of the port"
-)
+# the aot_cache event's resolution, where the reference names what it
+# deserialized or traced
+_RESOLUTION = {"aot": "eager-hit", "trace": "eager-miss"}
 
 _REG = get_registry()
 _PHASE_SECONDS = _REG.histogram(
@@ -101,9 +106,8 @@ class _Phase:
 
 class RecoveryProfiler:
     """Construct RIGHT AFTER the heavy imports; the constructor books
-    the spawn and import phases.  (The reference's constructor also
-    arms the job's persistent compile cache, which comes with slice 8
-    of the port.)"""
+    the spawn and import phases and, when a compile cache is armed,
+    creates its ``kernels/`` directory."""
 
     def __init__(
         self,
@@ -121,7 +125,16 @@ class RecoveryProfiler:
         self.phases: Dict[str, float] = {}
         self.cache_hit: Optional[bool] = None
         self.aot_hit: Optional[bool] = None
-        self.cache_dir = ""
+        # the reference arms its cache here, always; the port's is armed
+        # by the operator (DLROVER_COMPILE_CACHE_DIR) or in-process, and
+        # the profiler only makes sure its kernels/ directory exists
+        self.cache_dir = _cc.active_cache_dir()
+        if self.cache_dir:
+            try:
+                os.makedirs(_cc.kernel_dir(self.cache_dir), exist_ok=True)
+            except OSError as e:
+                logger.warning("compile cache dir %s not creatable: %s",
+                               self.cache_dir, e)
         try:
             self.t0 = float(os.getenv(RECOVERY_T0_ENV, "") or 0.0)
         except ValueError:
@@ -167,65 +180,188 @@ class RecoveryProfiler:
         cache_dir: Optional[str] = None,
         restore_busy=None,
     ) -> Callable:
-        """The reference's "off" resolution of the step: a wrapper
-        whose first call runs under :meth:`measured_retrace`, the
-        ``aot`` phase booked as 0 and an ``aot_cache`` event with
-        ``resolution="off"``::
+        """Resolve the step through the AOT step cache, booking the
+        budget phases and emitting the witnesses::
 
-            step = prof.resolve_step(step_fn)
+            step = prof.resolve_step(step_fn, lambda: (state, batch))
             ...
             state, metrics = step(state, batch)   # first call measured
 
-        ``restore_busy`` stamps whether the async restore was still
-        reading when this resolve finished, as in the reference.
-        ``cache_dir`` (the AOT executable cache) raises
-        ``NotImplementedError`` naming slice 8 of the port."""
-        if cache_dir:
-            raise NotImplementedError(_CACHE_SLICE)
+        HIT: the entry's kernel libraries are loaded (the ``aot``
+        phase); MISS: the first call writes the entry so incarnation
+        N+1 hits.  On every path the first call runs under the measured
+        retrace bracket.  ``example_args`` is the argument tuple or a
+        zero-arg callable building it (the warm fast path never calls
+        it); without one no entry is keyed and the resolution is the
+        reference's "off" path.  ``cache_dir`` is the entry directory
+        (default: ``aot/`` of the job's compile cache).
+
+        ``restore_busy`` (pass ``lambda: not load_handle.done()``; a
+        plain bool works too) stamps whether the async restore was
+        still reading when this resolve finished — the overlap
+        witness on the ``aot_cache`` event."""
+        from dlrover_tpu_torch.common import aot_cache as _aot
+
+        if example_args is None:
+            return self._book_resolution(
+                _aot.Resolution(
+                    fn=fn, source="off", deferred=True,
+                    reason="no example inputs: no entry is keyed",
+                ), 0.0, restore_busy,
+            )
+        t0 = time.perf_counter()
+        res = _aot.resolve_step(
+            fn, example_args, label=label, cache_dir=cache_dir
+        )
+        return self._book_resolution(
+            res, time.perf_counter() - t0, restore_busy
+        )
+
+    def resolve_step_async(
+        self,
+        fn,
+        args_builder: Callable,
+        label: str = "train_step",
+        cache_dir: Optional[str] = None,
+        restore_busy=None,
+    ) -> Callable:
+        """:meth:`resolve_step` on a daemon thread, so the entry read and
+        the library loads (HIT) — and the example build itself —
+        overlap the async restore read AND the caller's own
+        model/optimizer/state construction::
+
+            join = prof.resolve_step_async(
+                step_fn, lambda: (state, batch),
+                restore_busy=lambda: not load_handle.done())
+            ... build model, join the restore, build the state ...
+            step = join()   # waits only for what did not overlap
+
+        The ``aot`` budget phase books the JOIN WAIT — the seconds
+        the critical path actually stalled — while the ``aot_cache``
+        event keeps the thread-measured ``load_s``."""
+        from dlrover_tpu_torch.common import aot_cache as _aot
+
+        holder: Dict[str, object] = {}
+        t0 = time.perf_counter()
+
+        def run():
+            try:
+                # the builder is passed THROUGH (not called): on the
+                # warm fast path the label index resolves without
+                # ever building the examples
+                holder["res"] = _aot.resolve_step(
+                    fn, args_builder, label=label, cache_dir=cache_dir
+                )
+            except Exception as e:  # noqa: BLE001 - never crash
+                holder["res"] = _aot.Resolution(
+                    fn=fn, source="off", deferred=True,
+                    reason=f"async resolve failed: {e}",
+                )
+
+        thread = threading.Thread(
+            target=run, daemon=True, name="aot-resolve"
+        )
+        thread.start()
+
+        def join(timeout: Optional[float] = None):
+            w0 = time.perf_counter()
+            thread.join(timeout=timeout)
+            wait = time.perf_counter() - w0
+            res = holder.get("res")
+            if res is None:  # timeout: run plain, never wedge
+                res = _aot.Resolution(
+                    fn=fn, source="off", deferred=True,
+                    reason="async resolve timed out",
+                )
+            return self._book_resolution(
+                res, time.perf_counter() - t0, restore_busy,
+                aot_phase_s=wait,
+            )
+
+        return join
+
+    def _aot_event(self, res, wall: float, busy) -> Dict:
+        from dlrover_tpu_torch.common import aot_cache as _aot
+
         event = {
-            "hit": False, "resolution": "off", "key": "", "dir": "",
-            "wrote": False, "preloaded": False, "seconds": 0.0,
-            "load_s": 0.0, "trace_s": 0.0, "save_s": 0.0, "entries": 0,
+            "hit": res.hit,
+            # "resolution", not "source": the event envelope's
+            # source field is the emitting process's identity
+            "resolution": _RESOLUTION.get(res.source, res.source),
+            "key": res.key,
+            "dir": res.dir,
+            "wrote": res.wrote,
+            "preloaded": res.preloaded,
+            "seconds": round(wall, 4),
+            "load_s": round(res.load_s, 4),
+            "trace_s": round(res.trace_s, 4),
+            "save_s": round(res.save_s, 4),
+            "entries": _aot.aot_entries(res.dir) if res.dir else 0,
             "restart_count": self.restart_count,
             "node_rank": self.node_rank,
-            "reason": "no step cache in the port before slice 8",
         }
-        if restore_busy is not None:
-            busy = restore_busy() if callable(restore_busy) else (
-                restore_busy
-            )
+        for k, v in res.extra.items():
+            event[k] = round(v, 4) if isinstance(v, float) else v
+        if res.reason:
+            event["reason"] = res.reason
+        if busy is not None:
             event["overlapped_restore"] = bool(busy)
-        self.aot_hit = False
-        self.record("aot", 0.0)
-        emit_event("aot_cache", **event)
+        return event
+
+    def _book_resolution(
+        self,
+        res,
+        wall: float,
+        restore_busy=None,
+        aot_phase_s: Optional[float] = None,
+    ) -> Callable:
+        """Book an :class:`aot_cache.Resolution` into the budget phases
+        and the ``aot_cache`` witness; returns the callable the training
+        loop should use, whose first call runs under the measured
+        retrace (which emits the ``compile_cache`` witness).  A hit or
+        an off resolve books ``aot`` now; a miss books it after the
+        first call, which wrote the entry (``load_s + save_s``, as the
+        reference books its miss), and emits its ``aot_cache`` event
+        then, with ``wrote``, ``trace_s`` and ``save_s`` filled in.
+        ``aot_phase_s`` overrides the booked ``aot`` phase of a hit or
+        an off resolve (the async path passes the join wait)."""
+        busy = restore_busy() if callable(restore_busy) else restore_busy
+        wait = {} if aot_phase_s is None else {"wait_s": round(
+            aot_phase_s, 4)}
+        self.aot_hit = res.source == "aot"
+        if res.source != "trace":
+            self.record(
+                "aot", res.load_s if aot_phase_s is None else aot_phase_s)
+            emit_event("aot_cache", **self._aot_event(res, wall, busy),
+                       **wait)
+        inner = res.fn
         done = [False]
         profiler = self
 
         def first_call_measured(*args, **kwargs):
             if done[0]:
-                return fn(*args, **kwargs)
+                return inner(*args, **kwargs)
             done[0] = True
-            with profiler.measured_retrace() as r:
-                out = fn(*args, **kwargs)
+            with _Retrace(profiler, res, wall, busy, wait) as r:
+                out = inner(*args, **kwargs)
                 r.block(out)
             return out
 
         return first_call_measured
 
-    def resolve_step_async(self, *args, **kwargs):
-        """The reference resolves the step through the AOT cache on a
-        thread; that cache comes with slice 8 of the port."""
-        raise NotImplementedError(_CACHE_SLICE)
-
-    def _emit_compile_cache(self, retrace_s: float):
+    def _emit_compile_cache(
+        self, hit, status, retrace_s, entries_before, entries_after,
+        aot_entries, build_s=0.0,
+    ):
         emit_event(
             "compile_cache",
-            hit=False,
-            status="off",
-            entries_before=0,
-            entries_after=0,
-            aot_entries=0,
+            hit=hit,
+            status=status,
+            entries_before=entries_before,
+            entries_after=entries_after,
+            aot_entries=aot_entries,
             retrace_s=round(retrace_s, 4),
+            build_s=round(build_s, 4),
             dir=self.cache_dir,
             restart_count=self.restart_count,
             node_rank=self.node_rank,
@@ -241,9 +377,11 @@ class RecoveryProfiler:
         The block's wall time is the retrace phase.  ``block`` makes
         ``__exit__`` wait for the device work behind the step's output
         (``torch.cuda.synchronize`` of its device), so asynchronous
-        launches cannot shrink the measurement.  With no step cache
-        (slice 8) the ``compile_cache`` event says ``status="off"``
-        and ``hit=False``."""
+        launches cannot shrink the measurement.  The compile cache's
+        library count before/after witnesses the hit (no new library
+        over a warm directory = ``kernel-cache-hit``, else ``cold``,
+        with the ``nvcc`` seconds as ``build_s``), emitted as a
+        ``compile_cache`` event."""
         return _Retrace(self)
 
     def record_first_step(self):
@@ -265,8 +403,18 @@ class RecoveryProfiler:
 
 
 class _Retrace:
-    def __init__(self, profiler: RecoveryProfiler):
+    """The first-call bracket.  With a resolution (``res``) it also
+    closes the cache's books: a hit's witness says ``aot-hit`` when the
+    call built no library, and a miss books its ``aot`` phase and emits
+    its ``aot_cache`` event once the call has written the entry."""
+
+    def __init__(self, profiler: RecoveryProfiler, res=None,
+                 wall: float = 0.0, busy=None, wait=None):
         self._p = profiler
+        self._res = res
+        self._wall = wall
+        self._busy = busy
+        self._wait = wait or {}
         self._blocked = None
 
     def block(self, x):
@@ -276,6 +424,10 @@ class _Retrace:
         return x
 
     def __enter__(self):
+        from dlrover_tpu_torch.ops import cuda_build
+
+        self._before = _cc.cache_entries(self._p.cache_dir)
+        self._build0 = cuda_build.nvcc_seconds()
         self._t0 = time.perf_counter()
         return self
 
@@ -288,8 +440,33 @@ class _Retrace:
             )
 
             _synchronize(self._blocked)
+        from dlrover_tpu_torch.common import aot_cache as _aot
+        from dlrover_tpu_torch.ops import cuda_build
+
+        p, res = self._p, self._res
         retrace_s = time.perf_counter() - self._t0
-        self._p.cache_hit = False
-        self._p.record("retrace", retrace_s)
-        self._p._emit_compile_cache(retrace_s)
+        after = _cc.cache_entries(p.cache_dir)
+        build_s = cuda_build.nvcc_seconds() - self._build0
+        if res is not None and res.source == "aot":
+            hit = after <= self._before
+            status = "aot-hit" if hit else "cold"
+        else:
+            hit = self._before > 0 and after <= self._before
+            status = "kernel-cache-hit" if hit else "cold"
+        if res is not None and res.source == "trace":
+            # the entry write rode the first call: it is the aot
+            # phase's, as the reference books its miss
+            retrace_s = max(0.0, retrace_s - res.save_s)
+            p.record("aot", res.load_s + res.save_s)
+            emit_event("aot_cache", **p._aot_event(
+                res, self._wall, self._busy), **self._wait)
+        p.cache_hit = hit
+        p.record("retrace", retrace_s)
+        p._emit_compile_cache(
+            hit=hit, status=status, retrace_s=retrace_s,
+            entries_before=self._before, entries_after=after,
+            aot_entries=_aot.aot_entries(res.dir if res is not None
+                                         and res.dir else None),
+            build_s=build_s,
+        )
         return False

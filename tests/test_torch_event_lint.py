@@ -36,8 +36,9 @@ def test_package_call_sites_match_schema_fields():
 
 def test_the_port_registry_extends_the_reference():
     """Every reference type is registered alike; the port adds
-    ``process_group`` and widens ``node_check`` by optional fields
-    only."""
+    ``process_group`` and widens ``node_check`` (its probes),
+    ``compile_cache`` (``build_s``, the nvcc seconds) and ``aot_cache``
+    (the entry's kernel libraries) by optional fields only."""
     extra = set(EVENT_SCHEMAS) - set(j_schema.EVENT_SCHEMAS)
     assert extra == {"process_group"}
     for name, ref in j_schema.EVENT_SCHEMAS.items():
@@ -45,7 +46,12 @@ def test_the_port_registry_extends_the_reference():
         assert port.required == ref.required, name
         assert port.allow_extra == ref.allow_extra, name
         assert port.optional >= ref.optional, name
-        if name != "node_check":
+        if name == "compile_cache":
+            assert port.optional - ref.optional == {"build_s"}
+        elif name == "aot_cache":
+            assert port.optional - ref.optional == {
+                "libraries", "libraries_preloaded"}
+        elif name != "node_check":
             assert port.optional == ref.optional, name
 
 

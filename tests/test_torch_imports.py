@@ -330,6 +330,62 @@ def test_the_modules_of_slice_9_1_are_checked_and_name_their_reference(
     assert reference in doc
 
 
+STEP_CACHES_AND_PLANES = [
+    ("dlrover_tpu_torch.common.compile_cache",
+     "dlrover_tpu/common/compile_cache.py"),
+    ("dlrover_tpu_torch.common.aot_cache", "dlrover_tpu/common/aot_cache.py"),
+    ("dlrover_tpu_torch.fleet.synthetic_agent",
+     "dlrover_tpu/fleet/synthetic_agent.py"),
+    ("dlrover_tpu_torch.fleet.scoreboard", "dlrover_tpu/fleet/scoreboard.py"),
+    ("dlrover_tpu_torch.fleet.runner", "dlrover_tpu/fleet/runner.py"),
+    ("dlrover_tpu_torch.fleet.agent_pack", "dlrover_tpu/fleet/agent_pack.py"),
+    ("dlrover_tpu_torch.fleet.__init__", "dlrover_tpu/fleet/__init__.py"),
+    ("dlrover_tpu_torch.operator.__init__",
+     "dlrover_tpu/operator/__init__.py"),
+    ("dlrover_tpu_torch.operator.reconciler",
+     "dlrover_tpu/operator/reconciler.py"),
+    ("dlrover_tpu_torch.scheduler.ray_backend",
+     "dlrover_tpu/scheduler/ray_backend.py"),
+]
+
+
+@pytest.mark.parametrize("module,reference", STEP_CACHES_AND_PLANES)
+def test_the_modules_of_slices_8_2_and_9_2_are_checked_and_name_their_reference(
+        module, reference):
+    """The step caches (slice 8.2) and the rest of the planes (slice
+    9.2: the fleet harness, the operator, the Ray backend) are among the
+    modules the subprocess import check and the AST scan above cover,
+    each naming the reference it mirrors, which exists."""
+    assert module in MODULES
+    assert (ROOT / reference).exists()
+    doc = ast.get_docstring(ast.parse(
+        (ROOT / module.replace(".", os.sep)).with_suffix(".py").read_text()))
+    assert reference in doc
+
+
+def test_the_host_planes_load_no_torch():
+    """The fleet harness, the operator and the Ray backend are host
+    code, as in the reference: their import closure loads no torch, so
+    a fleet's master and agents map no CUDA library on a card
+    machine."""
+    code = (
+        "import json, sys\n"
+        "import dlrover_tpu_torch.fleet.runner\n"
+        "import dlrover_tpu_torch.fleet.agent_pack\n"
+        "import dlrover_tpu_torch.operator\n"
+        "import dlrover_tpu_torch.scheduler.ray_backend\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, check=True,
+    ).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert [m for m in loaded if m == "torch" or m.startswith("torch.")] == []
+    assert "ray" not in loaded
+
+
 def test_the_serving_processes_load_no_torch():
     """The replica, the router, the pool and the lookup load run on the
     host, as the reference's do: their import closure loads no torch,

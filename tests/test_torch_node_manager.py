@@ -4,7 +4,7 @@ Node management tests against the mock k8s API (the reference's
 mocked-k8s test pattern): scaler pod creation, watcher classification,
 status FSM, relaunch policy, OOM memory bump, auto-scaler.
 
-The operator's scale-plan cases come with slice 9's ``operator/``.
+The operator's scale-plan cases are in ``tests/test_torch_operator.py``.
 """
 
 import time

@@ -3,10 +3,11 @@ RecoveryProfiler (the measured death->first-step budget), the
 timeline's recovery-breakdown slices, and the agent-side overlap knob
 and recovery clock.
 
-The reference's step caches (``common/{compile_cache,aot_cache}.py``)
-come with slice 8 of the port, so the twins of its two cache cases
-check that asking for a cache raises ``NotImplementedError`` naming
-slice 8, and the retrace witness reports ``status="off"``.  Times are
+The reference's two compile-cache cases have their twins here: a step
+resolved through the caches hits in the next incarnation, and the
+retrace witness reads the compile cache's kernel libraries
+(``kernel-cache-hit`` over a warm directory, ``cold`` otherwise); the
+AOT cache's own cases are in ``tests/test_torch_aot_cache.py``.  Times are
 held to what the calls slept (>=) and to the values recorded (exact
 after the profiler's rounding to 0.1 ms).
 """
@@ -27,22 +28,113 @@ def event_log(tmp_path, monkeypatch):
     return path
 
 
-# -- step caches (slice 8) ------------------------------------------------
+# -- step caches ----------------------------------------------------------
 
 
-def test_step_caches_come_with_slice_8(tmp_path, event_log):
+def _tiny_step():
+    import torch
+
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        TrainState, make_train_step,
+    )
+
+    torch.manual_seed(0)
+    module = torch.nn.Linear(4, 2)
+    opt = torch.optim.SGD(module.parameters(), lr=0.1)
+
+    def loss_fn(m, batch):
+        return (m(batch["x"]) ** 2).mean()
+
+    batch = {"x": torch.ones(3, 4)}
+    return (make_train_step(loss_fn, opt, device="cpu"),
+            TrainState.create(module, opt), batch)
+
+
+def test_resolve_step_through_the_cache_hits_in_the_next_incarnation(
+        tmp_path, monkeypatch, event_log):
+    """``resolve_step(cache_dir=...)``: incarnation 0 misses and writes
+    the entry at its first call; incarnation 1 hits it (``aot-hit``),
+    books the resolve as ``aot`` and its first eager call as
+    ``retrace``, and steps to incarnation 0's loss."""
+    monkeypatch.setenv("DLROVER_COMPILE_CACHE_DIR", str(tmp_path / "cc"))
+    aot = str(tmp_path / "cc" / "aot")
+    losses, profs = [], []
+    for restart in (0, 1):
+        step_fn, state, batch = _tiny_step()
+        prof = rec.RecoveryProfiler(restart_count=restart, node_rank=0)
+        assert prof.cache_dir == str(tmp_path / "cc")
+        step = prof.resolve_step(step_fn, lambda: (state, batch),
+                                 cache_dir=aot)
+        _, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        profs.append(prof)
+    assert losses[0] == losses[1]
+    assert [p.aot_hit for p in profs] == [False, True]
+    assert profs[1].cache_hit is True and profs[1].phases["retrace"] > 0
+    events = list(read_events(event_log))
+    aot_ev = [e for e in events if e["type"] == "aot_cache"]
+    assert [(e["hit"], e["wrote"]) for e in aot_ev] == [
+        (False, True), (True, False)]
+    assert aot_ev[1]["fast"] is True
+    cache = [e for e in events if e["type"] == "compile_cache"]
+    assert [e["status"] for e in cache] == ["cold", "aot-hit"]
+    assert cache[1]["aot_entries"] == 1
+    assert (tmp_path / "cc" / "kernels").is_dir()
+
+
+def test_resolve_step_async_through_the_cache(tmp_path, monkeypatch,
+                                              event_log):
+    """``resolve_step_async``: the resolve runs on a thread; the join
+    books its wait as ``aot`` (``wait_s`` on the event) and yields the
+    hit in the second incarnation."""
+    aot = str(tmp_path / "aot")
+    hits = []
+    for restart in (0, 1):
+        step_fn, state, batch = _tiny_step()
+        prof = rec.RecoveryProfiler(restart_count=restart, node_rank=0)
+        join = prof.resolve_step_async(
+            step_fn, lambda: (state, batch), cache_dir=aot,
+            restore_busy=False)
+        step = join()
+        step(state, batch)
+        hits.append(prof.aot_hit)
+    assert hits == [False, True]
+    aot_ev = [e for e in read_events(event_log) if e["type"] == "aot_cache"]
+    assert all("wait_s" in e and e["overlapped_restore"] is False
+               for e in aot_ev)
+
+
+def test_retrace_witness_reads_the_kernel_cache(tmp_path, monkeypatch,
+                                                event_log):
+    """Twin of the reference's ``test_retrace_hit_vs_miss_witness``: no
+    NEW kernel library across the bracket over a WARM cache = HIT
+    (``kernel-cache-hit``); a new library (or an empty cache) = MISS
+    (``cold``)."""
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("DLROVER_COMPILE_CACHE_DIR", str(cache))
+    monkeypatch.setenv("DLROVER_RESTART_COUNT", "1")
     prof = rec.RecoveryProfiler()
-    assert prof.cache_dir == ""
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        prof.resolve_step(lambda: None, cache_dir=str(tmp_path / "aot"))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        prof.resolve_step_async(lambda: None, lambda: ())
+    with prof.measured_retrace():
+        (cache / "kernels" / "flash_attention-1.so").write_bytes(b"x")
+    assert prof.cache_hit is False
+    prof2 = rec.RecoveryProfiler()
+    with prof2.measured_retrace():
+        pass
+    assert prof2.cache_hit is True
+    events = [e for e in read_events(event_log)
+              if e["type"] == "compile_cache"]
+    assert [(e["hit"], e["status"]) for e in events] == [
+        (False, "cold"), (True, "kernel-cache-hit")]
+    assert [e["entries_before"] for e in events] == [0, 1]
+    assert all("retrace_s" in e and e["build_s"] == 0.0 for e in events)
+    assert "retrace" in prof2.phases
 
 
 def test_resolve_step_is_the_reference_off_path(event_log):
-    """No cache: the first call of the resolved step runs under the
-    measured retrace (booked once), later calls go straight through;
-    the aot phase is 0 and the witnesses say off."""
+    """No example inputs, so no entry is keyed: the first call of the
+    resolved step runs under the measured retrace (booked once), later
+    calls go straight through; the aot phase is 0, the aot witness says
+    off, and the compile witness reads the (empty) cache: cold."""
     prof = rec.RecoveryProfiler(restart_count=1, node_rank=0)
     calls = []
 
@@ -62,7 +154,7 @@ def test_resolve_step_is_the_reference_off_path(event_log):
     assert len(aot) == 1 and aot[0]["resolution"] == "off"
     assert aot[0]["hit"] is False and aot[0]["overlapped_restore"] is True
     cache = [e for e in events if e["type"] == "compile_cache"]
-    assert len(cache) == 1 and cache[0]["status"] == "off"
+    assert len(cache) == 1 and cache[0]["status"] == "cold"
     retraces = [e for e in events if e["type"] == "recovery_phase"
                 and e["phase"] == "retrace"]
     assert len(retraces) == 1
@@ -99,7 +191,8 @@ def test_profiler_phases_and_events(tmp_path, monkeypatch, event_log):
 def test_retrace_witness_waits_for_the_step(monkeypatch, event_log):
     """The retrace bracket books the step's wall time, waits for the
     device work behind ``block``ed outputs (a CPU tensor needs none),
-    and emits the off witness once per bracket."""
+    and emits the witness once per bracket: no compile cache is armed,
+    so it reads cold."""
     import torch
 
     monkeypatch.setenv("DLROVER_RESTART_COUNT", "1")
@@ -117,7 +210,7 @@ def test_retrace_witness_waits_for_the_step(monkeypatch, event_log):
         if e["type"] == "compile_cache"
     ]
     assert [e["hit"] for e in events] == [False, False]
-    assert [e["status"] for e in events] == ["off", "off"]
+    assert [e["status"] for e in events] == ["cold", "cold"]
     assert all("retrace_s" in e for e in events)
     assert "retrace" in prof2.phases
 
@@ -220,7 +313,8 @@ def test_agent_overlap_save_knob(monkeypatch):
 def test_worker_env_exports_recovery_t0(monkeypatch):
     """The agent stamps DLROVER_RECOVERY_T0 into respawned workers'
     env (and never into a first start's); no compile-cache env rides
-    along before slice 8."""
+    along unless the operator armed the cache (the reference exports
+    its JAX cache always)."""
     from dlrover_tpu_torch.agent.training import (
         ElasticTrainingAgent, RendezvousOutcome, WorkerSpec,
     )

@@ -3,10 +3,10 @@ derivation and bit-identical replay, the PPO checkpoint adapter's round
 trip through the port's ``Checkpointer`` (same world from shm and from
 storage, and across world sizes from storage) and its torn-snapshot
 refusal, the uninterrupted control's loss trajectory, the bounded
-inference cache, and ``resolve_role_steps``, whose AOT-cached steps are
-slice 8.2 of the port (the reference's
-``test_resolve_role_steps_aot_routing`` becomes the check that it
-raises naming that slice).
+inference cache, and ``resolve_role_steps`` (the reference's
+``test_resolve_role_steps_aot_routing``): the trainable roles' steps
+resolve through the AOT step cache, and a role step replayed from its
+entry equals the eager step.
 
 The lease prompts are the JAX package's bit for bit (numpy, compared
 here); the port's lease RNG is a ``torch.Generator`` seeded from
@@ -313,10 +313,53 @@ def test_inference_cache_bounded(engine):
     assert info.currsize <= info.maxsize
 
 
-def test_resolve_role_steps_raises_naming_its_slice(engine):
-    """The AOT-cached role steps are slice 8.2 of the port."""
-    with pytest.raises(NotImplementedError, match="slice 8.2"):
-        resolve_role_steps(engine, _lease_batch(engine, 7))
+def test_resolve_role_steps_aot_routing(tmp_path):
+    """Twin of the reference's: each trainable role resolves under its
+    own label, a cold resolve writes the role's entry at its first call
+    and a second resolve (the respawn's) hits it; the reference's
+    routing and labels (``rl_<role>_step``)."""
+    cache_dir = str(tmp_path / "aot")
+    engine = _build_engine()
+    batch = _lease_batch(engine, 1)
+    first = resolve_role_steps(engine, batch, cache_dir=cache_dir)
+    assert set(first) == set(ModelRole.TRAINABLE)
+    assert {r.source for r in first.values()} == {"trace"}
+    train_on_batch(engine, batch,
+                   steps={role: r.fn for role, r in first.items()})
+    assert all(r.wrote for r in first.values())
+    labels = sorted(f for f in os.listdir(cache_dir) if f.endswith(".idx"))
+    assert labels == ["rl_actor_step.idx", "rl_critic_step.idx"]
+    again = resolve_role_steps(_build_engine(), batch, cache_dir=cache_dir)
+    assert {(r.source, r.hit) for r in again.values()} == {("aot", True)}
+
+
+def test_role_step_replayed_from_its_entry_equals_the_eager_step(tmp_path):
+    """A respawn's role steps, resolved from the entries the first
+    incarnation wrote, take the same PPO step as the engine's own eager
+    steps on a fresh engine: actor and critic losses and every updated
+    parameter equal bit for bit (one CPU process, the same kernels)."""
+    cache_dir = str(tmp_path / "aot")
+
+    def experience(engine):
+        return _lease_batch(engine, 3)
+
+    writer = _build_engine()
+    batch = experience(writer)
+    resolved = resolve_role_steps(writer, batch, cache_dir=cache_dir)
+    train_on_batch(writer, batch,
+                   steps={role: r.fn for role, r in resolved.items()})
+
+    replay, eager = _build_engine(), _build_engine()
+    hits = resolve_role_steps(replay, experience(replay), cache_dir=cache_dir)
+    assert all(r.hit for r in hits.values())
+    got = train_on_batch(replay, experience(replay),
+                         steps={role: r.fn for role, r in hits.items()})
+    want = train_on_batch(eager, experience(eager))
+    assert got == want
+    for role in ModelRole.TRAINABLE:
+        a = replay.state(role).module.state_dict()
+        b = eager.state(role).module.state_dict()
+        assert all(torch.equal(a[k], b[k]) for k in b), role
 
 
 def test_rlhf_example_runs_on_the_cpu():

@@ -8,9 +8,9 @@ metrics.
 Each case drives both packages' routers through the same sequence (a
 fake replica per package answers over that package's transport) and
 holds the port's observations (owners, outcomes, replica ids, table
-snapshots, stats counts) equal to the JAX package's.  The reference's
-``fleet.scoreboard`` identity check waits for slice 9.2, which ports the
-scoreboard; its quantile half is held here.
+snapshots, stats counts) equal to the JAX package's, the reference's
+``fleet.scoreboard`` identity check (the scoreboard's per-verb window IS
+the telemetry ``HistogramWindow``) included.
 """
 
 import time
@@ -21,6 +21,7 @@ import numpy as np
 
 import dlrover_tpu.checkpoint.sparse as j_sparse
 import dlrover_tpu.common.comm as j_comm
+import dlrover_tpu.fleet.scoreboard as j_scoreboard
 import dlrover_tpu.serving.messages as j_msg
 import dlrover_tpu.serving.router as j_router
 import dlrover_tpu.telemetry.exporter as j_exp
@@ -28,6 +29,7 @@ import dlrover_tpu.telemetry.metrics as j_metrics
 import dlrover_tpu.telemetry.slo as j_slo
 import dlrover_tpu_torch.checkpoint.sparse as t_sparse
 import dlrover_tpu_torch.common.comm as t_comm
+import dlrover_tpu_torch.fleet.scoreboard as t_scoreboard
 import dlrover_tpu_torch.serving.messages as t_msg
 import dlrover_tpu_torch.serving.router as t_router
 import dlrover_tpu_torch.telemetry.exporter as t_exp
@@ -349,6 +351,12 @@ def test_route_over_real_transport_and_stats(tmp_path):
 
 
 def test_shared_quantile_estimator_is_single_implementation():
+    """One quantile implementation: the scoreboard's per-verb window IS
+    the telemetry ``HistogramWindow``, and the replica / router
+    percentiles come from the same bucket-interpolated estimator."""
+    assert t_scoreboard._VerbWindow is t_slo.HistogramWindow
+    assert j_scoreboard._VerbWindow is j_slo.HistogramWindow
+
     def body(m, _d):
         reg = m.metrics.MetricsRegistry()
         hist = reg.histogram(
